@@ -11,14 +11,38 @@
    row scatter K3 also at a 160k-row destination), and times the kernel,
    the plain version and, where one exists, the one PyTorch call that
    computes the same function (K3: index_add_);
-4. runs one small train step on the card and on the CPU (plain versions)
+4. holds K4 (the tile-binned plane-gradient scatter) and K5 (the
+   block-local row scatter) against their plain versions at the JAX
+   bench scripts' shapes (K4 also at a 400x400 plane with 2.03M samples in
+   march order), and times them, their plain versions, the library calls
+   (K4: grid_sample's plane gradient; K5: index_add_) and K3 at K5's
+   shapes;
+5. runs one small train step on the card and on the CPU (plain versions)
    from the same state and compares loss and gradients;
-5. trains BAT's first phase at full width (configs/bat_blender_VM.yaml on
+6. drives K4 and K5 through their own entry points (sample_plane_binned
+   forward + backward, scatter_add_rows_tiled), counters zeroed just
+   before and read just after each: each must launch once;
+7. trains BAT's first phase at full width (configs/bat_blender_VM.yaml on
    the procedural scene: 400x400, 12 views, 2028 rays x 221 samples, VM
    ranks 16/48) for 20 iterations through Trainer.run, with the launch
    counters zeroed just before and read just after: every kernel of the
    path must have launched (K1 = 1, K2 = 1, K3 = 3 per step);
-6. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+8. trains BAT at full width through every phase, with the schedule cut to
+   40 iterations (PHASES_ARGS: upsamples after iterations 2, 4, 6, 8,
+   mask updates after 7 and 14): 64^3 -> 101^3 -> 160^3 -> 252^3, the
+   uncapped mask and bbox shrink, the 64M-voxel grid in the shrunk box,
+   the capped mask, S up to 1000.  A fresh field's density stays below
+   the alpha threshold for far longer than such a schedule runs (its mask
+   keeps nothing after 7 iterations and spans the whole box after 40), so
+   the density factors start raised over the scene's support, as a
+   trained field's are (warm_start_density).  Checks every transition,
+   K1/K2/K3 at 1/1/3 per step in every phase, finite losses and that the
+   mask culls samples once the blur is off, and prints each transition,
+   the median step per phase and the peak memory;
+9. holds K1/K2/K3 against their plain versions again at the shapes of the
+   last phase (S = 1000 samples per ray; K3's 2.03M x 256 rows into the
+   largest plane) and times them there;
+10. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -37,6 +61,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_STEPS = 20                    # full-width training steps on the main path
+# BAT's schedule cut to 40 iterations: upsamples after 2, 4, 6, 8, mask
+# updates after 7 (uncapped at 252^3: the bbox shrink) and 14 (capped);
+# the blur ends at iteration 12 (progress 0.3)
+PHASES_ARGS = ["--data.dataset=synthetic", "--max_iter=40",
+               "--train_schedule.upsample_iters=[2,4,6,8]",
+               "--train_schedule.update_alphamask_iters=[7,14]"]
+WARM_DENSITY = 0.5   # added to the density factors over the scene's support
 
 
 def emit(obj):
@@ -140,10 +171,10 @@ def check_composite(N, S, thres, gen, tol):
     return rows
 
 
-def march_indices(n_rays, S, H, W, gen):
-    """Plane-row indices in march order: each ray's samples step across
-    the plane by at most half a cell, like the training step's samples
-    (step = half a voxel)."""
+def march_points(n_rays, S, H, W, gen):
+    """Continuous plane positions (x, y) [n_rays * S] in march order: each
+    ray's samples step across the plane by at most half a cell, like the
+    training step's samples (step = half a voxel)."""
     import torch
 
     dev = "cuda"
@@ -154,9 +185,14 @@ def march_indices(n_rays, S, H, W, gen):
     step = torch.stack([torch.cos(ang), torch.sin(ang)], -1) * speed
     t = torch.arange(S, device=dev, dtype=torch.float32)[None, :, None]
     pos = start[:, None, :] + t * step[:, None, :]
-    x = pos[..., 0].clamp(0, W - 1.001).floor().long()
-    y = pos[..., 1].clamp(0, H - 1.001).floor().long()
-    return (y * W + x).reshape(-1).contiguous()
+    return (pos[..., 0].clamp(0, W - 1.001).reshape(-1),
+            pos[..., 1].clamp(0, H - 1.001).reshape(-1))
+
+
+def march_indices(n_rays, S, H, W, gen):
+    """Plane-row indices of march_points."""
+    x, y = march_points(n_rays, S, H, W, gen)
+    return (y.floor().long() * W + x.floor().long()).contiguous()
 
 
 def check_scatter(n_rays, S, H, W, C, gen, tol):
@@ -192,6 +228,150 @@ def check_scatter(n_rays, S, H, W, C, gen, tol):
             "library_ms": time_ms(lambda: torch.zeros(
                 (n_rows, C), device="cuda").index_add_(0, idx, upd)),
             "shape": {"N": N, "C": C, "n_rows": n_rows}}
+
+
+def check_binned(H, W, R, N, gen, tol, march_rays=None):
+    """K4 against its plain version on samples uniform in [-1, 1] (or, with
+    march_rays, N = march_rays x S samples in march order); times the
+    wrapper (tile sort + kernel), the kernel alone, the plain version and
+    the library call, grid_sample's plane gradient, after checking that it
+    computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from joint_tensorf_tpu_torch.ops import binned_scatter as K
+
+    dev = "cuda"
+    if march_rays:
+        x, y = march_points(march_rays, N // march_rays, H, W, gen)
+        u, v = x * (2.0 / (W - 1)) - 1.0, y * (2.0 / (H - 1)) - 1.0
+    else:
+        u = torch.rand((N,), generator=gen, device=dev) * 2 - 1
+        v = torch.rand((N,), generator=gen, device=dev) * 2 - 1
+    g = torch.randn((N, R), generator=gen, device=dev)
+    bins = K.pixel_bins(u, v, H, W)
+    got = K.plane_grad_scatter_cuda(g, *bins, H, W)
+    want = K.plane_grad_scatter_plain(g, *bins, H, W)
+    # the library call: grid_sample's gradient w.r.t. its input plane
+    plane = torch.zeros((1, R, H, W), device=dev, requires_grad=True)
+    grid = torch.stack([u, v], -1)[None, :, None, :]
+    out = F.grid_sample(plane, grid, mode="bilinear", padding_mode="border",
+                        align_corners=True)
+    g_lib = g.T.contiguous()[None, :, :, None]
+
+    def lib():
+        return torch.autograd.grad(out, plane, g_lib, retain_graph=True)[0]
+
+    lib_grad = lib()[0].permute(1, 2, 0)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err_lib = float((lib_grad - want).abs().max())
+    scale = float(want.abs().max())
+    if not torch.isfinite(got).all() or err > tol * scale:
+        fail(f"K4 disagrees with its plain version at {(H, W, R, N)}: "
+             f"{err:.3g} > {tol} x {scale:.3g}")
+    if err_lib > tol * scale:
+        fail(f"grid_sample's plane gradient is not K4's function at "
+             f"{(H, W, R, N)}: {err_lib:.3g} > {tol} x {scale:.3g}")
+    bucketed = K.bucket_by_tile(bins[0], bins[1], H, W)
+    # g, u and v read once (8 B per sample), d_plane written once
+    b_ms, b_by = bound(N * R * 4 + N * 8 + H * W * R * 4, 8 * N * R)
+    return {"name": "binned_plane_scatter", "route": "cuda",
+            "source": "joint_tensorf_tpu_torch/csrc/binned_scatter.cu",
+            "replaces": "joint_tensorf_tpu/ops/binned_scatter.py:163",
+            "launches": None, "max_abs_err": err,
+            "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
+            "ms": time_ms(lambda: K.plane_grad_scatter_cuda(g, *bins, H, W)),
+            "kernel_ms": time_ms(lambda: K.launch_binned(
+                g, *bucketed, bins[2], bins[3], H, W)),
+            "plain_ms": time_ms(
+                lambda: K.plane_grad_scatter_plain(g, *bins, H, W)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lib), "library_max_abs_err": err_lib,
+            "shape": {"H": H, "W": W, "R": R, "N": N,
+                      "samples": "march order" if march_rays
+                      else "uniform"}}
+
+
+def check_tiled(N, n_rows, C, gen, tol):
+    """K5 against its plain version (index_add_, also the library call) on
+    random indices; times the wrapper (sort + permute + searchsorted +
+    kernel), the kernel alone, index_add_, and K3 on the same inputs."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import segment_scatter as K3
+    from joint_tensorf_tpu_torch.ops import tile_scatter as K
+
+    idx = torch.randint(0, n_rows, (N,), generator=gen, device="cuda")
+    upd = torch.randn((N, C), generator=gen, device="cuda")
+    got = K.scatter_add_rows_tiled_cuda(idx, upd, n_rows)
+    want = K.scatter_add_rows_tiled_plain(idx, upd, n_rows)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not torch.isfinite(got).all() or err > tol * scale:
+        fail(f"K5 disagrees with index_add_ at {(N, n_rows, C)}: "
+             f"{err:.3g} > {tol} x {scale:.3g}")
+    srt = K.sort_by_block(idx, upd, n_rows)
+    plain = time_ms(lambda: K.scatter_add_rows_tiled_plain(idx, upd, n_rows))
+    b_ms, b_by = bound(N * 8 + N * C * 4 + n_rows * C * 4, N * C)
+    return {"name": "scatter_add_rows_tiled", "route": "cuda",
+            "source": "joint_tensorf_tpu_torch/csrc/tile_scatter.cu",
+            "replaces": "joint_tensorf_tpu/ops/tile_scatter.py:155",
+            "launches": None, "max_abs_err": err,
+            "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
+            "ms": time_ms(lambda: K.scatter_add_rows_tiled_cuda(
+                idx, upd, n_rows)),
+            "kernel_ms": time_ms(lambda: K.launch_tiled(*srt, n_rows)),
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": plain,
+            "k3_ms": time_ms(lambda: K3.scatter_add_rows_cuda(
+                idx, upd, n_rows)),
+            "shape": {"N": N, "n_rows": n_rows, "C": C}}
+
+
+def run_entry_points(gen):
+    """K4 and K5 lie on no trainer path (in the JAX package either): drive
+    each through its own public entry point, with the counters zeroed
+    just before and read just after."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.ops.binned_scatter import sample_plane_binned
+    from joint_tensorf_tpu_torch.ops.tile_scatter import scatter_add_rows_tiled
+
+    H = W = 400
+    x, y = march_points(2028, 1000, H, W, gen)
+    u = (x * (2.0 / (W - 1)) - 1.0).requires_grad_(True)
+    v = (y * (2.0 / (H - 1)) - 1.0).requires_grad_(True)
+    plane = torch.randn((H, W, 64), generator=gen, device="cuda",
+                        requires_grad=True)
+    g = torch.randn((u.shape[0], 64), generator=gen, device="cuda")
+    idx = torch.randint(0, 90000, (524288,), generator=gen, device="cuda")
+    upd = torch.randn((524288, 64), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    cuda_build.reset_launches()
+    out = sample_plane_binned(plane, u, v)
+    d_plane, d_u, d_v = torch.autograd.grad(out, (plane, u, v), g)
+    torch.cuda.synchronize()
+    k4 = dict(cuda_build.LAUNCHES)
+    cuda_build.reset_launches()
+    rows = scatter_add_rows_tiled(idx, upd, 90000)
+    torch.cuda.synchronize()
+    k5 = dict(cuda_build.LAUNCHES)
+    if not all(torch.isfinite(t).all() for t in (d_plane, d_u, d_v, rows)):
+        fail("K4/K5 entry points produced non-finite values")
+    if k4["binned_plane_scatter"] != 1 or k5["scatter_add_rows_tiled"] != 1:
+        fail(f"entry points: K4 launched {k4['binned_plane_scatter']}, K5 "
+             f"{k5['scatter_add_rows_tiled']} times, expected 1 each")
+    return {"entry_points": {
+        "sample_plane_binned": {"shape": [H, W, 64, int(u.shape[0])],
+                                "launches": k4},
+        "scatter_add_rows_tiled": {"shape": [524288, 90000, 64],
+                                   "launches": k5}}}, {
+        "binned_plane_scatter": k4["binned_plane_scatter"],
+        "scatter_add_rows_tiled": k5["scatter_add_rows_tiled"]}
 
 
 # ------------------------------------------- small step: card vs the CPU
@@ -269,6 +449,8 @@ def run_main_path(n_steps: int, profile_dir=None):
 
     opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
                       ["--data.dataset=synthetic"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     data = load_dataset(opt, "train", device="cuda")
     t_scene = time.perf_counter() - t0
@@ -289,7 +471,9 @@ def run_main_path(n_steps: int, profile_dir=None):
     steps = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
     if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
         fail(f"main path: losses {losses}")
-    expected = {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": 3}
+    # K4 and K5 lie on no trainer path: 0 launches
+    expected = {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": 3,
+                "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
     for name, per_step in expected.items():
         if launches[name] != per_step * n_steps:
             fail(f"main path: {name} launched {launches[name]} times in "
@@ -309,26 +493,209 @@ def run_main_path(n_steps: int, profile_dir=None):
             "scene_render_s": t_scene,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
     if profile_dir:
-        result["profile"] = profile_steps(trainer, n_steps, profile_dir)
+        result["profile"] = profile_steps(
+            trainer, n_steps + 3,
+            os.path.join(profile_dir, "step_profile.txt"))
     return result, launches
 
 
-def profile_steps(trainer, n_steps, out_dir):
-    """torch.profiler over 3 more steps: device time by kernel, written as
-    a table to out_dir; returns the device-busy time and the ported
-    kernels' mean device durations."""
+def warm_start_density(trainer, seed: int):
+    """Raise the density factors by WARM_DENSITY over the box that holds
+    the synthetic scene's blobs (centres +- 2.5 radii): the density feature
+    there clears the alpha threshold, elsewhere it stays at its fresh
+    value, so the first mask update has an object to keep."""
+    import numpy as np
+    import torch
+
+    from joint_tensorf_tpu_torch.data.synthetic import BlobField
+    from joint_tensorf_tpu_torch.models.vm import MAT_MODE, VEC_MODE
+
+    blobs = BlobField(seed=seed)
+    lo = np.clip((blobs.centers - 2.5 * blobs.radii[:, None]).min(0), -1.5,
+                 1.5)
+    hi = np.clip((blobs.centers + 2.5 * blobs.radii[:, None]).max(0), -1.5,
+                 1.5)
+    field = trainer.state.field
+    aabb = field.aabb.cpu().numpy()
+    res = field.resolution()
+    inside = []
+    for a in range(3):
+        x = np.linspace(aabb[0, a], aabb[1, a], res[a])
+        inside.append(torch.as_tensor((x >= lo[a]) & (x <= hi[a]),
+                                      dtype=torch.float32,
+                                      device=field.aabb.device))
+    with torch.no_grad():
+        for i in range(3):
+            m0, m1 = MAT_MODE[i]
+            field.density_planes[i].add_(
+                WARM_DENSITY * (inside[m1][:, None] * inside[m0][None, :])
+                [..., None])
+            field.density_lines[i].add_(
+                WARM_DENSITY * inside[VEC_MODE[i]][:, None])
+    return lo.tolist(), hi.tolist()
+
+
+def run_all_phases(profile_dir=None):
+    """BAT at full width through every phase of a schedule cut to 40
+    iterations (PHASES_ARGS).  Trainer.run's on_step hook reads the host
+    clock between synchronised points after each step and after each
+    schedule update, so each step and each transition is timed on its own,
+    and the launch counters are read after every step.  With profile_dir,
+    the last 3 steps run under torch.profiler and are left out of the step
+    times.  Returns the last step's shape: (rays, n_samples, resolution)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
+                      PHASES_ARGS)
+    data = load_dataset(opt, "train", device="cuda")
+    trainer = Trainer(opt, data, device="cuda")
+    support = warm_start_density(trainer, int(opt.data.get("seed", 0)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ups = list(opt.train_schedule.upsample_iters)
+    masks = list(opt.train_schedule.update_alphamask_iters)
+
+    def state():
+        mask = trainer.alpha_mask
+        return {"resolution": list(trainer.resolution),
+                "n_samples": trainer.n_samples,
+                "aabb": trainer.state.field.aabb.cpu().numpy().tolist(),
+                "mask_res": (list(trainer.alphamask_resolution)
+                             if mask is not None else None),
+                "mask_kept": (float(mask.grid.mean())
+                              if mask is not None else None)}
+
+    steps, transitions = [], []
+    clock = {"t": time.perf_counter(), "launches": dict(cuda_build.LAUNCHES)}
+
+    def on_step(tr, m):
+        """After each step (m: its metrics) and after each schedule update
+        (m None): synchronise, then time the step or the transition alone
+        and count the step's launches."""
+        torch.cuda.synchronize()
+        now, launches = time.perf_counter(), dict(cuda_build.LAUNCHES)
+        ms = (now - clock["t"]) * 1e3
+        if m is not None:
+            before = state()
+            steps.append({
+                "it": tr.it, "step_ms": ms, "blur": bool(m["blur"]),
+                **{k: before[k] for k in ("resolution", "n_samples",
+                                          "mask_res")},
+                **{k: float(m[k]) for k in ("loss", "valid_frac",
+                                            "inbbox_frac")},
+                "launches": {k: launches[k] - clock["launches"][k]
+                             for k in launches}})
+        elif tr.it in ups or tr.it in masks:
+            after = state()
+            transitions.append({
+                "after_it": tr.it, "ms": ms, **after,
+                "peak_mem_gb_before": torch.cuda.max_memory_allocated() / 1e9})
+            print(f"[phase] after it {tr.it}: {json.dumps(after)} "
+                  f"({ms:.1f} ms)", flush=True)
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        clock["t"], clock["launches"] = time.perf_counter(), launches
+
+    n_iter = int(opt.max_iter)
+    n_timed = n_iter - 3 if profile_dir else n_iter
+    t_run = time.perf_counter()
+    trainer.run(max_iter=n_timed, log_every=1, on_step=on_step, stats=True)
+    t_run = time.perf_counter() - t_run
+    prof = None
+    if profile_dir:
+        prof = profile_steps(trainer, n_iter, os.path.join(
+            profile_dir, "all_phases_last_steps_profile.txt"), on_step)
+    peak_last = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---------------- checks (collected; raised after the result is out)
+    faults = []
+    if len(steps) != n_iter or not all(math.isfinite(r["loss"])
+                                       for r in steps):
+        faults.append(f"losses {[r.get('loss') for r in steps]}")
+    per_step = {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": 3,
+                "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
+    faults += [f"step {r['it']} launched {r['launches']}, expected "
+               f"{per_step}" for r in steps if r["launches"] != per_step]
+    by_it = {t["after_it"]: t for t in transitions}
+    res_prev = steps[0]["resolution"]
+    for it in sorted(by_it):
+        t = by_it[it]
+        if it in ups and math.prod(t["resolution"]) <= math.prod(res_prev):
+            faults.append(f"the upsample after it {it} did not grow the "
+                          f"grid ({res_prev} -> {t['resolution']})")
+        res_prev = t["resolution"]
+    first, second = by_it[masks[0]], by_it[masks[1]]
+    if not 0 < first["mask_kept"] < 1 or first["aabb"] == [[-1.5] * 3,
+                                                           [1.5] * 3]:
+        faults.append(f"the first mask update kept nothing or did not "
+                      f"shrink the box: {first}")
+    if first["mask_res"] != steps[masks[0]]["resolution"]:
+        faults.append(f"the first mask update was capped: {first}")
+    if math.prod(second["mask_res"]) >= math.prod(second["resolution"]):
+        faults.append(f"the second mask update was not capped: {second}")
+    gated = [r for r in steps if r["mask_res"] and not r["blur"]]
+    if not gated or not any(0 < r["valid_frac"] < r["inbbox_frac"]
+                            for r in gated):
+        faults.append("the mask culled no sample (or every sample) once "
+                      "the blur was off")
+
+    # ---------------- per-phase step times
+    phases = []
+    for r in steps[:n_timed]:
+        key = (r["resolution"], r["n_samples"], r["mask_res"], r["blur"])
+        if not phases or phases[-1]["key"] != key:
+            phases.append({"key": key, "its": [], "ms": []})
+        phases[-1]["its"].append(r["it"])
+        phases[-1]["ms"].append(r["step_ms"])
+    result = {"all_phases": {
+        "config": "configs/bat_blender_VM.yaml " + " ".join(PHASES_ARGS),
+        "rays_per_step": trainer.rays_per_step, "run_s": t_run,
+        "warm_density": {"add": WARM_DENSITY, "box": support},
+        "transitions": transitions,
+        "phases": [{"resolution": p["key"][0], "n_samples": p["key"][1],
+                    "mask_res": p["key"][2], "blur": p["key"][3],
+                    "iterations": [p["its"][0], p["its"][-1]],
+                    "step_ms_median": statistics.median(p["ms"]),
+                    "step_ms": p["ms"]} for p in phases],
+        "valid_frac_mean_gated": statistics.mean(
+            r["valid_frac"] for r in gated) if gated else None,
+        "inbbox_frac_mean_gated": statistics.mean(
+            r["inbbox_frac"] for r in gated) if gated else None,
+        "loss": [r["loss"] for r in steps],
+        "peak_mem_gb_last_phase": peak_last,
+        "peak_mem_gb": max([peak_last] + [t["peak_mem_gb_before"]
+                                          for t in transitions]),
+        "profile_last_steps": prof}}
+    emit(result)
+    if faults:
+        fail("all phases: " + "; ".join(faults))
+    return trainer.rays_per_step, trainer.n_samples, list(trainer.resolution)
+
+
+def profile_steps(trainer, end, table_path, on_step=None):
+    """torch.profiler over the steps up to ``end``: device time by kernel,
+    written as a table to table_path; returns the device-busy time per step
+    and the ported kernels' mean device durations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(out_dir, exist_ok=True)
+    n = end - trainer.it
+    os.makedirs(os.path.dirname(table_path), exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.run(max_iter=n_steps + 3, log_every=1)
+        trainer.run(max_iter=end, log_every=1, on_step=on_step,
+                    stats=on_step is not None)
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    with open(os.path.join(out_dir, "step_profile.txt"), "w") as f:
+    with open(table_path, "w") as f:
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -337,11 +704,11 @@ def profile_steps(trainer, n_steps, out_dir):
             for name in ("composite_fwd_kernel", "composite_bwd_kernel",
                          "scatter_add_rows_kernel")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    return {"steps": 3, "device_busy_ms_per_step": busy_ms / 3,
+    return {"steps": n, "device_busy_ms_per_step": busy_ms / n,
             "kernel_mean_ms": {k: v[0] if v else None
                                for k, v in ours.items()},
             "top_kernels_ms_per_step": [
-                (e.key[:90], e.self_device_time_total / 3e3, e.count // 3)
+                (e.key[:90], e.self_device_time_total / 1e3 / n, e.count // n)
                 for e in top]}
 
 
@@ -369,6 +736,7 @@ def main(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi printed nothing", flush=True)
     emit({"nvidia_smi": smi[0] if smi else None,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
@@ -384,12 +752,40 @@ def main(argv):
     emit({"kernel_check": scatter})
     emit({"kernel_check": check_scatter(2028, 221, 400, 400, 256, gen,
                                         tol=1e-5)})
+    binned = [check_binned(400, 400, 64, 2028 * 1000, gen, 1e-5,
+                           march_rays=2028)]
+    for H, W, R, N in ((300, 300, 64, 2000000), (300, 300, 64, 524288),
+                       (128, 128, 64, 886000)):
+        binned.append(check_binned(H, W, R, N, gen, 1e-5))
+    for r in binned:
+        emit({"kernel_check": r})
+    tiled = [check_tiled(N, n_rows, C, gen, 1e-5) for N, n_rows, C in (
+        (524288, 90000, 64), (524288, 160000, 64), (131072, 160000, 192))]
+    for r in tiled:
+        emit({"kernel_check": r})
+    torch.cuda.empty_cache()
     emit(check_small_step())
+    entry, entry_launches = run_entry_points(gen)
+    emit(entry)
 
     result, launches = run_main_path(N_STEPS, profile_dir)
     emit(result)
+    torch.cuda.empty_cache()
+    n_rays, S, res = run_all_phases(profile_dir)
+    torch.cuda.empty_cache()
+    # K1-K3 again at the shapes the last phase gave them: every ray's S
+    # samples, and K3 into the largest of the three planes
+    from joint_tensorf_tpu_torch.models.vm import MAT_MODE
+
+    Hp, Wp = max(((res[m1], res[m0]) for m0, m1 in MAT_MODE),
+                 key=lambda hw: hw[0] * hw[1])
+    for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
+        emit({"kernel_check": r})
+    emit({"kernel_check": check_scatter(n_rays, S, Hp, Wp, 256, gen,
+                                        tol=1e-5)})
+    launches.update(entry_launches)
     kernels = []
-    for r in rows + [scatter]:
+    for r in rows + [scatter, binned[0], tiled[0]]:
         k = {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -1,5 +1,6 @@
 """VM-decomposed (plane x line) tensorial radiance field
-(counterpart of joint_tensorf_tpu/models/vm.py, the fused VM path).
+(counterpart of joint_tensorf_tpu/models/vm.py, the fused VM path and the
+shape transitions).
 
 The field is an nn.Module: channels-last factor grids ([H, W, R] planes,
 [D, R] lines), the appearance basis, the MLP_Fea shading head, and the
@@ -9,16 +10,22 @@ gradients flow through the sampling coordinates, never into the box
 
 Axis conventions: matMode=[[0,1],[0,2],[1,2]], vecMode=[2,1,0]; plane i is
 [H=res[m1], W=res[m0], R_i], line i is [D=res[vec_i], R_i].
+
+A shape transition (upsample, shrink) builds a new VMField around new
+factor tensors and keeps the basis and shading head; nothing is replaced
+in place under autograd.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..ops import blur as blur_ops
+from ..ops import resample
 from ..ops.kernels import average_kernel, gaussian_kernel
 from ..ops.sampling import sample_planeline_prod
 from .shading import MLPFea
@@ -161,6 +168,19 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
     return sigma, torch.cat(app_parts, dim=-1) @ field.basis
 
 
+def compute_density_feature(field: VMField, coords):
+    """Density feature [N] at normalized coords (cx, cy, cz) from the
+    density factors alone, unblurred (the alpha-mask build)."""
+    sigma = torch.zeros_like(coords[0])
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        prod = sample_planeline_prod(field.density_planes[i],
+                                     field.density_lines[i], coords[m0],
+                                     coords[m1], coords[VEC_MODE[i]])
+        sigma = sigma + torch.sum(prod, dim=-1)
+    return sigma
+
+
 def density_L1(field: VMField):
     """Mean-abs sparsity on the density factors (planes and lines)."""
     total = 0.0
@@ -169,3 +189,63 @@ def density_L1(field: VMField):
     for l in field.density_lines:
         total = total + torch.mean(torch.abs(l))
     return total
+
+
+# --------------------------------------------------------- shape transitions
+def _with_factors(field: VMField, planes_fn, lines_fn, aabb=None) -> VMField:
+    """A new VMField with every factor group mapped, the basis and shading
+    head carried over."""
+    def planes(group):
+        return [planes_fn(i, p.detach()) for i, p in enumerate(group)]
+
+    def lines(group):
+        return [lines_fn(i, l.detach()) for i, l in enumerate(group)]
+
+    return VMField(planes(field.density_planes), lines(field.density_lines),
+                   planes(field.app_planes), lines(field.app_lines),
+                   field.basis.detach(), field.shading,
+                   field.aabb if aabb is None else aabb)
+
+
+@torch.no_grad()
+def upsample(field: VMField, res_target: Sequence[int]) -> VMField:
+    """Align-corners bilinear upsampling of all factors (the reference's
+    tensoRF.py:274-295)."""
+    res = [int(r) for r in res_target]
+    return _with_factors(
+        field,
+        lambda i, p: resample.resize_plane(p, res[MAT_MODE[i][1]],
+                                           res[MAT_MODE[i][0]]),
+        lambda i, l: resample.resize_line(l, res[VEC_MODE[i]]))
+
+
+@torch.no_grad()
+def shrink(field: VMField, new_aabb) -> VMField:
+    """Crop the factors to a tightened box (the reference's
+    tensoRF.py:297-334).  The integer crop and the snapped box are computed
+    on the host in numpy with the JAX package's dtypes (float32 box,
+    float64 cell units), so both give the same bounds."""
+    aabb = field.aabb.cpu().numpy()
+    res = np.asarray(field.resolution())
+    units = (aabb[1] - aabb[0]) / (res - 1)
+    new_aabb = np.asarray(new_aabb).reshape(2, 3)
+    t_l = np.round(np.round((new_aabb[0] - aabb[0]) / units)).astype(np.int64)
+    b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(np.int64) + 1
+    b_r = np.minimum(b_r, res)
+    t_l = np.maximum(t_l, 0)
+    t_l_r = t_l / (res - 1)
+    b_r_r = (b_r - 1) / (res - 1)
+    correct = np.zeros_like(new_aabb)
+    correct[0] = (1 - t_l_r) * aabb[0] + t_l_r * aabb[1]
+    correct[1] = (1 - b_r_r) * aabb[0] + b_r_r * aabb[1]
+
+    def crop_plane(i, p):
+        m0, m1 = MAT_MODE[i]
+        return p[t_l[m1]:b_r[m1], t_l[m0]:b_r[m0]].clone()
+
+    def crop_line(i, l):
+        return l[t_l[VEC_MODE[i]]:b_r[VEC_MODE[i]]].clone()
+
+    return _with_factors(field, crop_plane, crop_line,
+                         aabb=torch.as_tensor(correct, dtype=torch.float32,
+                                              device=field.aabb.device))

@@ -31,6 +31,8 @@ KERNELS = {
     "composite_fwd": ("composite", "composite_fwd"),
     "composite_bwd": ("composite", "composite_bwd"),
     "scatter_add_rows": ("segment_scatter", "scatter_add_rows"),
+    "binned_plane_scatter": ("binned_scatter", "binned_plane_scatter"),
+    "scatter_add_rows_tiled": ("tile_scatter", "scatter_add_rows_tiled"),
 }
 SOURCES = sorted({stem for stem, _ in KERNELS.values()})
 

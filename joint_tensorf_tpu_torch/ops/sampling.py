@@ -1,6 +1,11 @@
-"""The fused plane x line factor sample with its hand-written backward
-(counterpart of joint_tensorf_tpu/ops/sampling.py:219-426).
+"""Factor-grid sampling: the plain plane / line / 3D-grid samples
+(counterpart of joint_tensorf_tpu/ops/sampling.py:33-64 and :466-504) and
+the fused plane x line factor sample with its hand-written backward
+(:219-426).
 
+    sample_plane(plane [H,W,R], u, v [N]) -> [N,R]    autograd through gathers
+    sample_line(line [D,R], w [N]) -> [N,R]
+    sample_grid3d(grid [X,Y,Z], (x, y, z) [N]) -> [N]    trilinear (alpha mask)
     sample_planeline_prod(plane [H,W,R], line [D,R], u, v, w [N]) -> p(u,v) * l(w)  [N,R]
 
 Bilinear plane / linear line sampling with align_corners semantics,
@@ -30,6 +35,51 @@ def _pix(coord, size: int):
 def _floor_frac(x, size: int):
     x0 = torch.clamp(torch.floor(x.detach()), 0, size - 2 if size > 1 else 0)
     return x0.long(), x - x0
+
+
+def sample_line(line, w):
+    """line [D, R]; w [N] normalized coord along the line axis -> [N, R]."""
+    D = line.shape[0]
+    i0, fx = _floor_frac(_pix(w, D), D)
+    i1 = torch.clamp(i0 + 1, max=D - 1)
+    return line[i0] * (1.0 - fx)[:, None] + line[i1] * fx[:, None]
+
+
+def sample_plane(plane, u, v):
+    """plane [H, W, R]; u (->W axis), v (->H axis) [N] in [-1,1] -> [N, R]."""
+    H, W, R = plane.shape
+    x0, fx = _floor_frac(_pix(u, W), W)
+    y0, fy = _floor_frac(_pix(v, H), H)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    flat = plane.reshape(H * W, R)
+    w00, w01, w10, w11 = _bilinear_weights(fx, fy)
+    return (flat[y0 * W + x0] * w00 + flat[y0 * W + x1] * w01
+            + flat[y1 * W + x0] * w10 + flat[y1 * W + x1] * w11)
+
+
+def sample_grid3d(grid, x, y, z):
+    """Trilinear sample of a dense [X, Y, Z] grid at per-axis normalized
+    coords x, y, z [N] in [-1,1] -> [N] (the alpha mask's lookup)."""
+    X, Y, Z = grid.shape
+    x0, fx = _floor_frac(_pix(x, X), X)
+    y0, fy = _floor_frac(_pix(y, Y), Y)
+    z0, fz = _floor_frac(_pix(z, Z), Z)
+    x1 = torch.clamp(x0 + 1, max=X - 1)
+    y1 = torch.clamp(y0 + 1, max=Y - 1)
+    z1 = torch.clamp(z0 + 1, max=Z - 1)
+    flat = grid.reshape(-1)
+
+    def gat(xi, yi, zi):
+        return flat[(xi * Y + yi) * Z + zi]
+
+    c00 = gat(x0, y0, z0) * (1 - fz) + gat(x0, y0, z1) * fz
+    c01 = gat(x0, y1, z0) * (1 - fz) + gat(x0, y1, z1) * fz
+    c10 = gat(x1, y0, z0) * (1 - fz) + gat(x1, y0, z1) * fz
+    c11 = gat(x1, y1, z0) * (1 - fz) + gat(x1, y1, z1) * fz
+    c0 = c00 * (1 - fy) + c01 * fy
+    c1 = c10 * (1 - fy) + c11 * fy
+    return c0 * (1 - fx) + c1 * fx
 
 
 def pack_plane(plane):

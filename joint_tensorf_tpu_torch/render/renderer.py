@@ -6,6 +6,10 @@ The path is the reference's with the TPU-layout alternatives off: no
 dense-grid density (tpu.densify_density=false), no in-bbox or mask
 compaction (tpu.bbox_compact=false, tpu.blur_mask_compact=false), dense
 appearance over all samples gated by weight > thres (tpu.app_k=null).
+With an alpha mask and no factor blur (the reference disables the mask
+under blur), samples whose mask probe is 0 get no density: one probe per
+``mask_stride`` consecutive samples when S is a multiple of it, else one
+per sample (joint_tensorf_tpu/render/renderer.py:297-324, dense path).
 Compositing goes through ops/composite.py (kernels K1/K2 on CUDA).
 
 Gradients: sampling coordinates are differentiable w.r.t. ray origins and
@@ -19,15 +23,19 @@ from typing import Any, Optional
 import torch
 
 from ..models import vm as vm_lib
+from ..models.alpha_mask import AlphaMask, sample_alpha
 from ..ops.composite import composite
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """White background and detached view directions, as every Euclidean
-    BAT config sets them; samples are stratified in training only."""
+    BAT config sets them; samples are stratified in training only.
+    ``mask_stride``: samples per alpha-mask probe (the JAX RenderConfig's
+    fallback is 4; configs/base.yaml sets tpu.mask_stride = 2)."""
     n_samples: int
     is_train: bool = False
+    mask_stride: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +99,12 @@ def render_rays(
     fea_pe_progress: Any = 1.0,
     ray_jitter=None,              # [N,1] pre-drawn stratified offsets
     generator: Optional[torch.Generator] = None,
+    alpha_mask: Optional[AlphaMask] = None,
+    stats: Optional[dict] = None,
 ):
-    """Returns (rgb_map [N,3], depth_map [N], opacity [N])."""
+    """Returns (rgb_map [N,3], depth_map [N], opacity [N]).  A ``stats``
+    dict receives the fractions of samples in the box ("inbbox_frac") and
+    kept after the mask ("valid_frac"), as 0-d tensors."""
     n = centers.shape[0]
     S = rcfg.n_samples
     resolution = field.resolution()
@@ -108,6 +120,16 @@ def render_rays(
         jitter=ray_jitter, generator=generator)
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.zeros_like(z_vals[:, :1])], -1)
+    if stats is not None:
+        stats["inbbox_frac"] = valid.float().mean()
+    if alpha_mask is not None and blur is None:
+        stride = rcfg.mask_stride if S % max(rcfg.mask_stride, 1) == 0 else 1
+        probe = tuple(w.detach()[:, ::stride].reshape(-1) for w in axes_w)
+        group_alive = sample_alpha(alpha_mask, probe).reshape(
+            n, S // stride) > 0
+        valid = valid & torch.repeat_interleave(group_alive, stride, dim=1)
+    if stats is not None:
+        stats["valid_frac"] = valid.float().mean()
 
     d_mats = c_mats = None
     if blur is not None:

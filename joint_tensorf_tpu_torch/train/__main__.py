@@ -4,11 +4,10 @@
         --data.dataset=synthetic [--key=value ...] [--device=cpu]
 
 Loads the config (dotted overrides as in train.py), renders the procedural
-scene on the device, and trains BAT's first phase, printing one line per
-log interval (freq.scalar).  This slice writes no checkpoint and runs no
-validation; a run that reaches the first voxel upsample raises
-NotImplementedError (set --max_iter below train_schedule.upsample_iters[0]
-to stop before it).
+scene on the device, and trains BAT through its whole schedule (voxel
+upsamples, alpha-mask updates, bbox shrink), printing one line per log
+interval (freq.scalar) and one per phase transition.  It writes no
+checkpoint and runs no validation yet.
 """
 from __future__ import annotations
 
@@ -44,11 +43,27 @@ def main(argv):
           f"n_samples={trainer.n_samples} max_iter={trainer.max_iter}",
           flush=True)
 
+    phase = [trainer.resolution, trainer.n_samples, None]
+
     def on_log(tr, m):
         print(f"it {tr.it:6d} | loss {m['loss']:.5f} | psnr {m['psnr']:.2f} "
               f"| lr {tr.lr_index:.2e} | {m['wall']:.1f}s", flush=True)
 
-    trainer.run(log_every=int(opt.freq.get("scalar", 200)), callback=on_log)
+    def on_step(tr, m):
+        if m is not None:       # after the step; report after the update
+            return
+        mask_res = (tr.alphamask_resolution if tr.alpha_mask is not None
+                    else None)
+        now = [tr.resolution, tr.n_samples, mask_res]
+        if now != phase:
+            phase[:] = now
+            aabb = tr.state.field.aabb.cpu().numpy().round(4).tolist()
+            print(f"[phase] after it {tr.it}: res={tr.resolution} "
+                  f"n_samples={tr.n_samples} mask_res={mask_res} "
+                  f"aabb={aabb}", flush=True)
+
+    trainer.run(log_every=int(opt.freq.get("scalar", 200)), callback=on_log,
+                on_step=on_step)
 
 
 if __name__ == "__main__":

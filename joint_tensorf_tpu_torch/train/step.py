@@ -51,6 +51,7 @@ class StepConfig:
     n_samples: int
     blur: Optional[BlurSpec] = None
     grid_hw: Optional[tuple[int, int]] = None   # all_view_rand_grid TV-depth
+    mask_stride: int = 4                        # alpha-mask probe stride
     pose_b2: float = 0.999
     scene_b2: float = 0.99
 
@@ -74,6 +75,14 @@ def init_train_state(field: vm_lib.VMField, n_views: int) -> TrainState:
         pose_grad_accum=torch.zeros((n_views, 6), device=dev))
 
 
+def rebuild_opt_state(state: TrainState) -> TrainState:
+    """Fresh Adam moments for the field after a shape transition; the pose
+    optimiser and the pose-gradient accumulator are kept
+    (joint_tensorf_tpu/train/step.py:321-329)."""
+    state.scene_opt = adam_init(dict(state.field.named_parameters()))
+    return state
+
+
 def compose_train_pose(se3_refine, pose_base, view_sel):
     """pose = refine o (GT o noise) for the selected views."""
     refine = lie.se3_to_SE3(se3_refine[view_sel])
@@ -83,17 +92,22 @@ def compose_train_pose(se3_refine, pose_base, view_sel):
 def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                pose_base, intr_inv, images, edge_masks, view_sel, ray_idx,
                s: StepScalars, generator: Optional[torch.Generator] = None,
-               jitter=None):
+               jitter=None, alpha_mask=None, stats: bool = False):
     """One step, updating ``state`` in place (parameters are overwritten
     with their Adam update; the parity tests read them back).
 
     images [V, H*W, 3], edge_masks [V, H*W], view_sel [Vs], ray_idx [R];
     ``jitter`` [Vs*R, 1] pre-drawn stratified offsets (else drawn from
-    ``generator``).  Returns (metrics {loss, mse, psnr} as 0-d tensors,
-    grads {name: tensor} incl. "se3_refine").
+    ``generator``); ``alpha_mask`` gates samples while the blur is off.
+    Returns (metrics {loss, mse, psnr} as 0-d tensors, grads {name: tensor}
+    incl. "se3_refine"); with ``stats`` the metrics also hold the fractions
+    of samples in the box and kept after the mask ("inbbox_frac",
+    "valid_frac") and whether the factors were blurred ("blur", 0 or 1).
     """
     field = state.field
-    rcfg = RenderConfig(n_samples=cfg.n_samples, is_train=True)
+    rcfg = RenderConfig(n_samples=cfg.n_samples, is_train=True,
+                        mask_stride=cfg.mask_stride)
+    render_stats = {} if stats else None
     pose = compose_train_pose(state.se3_refine, pose_base, view_sel)
     centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose, intr_inv[view_sel],
                                        ray_idx=ray_idx)
@@ -103,7 +117,7 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
         s.near_far, blur=cfg.blur, c2f_density=s.c2f_density,
         c2f_color=s.c2f_color, view_pe_progress=s.view_pe_progress,
         fea_pe_progress=s.fea_pe_progress, ray_jitter=jitter,
-        generator=generator)
+        generator=generator, alpha_mask=alpha_mask, stats=render_stats)
     rgb = rgb.reshape(B, R, 3)
     # the small ray subset first, then the views
     target = images[:, ray_idx][view_sel]                        # [B,R,3]
@@ -145,4 +159,6 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
 
     metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
                "psnr": losses.psnr_from_mse(plain_mse.detach())}
+    if stats:
+        metrics.update(render_stats, blur=float(cfg.blur is not None))
     return metrics, grads

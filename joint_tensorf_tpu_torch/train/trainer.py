@@ -1,16 +1,21 @@
-"""Host-side training orchestrator, first phase only
+"""Host-side training orchestrator
 (counterpart of joint_tensorf_tpu/train/trainer.py).
 
-Runs BAT's iterations 0 .. upsample_iters[0]-1 on the dense Euclidean
-path: the 2D supervision blur cache with its hard edge masks, the random
-2D/3D blur scales, the ray grid, the learning-rate and pose-lr schedules,
-and the train step.  All schedule randomness comes from one numpy
-generator, drawn in the JAX trainer's order, so both trainers see the same
-ray indices and blur scales; device randomness (pose noise, field init,
-stratified jitter) comes from a torch.Generator.
+Runs BAT's whole schedule on the dense Euclidean path: the 2D supervision
+blur cache with its hard edge masks, the random 2D/3D blur scales, the ray
+grid, the learning-rate and pose-lr schedules, the train step, and after
+the scheduled iterations the phase transitions of the JAX trainer's
+_update_schedule / _update_alphamask: voxel upsample with a fresh
+optimiser and the lr reset, the alpha-mask build (at a capped resolution
+past tpu.mask_cap_voxels), and the bbox shrink at the first, uncapped mask
+update.  All schedule randomness comes from one numpy generator, drawn in
+the JAX trainer's order, so both trainers see the same ray indices and
+blur scales; device randomness (pose noise, field init, stratified
+jitter) comes from a torch.Generator.
 
-A run that reaches a voxel upsample, an alpha-mask update or a bbox shrink
-raises NotImplementedError: those phases are a later slice of the port.
+The port has no sample compaction: a masked step keeps every sample slot
+and zeroes the density of the culled ones, which the JAX trainer's
+compacted step equals while no ray has more live samples than its budget.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from ..config import Options
 from ..data.base import SceneData
 from ..geometry import lie, poses as pose_ops
+from ..models import alpha_mask as am_lib
 from ..models import vm as vm_lib
 from ..ops import blur as blur_ops
 from ..ops import kernels as kernel_ops
@@ -31,17 +37,10 @@ from ..ops import sobel
 from ..render.renderer import BlurSpec
 from ..sched import schedules
 from ..utils.torch_setup import resolve_device, setup_torch
-from .step import StepConfig, StepScalars, init_train_state, train_step
+from .step import (StepConfig, StepScalars, init_train_state,
+                   rebuild_opt_state, train_step)
 
-LATER_SLICE = ("a later slice of the PyTorch port (upsample/shrink, the "
-               "alpha mask)")
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: {LATER_SLICE}")
-
-
-# (dotted key, the value or values this slice ports); others raise.  None,
+# (dotted key, the value or values the port runs); others raise.  None,
 # False and 0 all mean "off".
 _PORTED_VALUES = (
     ("model", "bat"),
@@ -66,6 +65,7 @@ _PORTED_VALUES = (
     ("train_schedule.single_view_sample_after_n_iters", None),
     ("train_schedule.reset_pose_on_iter", None),
     ("train_schedule.reset_pose_on_iters", None),
+    ("train_schedule.reset_pose_on_first_upsample", None),
     ("train_schedule.pin_first_pose", False),
     ("optim.sched_pose.type", "ExponentialLR"),
     ("optim.warmup_pose", None),
@@ -74,6 +74,11 @@ _PORTED_VALUES = (
     ("soft_edge_mask", False),
     ("sync_2d_3d_scales", None),
 )
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (a later slice "
+                               f"of the PyTorch port)")
 
 
 def _off(v) -> bool:
@@ -89,6 +94,12 @@ def check_ported(opt: Options):
               else got in want if isinstance(want, tuple) else got == want)
         if not ok:
             raise _unported(f"option {key}={got!r}")
+    # re-initialising factors at the last upsample needs init_vm(prev=...)
+    reset = opt.get_path("train_schedule.reset_on_last_upsample")
+    if reset and any(reset.get(k) for k in ("density", "appearance",
+                                            "basis")):
+        raise _unported(f"option train_schedule.reset_on_last_upsample="
+                        f"{dict(reset)!r}")
 
 
 def build_vm_config(opt: Options) -> vm_lib.VMConfig:
@@ -108,7 +119,7 @@ def build_vm_config(opt: Options) -> vm_lib.VMConfig:
 
 
 class Trainer:
-    """Joint pose + tensorial-field training (BAT), first phase."""
+    """Joint pose + tensorial-field training (BAT)."""
 
     def __init__(self, opt: Options, train_data: SceneData, device=None):
         check_ported(opt)
@@ -129,21 +140,36 @@ class Trainer:
                                dtype=np.float32).reshape(2, 3)
         self.upsample_iters = list(ts.upsample_iters)
         self.update_alphamask_iters = list(ts.update_alphamask_iters)
+        self.n_voxel_list = schedules.voxel_schedule(
+            int(ts.n_voxel_init), int(ts.n_voxel_final),
+            len(self.upsample_iters))
+        self.n_voxels = int(ts.n_voxel_init)
+        self.resolution_scale = list(ts.get("resolution_scale_init",
+                                            [1.0] * 3))
         self.resolution = schedules.find_resolution(
-            self.bbox, int(ts.n_voxel_init),
-            list(ts.get("resolution_scale_init", [1.0] * 3)))
+            self.bbox, self.n_voxels, self.resolution_scale)
         self.n_samples = schedules.find_n_samples(
             self.resolution, float(opt.nerf.step_ratio),
             int(opt.nerf.sample_intvs))
 
+        # ---------------- alpha mask
+        self.alpha_mask: Optional[am_lib.AlphaMask] = None
+        self.alphamask_resolution = list(self.resolution)
+        self.alphamask_thresh = float(ts.get("alpha_mask_threshold", 1e-4))
+        self.mask_stride = int(opt.tpu.get("mask_stride", 4))
+
         # ---------------- learning rates / decay
         o = opt.optim
-        self.lr_index = float(o.lr_index)
-        self.lr_basis = float(o.lr_basis)
+        self.lr_index0 = float(o.lr_index)
+        self.lr_basis0 = float(o.lr_basis)
+        self.lr_index = self.lr_index0
+        self.lr_basis = self.lr_basis0
         decay_iters = int(o.get("lr_decay_iters", -1))
         duration = self.max_iter if decay_iters < 0 else decay_iters
-        self.decay_factor = schedules.lr_decay_factor(
-            float(o.get("lr_decay_target_ratio", 0.1)), duration)
+        self.lr_decay_target = float(o.get("lr_decay_target_ratio", 0.1))
+        self.decay_factor = schedules.lr_decay_factor(self.lr_decay_target,
+                                                      duration)
+        self.lr_upsample_reset = bool(o.get("lr_upsample_reset", True))
         self.lr_pose0 = float(o.get("lr_pose", 0.0) or 0.0)
         self.pose_gamma = ((float(o.lr_pose_end) / self.lr_pose0) ** (
             1.0 / self.max_iter) if self.lr_pose0 > 0 else 1.0)
@@ -328,11 +354,6 @@ class Trainer:
         2D scale)."""
         opt = self.opt
         it = self.it
-        if it in self.upsample_iters:
-            raise _unported(f"the voxel upsample at iteration {it}")
-        if it in self.update_alphamask_iters:
-            raise _unported(f"the alpha-mask update / bbox shrink at "
-                            f"iteration {it}")
         if self.blur_2d and self._blur_cache_at != (it // 500) * 500:
             self._refresh_blur_cache()
             self._blur_cache_at = (it // 500) * 500
@@ -358,7 +379,9 @@ class Trainer:
             tv_depth_weight=self._tv_depth_weight())
         return scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d
 
-    def train_iteration(self):
+    def train_iteration(self, stats: bool = False):
+        """One step; ``stats`` adds the step's sample fractions and blur
+        flag to its metrics (train_step)."""
         scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d = \
             self.host_schedule()
         if self.blur_2d:
@@ -369,33 +392,101 @@ class Trainer:
         cfg = StepConfig(H=self.H, W=self.W, n_views=self.n_views,
                          rays_per_view=len(ray_idx),
                          n_samples=self.n_samples, blur=blur_spec,
-                         grid_hw=grid_hw)
+                         grid_hw=grid_hw, mask_stride=self.mask_stride)
         self.rays_per_step = len(view_sel) * len(ray_idx)
         metrics, _ = train_step(
             self.state, cfg, self.vm_cfg, self.pose_base, self.intr_inv,
             self.current_images, self.current_edges,
             torch.as_tensor(view_sel, device=self.device),
             torch.as_tensor(ray_idx, device=self.device), scalars,
-            generator=self.generator)
+            generator=self.generator, alpha_mask=self.alpha_mask, stats=stats)
         return metrics
 
+    # ------------------------------------------------------ phase transitions
+    def _replace_field(self, make_field):
+        """Swap in ``make_field(old field)`` with fresh Adam moments; the
+        old moments are freed before the new field is built, the old field
+        before the new moments."""
+        self.state.scene_opt = None
+        self.state.field = make_field(self.state.field)
+        self.state = rebuild_opt_state(self.state)
+        self.resolution = self.state.field.resolution()
+        self.n_samples = schedules.find_n_samples(
+            self.resolution, float(self.opt.nerf.step_ratio),
+            int(self.opt.nerf.sample_intvs))
+
+    def _field_aabb_np(self) -> np.ndarray:
+        return self.state.field.aabb.cpu().numpy()
+
     def _update_schedule(self):
-        """Post-iteration lr decay (the phase transitions are a later
-        slice and raise before their iteration runs)."""
-        self.lr_index *= self.decay_factor
-        self.lr_basis *= self.decay_factor
+        """Post-iteration schedule updates (the JAX trainer's
+        _update_schedule, joint_tensorf_tpu/train/trainer.py:795-842)."""
+        it = self.it
+        if it in self.upsample_iters:
+            if it == self.upsample_iters[0]:
+                self.resolution_scale = [1.0, 1.0, 1.0]
+            self.n_voxels = self.n_voxel_list.pop(0)
+            res = schedules.find_resolution(self._field_aabb_np(),
+                                            self.n_voxels,
+                                            self.resolution_scale)
+            self._replace_field(lambda f: vm_lib.upsample(f, res))
+            # lr reset instead of this iteration's decay
+            scale = 1.0 if self.lr_upsample_reset else (
+                self.lr_decay_target ** (it / self.max_iter))
+            self.lr_index = self.lr_index0 * scale
+            self.lr_basis = self.lr_basis0 * scale
+        else:
+            self.lr_index *= self.decay_factor
+            self.lr_basis *= self.decay_factor
+        if it in self.update_alphamask_iters:
+            self._update_alphamask(it)
+
+    def _update_alphamask(self, it: int):
+        """The JAX trainer's _update_alphamask (trainer.py:844-889): build
+        the mask, at capped_mask_res past tpu.mask_cap_voxels (or not at all
+        when tpu.mask_res_cap is off), and shrink the box at the first
+        update when the mask is uncapped."""
+        opt = self.opt
+        res = self.resolution
+        cap = int(opt.tpu.get("mask_cap_voxels", 256 ** 3))
+        capped = res[0] * res[1] * res[2] >= cap
+        if capped and not bool(opt.tpu.get("mask_res_cap", True)):
+            return
+        self.alphamask_resolution = (am_lib.capped_mask_res(res, cap)
+                                     if capped else list(res))
+        step = schedules.step_size(self._field_aabb_np(), res,
+                                   float(opt.nerf.step_ratio))
+        self.alpha_mask, new_aabb = am_lib.update_alpha_mask(
+            self.state.field, self.vm_cfg, self.alphamask_resolution, step,
+            self.alphamask_thresh)
+        # the JAX trainer's compaction probe draws its probe rays here from
+        # the training generator; the port has no compaction but makes the
+        # same draw, so later ray indices stay the JAX trainer's
+        self.rng_np.permutation(self.H * self.W)
+        if not capped and it == self.update_alphamask_iters[0] and \
+                opt.train_schedule.get("shrink_bbox_with_alphamask", True):
+            self._replace_field(lambda f: vm_lib.shrink(f, new_aabb))
 
     def run(self, max_iter: Optional[int] = None, log_every: int = 100,
-            callback=None):
+            callback=None, on_step=None, stats: bool = False):
         """Run the training loop up to max_iter.  Metrics stay on the device
         between log points; at a log point every pending iteration's
-        metrics are checked for finiteness."""
+        metrics are checked for finiteness.  ``callback(trainer, metrics)``
+        runs at each log point with the metrics as floats.  ``on_step`` runs
+        twice per iteration: ``on_step(trainer, metrics)`` after the step,
+        with its metrics as 0-d device tensors, and ``on_step(trainer,
+        None)`` after the schedule update (the phase transitions).
+        ``stats`` is passed to train_iteration."""
         end = self.max_iter if max_iter is None else max_iter
         t0 = time.time()
         pending: list[tuple[int, dict]] = []
         while self.it < end:
-            metrics = self.train_iteration()
+            metrics = self.train_iteration(stats)
+            if on_step:
+                on_step(self, metrics)
             self._update_schedule()
+            if on_step:
+                on_step(self, None)
             pending.append((self.it, metrics))
             if self.it % log_every == 0:
                 for it_i, vals in pending:

@@ -10,8 +10,10 @@ with a card and without JAX it runs as
 Tolerances: the compositor at rtol 1e-4 / atol 1e-5 (the kernel's chunked
 prefix product rounds differently from the sequential cumprod; a weight
 within an ulp of the gate threshold may flip its gate, which moves rgb_map
-by at most thres); the scatter at rtol 1e-5 / atol 1e-4 (atomics sum in an
-order that varies from run to run).
+by at most thres); the row scatter K3 at rtol 1e-5 / atol 1e-4, the
+binned plane scatter K4 and the block-local row scatter K5 at 1e-5 of the
+output's largest magnitude (atomics sum in an order that varies from run
+to run).
 """
 import pytest
 import torch
@@ -84,6 +86,72 @@ def test_scatter_kernel_matches_plain(n, rows, c):
     want = segment_scatter.scatter_add_rows_plain(idx, upd, rows)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,r,n,spread", [
+    (300, 300, 64, 524288, 1.0), (37, 53, 16, 1000, 1.2), (11, 9, 4, 130, 1.2),
+    (101, 101, 32, 4096, 0.02), (2, 1, 8, 50, 1.2),
+    (12, 12, 8, 20000, 1.0)])          # tiles of ~5000 samples: 3 chunks
+def test_binned_scatter_kernel_matches_plain(h, w, r, n, spread):
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import binned_scatter as K
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = (torch.rand((n,), generator=gen, device="cuda") * 2 - 1) * spread
+    v = (torch.rand((n,), generator=gen, device="cuda") * 2 - 1) * spread
+    g = torch.randn((n, r), generator=gen, device="cuda")
+    bins = K.pixel_bins(u, v, h, w)
+    got = K.plane_grad_scatter(g, *bins, h, w)
+    want = K.plane_grad_scatter_plain(g, *bins, h, w)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c", [(524288, 90000, 64), (1000, 300, 32),
+                                      (130, 5000, 192), (2048, 512, 5)])
+def test_tile_scatter_kernel_matches_plain(n, rows, c):
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import tile_scatter as K
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.randint(0, rows, (n,), generator=gen, device="cuda")
+    upd = torch.randn((n, c), generator=gen, device="cuda")
+    got = K.scatter_add_rows_tiled(idx, upd, rows)
+    want = K.scatter_add_rows_tiled_plain(idx, upd, rows)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    hot = K.scatter_add_rows_tiled(torch.full((n,), 7, device="cuda"),
+                                   torch.ones((n, c), device="cuda"), rows)
+    assert float(hot[7, 0]) == n and float(hot.abs().sum()) == n * c
+
+
+@pytest.mark.cuda
+def test_binned_sample_takes_the_kernel():
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.ops.binned_scatter import sample_plane_binned
+    from joint_tensorf_tpu_torch.ops.sampling import sample_plane
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    plane = torch.randn((40, 30, 8), generator=gen, device="cuda")
+    u = torch.rand((500,), generator=gen, device="cuda") * 2.2 - 1.1
+    v = torch.rand((500,), generator=gen, device="cuda") * 2.2 - 1.1
+    g = torch.randn((500, 8), generator=gen, device="cuda")
+    grads = []
+    for fn in (sample_plane_binned, sample_plane):
+        args = [t.clone().requires_grad_(True) for t in (plane, u, v)]
+        (fn(*args) * g).sum().backward()
+        grads.append([a.grad for a in args])
+    cuda_build.reset_launches()
+    args = [t.clone().requires_grad_(True) for t in (plane, u, v)]
+    (sample_plane_binned(*args) * g).sum().backward()
+    assert cuda_build.LAUNCHES["binned_plane_scatter"] == 1
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -214,16 +214,32 @@ def test_host_schedule_matches_jax_trainer(small_scene):
 
 
 def test_cpu_smoke_run_stops_at_the_upsample(small_scene):
+    """run(max_iter=8) trains the first phase and stops before iteration 8,
+    whose schedule update is the upsample (upsample_iters=[8])."""
     pt = Trainer(set_options(CFG, SMALL + ["--freq.scalar=2"]), small_scene,
                  device="cpu")
     se3_0 = pt.state.se3_refine.detach().clone()
+    res0 = pt.resolution
     cuda_build.reset_launches()
     hist = pt.run(max_iter=8, log_every=2)
     assert len(hist) == 4 and all(np.isfinite(h["loss"]) for h in hist)
     assert not torch.equal(pt.state.se3_refine.detach(), se3_0)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())  # plain path
-    with pytest.raises(NotImplementedError, match="upsample"):
-        pt.run(max_iter=9)
+    assert pt.it == 8 and pt.resolution == res0
+    assert pt.state.scene_opt.count == 8
+
+
+def test_cpu_smoke_run_crosses_the_upsample(small_scene):
+    """Past the upsample after iteration 8, which earlier slices stopped
+    at, the run goes on at the new resolution with fresh field moments."""
+    pt = Trainer(set_options(CFG, SMALL + ["--freq.scalar=2"]), small_scene,
+                 device="cpu")
+    res0 = pt.resolution
+    hist = pt.run(max_iter=10, log_every=1)
+    assert len(hist) == 10 and all(np.isfinite(h["loss"]) for h in hist)
+    assert pt.resolution != res0
+    assert pt.state.scene_opt.count == 1      # rebuilt after iteration 8
+    assert pt.state.pose_opt.count == 10      # the pose optimiser is kept
 
 
 @pytest.mark.parametrize("override", ["--model=tensorf", "--camera.ndc=true",
@@ -233,3 +249,18 @@ def test_unported_options_raise(small_scene, override):
     with pytest.raises(NotImplementedError, match=override.split("=")[0][2:]):
         Trainer(set_options(CFG, SMALL + [override]), small_scene,
                 device="cpu")
+
+
+def test_entry_points_default_to_the_card(small_scene):
+    """Without a device argument the port runs on CUDA and raises where
+    there is none: it never falls back to the CPU by itself."""
+    from joint_tensorf_tpu_torch.utils.torch_setup import resolve_device
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(set_options(CFG, SMALL), small_scene)
