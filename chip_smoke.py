@@ -7,16 +7,20 @@
 2. builds the CUDA kernels from joint_tensorf_tpu_torch/csrc (one nvcc per
    source, in parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version at the shapes of
-   the training step (compositor K1/K2 with saturated rays included; the
-   row scatter K3 also at a 160k-row destination), and times the kernel,
-   the plain version and, where one exists, the one PyTorch call that
-   computes the same function (K3: index_add_);
+   the training step (compositor K1/K2 with saturated rays included, K2
+   without g_weights as training calls it and with them; the row scatter
+   K3 also at a 160k-row destination), and times the kernel
+   (back to back, and K1/K2's device time from torch.profiler), the plain
+   version and, where one exists, the one PyTorch call that computes the
+   same function (K3: index_add_);
 4. holds K4 (the tile-binned plane-gradient scatter) and K5 (the
    block-local row scatter) against their plain versions at the JAX
    bench scripts' shapes (K4 also at a 400x400 plane with 2.03M samples in
-   march order), and times them, their plain versions, the library calls
+   march order; K5 also with every sample in one row, and with int32
+   indices), and times them, their plain versions, the library calls
    (K4: grid_sample's plane gradient; K5: index_add_) and K3 at K5's
-   shapes;
+   shapes; K5's route runs under torch's sync debug mode "error" (which
+   sees the torch calls of its glue, not the ctypes launches);
 5. runs one small train step on the card and on the CPU (plain versions)
    from the same state and compares loss and gradients;
 6. drives K4 and K5 through their own entry points (sample_plane_binned
@@ -52,6 +56,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +109,37 @@ def bound(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_times(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """Mean device time of one call from torch.profiler (CUPTI), by device
+    activity (kernel or memset): {short name: ms} over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.key)
+            name = m.group(1) if m else e.key[:48]
+            times[name] = times.get(name, 0.0) + \
+                e.self_device_time_total / reps / 1e3
+    return times
+
+
+def device_ms(fn, match: str) -> float:
+    """Summed device time of one call's kernels whose name contains
+    ``match``."""
+    return sum(ms for name, ms in device_times(fn).items() if match in name)
+
+
 def max_err(got, want) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
@@ -129,45 +165,54 @@ def composite_inputs(N, S, gen):
 
 
 def check_composite(N, S, thres, gen, tol):
+    """K1 and K2 against their plain versions (K2 given K1's weights, once
+    with g_weights None, the training step's case, and once with them);
+    times each back to back and, from torch.profiler, on the device.
+    Returns the rows [K1, K2 without g_weights, K2 with them]."""
     import torch
 
     from joint_tensorf_tpu_torch.ops import composite as C
 
     alpha, rgb, z, cots = composite_inputs(N, S, gen)
-    got = C.composite_fwd_cuda(alpha, rgb, z, thres)
-    want = C.composite_fwd_plain(alpha, rgb, z, thres)
-    got_b = C.composite_bwd_cuda(alpha, rgb, z, thres, *cots)
-    want_b = C.composite_bwd_plain(alpha, rgb, z, thres, *cots)
-    torch.cuda.synchronize()
-    for t in list(got) + list(got_b):
-        if not torch.isfinite(t).all():
-            fail("compositor kernel produced non-finite values")
-    err_f, err_b = max_err(got, want), max_err(got_b, want_b)
-    if err_f > tol or err_b > tol:
-        fail(f"compositor kernels disagree with the plain versions: "
-             f"fwd {err_f:.3g}, bwd {err_b:.3g} > {tol}")
+    w = C.composite_fwd_cuda(alpha, rgb, z, thres)[3]   # the forward's
     NS = N * S
-    fwd_bytes = NS * 4 * (1 + 3 + 1) + NS * 4 + N * 4 * 5
-    bwd_bytes = NS * 4 * (1 + 3 + 1 + 1) + N * 4 * 5 + NS * 4 * (1 + 3 + 1)
+    # K1: alpha, rgb, z in; rgb_map, depth, acc, weights out
+    checks = [("composite_fwd", None,
+               lambda: C.composite_fwd_cuda(alpha, rgb, z, thres),
+               lambda: C.composite_fwd_plain(alpha, rgb, z, thres),
+               NS * 4 * (1 + 3 + 1) + NS * 4 + N * 4 * 5, NS * 13, 138)]
+    for g_w in (None, cots[3]):
+        args = (alpha, rgb, z, w, thres, *cots[:3], g_w)
+        # K2: alpha, rgb, z, weights (and g_weights), g_rgb, g_depth, g_acc
+        # in; d_alpha, d_rgb, d_z out
+        n_in = 6 if g_w is None else 7
+        checks.append(("composite_bwd", g_w is not None,
+                       lambda args=args: C.composite_bwd_cuda(*args),
+                       lambda args=args: C.composite_bwd_plain(*args),
+                       NS * 4 * n_in + N * 4 * 5 + NS * 4 * 5, NS * 30, 189))
     rows = []
-    for name, kfn, pfn, n_bytes, flops, err, src_line in (
-            ("composite_fwd",
-             lambda: C.composite_fwd_cuda(alpha, rgb, z, thres),
-             lambda: C.composite_fwd_plain(alpha, rgb, z, thres),
-             fwd_bytes, NS * 13, err_f, 138),
-            ("composite_bwd",
-             lambda: C.composite_bwd_cuda(alpha, rgb, z, thres, *cots),
-             lambda: C.composite_bwd_plain(alpha, rgb, z, thres, *cots),
-             bwd_bytes, NS * 30, err_b, 189)):
+    for name, g_weights, kfn, pfn, n_bytes, flops, src_line in checks:
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in got):
+            fail(f"{name} produced non-finite values")
+        err = max_err(got, want)
+        if err > tol:
+            fail(f"{name} (g_weights given: {g_weights}) disagrees with its "
+                 f"plain version at {(N, S)}: {err:.3g} > {tol}")
         b_ms, b_by = bound(n_bytes, flops)
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "joint_tensorf_tpu_torch/csrc/composite.cu",
             "replaces": f"joint_tensorf_tpu/ops/pallas_kernels.py:{src_line}",
             "launches": None, "max_abs_err": err, "tolerance": tol,
-            "ms": time_ms(kfn), "plain_ms": time_ms(pfn),
+            "ms": time_ms(kfn), "device_ms": device_ms(kfn, name + "_kernel"),
+            "plain_ms": time_ms(pfn),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": {"N": N, "S": S, "thres": thres}})
+            "shape": {"N": N, "S": S, "thres": thres}}
+        if g_weights is not None:
+            row["g_weights"] = "given" if g_weights else "none (training)"
+        rows.append(row)
     return rows
 
 
@@ -293,41 +338,75 @@ def check_binned(H, W, R, N, gen, tol, march_rays=None):
                       else "uniform"}}
 
 
-def check_tiled(N, n_rows, C, gen, tol):
-    """K5 against its plain version (index_add_, also the library call) on
-    random indices; times the wrapper (sort + permute + searchsorted +
-    kernel), the kernel alone, index_add_, and K3 on the same inputs."""
+def check_tiled(N, n_rows, C, gen, tol, case="uniform"):
+    """K5 against its plain version (index_add_, also the library call);
+    case "uniform" (random rows), "int32" (the same with int32 indices) or
+    "one_row" (every sample into one row: one bucket of many chunks; the
+    updates are small integers, so both sums are exact and must be equal).
+    The route runs once under sync debug mode "error", which sees its
+    torch calls (allocation, .contiguous) but not its ctypes launches; that
+    it never waits on the host is read from ops/tile_scatter.py (sizes from
+    N, n_rows and C alone, no .item()).  Times the route
+    (bucketing + accumulate) back to back and, from torch.profiler, its
+    kernels' summed device time (device_ms, and by kernel); the accumulate
+    kernel alone on a prebuilt bucketing (kernel_ms, kernel_device_ms);
+    index_add_; and K3 on the same inputs."""
     import torch
 
     from joint_tensorf_tpu_torch.ops import segment_scatter as K3
     from joint_tensorf_tpu_torch.ops import tile_scatter as K
 
-    idx = torch.randint(0, n_rows, (N,), generator=gen, device="cuda")
-    upd = torch.randn((N, C), generator=gen, device="cuda")
-    got = K.scatter_add_rows_tiled_cuda(idx, upd, n_rows)
+    if case == "one_row":
+        idx = torch.full((N,), 7, device="cuda")
+        upd = torch.randint(-4, 5, (N, C), generator=gen,
+                            device="cuda").float()
+        tol = 0.0
+    else:
+        idx = torch.randint(0, n_rows, (N,), generator=gen, device="cuda")
+        upd = torch.randn((N, C), generator=gen, device="cuda")
+    if case == "int32":
+        idx = idx.int()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.scatter_add_rows_tiled_cuda(idx, upd, n_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     want = K.scatter_add_rows_tiled_plain(idx, upd, n_rows)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not torch.isfinite(got).all() or err > tol * scale:
-        fail(f"K5 disagrees with index_add_ at {(N, n_rows, C)}: "
+        fail(f"K5 disagrees with index_add_ at {(N, n_rows, C, case)}: "
              f"{err:.3g} > {tol} x {scale:.3g}")
-    srt = K.sort_by_block(idx, upd, n_rows)
+    bucketed = K.bucket_by_block(idx, n_rows, C)
+    idx64 = idx.long()   # K3 takes int64 indices
     plain = time_ms(lambda: K.scatter_add_rows_tiled_plain(idx, upd, n_rows))
-    b_ms, b_by = bound(N * 8 + N * C * 4 + n_rows * C * 4, N * C)
+    b_ms, b_by = bound(N * idx.element_size() + N * C * 4 + n_rows * C * 4,
+                       N * C)
+
+    def route():
+        return K.scatter_add_rows_tiled_cuda(idx, upd, n_rows)
+
+    def accumulate():
+        return K.accumulate(upd, *bucketed, n_rows)
+
+    by_kernel = device_times(route)
     return {"name": "scatter_add_rows_tiled", "route": "cuda",
-            "source": "joint_tensorf_tpu_torch/csrc/tile_scatter.cu",
-            "replaces": "joint_tensorf_tpu/ops/tile_scatter.py:155",
-            "launches": None, "max_abs_err": err,
-            "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
-            "ms": time_ms(lambda: K.scatter_add_rows_tiled_cuda(
-                idx, upd, n_rows)),
-            "kernel_ms": time_ms(lambda: K.launch_tiled(*srt, n_rows)),
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": plain,
-            "k3_ms": time_ms(lambda: K3.scatter_add_rows_cuda(
-                idx, upd, n_rows)),
-            "shape": {"N": N, "n_rows": n_rows, "C": C}}
+           "source": "joint_tensorf_tpu_torch/csrc/tile_scatter.cu",
+           "replaces": "joint_tensorf_tpu/ops/tile_scatter.py:155",
+           "launches": None, "max_abs_err": err,
+           "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
+           "ms": time_ms(route), "device_ms": sum(by_kernel.values()),
+           "device_ms_by_kernel": by_kernel,
+           "kernel_ms": time_ms(accumulate),
+           "kernel_device_ms": device_ms(accumulate,
+                                         "scatter_add_rows_tiled_kernel"),
+           "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": plain,
+           "k3_ms": time_ms(lambda: K3.scatter_add_rows_cuda(
+               idx64, upd, n_rows)),
+           "shape": {"N": N, "n_rows": n_rows, "C": C, "case": case}}
 
 
 def run_entry_points(gen):
@@ -712,6 +791,15 @@ def profile_steps(trainer, end, table_path, on_step=None):
                 for e in top]}
 
 
+def check_tiled_all(gen):
+    """K5 at the JAX bench scripts' shapes, then with every sample in one
+    row and with int32 indices."""
+    rows = [check_tiled(N, n_rows, C, gen, 1e-5) for N, n_rows, C in (
+        (524288, 90000, 64), (524288, 160000, 64), (131072, 160000, 192))]
+    return rows + [check_tiled(524288, 90000, 64, gen, 1e-5, case=case)
+                   for case in ("one_row", "int32")]
+
+
 def main(argv):
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         fail(f"usage: python3 chip_smoke.py [--profile DIR], got {argv}")
@@ -759,8 +847,7 @@ def main(argv):
         binned.append(check_binned(H, W, R, N, gen, 1e-5))
     for r in binned:
         emit({"kernel_check": r})
-    tiled = [check_tiled(N, n_rows, C, gen, 1e-5) for N, n_rows, C in (
-        (524288, 90000, 64), (524288, 160000, 64), (131072, 160000, 192))]
+    tiled = check_tiled_all(gen)
     for r in tiled:
         emit({"kernel_check": r})
     torch.cuda.empty_cache()
@@ -785,7 +872,8 @@ def main(argv):
                                         tol=1e-5)})
     launches.update(entry_launches)
     kernels = []
-    for r in rows + [scatter, binned[0], tiled[0]]:
+    # K1 and K2 as the training step calls them (no g_weights)
+    for r in rows[:2] + [scatter, binned[0], tiled[0]]:
         k = {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

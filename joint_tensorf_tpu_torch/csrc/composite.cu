@@ -18,25 +18,48 @@
 //   B_{S-1} = 0,  B_i = g_w_{i+1} alpha_{i+1} + u_{i+1} B_{i+1}
 //   d_alpha_i = T_i (g_w_i - B_i),  d_rgb_i = g_rgb w_i gate_i,  d_z_i = g_depth w_i
 //
-// Design: one warp per ray.  The warp walks S in chunks of 32 samples; a
-// shuffle prefix product inside a chunk gives T, and the chunk's total
-// product carries T to the next chunk.  The backward first recomputes T
-// with the same code (so its gate equals the forward's bit for bit) into
-// the d_alpha buffer, then walks the chunks in reverse: B is a first-order
-// linear recurrence, i.e. a composition of affine maps x -> c + a x, done
-// as a shuffle suffix scan inside a chunk with B carried between chunks.
+// K1 (forward): one warp per ray.  The warp walks S in chunks of 32
+// samples; a shuffle prefix product inside a chunk gives T, and the
+// chunk's total product carries T to the next chunk.  It writes the
+// weights, which the autograd function saves for the backward.
 //
-// Bound on this card: bytes.  At the training shape (N = 2028 rays,
-// S = 221) the forward moves ~11 MB and the backward ~21 MB: a few
-// microseconds at 3.35 TB/s, so both are launch-bound.  The design reads
-// and writes each element once, coalesced along the ray (rgb at a stride
-// of 3 floats), keeps every intermediate in registers, and needs no shared
-// memory and no second pass over device memory beyond the backward's T.
+// K2 (backward): one block of NT = 128 threads per ray, each thread
+// holding K = 1, 2, 4 or 8 contiguous samples (K from S) of a tile of
+// NT x K samples (a ray longer than 1024 is walked tile by tile, last
+// tile first).  Each thread loads its
+// samples of alpha, z, weights and g_weights straight into registers, 16
+// bytes a load where the row is aligned, so a warp's load reads one
+// contiguous stretch; the tile's rgb (3 values a sample) is staged through
+// shared memory by coalesced loads and d_rgb leaves the same way.  T is the
+// thread's product of u times an exclusive product over earlier threads;
+// B is a first-order linear recurrence, i.e. a composition of affine maps
+// x -> Q + P x, and each thread needs the composition of the later
+// threads' maps.  Both block scans run together: warp shuffles, then one
+// shared-memory exchange of the warps' totals, so a tile costs three
+// barriers (rgb staged, totals in, totals read).  The thread then walks
+// its samples backwards.  The gate is read from the forward's saved
+// weights (w > thres), as B2 takes weights_ref, so it equals the forward's
+// bit for bit whatever order T is formed in here; d_rgb and d_z use those
+// weights too.  Every element is read once and written once, with no
+// second pass over device memory.
+//
+// Bound on this card: bytes.  At the last phase's shape (N = 2028 rays,
+// S = 1000) the forward moves ~49 MB and the backward ~97 MB (0.015 and
+// 0.029 ms at 3.35 TB/s).  A warp per ray would leave ~15 warps resident
+// per SM at N = 2028 and walk 2 x 32 dependent chunks of shuffle scans per
+// ray; a block per ray has all of a ray's loads in flight at once and its
+// scans take log-depth steps over NT threads, not S samples.  Registers,
+// not shared memory, bound how many rays an SM holds: 64 a thread, eight
+// blocks an SM.  On the H100 that ran faster at S = 221 and S = 1000 than
+// capping them at 32 to fit 2048 threads (which spills), and 128 threads
+// of K = 8 ran faster at S = 1000 than 256 of K = 4.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;   // K1
+constexpr int kBwdThreads = 128;    // K2: one block of 128 threads per ray
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-10f;
 
@@ -113,88 +136,258 @@ composite_fwd_kernel(const float* __restrict__ alpha,
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-composite_bwd_kernel(const float* __restrict__ alpha,
-                     const float* __restrict__ rgb,
-                     const float* __restrict__ z, float thres,
-                     const float* __restrict__ g_rgb,
-                     const float* __restrict__ g_depth,
-                     const float* __restrict__ g_acc,
-                     const float* __restrict__ g_weights,  // may be null
-                     float* __restrict__ d_alpha, float* __restrict__ d_rgb,
-                     float* __restrict__ d_z, int N, int S) {
-  const int lane = threadIdx.x & 31;
-  const long long ray =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (ray >= N) return;  // warp-uniform
-  const float* a_r = alpha + ray * S;
-  const float* z_r = z + ray * S;
-  const float* c_r = rgb + ray * S * 3;
-  const float* gw_r = g_weights ? g_weights + ray * S : nullptr;
-  float* da_r = d_alpha + ray * S;
-  float* dc_r = d_rgb + ray * S * 3;
-  float* dz_r = d_z + ray * S;
-  const float gr = g_rgb[3 * ray], gg = g_rgb[3 * ray + 1],
-              gb = g_rgb[3 * ray + 2];
-  const float gd = g_depth[ray], ga = g_acc[ray];
+// ---------------------------------------------------------------- K2
+// Shared-memory index of value i: one pad word per 32, so that a thread's
+// 3K contiguous rgb values are read with few bank conflicts.
+__host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
-  // pass 1: T into d_alpha (each lane later reads back only what it wrote)
-  float carry = 1.f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in = i < S;
-    const float a = in ? a_r[i] : 0.f;
-    const float u = in ? (1.f - a) + kEps : 1.f;
-    const float T = chunk_transmittance(u, lane, carry);
-    if (in) da_r[i] = T;
-  }
-
-  // pass 2: reverse chunks; Bc is B at the chunk's last index
-  float Bc = 0.f;
-  for (int base = ((S - 1) / 32) * 32; base >= 0; base -= 32) {
-    const int i = base + lane;
-    const bool in = i < S;
-    const float a = in ? a_r[i] : 0.f;
-    const float u = in ? (1.f - a) + kEps : 1.f;
-    const float T = in ? da_r[i] : 0.f;
-    const float w = a * T;
-    const bool gate = w > thres;
-    float gw = 0.f;
-    if (in) {
-      const float dot =
-          gr * c_r[3 * i] + gg * c_r[3 * i + 1] + gb * c_r[3 * i + 2];
-      gw = (gate ? dot : 0.f) + gd * z_r[i] + ga + (gw_r ? gw_r[i] : 0.f);
+// src[0, n) -> dst[pad(i)], coalesced, 16 bytes a thread where aligned.
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src, int n) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    done = n & ~3;
+    for (int i = 4 * threadIdx.x; i < done; i += 4 * kBwdThreads) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(src + i));
+      float* d = dst + pad(i);  // i..i+3 share one 32-word row
+      d[0] = x.x;
+      d[1] = x.y;
+      d[2] = x.z;
+      d[3] = x.w;
     }
-    // f_i(x) = Q + P x with P = u_i, Q = g_w_i alpha_i; identity past S.
-    // Inclusive suffix composition G_l = f_l o f_{l+1} o ... o f_31.
-    float P = in ? u : 1.f, Q = in ? gw * a : 0.f;
+  }
+  for (int i = done + threadIdx.x; i < n; i += kBwdThreads)
+    dst[pad(i)] = __ldg(src + i);
+}
+
+// src[pad(i)] -> dst[0, n), the reverse of stage.
+__device__ __forceinline__ void unstage(float* __restrict__ dst,
+                                        const float* src, int n) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    done = n & ~3;
+    for (int i = 4 * threadIdx.x; i < done; i += 4 * kBwdThreads) {
+      const float* s = src + pad(i);
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(s[0], s[1], s[2], s[3]);
+    }
+  }
+  for (int i = done + threadIdx.x; i < n; i += kBwdThreads)
+    dst[i] = src[pad(i)];
+}
+
+// v[0, K) <- p[0, valid), zero past valid: 16-byte loads where p is
+// aligned and all K values are there (a warp then reads one contiguous
+// stretch per load), else scalar loads.
+template <int K>
+__device__ __forceinline__ void load_k(float (&v)[K],
+                                       const float* __restrict__ p,
+                                       int valid) {
+  if (K % 4 == 0 && valid >= K &&
+      (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p + k));
+      v[k] = x.x;
+      v[k + 1] = x.y;
+      v[k + 2] = x.z;
+      v[k + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = k < valid ? __ldg(p + k) : 0.f;
+  }
+}
+
+// p[0, valid) <- v, the reverse of load_k.
+template <int K>
+__device__ __forceinline__ void store_k(float* __restrict__ p,
+                                        const float (&v)[K], int valid) {
+  if (K % 4 == 0 && valid >= K &&
+      (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < valid) p[k] = v[k];
+  }
+}
+
+// Product of p over the block.
+__device__ __forceinline__ float block_product(float p, float* s_w) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) p *= __shfl_xor_sync(kFull, p, off);
+  if ((threadIdx.x & 31) == 0) s_w[threadIdx.x >> 5] = p;
+  __syncthreads();
+  float total = 1.f;
+#pragma unroll
+  for (int w = 0; w < kBwdThreads / 32; ++w) total *= s_w[w];
+  __syncthreads();
+  return total;
+}
+
+// K2's arguments: inputs [N, S] / [N, S, 3] / [N, 3] / [N], all float32;
+// g_weights may be null (no gradient reaches the weights).
+struct BwdArgs {
+  const float *alpha, *rgb, *z, *weights;
+  float thres;
+  const float *g_rgb, *g_depth, *g_acc, *g_weights;
+  float *d_alpha, *d_rgb, *d_z;
+  int S;
+};
+
+// Eight blocks an SM: 64 registers a thread, no spills.
+template <int K>
+__global__ void __launch_bounds__(kBwdThreads, 8)
+composite_bwd_kernel(const BwdArgs A) {
+  constexpr int NT = kBwdThreads, TS = NT * K, NW = NT / 32;
+  extern __shared__ float s_c[];  // rgb, then d_rgb: [pad(3 TS)]
+  float* s_T0 = s_c + pad(3 * TS);  // [n_tiles]: T at each tile's start
+  __shared__ float s_p[NW], s_q[NW], s_r[NW];  // per-warp totals
+  __shared__ float s_x;  // X at the start of the tile after this one
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = A.S;
+  const long long ray = blockIdx.x;
+  const long long o = ray * S;
+  const int n_tiles = (S + TS - 1) / TS;
+  const float thres = A.thres;
+  const float gr = A.g_rgb[3 * ray], gg = A.g_rgb[3 * ray + 1],
+              gb = A.g_rgb[3 * ray + 2];
+  const float gd = A.g_depth[ray], ga = A.g_acc[ray];
+
+  // rays longer than one tile: T at each tile's start, front to back
+  if (tid == 0) {
+    s_T0[0] = 1.f;
+    s_x = 0.f;  // B_{S-1} = 0
+  }
+  for (int t = 0; t + 1 < n_tiles; ++t) {
+    float p = 1.f;
+    for (int i = t * TS + tid; i < (t + 1) * TS; i += kBwdThreads)
+      p *= (1.f - __ldg(A.alpha + o + i)) + kEps;
+    p = block_product(p, s_p);
+    if (tid == 0) s_T0[t + 1] = s_T0[t] * p;
+  }
+  __syncthreads();
+
+  for (int t = n_tiles - 1; t >= 0; --t) {
+    // this thread's samples: i0 + k for k < valid; past them the identity
+    const int s0 = t * TS;
+    const int n = min(TS, S - s0);
+    const long long i0 = o + s0 + tid * K;
+    const int valid = min(K, n - tid * K);
+    stage(s_c, A.rgb + 3 * (o + s0), 3 * n);
+    float u[K], q[K], gw[K];
+    {
+      float a[K], zz[K], w[K], dz[K];
+      load_k<K>(a, A.alpha + i0, valid);
+      load_k<K>(zz, A.z + i0, valid);
+      load_k<K>(w, A.weights + i0, valid);
+      if (A.g_weights) {  // null: no gradient reaches the weights
+        load_k<K>(gw, A.g_weights + i0, valid);
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) gw[k] = 0.f;
+      }
+      __syncthreads();  // rgb staged
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const bool gate = w[k] > thres;
+        const bool in = k < valid;
+        if (in) {  // d_rgb into this thread's own rgb slots
+          float* c = s_c + pad(3 * (tid * K + k));
+          float* c1 = s_c + pad(3 * (tid * K + k) + 1);
+          float* c2 = s_c + pad(3 * (tid * K + k) + 2);
+          const float dot = gr * *c + gg * *c1 + gb * *c2;
+          gw[k] += (gate ? dot : 0.f);
+          *c = gate ? gr * w[k] : 0.f;
+          *c1 = gate ? gg * w[k] : 0.f;
+          *c2 = gate ? gb * w[k] : 0.f;
+        }
+        gw[k] += gd * zz[k] + ga;
+        dz[k] = gd * w[k];
+        u[k] = in ? (1.f - a[k]) + kEps : 1.f;
+        q[k] = in ? gw[k] * a[k] : 0.f;
+      }
+      store_k<K>(A.d_z + i0, dz, valid);  // d_z needs no scan
+    }
+
+    // this thread's product of u, and its composed map F = f_first o ..
+    // o f_last with f_i(x) = q_i + u_i x
+    float p = 1.f, Q = 0.f, P = 1.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) p *= u[k];
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+      Q = q[k] + u[k] * Q;
+      P = u[k] * P;
+    }
+    // both block scans at once: warp shuffles, then one exchange of the
+    // warps' totals; T needs the product of earlier threads, B the
+    // composition of later threads' maps
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float P2 = __shfl_down_sync(kFull, P, off);
+      const float p2 = __shfl_up_sync(kFull, p, off);
       const float Q2 = __shfl_down_sync(kFull, Q, off);
+      const float P2 = __shfl_down_sync(kFull, P, off);
+      if (lane >= off) p *= p2;
       if (lane + off < 32) {
         Q = Q + P * Q2;
         P = P * P2;
       }
     }
-    float Pe = __shfl_down_sync(kFull, P, 1);
+    if (lane == 31) s_p[warp] = p;
+    if (lane == 0) {
+      s_q[warp] = Q;
+      s_r[warp] = P;
+    }
+    __syncthreads();  // the totals and every thread's d_rgb are in
+    unstage(A.d_rgb + 3 * (o + s0), s_c, 3 * n);
+    float pre = s_T0[t];
+    for (int w = 0; w < warp; ++w) pre *= s_p[w];
+    float x = s_x;
+    for (int w = NW - 1; w > warp; --w) x = s_q[w] + s_r[w] * x;
+    float pe = __shfl_up_sync(kFull, p, 1);
     float Qe = __shfl_down_sync(kFull, Q, 1);
+    float Pe = __shfl_down_sync(kFull, P, 1);
+    if (lane == 0) pe = 1.f;
     if (lane == 31) {
-      Pe = 1.f;
       Qe = 0.f;
+      Pe = 1.f;
     }
-    const float B = Qe + Pe * Bc;  // G_{l+1}(Bc)
-    const float Bnext =
-        __shfl_sync(kFull, Q, 0) + __shfl_sync(kFull, P, 0) * Bc;
-    if (in) {
-      da_r[i] = T * (gw - B);
-      dc_r[3 * i] = gate ? gr * w : 0.f;
-      dc_r[3 * i + 1] = gate ? gg * w : 0.f;
-      dc_r[3 * i + 2] = gate ? gb * w : 0.f;
-      dz_r[i] = gd * w;
+    __syncthreads();  // every thread has read s_x, the totals and d_rgb
+
+    float T[K], da[K];
+    T[0] = pre * pe;
+#pragma unroll
+    for (int k = 1; k < K; ++k) T[k] = T[k - 1] * u[k - 1];
+    float X = Qe + Pe * x;  // B at this thread's last sample
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+      da[k] = T[k] * (gw[k] - X);
+      X = q[k] + u[k] * X;
     }
-    Bc = Bnext;
+    store_k<K>(A.d_alpha + i0, da, valid);
+    if (tid == 0) s_x = X;  // read after the next tile's first barrier
   }
+}
+
+template <int K>
+cudaError_t launch_bwd(const BwdArgs& A, int N, cudaStream_t stream) {
+  constexpr int TS = kBwdThreads * K;
+  const int n_tiles = (A.S + TS - 1) / TS;
+  const size_t smem = (size_t)(pad(3 * TS) + n_tiles) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        composite_bwd_kernel<K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  composite_bwd_kernel<K><<<(unsigned)N, kBwdThreads, smem, stream>>>(A);
+  return cudaGetLastError();
 }
 
 inline unsigned blocks_for(int N) {
@@ -216,17 +409,23 @@ extern "C" int composite_fwd(const void* alpha, const void* rgb,
 }
 
 extern "C" int composite_bwd(const void* alpha, const void* rgb,
-                             const void* z, float thres, const void* g_rgb,
-                             const void* g_depth, const void* g_acc,
-                             const void* g_weights, void* d_alpha,
-                             void* d_rgb, void* d_z, int N, int S,
-                             void* stream) {
+                             const void* z, const void* weights, float thres,
+                             const void* g_rgb, const void* g_depth,
+                             const void* g_acc, const void* g_weights,
+                             void* d_alpha, void* d_rgb, void* d_z, int N,
+                             int S, void* stream) {
   if (N == 0 || S == 0) return 0;
-  composite_bwd_kernel<<<blocks_for(N), kWarpsPerBlock * 32, 0,
-                         (cudaStream_t)stream>>>(
-      (const float*)alpha, (const float*)rgb, (const float*)z, thres,
-      (const float*)g_rgb, (const float*)g_depth, (const float*)g_acc,
-      (const float*)g_weights, (float*)d_alpha, (float*)d_rgb, (float*)d_z,
-      N, S);
-  return (int)cudaGetLastError();
+  const BwdArgs A{(const float*)alpha,   (const float*)rgb,
+                  (const float*)z,       (const float*)weights,
+                  thres,                 (const float*)g_rgb,
+                  (const float*)g_depth, (const float*)g_acc,
+                  (const float*)g_weights, (float*)d_alpha,
+                  (float*)d_rgb,         (float*)d_z,
+                  S};
+  const cudaStream_t s = (cudaStream_t)stream;
+  // samples per thread from S; rays longer than 1024 walk 1024-sample tiles
+  if (S <= 128) return (int)launch_bwd<1>(A, N, s);
+  if (S <= 256) return (int)launch_bwd<2>(A, N, s);
+  if (S <= 512) return (int)launch_bwd<4>(A, N, s);
+  return (int)launch_bwd<8>(A, N, s);
 }

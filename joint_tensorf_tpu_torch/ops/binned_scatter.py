@@ -93,7 +93,8 @@ def launch_binned(g, order, chunk_tile, chunk_lo, chunk_hi, cell, fx, fy,
     R = g.shape[1]
     _, n_tx = tile_grid(H, W)
     out = torch.zeros((H, W, R), dtype=torch.float32, device=g.device)
-    fn = cuda_build.kernel("binned_plane_scatter", _ARGTYPES)
+    fn = cuda_build.kernel("binned_scatter", "binned_plane_scatter",
+                           _ARGTYPES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), order.data_ptr(), chunk_tile.data_ptr(),

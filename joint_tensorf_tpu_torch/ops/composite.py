@@ -11,7 +11,9 @@ The gate is the renderer's appearance gate (weight > raymarch threshold,
 joint_tensorf_tpu/render/renderer.py:613/630) folded in; ``thres=-inf``
 gives the ungated compositor of the Pallas kernel.  The backward is the
 division-free recurrence of the reference (ops/composite.py:50-74), so
-rays with alpha == 1.0 exactly keep finite gradients.
+rays with alpha == 1.0 exactly keep finite gradients.  It takes the
+forward's weights (as B2 takes ``weights_ref``): its gate is the forward's
+``weights > thres`` exactly, and d_rgb / d_z use those weights.
 
 On CUDA tensors the autograd function launches the kernels of
 csrc/composite.cu; on CPU tensors it runs the plain versions below, which
@@ -30,8 +32,8 @@ EPS = 1e-10
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P,
                  ctypes.c_int, ctypes.c_int, _P]
-_BWD_ARGTYPES = [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P,
-                 ctypes.c_int, ctypes.c_int, _P]
+_BWD_ARGTYPES = [_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
+                 _P, ctypes.c_int, ctypes.c_int, _P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -69,12 +71,16 @@ def _suffix_recurrence(c, a):
     return torch.flip(c, dims=(-1,))
 
 
-def composite_bwd_plain(alpha, rgb, z, thres: float, g_rgb, g_depth, g_acc,
-                        g_weights):
-    u, T, w = _transmittance(alpha)
+def composite_bwd_plain(alpha, rgb, z, weights, thres: float, g_rgb,
+                        g_depth, g_acc, g_weights):
+    """g_weights may be None: no gradient reaches the weights."""
+    u, T, _ = _transmittance(alpha)
+    w = weights
     gate = (w > thres).to(w.dtype)
     g_w = (gate * torch.sum(g_rgb[:, None, :] * rgb, dim=-1)
-           + g_depth[:, None] * z + g_acc[:, None] + g_weights)
+           + g_depth[:, None] * z + g_acc[:, None])
+    if g_weights is not None:
+        g_w = g_w + g_weights
     # B_i = g_w_{i+1} alpha_{i+1} + u_{i+1} B_{i+1}, B_{S-1} = 0
     cw = g_w * alpha
     c = torch.cat([cw[:, 1:], torch.zeros_like(cw[:, :1])], dim=-1)
@@ -111,7 +117,7 @@ def composite_fwd_cuda(alpha, rgb, z, thres: float):
     depth = torch.empty((N,), **new)
     acc = torch.empty((N,), **new)
     weights = torch.empty((N, S), **new)
-    fn = cuda_build.kernel("composite_fwd", _FWD_ARGTYPES)
+    fn = cuda_build.kernel("composite", "composite_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(alpha.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(alpha.data_ptr(), rgb.data_ptr(), z.data_ptr(), thres,
@@ -122,24 +128,29 @@ def composite_fwd_cuda(alpha, rgb, z, thres: float):
     return rgb_map, depth, acc, weights
 
 
-def composite_bwd_cuda(alpha, rgb, z, thres: float, g_rgb, g_depth, g_acc,
-                       g_weights):
-    """Launch K2 -> (d_alpha [N,S], d_rgb [N,S,3], d_z [N,S])."""
-    N, S = _check_inputs("composite_bwd_cuda", alpha, rgb, z, g_rgb,
-                         g_depth, g_acc, g_weights)
-    if g_rgb.shape != (N, 3) or g_depth.shape != (N,) or \
-            g_acc.shape != (N,) or g_weights.shape != (N, S):
+def composite_bwd_cuda(alpha, rgb, z, weights, thres: float, g_rgb,
+                       g_depth, g_acc, g_weights):
+    """Launch K2 -> (d_alpha [N,S], d_rgb [N,S,3], d_z [N,S]); weights
+    [N,S] are the forward's; g_weights may be None (not read)."""
+    more = (weights, g_rgb, g_depth, g_acc) + (
+        () if g_weights is None else (g_weights,))
+    N, S = _check_inputs("composite_bwd_cuda", alpha, rgb, z, *more)
+    if weights.shape != (N, S) or g_rgb.shape != (N, 3) or \
+            g_depth.shape != (N,) or g_acc.shape != (N,) or \
+            (g_weights is not None and g_weights.shape != (N, S)):
         raise ValueError("composite_bwd_cuda: bad cotangent shapes")
     new = dict(dtype=torch.float32, device=alpha.device)
     d_alpha = torch.empty((N, S), **new)
     d_rgb = torch.empty((N, S, 3), **new)
     d_z = torch.empty((N, S), **new)
-    fn = cuda_build.kernel("composite_bwd", _BWD_ARGTYPES)
+    fn = cuda_build.kernel("composite", "composite_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(alpha.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(alpha.data_ptr(), rgb.data_ptr(), z.data_ptr(), thres,
+        err = fn(alpha.data_ptr(), rgb.data_ptr(), z.data_ptr(),
+                 weights.data_ptr(), thres,
                  g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(),
-                 g_weights.data_ptr(), d_alpha.data_ptr(), d_rgb.data_ptr(),
+                 None if g_weights is None else g_weights.data_ptr(),
+                 d_alpha.data_ptr(), d_rgb.data_ptr(),
                  d_z.data_ptr(), N, S, stream)
     cuda_build.LAUNCHES["composite_bwd"] += 1
     cuda_build.check(err, "composite_bwd")
@@ -155,24 +166,35 @@ def _dispatch(cuda_fn, plain_fn, x):
 
 
 class Composite(torch.autograd.Function):
-    """K1 forward / K2 backward on CUDA; the plain versions on the CPU."""
+    """K1 forward / K2 backward on CUDA; the plain versions on the CPU.
+
+    Gradients of unused outputs arrive as None, not as zeros: the training
+    step never uses the weights, so their [N, S] zero cotangent is neither
+    made nor read."""
 
     @staticmethod
     def forward(ctx, alpha, rgb, z, thres: float):
         alpha, rgb, z = alpha.contiguous(), rgb.contiguous(), z.contiguous()
         fwd = _dispatch(composite_fwd_cuda, composite_fwd_plain, alpha)
         out = fwd(alpha, rgb, z, float(thres))
-        ctx.save_for_backward(alpha, rgb, z)
+        ctx.save_for_backward(alpha, rgb, z, out[3])
         ctx.thres = float(thres)
+        ctx.set_materialize_grads(False)
         return out
 
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_acc, g_weights):
-        alpha, rgb, z = ctx.saved_tensors
+        alpha, rgb, z, weights = ctx.saved_tensors
+        N = alpha.shape[0]
+
+        def cot(g, shape):
+            return alpha.new_zeros(shape) if g is None else g.contiguous()
+
         bwd = _dispatch(composite_bwd_cuda, composite_bwd_plain, alpha)
         d_alpha, d_rgb, d_z = bwd(
-            alpha, rgb, z, ctx.thres, g_rgb.contiguous(),
-            g_depth.contiguous(), g_acc.contiguous(), g_weights.contiguous())
+            alpha, rgb, z, weights, ctx.thres, cot(g_rgb, (N, 3)),
+            cot(g_depth, (N,)), cot(g_acc, (N,)),
+            None if g_weights is None else g_weights.contiguous())
         return d_alpha, d_rgb, d_z, None
 
 

@@ -26,19 +26,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel name -> (source stem, C symbol); one source may hold several kernels
-KERNELS = {
-    "composite_fwd": ("composite", "composite_fwd"),
-    "composite_bwd": ("composite", "composite_bwd"),
-    "scatter_add_rows": ("segment_scatter", "scatter_add_rows"),
-    "binned_plane_scatter": ("binned_scatter", "binned_plane_scatter"),
-    "scatter_add_rows_tiled": ("tile_scatter", "scatter_add_rows_tiled"),
-}
-SOURCES = sorted({stem for stem, _ in KERNELS.values()})
-
-LAUNCHES = {name: 0 for name in KERNELS}
+# the sources csrc/<stem>.cu; one source may hold several C entry points
+SOURCES = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+# the kernels whose launches are counted (K1-K5), by C entry point
+LAUNCHES = {name: 0 for name in (
+    "composite_fwd", "composite_bwd", "scatter_add_rows",
+    "binned_plane_scatter", "scatter_add_rows_tiled")}
 _LIBS: dict[str, ctypes.CDLL] = {}
-_FNS: dict[str, ctypes._CFuncPtr] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}   # by C symbol
 
 
 def reset_launches():
@@ -90,21 +85,21 @@ def build_all(stems=SOURCES) -> dict:
     return took
 
 
-def kernel(name: str, argtypes):
-    """The ctypes function of one kernel, building its library if needed.
+def kernel(stem: str, symbol: str, argtypes):
+    """The ctypes function ``symbol`` of csrc/<stem>.cu, building its
+    library if needed.
 
     ``argtypes`` must name ctypes.c_void_p for every pointer and the
     stream: an undeclared pointer is passed as a 32-bit int and cut."""
-    fn = _FNS.get(name)
+    fn = _FNS.get(symbol)
     if fn is None:
-        stem, symbol = KERNELS[name]
         lib = _LIBS.get(stem)
         if lib is None:
             path = _lib_path(stem)
             if not os.path.exists(path):
                 build_all([stem])
             lib = _LIBS[stem] = ctypes.CDLL(path)
-        fn = _FNS[name] = getattr(lib, symbol)
+        fn = _FNS[symbol] = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn

@@ -45,7 +45,8 @@ def scatter_add_rows_cuda(idx, updates, n_rows: int):
         raise ValueError("scatter_add_rows_cuda: inputs must be contiguous")
     N, C = updates.shape
     out = torch.zeros((n_rows, C), dtype=torch.float32, device=updates.device)
-    fn = cuda_build.kernel("scatter_add_rows", _ARGTYPES)
+    fn = cuda_build.kernel("segment_scatter", "scatter_add_rows",
+                           _ARGTYPES)
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(idx.data_ptr(), updates.data_ptr(), out.data_ptr(), N, C,

@@ -5,28 +5,71 @@ version (counterpart of joint_tensorf_tpu/ops/tile_scatter.py).
         == zeros([n_rows, C]).at[idx].add(updates)
 
 K3's contract (ops/segment_scatter.py) with the JAX package's other
-design: sort the samples by destination, then let each block own BR
-destination rows in shared memory and flush them once.  On a CUDA tensor
-the wrapper sorts, permutes and searchsorts in PyTorch (as the JAX wrapper
-does outside its kernel) and launches csrc/tile_scatter.cu; on a CPU
-tensor it takes the plain version, ``index_add_``.  There is no other path.
+design: each block owns BR destination rows in shared memory and flushes
+them once.  On a CUDA tensor the wrapper launches csrc/tile_scatter.cu
+twice: ``bucket_by_block`` (count, scan and fill kernels: the samples
+bucketed by destination block, by position, without sorting and without
+moving an update row) and ``accumulate`` (K5 proper, one block per chunk of
+at most CHUNK samples of one bucket).  The route allocates the bucketing's
+arrays with ``torch.empty``; it sizes them and the grid from N, n_rows and
+C alone, so it never waits on the host.  On a CPU tensor the wrapper
+takes the plain version, ``index_add_``.  There is no other path.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import cuda_build
 
 _SMEM_FLOATS = 24576            # 96 KB of shared memory per block
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_void_p]
+CHUNK = 2048                    # samples per accumulate block, at most
+_P = ctypes.c_void_p
+_BUCKET_ARGTYPES = [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P]
+_ACC_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 
 
 def block_rows(C: int) -> int:
     """Destination rows per block: BR x C float32 within 96 KB, at most 256."""
     return max(1, min(256, _SMEM_FLOATS // max(C, 1)))
+
+
+class Plan(NamedTuple):
+    """Sizes of one bucketing: BR rows per bucket, n_buckets and n_map
+    accumulate blocks (ceil(N / CHUNK) + n_buckets bounds the chunks, since
+    each bucket has max(1, ceil(count / CHUNK)) of them)."""
+    BR: int
+    n_buckets: int
+    n_map: int
+
+
+def plan(N: int, n_rows: int, C: int) -> Plan:
+    BR = block_rows(C)
+    n_buckets = -(-n_rows // BR)
+    return Plan(BR, n_buckets, -(-N // CHUNK) + n_buckets)
+
+
+class Bucketing(NamedTuple):
+    """The samples bucketed by destination block, int32 arrays that
+    bucket_by_block fills (csrc/tile_scatter.cu, Layout)."""
+    perm: torch.Tensor          # [N, 2]: (position, row within its block)
+    counts: torch.Tensor        # [n_buckets]: samples per bucket
+    offset: torch.Tensor        # [n_buckets + 1]: exclusive prefix of counts
+    cursor: torch.Tensor        # [n_buckets]: the fill's claims
+    chunk_start: torch.Tensor   # [n_buckets + 1]: exclusive prefix of chunks
+    chunk_bucket: torch.Tensor  # [n_map]: each accumulate block's bucket or -1
+
+
+def empty_bucketing(N: int, p: Plan, device) -> Bucketing:
+    nb = p.n_buckets
+    return Bucketing(*(torch.empty(shape, dtype=torch.int32, device=device)
+                       for shape in ((N, 2), (nb,), (nb + 1,), (nb,),
+                                     (nb + 1,), (p.n_map,))))
 
 
 def scatter_add_rows_tiled_plain(idx, updates, n_rows: int):
@@ -55,32 +98,47 @@ def scatter_add_rows_tiled_cuda(idx, updates, n_rows: int):
     if block_rows(C) * C * 4 > 232448:
         raise ValueError(f"scatter_add_rows_tiled_cuda: C={C} does not fit "
                          f"one row in shared memory")
-    if N == 0 or n_rows == 0:
+    if N == 0 or n_rows == 0 or C == 0:
         return torch.zeros((n_rows, C), dtype=torch.float32,
                            device=updates.device)
-    return launch_tiled(*sort_by_block(idx, updates, n_rows), n_rows)
+    if max(N, plan(N, n_rows, C).n_map) >= 2 ** 31:
+        raise ValueError(f"scatter_add_rows_tiled_cuda: N={N} samples "
+                         f"exceed the kernels' int32 positions")
+    return accumulate(updates.contiguous(),
+                      *bucket_by_block(idx.contiguous(), n_rows, C), n_rows)
 
 
-def sort_by_block(idx, updates, n_rows: int):
-    """(idx sorted, updates in that order, starts [n_blocks + 1]: each
-    BR-row destination block's range of the sorted samples)."""
-    BR = block_rows(updates.shape[1])
-    idx_s, order = torch.sort(idx.to(torch.int64))
-    upd_s = updates.index_select(0, order).contiguous()
-    edges = torch.arange(-(-n_rows // BR) + 1, device=idx.device,
-                         dtype=torch.int64) * BR
-    return idx_s, upd_s, torch.searchsorted(idx_s, edges)
-
-
-def launch_tiled(idx_s, upd_s, starts, n_rows: int):
-    """Launch K5 on sorted samples (sort_by_block) -> [n_rows, C]."""
-    C = upd_s.shape[1]
-    out = torch.empty((n_rows, C), dtype=torch.float32, device=upd_s.device)
-    fn = cuda_build.kernel("scatter_add_rows_tiled", _ARGTYPES)
-    with torch.cuda.device(upd_s.device):
+def bucket_by_block(idx, n_rows: int, C: int):
+    """Bucket the samples by destination block of block_rows(C) rows
+    (csrc/tile_scatter.cu passes 1-3) -> (Bucketing, out): the output
+    [n_rows, C] is uninitialised except for the rows of buckets above
+    CHUNK samples, which are zeroed."""
+    N = idx.shape[0]
+    p = plan(N, n_rows, C)
+    bk = empty_bucketing(N, p, idx.device)
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=idx.device)
+    fn = cuda_build.kernel("tile_scatter", "tile_bucket", _BUCKET_ARGTYPES)
+    with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(idx_s.data_ptr(), upd_s.data_ptr(), starts.data_ptr(),
-                 out.data_ptr(), C, n_rows, block_rows(C), stream)
+        err = fn(idx.data_ptr(), idx.element_size(), N, n_rows, p.BR, CHUNK,
+                 p.n_buckets, p.n_map, *(t.data_ptr() for t in bk),
+                 out.data_ptr(), C, stream)
+    cuda_build.check(err, "tile_bucket")
+    return bk, out
+
+
+def accumulate(updates, bk: Bucketing, out, n_rows: int):
+    """Launch K5 proper on a bucketing (bucket_by_block) of updates' rows
+    -> out [n_rows, C]."""
+    N, C = updates.shape
+    p = plan(N, n_rows, C)
+    fn = cuda_build.kernel("tile_scatter", "scatter_add_rows_tiled",
+                           _ACC_ARGTYPES)
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(updates.data_ptr(), bk.perm.data_ptr(), bk.offset.data_ptr(),
+                 bk.chunk_start.data_ptr(), bk.chunk_bucket.data_ptr(),
+                 out.data_ptr(), C, n_rows, p.BR, CHUNK, p.n_map, stream)
     cuda_build.LAUNCHES["scatter_add_rows_tiled"] += 1
     cuda_build.check(err, "scatter_add_rows_tiled")
     return out

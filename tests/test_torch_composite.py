@@ -6,12 +6,15 @@
 * thres = 1e-6 against the JAX dense path (exclusive_cumprod + the
   weight > thres appearance gate), including rays with alpha == 1.0
   exactly: gradients must be finite and equal (atol 1e-5 / rtol 1e-4).
+* S = 257 and S = 1000 (the last phase's rays) against the dense path in
+  the same way.
 The kernels themselves are held against these plain versions on the card
 by tests/test_torch_kernels_cuda.py.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from joint_tensorf_tpu.ops import composite as jcomposite
@@ -91,3 +94,25 @@ def test_gated_matches_jax_dense_path_with_saturated_rays():
     _compare(got, want)
     # the gate is live: ray 5's weights are all below the threshold
     assert np.all(got[0][0][5] == 0)
+
+
+@pytest.mark.parametrize("s", [257, 1000])
+def test_gated_long_rays_match_jax_dense_path(s):
+    """Rays as long as the last phase's (S = 1000) and just past a power of
+    two, with alpha == 1.0 exactly on some; depths between the near and
+    far planes."""
+    rng = np.random.default_rng(s)
+    n = 4
+    alpha = (rng.random((n, s)) * min(0.3, 8.0 / s)).astype(np.float32)
+    alpha[1] = 1.0                                       # EXACTLY saturated
+    alpha[2, ::5] = 1.0
+    rgb = rng.random((n, s, 3)).astype(np.float32)
+    z = (2.0 + np.cumsum(rng.random((n, s)), -1) * (4.0 / s)).astype(
+        np.float32)
+    cots = (rng.standard_normal((n, 3)).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal((n, s)).astype(np.float32))
+    want = _jax(_jax_dense_gated, *(jnp.asarray(a) for a in (alpha, rgb, z)),
+                cots)
+    _compare(_port(alpha, rgb, z, cots, 1e-6), want)

@@ -7,10 +7,11 @@ with a card and without JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: the compositor at rtol 1e-4 / atol 1e-5 (the kernel's chunked
-prefix product rounds differently from the sequential cumprod; a weight
+Tolerances: the compositor at rtol 1e-4 / atol 1e-5 (the kernels' scans
+round differently from the sequential cumprod; in the forward a weight
 within an ulp of the gate threshold may flip its gate, which moves rgb_map
-by at most thres); the row scatter K3 at rtol 1e-5 / atol 1e-4, the
+by at most thres; the backward takes the forward's weights, so its gate is
+exact); the row scatter K3 at rtol 1e-5 / atol 1e-4, the
 binned plane scatter K4 and the block-local row scatter K5 at 1e-5 of the
 output's largest magnitude (atomics sum in an order that varies from run
 to run).
@@ -47,12 +48,75 @@ def test_compositor_kernels_match_plain(thres, n, s):
             torch.randn((n, s), generator=gen, device="cuda"))
     got = C.composite_fwd_cuda(alpha, rgb, z, thres)
     want = C.composite_fwd_plain(alpha, rgb, z, thres)
-    got_b = C.composite_bwd_cuda(alpha, rgb, z, thres, *cots)
-    want_b = C.composite_bwd_plain(alpha, rgb, z, thres, *cots)
+    got_b = C.composite_bwd_cuda(alpha, rgb, z, got[3], thres, *cots)
+    want_b = C.composite_bwd_plain(alpha, rgb, z, got[3], thres, *cots)
     torch.cuda.synchronize()
     for a, b in zip(list(got) + list(got_b), list(want) + list(want_b)):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _ray_inputs(n, s, gen):
+    """alpha with an optical depth of a few units per ray whatever S, so
+    that T stays away from 0 across tiles, and depths between the scene's
+    near and far planes; ray 0 saturated (alpha == 1.0 exactly), ray 1
+    saturated at every third sample."""
+    alpha = torch.rand((n, s), generator=gen, device="cuda") * min(
+        0.5, 8.0 / s)
+    alpha[0] = 1.0
+    alpha[1, ::3] = 1.0
+    rgb = torch.rand((n, s, 3), generator=gen, device="cuda")
+    z = 2.0 + torch.cumsum(torch.rand((n, s), generator=gen, device="cuda"),
+                           -1) * (4.0 / s)          # depths in [2, 6]
+    cots = (torch.randn((n, 3), generator=gen, device="cuda"),
+            torch.randn((n,), generator=gen, device="cuda"),
+            torch.randn((n,), generator=gen, device="cuda"),
+            torch.randn((n, s), generator=gen, device="cuda"))
+    return alpha, rgb, z, cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 255, 256, 257, 1000, 1025,
+                               4100])
+def test_compositor_bwd_over_ray_lengths(s):
+    """K2 at every block shape it picks from S (128 x 1 .. 256 x 8) and
+    across tiles (S > 2048), saturated rays included."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    alpha, rgb, z, cots = _ray_inputs(5, s, gen)
+    w = C.composite_fwd_cuda(alpha, rgb, z, 1e-6)[3]
+    for g_weights in (cots[3], None):     # None: the training step's case
+        args = (alpha, rgb, z, w, 1e-6, *cots[:3], g_weights)
+        got = C.composite_bwd_cuda(*args)
+        want = C.composite_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_compositor_bwd_gate_is_the_forwards():
+    """With weights on the threshold, K2 gates exactly as weights > thres;
+    and it reads the gate from the weights it is given."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    alpha, rgb, z, cots = _ray_inputs(64, 300, gen)
+    w = C.composite_fwd_cuda(alpha, rgb, z, float("-inf"))[3]
+    thres = float(w[5].median())              # a weight exactly on it
+    w2 = w.clone()                            # one weight nudged above it
+    below = (w2 <= thres).nonzero()[0]
+    w2[below[0], below[1]] = torch.nextafter(
+        torch.tensor(thres, device="cuda"), torch.tensor(1.0, device="cuda"))
+    for weights in (w, w2):
+        gate = weights > thres
+        assert (weights == thres).any() and gate.any() and not gate.all()
+        _, d_rgb, d_z = C.composite_bwd_cuda(alpha, rgb, z, weights, thres,
+                                             *cots)
+        want = torch.where(gate[..., None],
+                           cots[0][:, None, :] * weights[..., None], 0.0)
+        assert torch.equal(d_rgb, want)
+        assert torch.equal(d_z, cots[1][:, None] * weights)
 
 
 @pytest.mark.cuda
@@ -127,6 +191,81 @@ def test_tile_scatter_kernel_matches_plain(n, rows, c):
     hot = K.scatter_add_rows_tiled(torch.full((n,), 7, device="cuda"),
                                    torch.ones((n, c), device="cuda"), rows)
     assert float(hot[7, 0]) == n and float(hot.abs().sum()) == n * c
+
+
+def _tile_case(case, n, rows, gen):
+    """Indices of one K5 edge case (some outside [0, rows) for "dropped")."""
+    if case == "one_bucket":       # every sample in block 0: many chunks
+        return torch.randint(0, 200, (n,), generator=gen, device="cuda")
+    idx = torch.randint(0, rows, (n,), generator=gen, device="cuda")
+    if case == "dropped":
+        idx[::7] = -3
+        idx[1::7] = rows + 5
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case,n,rows,c", [
+    ("one_bucket", 10000, 5000, 64),    # 1 bucket of 5 chunks, 19 empty
+    ("uniform", 1000, 100000, 64),      # most buckets empty
+    ("uniform", 5000, 1000, 32),        # n_rows not a multiple of BR
+    ("uniform", 4000, 700, 5),          # C % 4 != 0: scalar loads
+    ("uniform", 20000, 3000, 192),      # C > 128: two element passes
+    ("uniform", 2000, 13000, 24576),    # 13000 buckets of 1 row: counters
+                                        # beyond shared memory
+    ("dropped", 6000, 900, 64)])        # indices outside [0, n_rows)
+def test_tile_scatter_edge_cases(idx_dtype, case, n, rows, c):
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import tile_scatter as K
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    idx = _tile_case(case, n, rows, gen).to(idx_dtype)
+    upd = torch.randn((n, c), generator=gen, device="cuda")
+    got = K.scatter_add_rows_tiled(idx, upd, rows)
+    keep = (idx >= 0) & (idx < rows)
+    want = K.scatter_add_rows_tiled_plain(idx[keep], upd[keep], rows)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_bucket", "uniform", "dropped"])
+def test_tile_bucketing_covers_every_sample_once(case):
+    """bucket_by_block against a numpy bucketing: each in-range sample in
+    its bucket's range once, chunks of at most CHUNK samples, one chunk for
+    an empty bucket, and -1 past the last chunk."""
+    _need_card()
+    import numpy as np
+
+    from joint_tensorf_tpu_torch.ops import tile_scatter as K
+
+    n, rows, c = 9000, 3000, 64
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    idx = _tile_case(case, n, rows, gen)
+    p = K.plan(n, rows, c)
+    bk, _ = K.bucket_by_block(idx, rows, c)
+    v = {k: t.cpu().numpy() for k, t in bk._asdict().items()}
+    ix = idx.cpu().numpy()
+    keep = (ix >= 0) & (ix < rows)
+    counts = np.bincount(ix[keep] // p.BR, minlength=p.n_buckets)
+    np.testing.assert_array_equal(v["counts"], counts)
+    np.testing.assert_array_equal(v["offset"],
+                                  np.concatenate([[0], np.cumsum(counts)]))
+    chunks = np.maximum(1, -(-counts // K.CHUNK))
+    np.testing.assert_array_equal(v["chunk_start"],
+                                  np.concatenate([[0], np.cumsum(chunks)]))
+    np.testing.assert_array_equal(
+        v["chunk_bucket"], np.concatenate([np.repeat(np.arange(p.n_buckets),
+                                                     chunks),
+                                           -np.ones(p.n_map - chunks.sum(),
+                                                    np.int32)]))
+    perm = v["perm"][:keep.sum()]
+    assert sorted(perm[:, 0]) == sorted(np.flatnonzero(keep))
+    for b in range(p.n_buckets):
+        pos, row = perm[v["offset"][b]:v["offset"][b + 1]].T
+        np.testing.assert_array_equal(ix[pos], b * p.BR + row)
 
 
 @pytest.mark.cuda
