@@ -16,11 +16,13 @@
 4. holds K4 (the tile-binned plane-gradient scatter) and K5 (the
    block-local row scatter) against their plain versions at the JAX
    bench scripts' shapes (K4 also at a 400x400 plane with 2.03M samples in
-   march order; K5 also with every sample in one row, and with int32
-   indices), and times them, their plain versions, the library calls
+   march order and with every sample in one cell, exactly; K5 also with
+   every sample in one row, and with int32 indices), and times them (the
+   route back to back and its kernels' device time by torch.profiler, and
+   the accumulate kernel alone), their plain versions, the library calls
    (K4: grid_sample's plane gradient; K5: index_add_) and K3 at K5's
-   shapes; K5's route runs under torch's sync debug mode "error" (which
-   sees the torch calls of its glue, not the ctypes launches);
+   shapes; both routes run under torch's sync debug mode "error" (which
+   sees the torch calls of their glue, not the ctypes launches);
 5. runs one small train step on the card and on the CPU (plain versions)
    from the same state and compares loss and gradients;
 6. drives K4 and K5 through their own entry points (sample_plane_binned
@@ -275,27 +277,50 @@ def check_scatter(n_rays, S, H, W, C, gen, tol):
             "shape": {"N": N, "C": C, "n_rows": n_rows}}
 
 
-def check_binned(H, W, R, N, gen, tol, march_rays=None):
-    """K4 against its plain version on samples uniform in [-1, 1] (or, with
-    march_rays, N = march_rays x S samples in march order); times the
-    wrapper (tile sort + kernel), the kernel alone, the plain version and
-    the library call, grid_sample's plane gradient, after checking that it
-    computes the same function."""
+def check_binned(H, W, R, N, gen, tol, samples="uniform"):
+    """K4 against its plain version on N samples: "uniform" in [-1, 1],
+    "march" (2028 rays of N / 2028 samples in march order) or "one_cell"
+    (every sample at one point of a 257 x 257 plane whose fractions are
+    dyadic, g small integers: every partial sum is exact, so the kernel
+    must equal the plain version).  The route runs once under sync debug
+    mode "error", which sees its torch calls (allocation, .contiguous) but
+    not its ctypes launches; that it never waits on the host is read from
+    ops/binned_scatter.py (sizes from N, H, W and R alone, no .item()).
+    Times the route (bucketing + accumulate) back to back and, from
+    torch.profiler, its kernels' summed device time (device_ms, and by
+    kernel); the accumulate kernel alone on a prebuilt bucketing
+    (kernel_ms, kernel_device_ms); the plain version; and the library call,
+    grid_sample's plane gradient, after checking that it computes the same
+    function."""
     import torch
     import torch.nn.functional as F
 
     from joint_tensorf_tpu_torch.ops import binned_scatter as K
 
     dev = "cuda"
-    if march_rays:
-        x, y = march_points(march_rays, N // march_rays, H, W, gen)
+    if samples == "march":
+        x, y = march_points(2028, N // 2028, H, W, gen)
         u, v = x * (2.0 / (W - 1)) - 1.0, y * (2.0 / (H - 1)) - 1.0
+    elif samples == "one_cell":     # x = 5.5, y = 7.25 exactly
+        if H != 257 or W != 257:
+            fail(f"the one-cell case needs a 257 x 257 plane, got {H, W}")
+        u = torch.full((N,), 5.5 / 128 - 1, device=dev)
+        v = torch.full((N,), 7.25 / 128 - 1, device=dev)
+        tol = 0.0
     else:
         u = torch.rand((N,), generator=gen, device=dev) * 2 - 1
         v = torch.rand((N,), generator=gen, device=dev) * 2 - 1
-    g = torch.randn((N, R), generator=gen, device=dev)
+    if samples == "one_cell":
+        g = torch.randint(-4, 5, (N, R), generator=gen, device=dev).float()
+    else:
+        g = torch.randn((N, R), generator=gen, device=dev)
     bins = K.pixel_bins(u, v, H, W)
-    got = K.plane_grad_scatter_cuda(g, *bins, H, W)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.plane_grad_scatter_cuda(g, *bins, H, W)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     want = K.plane_grad_scatter_plain(g, *bins, H, W)
     # the library call: grid_sample's gradient w.r.t. its input plane
     plane = torch.zeros((1, R, H, W), device=dev, requires_grad=True)
@@ -313,29 +338,37 @@ def check_binned(H, W, R, N, gen, tol, march_rays=None):
     err_lib = float((lib_grad - want).abs().max())
     scale = float(want.abs().max())
     if not torch.isfinite(got).all() or err > tol * scale:
-        fail(f"K4 disagrees with its plain version at {(H, W, R, N)}: "
-             f"{err:.3g} > {tol} x {scale:.3g}")
-    if err_lib > tol * scale:
+        fail(f"K4 disagrees with its plain version at {(H, W, R, N)}, "
+             f"{samples}: {err:.3g} > {tol} x {scale:.3g}")
+    if err_lib > 1e-5 * scale:
         fail(f"grid_sample's plane gradient is not K4's function at "
-             f"{(H, W, R, N)}: {err_lib:.3g} > {tol} x {scale:.3g}")
-    bucketed = K.bucket_by_tile(bins[0], bins[1], H, W)
+             f"{(H, W, R, N)}: {err_lib:.3g} > 1e-5 x {scale:.3g}")
+    bk, buf = K.bucket_by_tile(bins[0], bins[1], H, W, R)
     # g, u and v read once (8 B per sample), d_plane written once
     b_ms, b_by = bound(N * R * 4 + N * 8 + H * W * R * 4, 8 * N * R)
+
+    def route():
+        return K.plane_grad_scatter_cuda(g, *bins, H, W)
+
+    def accumulate():
+        return K.accumulate(g, bk, buf, bins[2], bins[3])
+
+    by_kernel = device_times(route)
     return {"name": "binned_plane_scatter", "route": "cuda",
             "source": "joint_tensorf_tpu_torch/csrc/binned_scatter.cu",
             "replaces": "joint_tensorf_tpu/ops/binned_scatter.py:163",
             "launches": None, "max_abs_err": err,
             "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
-            "ms": time_ms(lambda: K.plane_grad_scatter_cuda(g, *bins, H, W)),
-            "kernel_ms": time_ms(lambda: K.launch_binned(
-                g, *bucketed, bins[2], bins[3], H, W)),
+            "ms": time_ms(route), "device_ms": sum(by_kernel.values()),
+            "device_ms_by_kernel": by_kernel,
+            "kernel_ms": time_ms(accumulate),
+            "kernel_device_ms": device_ms(accumulate,
+                                          "binned_plane_scatter_kernel"),
             "plain_ms": time_ms(
                 lambda: K.plane_grad_scatter_plain(g, *bins, H, W)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lib), "library_max_abs_err": err_lib,
-            "shape": {"H": H, "W": W, "R": R, "N": N,
-                      "samples": "march order" if march_rays
-                      else "uniform"}}
+            "shape": {"H": H, "W": W, "R": R, "N": N, "samples": samples}}
 
 
 def check_tiled(N, n_rows, C, gen, tol, case="uniform"):
@@ -840,11 +873,12 @@ def main(argv):
     emit({"kernel_check": scatter})
     emit({"kernel_check": check_scatter(2028, 221, 400, 400, 256, gen,
                                         tol=1e-5)})
-    binned = [check_binned(400, 400, 64, 2028 * 1000, gen, 1e-5,
-                           march_rays=2028)]
+    binned = [check_binned(400, 400, 64, 2028 * 1000, gen, 1e-5, "march")]
     for H, W, R, N in ((300, 300, 64, 2000000), (300, 300, 64, 524288),
                        (128, 128, 64, 886000)):
         binned.append(check_binned(H, W, R, N, gen, 1e-5))
+    binned.append(check_binned(257, 257, 64, 2028 * 1000, gen, 0.0,
+                               "one_cell"))
     for r in binned:
         emit({"kernel_check": r})
     tiled = check_tiled_all(gen)

@@ -18,10 +18,28 @@
 //   B_{S-1} = 0,  B_i = g_w_{i+1} alpha_{i+1} + u_{i+1} B_{i+1}
 //   d_alpha_i = T_i (g_w_i - B_i),  d_rgb_i = g_rgb w_i gate_i,  d_z_i = g_depth w_i
 //
-// K1 (forward): one warp per ray.  The warp walks S in chunks of 32
-// samples; a shuffle prefix product inside a chunk gives T, and the
-// chunk's total product carries T to the next chunk.  It writes the
-// weights, which the autograd function saves for the backward.
+// K1 (forward): one group of NT = 64 threads per ray, two rays to a block
+// of 128 threads, each thread holding K contiguous samples of a tile of
+// NT x K samples (K = 4 or 8 from S; a ray longer than one tile is
+// walked front to back, one tile at a time, T carried from one to the
+// next in a register).  Each thread loads its samples of alpha and z
+// straight into registers (16 bytes a load where the row is aligned) and
+// the tile's rgb is staged through shared memory by coalesced loads, as in
+// K2.  T is the carried product times the product of earlier warps' u
+// times a warp-shuffle exclusive scan of the threads' products: one
+// exchange of the warps' totals per tile, two barriers (rgb staged and
+// totals in; everything read before the next tile).  Each thread then
+// walks its samples, writes its weights in one 16-byte store where
+// aligned, and sums acc, depth and the gated rgb in registers; the ray's
+// five sums are reduced once, at the end.  Every input is read once and
+// every output written once.  A ray is two warps (two rays a block) with
+// K = 4 up to S = 768 and K = 8 beyond: of 32 / 64 / 128 threads a ray
+// and K = 2 / 4 / 8 that ran fastest on the H100 at N = 2028, back to back
+// (scripts/chip_kernel_variants.py; S = 221: 0.0044 ms against 0.0050 for
+// one warp of K = 4 and 0.0057 for 128 x 2; S = 1000: 0.0178 against
+// 0.0180 for 128 x 8 and 0.0208 for 32 x 8).  A warp per ray leaves too
+// few threads to cover the loads' latency, a block per ray too few rays
+// resident.  64 registers, no spills.
 //
 // K2 (backward): one block of NT = 128 threads per ray, each thread
 // holding K = 1, 2, 4 or 8 contiguous samples (K from S) of a tile of
@@ -45,20 +63,23 @@
 //
 // Bound on this card: bytes.  At the last phase's shape (N = 2028 rays,
 // S = 1000) the forward moves ~49 MB and the backward ~97 MB (0.015 and
-// 0.029 ms at 3.35 TB/s).  A warp per ray would leave ~15 warps resident
-// per SM at N = 2028 and walk 2 x 32 dependent chunks of shuffle scans per
-// ray; a block per ray has all of a ray's loads in flight at once and its
-// scans take log-depth steps over NT threads, not S samples.  Registers,
-// not shared memory, bound how many rays an SM holds: 64 a thread, eight
-// blocks an SM.  On the H100 that ran faster at S = 221 and S = 1000 than
-// capping them at 32 to fit 2048 threads (which spills), and 128 threads
-// of K = 8 ran faster at S = 1000 than 256 of K = 4.
+// 0.029 ms at 3.35 TB/s).  The first K1 ran one warp per ray over
+// 32-sample chunks: at N = 2028 that left ~15 warps resident per SM, each
+// ray a chain of S / 32 dependent shuffle scans with scalar loads and
+// 12-byte-strided rgb loads, at 39% of the bound's rate.  Both kernels
+// now have all of a ray's loads in flight at once and scans of log depth
+// over threads, not samples.  Registers, not shared memory, bound how
+// many rays an SM holds: 64 a thread, eight blocks an SM.  On the H100
+// that ran faster at S = 221 and S = 1000 than capping them at 32 to fit
+// 2048 threads (which spills), and 128 threads of K = 8 ran faster at
+// S = 1000 than 256 of K = 4 (K2).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;   // K1
+constexpr int kFwdThreads = 128;    // K1: two rays a block,
+constexpr int kFwdRayThreads = 64;  // 64 threads a ray
 constexpr int kBwdThreads = 128;    // K2: one block of 128 threads per ray
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-10f;
@@ -69,85 +90,21 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Exclusive transmittance of this lane's sample inside a 32-sample chunk,
-// times the running product of earlier chunks; advances the carry.
-__device__ __forceinline__ float chunk_transmittance(float u, int lane,
-                                                     float& carry) {
-  float incl = u;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    float t = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl *= t;
-  }
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = 1.f;
-  float T = carry * excl;
-  carry *= __shfl_sync(kFull, incl, 31);
-  return T;
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-composite_fwd_kernel(const float* __restrict__ alpha,
-                     const float* __restrict__ rgb,
-                     const float* __restrict__ z, float thres,
-                     float* __restrict__ rgb_map, float* __restrict__ depth,
-                     float* __restrict__ acc, float* __restrict__ weights,
-                     int N, int S) {
-  const int lane = threadIdx.x & 31;
-  const long long ray =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (ray >= N) return;  // warp-uniform: the whole warp leaves together
-  const float* a_r = alpha + ray * S;
-  const float* z_r = z + ray * S;
-  const float* c_r = rgb + ray * S * 3;
-  float* w_r = weights + ray * S;
-
-  float carry = 1.f, s_acc = 0.f, s_depth = 0.f;
-  float s_r = 0.f, s_g = 0.f, s_b = 0.f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in = i < S;
-    const float a = in ? a_r[i] : 0.f;
-    const float u = in ? (1.f - a) + kEps : 1.f;
-    const float T = chunk_transmittance(u, lane, carry);
-    const float w = a * T;
-    if (in) {
-      w_r[i] = w;
-      s_acc += w;
-      s_depth += w * z_r[i];
-      if (w > thres) {
-        s_r += w * c_r[3 * i];
-        s_g += w * c_r[3 * i + 1];
-        s_b += w * c_r[3 * i + 2];
-      }
-    }
-  }
-  s_acc = warp_sum(s_acc);
-  s_depth = warp_sum(s_depth);
-  s_r = warp_sum(s_r);
-  s_g = warp_sum(s_g);
-  s_b = warp_sum(s_b);
-  if (lane == 0) {
-    acc[ray] = s_acc;
-    depth[ray] = s_depth;
-    rgb_map[3 * ray] = s_r;
-    rgb_map[3 * ray + 1] = s_g;
-    rgb_map[3 * ray + 2] = s_b;
-  }
-}
-
-// ---------------------------------------------------------------- K2
+// ------------------------------------------------------- shared helpers
 // Shared-memory index of value i: one pad word per 32, so that a thread's
 // 3K contiguous rgb values are read with few bank conflicts.
 __host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
-// src[0, n) -> dst[pad(i)], coalesced, 16 bytes a thread where aligned.
+// src[0, n) -> dst[pad(i)] by the NT threads tid = 0..NT-1, coalesced, 16
+// bytes a thread where aligned.
+template <int NT>
 __device__ __forceinline__ void stage(float* dst,
-                                      const float* __restrict__ src, int n) {
+                                      const float* __restrict__ src, int n,
+                                      int tid) {
   int done = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     done = n & ~3;
-    for (int i = 4 * threadIdx.x; i < done; i += 4 * kBwdThreads) {
+    for (int i = 4 * tid; i < done; i += 4 * NT) {
       const float4 x = __ldg(reinterpret_cast<const float4*>(src + i));
       float* d = dst + pad(i);  // i..i+3 share one 32-word row
       d[0] = x.x;
@@ -156,24 +113,23 @@ __device__ __forceinline__ void stage(float* dst,
       d[3] = x.w;
     }
   }
-  for (int i = done + threadIdx.x; i < n; i += kBwdThreads)
-    dst[pad(i)] = __ldg(src + i);
+  for (int i = done + tid; i < n; i += NT) dst[pad(i)] = __ldg(src + i);
 }
 
 // src[pad(i)] -> dst[0, n), the reverse of stage.
+template <int NT>
 __device__ __forceinline__ void unstage(float* __restrict__ dst,
-                                        const float* src, int n) {
+                                        const float* src, int n, int tid) {
   int done = 0;
   if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
     done = n & ~3;
-    for (int i = 4 * threadIdx.x; i < done; i += 4 * kBwdThreads) {
+    for (int i = 4 * tid; i < done; i += 4 * NT) {
       const float* s = src + pad(i);
       *reinterpret_cast<float4*>(dst + i) =
           make_float4(s[0], s[1], s[2], s[3]);
     }
   }
-  for (int i = done + threadIdx.x; i < n; i += kBwdThreads)
-    dst[i] = src[pad(i)];
+  for (int i = done + tid; i < n; i += NT) dst[i] = src[pad(i)];
 }
 
 // v[0, K) <- p[0, valid), zero past valid: 16-byte loads where p is
@@ -216,6 +172,136 @@ __device__ __forceinline__ void store_k(float* __restrict__ p,
   }
 }
 
+// ---------------------------------------------------------------- K1
+// K1's arguments: alpha, z [N, S], rgb [N, S, 3] in; rgb_map [N, 3],
+// depth, acc [N], weights [N, S] out; all float32.
+struct FwdArgs {
+  const float *alpha, *rgb, *z;
+  float thres;
+  float *rgb_map, *depth, *acc, *weights;
+  int N, S;
+};
+
+// K samples a thread.  Eight blocks an SM: 64 registers a thread.
+template <int K>
+__global__ void __launch_bounds__(kFwdThreads, 8)
+composite_fwd_kernel(const FwdArgs A) {
+  constexpr int NT = kFwdRayThreads, RAYS = kFwdThreads / NT, NW = NT / 32,
+                TS = NT * K;
+  extern __shared__ float s_c[];  // RAYS x [pad(3 TS)]: each ray's rgb
+  __shared__ float s_p[kFwdThreads / 32];       // warps' products of u
+  __shared__ float s_sum[5][kFwdThreads / 32];  // warps' sums
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = threadIdx.x / NT, tid = threadIdx.x - grp * NT;
+  const int w0 = grp * NW;  // the ray's first warp in the block
+  const int S = A.S;
+  const long long ray = (long long)blockIdx.x * RAYS + grp;
+  const bool live = ray < A.N;  // the block's last rays may not exist
+  const long long o = ray * S;
+  const float thres = A.thres;
+  float* c = s_c + grp * pad(3 * TS);
+  float carry = 1.f;  // T at the tile's start
+  float s_acc = 0.f, s_depth = 0.f, s_r = 0.f, s_g = 0.f, s_b = 0.f;
+
+  for (int s0 = 0; s0 < S; s0 += TS) {
+    // this thread's samples: i0 + k for k < valid
+    const int n = min(TS, S - s0);
+    const int valid = live ? min(K, n - tid * K) : 0;
+    const long long i0 = o + s0 + tid * K;
+    if (live) stage<NT>(c, A.rgb + 3 * (o + s0), 3 * n, tid);
+    float a[K], zz[K], u[K];
+    load_k<K>(a, A.alpha + i0, valid);
+    load_k<K>(zz, A.z + i0, valid);
+    float p = 1.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      u[k] = k < valid ? (1.f - a[k]) + kEps : 1.f;
+      p *= u[k];
+    }
+    // inclusive product over the warp's threads, then the warps' totals
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float q = __shfl_up_sync(kFull, p, off);
+      if (lane >= off) p *= q;
+    }
+    if (lane == 31) s_p[warp] = p;
+    float T = __shfl_up_sync(kFull, p, 1);
+    if (lane == 0) T = 1.f;
+    __syncthreads();  // rgb staged, the warps' totals in
+    float pre = carry;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w0 + w < warp) pre *= s_p[w0 + w];
+      carry *= s_p[w0 + w];
+    }
+    T *= pre;
+    float wt[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      wt[k] = a[k] * T;
+      T *= u[k];
+      if (k < valid) {
+        s_acc += wt[k];
+        s_depth += wt[k] * zz[k];
+        if (wt[k] > thres) {
+          const int j = 3 * (tid * K + k);
+          s_r += wt[k] * c[pad(j)];
+          s_g += wt[k] * c[pad(j + 1)];
+          s_b += wt[k] * c[pad(j + 2)];
+        }
+      }
+    }
+    store_k<K>(A.weights + i0, wt, valid);
+    __syncthreads();  // rgb and the totals read before the next tile
+  }
+
+  s_acc = warp_sum(s_acc);
+  s_depth = warp_sum(s_depth);
+  s_r = warp_sum(s_r);
+  s_g = warp_sum(s_g);
+  s_b = warp_sum(s_b);
+  if (NW > 1) {
+    if (lane == 0) {
+      s_sum[0][warp] = s_acc;
+      s_sum[1][warp] = s_depth;
+      s_sum[2][warp] = s_r;
+      s_sum[3][warp] = s_g;
+      s_sum[4][warp] = s_b;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      s_acc = s_depth = s_r = s_g = s_b = 0.f;
+#pragma unroll
+      for (int w = w0; w < w0 + NW; ++w) {
+        s_acc += s_sum[0][w];
+        s_depth += s_sum[1][w];
+        s_r += s_sum[2][w];
+        s_g += s_sum[3][w];
+        s_b += s_sum[4][w];
+      }
+    }
+  }
+  if (tid == 0 && live) {
+    A.acc[ray] = s_acc;
+    A.depth[ray] = s_depth;
+    A.rgb_map[3 * ray] = s_r;
+    A.rgb_map[3 * ray + 1] = s_g;
+    A.rgb_map[3 * ray + 2] = s_b;
+  }
+}
+
+template <int K>
+cudaError_t launch_fwd(const FwdArgs& A, cudaStream_t stream) {
+  constexpr int RAYS = kFwdThreads / kFwdRayThreads;
+  const size_t smem =
+      (size_t)RAYS * pad(3 * kFwdRayThreads * K) * sizeof(float);
+  composite_fwd_kernel<K>
+      <<<(unsigned)((A.N + RAYS - 1) / RAYS), kFwdThreads, smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K2
 // Product of p over the block.
 __device__ __forceinline__ float block_product(float p, float* s_w) {
 #pragma unroll
@@ -279,7 +365,7 @@ composite_bwd_kernel(const BwdArgs A) {
     const int n = min(TS, S - s0);
     const long long i0 = o + s0 + tid * K;
     const int valid = min(K, n - tid * K);
-    stage(s_c, A.rgb + 3 * (o + s0), 3 * n);
+    stage<NT>(s_c, A.rgb + 3 * (o + s0), 3 * n, tid);
     float u[K], q[K], gw[K];
     {
       float a[K], zz[K], w[K], dz[K];
@@ -345,7 +431,7 @@ composite_bwd_kernel(const BwdArgs A) {
       s_r[warp] = P;
     }
     __syncthreads();  // the totals and every thread's d_rgb are in
-    unstage(A.d_rgb + 3 * (o + s0), s_c, 3 * n);
+    unstage<NT>(A.d_rgb + 3 * (o + s0), s_c, 3 * n, tid);
     float pre = s_T0[t];
     for (int w = 0; w < warp; ++w) pre *= s_p[w];
     float x = s_x;
@@ -390,10 +476,6 @@ cudaError_t launch_bwd(const BwdArgs& A, int N, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-inline unsigned blocks_for(int N) {
-  return (unsigned)((N + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
 }  // namespace
 
 extern "C" int composite_fwd(const void* alpha, const void* rgb,
@@ -401,11 +483,15 @@ extern "C" int composite_fwd(const void* alpha, const void* rgb,
                              void* depth, void* acc, void* weights, int N,
                              int S, void* stream) {
   if (N == 0 || S == 0) return 0;
-  composite_fwd_kernel<<<blocks_for(N), kWarpsPerBlock * 32, 0,
-                         (cudaStream_t)stream>>>(
-      (const float*)alpha, (const float*)rgb, (const float*)z, thres,
-      (float*)rgb_map, (float*)depth, (float*)acc, (float*)weights, N, S);
-  return (int)cudaGetLastError();
+  const FwdArgs A{(const float*)alpha, (const float*)rgb, (const float*)z,
+                  thres,               (float*)rgb_map,   (float*)depth,
+                  (float*)acc,         (float*)weights,   N,
+                  S};
+  const cudaStream_t s = (cudaStream_t)stream;
+  // two warps a ray; 4 samples a thread up to S = 768 (tiles of 256),
+  // then 8 (tiles of 512)
+  if (S <= 768) return (int)launch_fwd<4>(A, s);
+  return (int)launch_fwd<8>(A, s);
 }
 
 extern "C" int composite_bwd(const void* alpha, const void* rgb,

@@ -18,26 +18,11 @@
 // float32 peak.
 //
 // Design: the samples are bucketed by destination block (b = idx / BR)
-// without moving any update row, in three small passes over the indices,
-// then one block per chunk of at most CH samples of one bucket adds the
-// gathered rows into a BR x C shared-memory tile.
-//   1. tile_bucket_count: a shared-memory histogram per block of 2048
-//      samples, added into counts[b] (warp-aggregated global atomics,
-//      lanes of one bucket grouped by __match_any_sync, when the buckets do
-//      not fit in shared memory).
-//   2. tile_bucket_scan (one block): exclusive prefix sums of the counts
-//      (offset, and cursor = offset) and of the chunks per bucket,
-//      max(1, ceil(count / CH)): an empty bucket gets one chunk, so that a
-//      block writes its zero rows.  It also writes chunk_bucket, the bucket
-//      of each of the accumulate grid's blocks (-1 past the last chunk);
-//      the grid is sized by the bound ceil(N / CH) + n_buckets, so the host
-//      never waits for a count.
-//   3. tile_bucket_fill: each sample claims a slot in its bucket, ranked by
-//      a shared-memory atomic and placed by one global atomicAdd per bucket
-//      and block on the cursor (warp-aggregated atomics on the cursor when
-//      the buckets do not fit), and writes (position, row within the block)
-//      there.  The same kernel zeroes the output rows of buckets that
-//      several chunks share.
+// without moving any update row, in three small passes over the indices
+// (count, scan, fill: bucketing.cuh, with RowKey below: payload the row
+// within the block; the fill zeroes the output rows of buckets that
+// several chunks share), then one block per chunk of at most CH samples of
+// one bucket adds the gathered rows into a BR x C shared-memory tile.
 //   4. scatter_add_rows_tiled (K5 proper): zero the tile, and sort the
 //      chunk's samples by row in shared memory (a counting sort with
 //      integer shared atomics: histogram, scan, place).  Workers of C/4
@@ -54,211 +39,53 @@
 //      (524288, 90000, 64) on the H100.  The block flushes its rows with
 //      plain coalesced stores when its bucket has one chunk, and with a
 //      global atomicAdd per non-zero entry otherwise (those rows were
-//      zeroed by pass 3).
+//      zeroed by the fill).
 // Samples outside [0, n_rows) are dropped.  Summation order varies from
 // run to run.  The kernels allocate nothing: the caller passes the
 // bucketing's arrays (see Layout) and the output.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bucketing.cuh"
+
 namespace {
 
+using bucketing::Layout;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFillThreads = 256;
-constexpr int kItems = 8;
-constexpr int kFillTile = kFillThreads * kItems;  // samples a count/fill block
-constexpr int kMaxSmemBins = 12288;               // 48 KB of int counters
-constexpr int kScanThreads = 1024;
 constexpr int kAccThreads = 256;
 constexpr int kAccWarps = kAccThreads / 32;
 constexpr int kChunkMax = 2048;  // samples per accumulate block, at most
 constexpr int kUnroll = 8;
 
-// The bucketing's int32 arrays, each allocated by the caller.
-struct Layout {
-  int2* perm;         // [N]: (sample position, row within its block)
-  int* counts;        // [n_buckets]
-  int* offset;        // [n_buckets + 1]: exclusive prefix of counts
-  int* cursor;        // [n_buckets]: next free slot of each bucket
-  int* chunk_start;   // [n_buckets + 1]: exclusive prefix of chunks
-  int* chunk_bucket;  // [n_map]: bucket of each accumulate block, or -1
-};
-
-// Bucket of sample i (-1 past N or for an index outside [0, n_rows)).
+// The bucketing's key: sample i goes to block idx[i] / BR with its row
+// within the block as payload; indices outside [0, n_rows) are dropped.
+// Rows of blocks that several accumulate blocks share start at 0.
 template <typename T>
-__device__ __forceinline__ int bucket_of(const T* __restrict__ idx,
-                                         long long i, long long N,
-                                         long long n_rows, int BR,
-                                         int& row) {
-  row = 0;
-  if (i >= N) return -1;
-  const long long v = (long long)idx[i];
-  if (v < 0 || v >= n_rows) return -1;
-  const long long b = v / BR;
-  row = (int)(v - b * BR);
-  return (int)b;
-}
+struct RowKey {
+  const T* idx;
+  long long n_rows;
+  int BR;
+  float* out;
+  int C;
 
-// Warp-aggregated claim on a global counter: the lanes of one bucket
-// b >= 0 add their number to counter[b] with one atomic; returns this
-// lane's slot (the counter's old value plus its rank among them).  Called
-// by the whole warp.
-__device__ __forceinline__ int claim(int* counter, int b) {
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(kFull, b);
-  const int leader = __ffs(peers) - 1;
-  int base = 0;
-  if (b >= 0 && lane == leader) base = atomicAdd(counter + b, __popc(peers));
-  base = __shfl_sync(kFull, base, leader);
-  return base + __popc(peers & ((1u << lane) - 1u));
-}
+  __device__ __forceinline__ int operator()(long long i, int& row) const {
+    row = 0;
+    const long long v = (long long)idx[i];
+    if (v < 0 || v >= n_rows) return -1;
+    const long long b = v / BR;
+    row = (int)(v - b * BR);
+    return (int)b;
+  }
 
-template <typename T>
-__global__ void __launch_bounds__(kFillThreads)
-tile_bucket_count_kernel(const T* __restrict__ idx, long long N,
-                         long long n_rows, int BR, int n_buckets,
-                         int* __restrict__ counts) {
-  extern __shared__ int count_hist[];  // [n_buckets] when they fit
-  const bool local = n_buckets <= kMaxSmemBins;  // block-uniform
-  if (local) {
-    for (int j = threadIdx.x; j < n_buckets; j += kFillThreads)
-      count_hist[j] = 0;
-    __syncthreads();
-  }
-  const long long tile0 = (long long)blockIdx.x * kFillTile + threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    int row;
-    const int b =
-        bucket_of(idx, tile0 + k * kFillThreads, N, n_rows, BR, row);
-    if (!local)
-      claim(counts, b);
-    else if (b >= 0)
-      atomicAdd(count_hist + b, 1);
-  }
-  if (local) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < n_buckets; j += kFillThreads)
-      if (count_hist[j]) atomicAdd(counts + j, count_hist[j]);
-  }
-}
-
-// Inclusive block scan of two ints over kScanThreads threads.
-__device__ __forceinline__ void block_scan2(int& a, int& b, int* sa,
-                                            int* sb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int ta = __shfl_up_sync(kFull, a, off);
-    const int tb = __shfl_up_sync(kFull, b, off);
-    if (lane >= off) {
-      a += ta;
-      b += tb;
-    }
-  }
-  if (lane == 31) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int xa = sa[lane], xb = sb[lane];  // kScanThreads / 32 == 32 warps
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int ta = __shfl_up_sync(kFull, xa, off);
-      const int tb = __shfl_up_sync(kFull, xb, off);
-      if (lane >= off) {
-        xa += ta;
-        xb += tb;
-      }
-    }
-    sa[lane] = xa - sa[lane];  // exclusive
-    sb[lane] = xb - sb[lane];
-  }
-  __syncthreads();
-  a += sa[warp];
-  b += sb[warp];
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-tile_bucket_scan_kernel(Layout L, int n_buckets, int CH, int n_map) {
-  __shared__ int sa[32], sb[32];
-  __shared__ int carry[2];
-  if (threadIdx.x == 0) carry[0] = carry[1] = 0;
-  __syncthreads();
-  for (int base = 0; base < n_buckets; base += kScanThreads) {
-    const int b = base + threadIdx.x;
-    const int c = b < n_buckets ? L.counts[b] : 0;
-    const int k = b < n_buckets ? (c > CH ? (c + CH - 1) / CH : 1) : 0;
-    int ia = c, ib = k;
-    block_scan2(ia, ib, sa, sb);
-    const int off = carry[0] + ia - c, first = carry[1] + ib - k;
-    if (b < n_buckets) {
-      L.offset[b] = off;
-      L.cursor[b] = off;
-      L.chunk_start[b] = first;
-      for (int j = 0; j < k; ++j) L.chunk_bucket[first + j] = b;
-    }
-    __syncthreads();  // everyone has read carry
-    if (threadIdx.x == kScanThreads - 1) {
-      carry[0] = off + c;
-      carry[1] = first + k;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    L.offset[n_buckets] = carry[0];
-    L.chunk_start[n_buckets] = carry[1];
-  }
-  for (int j = carry[1] + threadIdx.x; j < n_map; j += kScanThreads)
-    L.chunk_bucket[j] = -1;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kFillThreads)
-tile_bucket_fill_kernel(const T* __restrict__ idx, long long N,
-                        long long n_rows, int BR, int n_buckets, int CH,
-                        Layout L, float* __restrict__ out, int C) {
-  extern __shared__ int fill_hist[];  // [n_buckets] when they fit
-  const bool local = n_buckets <= kMaxSmemBins;  // block-uniform
-  if (local) {
-    for (int j = threadIdx.x; j < n_buckets; j += kFillThreads)
-      fill_hist[j] = 0;
-    __syncthreads();
-  }
-  const long long tile0 = (long long)blockIdx.x * kFillTile + threadIdx.x;
-  int b[kItems], slot[kItems], row[kItems];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    b[k] = bucket_of(idx, tile0 + k * kFillThreads, N, n_rows, BR, row[k]);
-    if (!local)
-      slot[k] = claim(L.cursor, b[k]);
-    else
-      slot[k] = b[k] >= 0 ? atomicAdd(fill_hist + b[k], 1) : 0;
-  }
-  if (local) {  // reserve each bucket's range of this block's samples
-    __syncthreads();
-    for (int j = threadIdx.x; j < n_buckets; j += kFillThreads) {
-      const int c = fill_hist[j];
-      if (c) fill_hist[j] = atomicAdd(L.cursor + j, c);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < kItems; ++k)
-    if (b[k] >= 0)
-      L.perm[(local ? fill_hist[b[k]] : 0) + slot[k]] =
-          make_int2((int)(tile0 + k * kFillThreads), row[k]);
-
-  // rows of the buckets that several accumulate blocks share start at 0
-  for (int bb = blockIdx.x; bb < n_buckets; bb += gridDim.x) {
-    if (L.counts[bb] <= CH) continue;  // block-uniform
+  __device__ __forceinline__ void zero(int bb, bool multi_chunk) const {
+    if (!multi_chunk) return;
     const long long r0 = (long long)bb * BR;
     const long long n = (n_rows - r0 < BR ? n_rows - r0 : BR) * C;
     float* dst = out + r0 * C;
-    for (long long e = threadIdx.x; e < n; e += kFillThreads) dst[e] = 0.f;
+    for (long long e = threadIdx.x; e < n; e += bucketing::kFillThreads)
+      dst[e] = 0.f;
   }
-}
+};
 
 // float / float4 helpers for the accumulate kernel
 __device__ __forceinline__ float vzero(float) { return 0.f; }
@@ -419,27 +246,6 @@ scatter_add_rows_tiled_kernel(const float* __restrict__ upd, Layout L,
   }
 }
 
-template <typename T>
-cudaError_t launch_bucket(const T* idx, long long N, long long n_rows,
-                          int BR, int CH, int n_buckets, int n_map,
-                          const Layout& L, float* out, int C,
-                          cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(L.counts, 0, sizeof(int) * n_buckets, s);
-  if (e != cudaSuccess) return e;
-  const unsigned grid = (unsigned)((N + kFillTile - 1) / kFillTile);
-  const size_t hist =
-      n_buckets <= kMaxSmemBins ? sizeof(int) * n_buckets : 0;
-  tile_bucket_count_kernel<T><<<grid, kFillThreads, hist, s>>>(
-      idx, N, n_rows, BR, n_buckets, L.counts);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  tile_bucket_scan_kernel<<<1, kScanThreads, 0, s>>>(L, n_buckets, CH,
-                                                     n_map);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  tile_bucket_fill_kernel<T><<<grid, kFillThreads, hist, s>>>(
-      idx, N, n_rows, BR, n_buckets, CH, L, out, C);
-  return cudaGetLastError();
-}
-
 template <typename V>
 cudaError_t launch_accumulate(const float* upd, const Layout& L, float* out,
                               int C, long long n_rows, int BR, int CH,
@@ -472,11 +278,13 @@ extern "C" int tile_bucket(const void* idx, int idx_bytes, long long N,
                  (int*)chunk_start, (int*)chunk_bucket};
   const cudaStream_t s = (cudaStream_t)stream;
   if (idx_bytes == 8)
-    return (int)launch_bucket((const long long*)idx, N, n_rows, BR, CH,
-                              n_buckets, n_map, L, (float*)out, C, s);
+    return (int)bucketing::bucket(
+        RowKey<long long>{(const long long*)idx, n_rows, BR, (float*)out, C},
+        N, n_buckets, CH, n_map, L, s);
   if (idx_bytes == 4)
-    return (int)launch_bucket((const int*)idx, N, n_rows, BR, CH, n_buckets,
-                              n_map, L, (float*)out, C, s);
+    return (int)bucketing::bucket(
+        RowKey<int>{(const int*)idx, n_rows, BR, (float*)out, C}, N,
+        n_buckets, CH, n_map, L, s);
   return (int)cudaErrorInvalidValue;
 }
 

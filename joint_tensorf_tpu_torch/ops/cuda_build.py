@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``.
-Libraries are built at first use into ``joint_tensorf_tpu_torch/_build/``
-(listed in .gitignore), named by a hash of the source and the flags, so a
-fresh checkout builds them and an edited source is rebuilt.  ``build_all``
+``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``
+(``csrc/*.cuh`` are headers the sources share).  Libraries are built at
+first use into ``joint_tensorf_tpu_torch/_build/`` (listed in .gitignore),
+named by a hash of the source, the headers and the flags, so a fresh
+checkout builds them and an edited source or header is rebuilt.  ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
 Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at the
@@ -28,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the sources csrc/<stem>.cu; one source may hold several C entry points
 SOURCES = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+HEADERS = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
 # the kernels whose launches are counted (K1-K5), by C entry point
 LAUNCHES = {name: 0 for name in (
     "composite_fwd", "composite_bwd", "scatter_add_rows",
@@ -49,8 +51,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> str:
-    with open(os.path.join(CSRC, stem + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers of
+    csrc/ and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [stem + ".cu"] + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 

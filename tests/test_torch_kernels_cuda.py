@@ -14,7 +14,7 @@ by at most thres; the backward takes the forward's weights, so its gate is
 exact); the row scatter K3 at rtol 1e-5 / atol 1e-4, the
 binned plane scatter K4 and the block-local row scatter K5 at 1e-5 of the
 output's largest magnitude (atomics sum in an order that varies from run
-to run).
+to run), and exactly where every partial sum is exact (integer updates).
 """
 import pytest
 import torch
@@ -96,6 +96,39 @@ def test_compositor_bwd_over_ray_lengths(s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 255, 256, 257, 1000, 1025,
+                               4100])
+def test_compositor_fwd_over_ray_lengths(s):
+    """K1 at both thread shapes it picks from S (64 x 4, 64 x 8) and
+    across tiles (S > 256 and S > 768: T carried), with 7 rays so that the
+    last block holds a ray that does not exist; saturated rays and a ray
+    whose T underflows give finite values and zero weights past the
+    saturation; K2 given the new K1's weights still matches its plain
+    version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(100 + s)
+    alpha, rgb, z, cots = _ray_inputs(7, s, gen)
+    alpha[2] = 0.9                        # T underflows after ~40 samples
+    for thres in (float("-inf"), 1e-6):
+        got = C.composite_fwd_cuda(alpha, rgb, z, thres)
+        want = C.composite_fwd_plain(alpha, rgb, z, thres)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        w = got[3]
+        # alpha == 1.0 at sample 0: T = 1e-10, 1e-20, ... then 0
+        assert torch.all(w[0, 1:] <= 1e-10) and torch.all(w[0, 5:] == 0)
+        if s > 60:
+            assert torch.all(w[2, 60:] == 0)
+        args = (alpha, rgb, z, w, thres, *cots[:3], None)
+        for a, b in zip(C.composite_bwd_cuda(*args),
+                        C.composite_bwd_plain(*args)):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_compositor_bwd_gate_is_the_forwards():
     """With weights on the threshold, K2 gates exactly as weights > thres;
     and it reads the gate from the weights it is given."""
@@ -171,6 +204,137 @@ def test_binned_scatter_kernel_matches_plain(h, w, r, n, spread):
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale + 1e-6)
+
+
+def _dirty_cache(n_floats):
+    """Leave NaN in the caching allocator's free blocks, so that an output
+    the kernels fail to write shows up as NaN."""
+    torch.full((n_floats,), float("nan"), device="cuda")
+    torch.cuda.synchronize()
+
+
+def _check_binned(g, x0, y0, fx, fy, h, w, exact=False):
+    from joint_tensorf_tpu_torch.ops import binned_scatter as K
+
+    _dirty_cache(h * w * g.shape[1])
+    got = K.plane_grad_scatter(g, x0, y0, fx, fy, h, w)
+    want = K.plane_grad_scatter_plain(g, x0, y0, fx, fy, h, w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def _march_bins(n_rays, s, h, w, gen):
+    """Cells and fractions of n_rays x s samples in march order: each ray
+    steps across the plane by at most half a cell, and is clamped onto the
+    border once it leaves."""
+    from joint_tensorf_tpu_torch.ops import binned_scatter as K
+
+    start = torch.rand((n_rays, 2), generator=gen, device="cuda") * \
+        torch.tensor([w - 1.0, h - 1.0], device="cuda")
+    step = (torch.rand((n_rays, 2), generator=gen, device="cuda") - 0.5)
+    t = torch.arange(s, device="cuda", dtype=torch.float32)[None, :, None]
+    pos = (start[:, None] + t * step[:, None]).reshape(-1, 2)
+    u = pos[:, 0] * (2.0 / (w - 1)) - 1.0
+    v = pos[:, 1] * (2.0 / (h - 1)) - 1.0
+    return K.pixel_bins(u, v, h, w)
+
+
+@pytest.mark.cuda
+def test_binned_scatter_march_order():
+    """K4 on samples in march order: runs of one cell, tiles crowded at the
+    border, several chunks per tile (the contended case)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bins = _march_bins(300, 500, 120, 90, gen)
+    g = torch.randn((bins[0].shape[0], 64), generator=gen, device="cuda")
+    _check_binned(g, *bins, 120, 90)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3000, 50000])
+def test_binned_scatter_one_cell_is_exact(n):
+    """Every sample in one cell with dyadic fractions and integer g: every
+    partial sum is exact, so the kernel must equal the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    g = torch.randint(-4, 5, (n, 64), generator=gen, device="cuda").float()
+    x0 = torch.full((n,), 15, device="cuda")
+    y0 = torch.full((n,), 9, device="cuda")
+    fx = torch.full((n,), 0.5, device="cuda")
+    fy = torch.full((n,), 0.25, device="cuda")
+    _check_binned(g, x0, y0, fx, fy, 31, 23, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(57, 43), (21, 21), (2, 1), (1, 7)])
+def test_binned_scatter_border_tiles(h, w):
+    """Most samples clamped onto the plane's last row and column (x0 =
+    W-2, y0 = H-2): the border tiles take most of N over many chunks; odd,
+    tiny and one-wide planes."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import binned_scatter as K
+
+    gen = torch.Generator(device="cuda").manual_seed(h * w)
+    n = 30000
+    u = (torch.rand((n,), generator=gen, device="cuda") * 2 - 1) * 3.0
+    v = (torch.rand((n,), generator=gen, device="cuda") * 2 - 1) * 3.0
+    x0, y0, fx, fy = K.pixel_bins(u, v, h, w)
+    g = torch.randn((n, 16), generator=gen, device="cuda")
+    _check_binned(g, x0, y0, fx, fy, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4, 5, 16, 64, 192])
+def test_binned_scatter_channels(r):
+    """R from 4 to 192: one float4 lane a worker up to a whole warp in
+    passes of 32 vectors; R = 5 takes scalar loads."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(r)
+    bins = _march_bins(100, 300, 64, 80, gen)
+    g = torch.randn((bins[0].shape[0], r), generator=gen, device="cuda")
+    _check_binned(g, *bins, 64, 80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "march", "one_cell"])
+def test_binned_bucketing_covers_every_sample_once(case):
+    """bucket_by_tile against the plain bucketing (numpy-checked on the
+    CPU): the same counts, offsets and chunk map, each bucket's range
+    holding exactly its tile's samples, each with its cell's key."""
+    _need_card()
+    import numpy as np
+
+    from joint_tensorf_tpu_torch.ops import binned_scatter as K
+
+    h, w, n = 97, 83, 40000
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    if case == "march":
+        x0, y0, _, _ = _march_bins(80, 500, h, w, gen)
+    elif case == "one_cell":
+        x0 = torch.full((n,), 41, device="cuda")
+        y0 = torch.full((n,), 60, device="cuda")
+    else:
+        x0 = torch.randint(0, w - 1, (n,), generator=gen, device="cuda")
+        y0 = torch.randint(0, h - 1, (n,), generator=gen, device="cuda")
+    bk, _ = K.bucket_by_tile(x0, y0, h, w, 8)
+    want = K.bucket_by_tile_plain(x0.cpu(), y0.cpu(), h, w)
+    got = {k: t.cpu().numpy() for k, t in bk._asdict().items()}
+    want = {k: t.numpy() for k, t in want._asdict().items()}
+    for k in ("counts", "offset", "cursor", "chunk_start", "chunk_bucket"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for b in range(len(want["counts"])):
+        lo, hi = want["offset"][b], want["offset"][b + 1]
+        g_rows = got["perm"][lo:hi]
+        np.testing.assert_array_equal(np.sort(g_rows[:, 0]),
+                                      want["perm"][lo:hi, 0])
+        order = np.argsort(g_rows[:, 0])
+        np.testing.assert_array_equal(g_rows[order, 1],
+                                      want["perm"][lo:hi, 1])
 
 
 @pytest.mark.cuda
