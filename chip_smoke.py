@@ -8,11 +8,12 @@
    source, in parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version at the shapes of
    the training step (compositor K1/K2 with saturated rays included, K2
-   without g_weights as training calls it and with them; the row scatter
-   K3 also at a 160k-row destination), and times the kernel
-   (back to back, and K1/K2's device time from torch.profiler), the plain
-   version and, where one exists, the one PyTorch call that computes the
-   same function (K3: index_add_);
+   without g_weights as the dense appearance path calls it and with them,
+   as the two-stage appearance does; the row scatter K3 also at a
+   160k-row destination), and times the kernel (back to back, and K1/K2's
+   device time from torch.profiler), the plain version and, where one
+   exists, the one PyTorch call that computes the same function (K3:
+   index_add_);
 4. holds K4 (the tile-binned plane-gradient scatter) and K5 (the
    block-local row scatter) against their plain versions at the JAX
    bench scripts' shapes (K4 also at a 400x400 plane with 2.03M samples in
@@ -24,30 +25,45 @@
    shapes; both routes run under torch's sync debug mode "error" (which
    sees the torch calls of their glue, not the ctypes launches);
 5. runs one small train step on the card and on the CPU (plain versions)
-   from the same state and compares loss and gradients;
+   from the same state and compares loss and gradients: on the dense path,
+   with in-bbox compaction, the dense-grid density and app_k below the
+   gated count under the blur, and with an alpha mask, group compaction
+   and app_k;
 6. drives K4 and K5 through their own entry points (sample_plane_binned
    forward + backward, scatter_add_rows_tiled), counters zeroed just
    before and read just after each: each must launch once;
 7. trains BAT's first phase at full width (configs/bat_blender_VM.yaml on
    the procedural scene: 400x400, 12 views, 2028 rays x 221 samples, VM
-   ranks 16/48) for 20 iterations through Trainer.run, with the launch
-   counters zeroed just before and read just after: every kernel of the
-   path must have launched (K1 = 1, K2 = 1, K3 = 3 per step);
+   ranks 16/48) for 20 iterations through Trainer.run on the default
+   tpu: path (the dense-grid density, two-stage appearance, the in-bbox
+   budget), with the launch counters zeroed just before and read just
+   after: every step must launch what its configuration calls for
+   (expected_launches: K1 = 1, K2 = 1, K3 = 4 with the dense grid); then
+   K3 at that path's own shapes (the dense grid's rows, the appearance
+   planes);
 8. trains BAT at full width through every phase, with the schedule cut to
    40 iterations (PHASES_ARGS: upsamples after iterations 2, 4, 6, 8,
    mask updates after 7 and 14): 64^3 -> 101^3 -> 160^3 -> 252^3, the
    uncapped mask and bbox shrink, the 64M-voxel grid in the shrunk box,
-   the capped mask, S up to 1000.  A fresh field's density stays below
-   the alpha threshold for far longer than such a schedule runs (its mask
+   the capped mask, S up to 1000; twice: on the default tpu: path, and
+   with the alternatives off (ALTERNATIVES_OFF: the slices before this
+   one's path, except that the alpha mask's own budget compacts, as it
+   does in the JAX trainer).  A fresh field's density stays below the
+   alpha threshold for far longer than such a schedule runs (its mask
    keeps nothing after 7 iterations and spans the whole box after 40), so
-   the density factors start raised over the scene's support, as a
-   trained field's are (warm_start_density).  Checks every transition,
-   K1/K2/K3 at 1/1/3 per step in every phase, finite losses and that the
-   mask culls samples once the blur is off, and prints each transition,
-   the median step per phase and the peak memory;
-9. holds K1/K2/K3 against their plain versions again at the shapes of the
-   last phase (S = 1000 samples per ray; K3's 2.03M x 256 rows into the
-   largest plane) and times them there;
+   the density factors start raised over the cores of the scene's blobs
+   (warm_start_density; sparser than a trained field, so the gaps between
+   the paths hold for this field only).  Checks every transition, every
+   step's launches against its configuration, finite losses, that the
+   mask culls samples once the blur is off, and on the default path that
+   the masked last phase compacts (compact_k < S) and the blurred phases
+   use the dense grid; prints each transition and one line per phase
+   (budgets, the step's choices, kept and live fractions, launches,
+   median step) and the peak memory;
+9. holds K1/K2/K3 against their plain versions again at the shapes of
+   each path's last phase (the compacted samples, the density and
+   appearance planes' scatters; S = 1000 and the fused planes with the
+   alternatives off) and times them there;
 10. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
@@ -74,7 +90,16 @@ N_STEPS = 20                    # full-width training steps on the main path
 PHASES_ARGS = ["--data.dataset=synthetic", "--max_iter=40",
                "--train_schedule.upsample_iters=[2,4,6,8]",
                "--train_schedule.update_alphamask_iters=[7,14]"]
-WARM_DENSITY = 0.5   # added to the density factors over the scene's support
+# the JAX trainer's tpu: alternatives off: no in-bbox or blur-mask budget,
+# the factored density, dense appearance; the alpha mask's budget stays
+# (the JAX trainer probes it at every mask update, with no switch)
+ALTERNATIVES_OFF = ["--tpu.bbox_compact=false", "--tpu.blur_mask_compact=false",
+                    "--tpu.densify_density=false", "--tpu.app_k=null"]
+# added to one density component per blob over +-WARM_RADII blob radii:
+# the masked phases' budgets come out of the order the JAX trainer records
+# for Blender (K 256-640 of S = 1000), with far fewer live samples a ray
+WARM_DENSITY = 2.0
+WARM_RADII = 0.5
 
 
 def emit(obj):
@@ -168,7 +193,8 @@ def composite_inputs(N, S, gen):
 
 def check_composite(N, S, thres, gen, tol):
     """K1 and K2 against their plain versions (K2 given K1's weights, once
-    with g_weights None, the training step's case, and once with them);
+    with g_weights None, as the dense appearance calls it, and once with
+    them, as the two-stage appearance of the default tpu: path does);
     times each back to back and, from torch.profiler, on the device.
     Returns the rows [K1, K2 without g_weights, K2 with them]."""
     import torch
@@ -213,7 +239,8 @@ def check_composite(N, S, thres, gen, tol):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": {"N": N, "S": S, "thres": thres}}
         if g_weights is not None:
-            row["g_weights"] = "given" if g_weights else "none (training)"
+            row["g_weights"] = ("given (two-stage app_k)" if g_weights
+                                else "none (dense appearance)")
         rows.append(row)
     return rows
 
@@ -242,12 +269,48 @@ def march_indices(n_rays, S, H, W, gen):
     return (y.floor().long() * W + x.floor().long()).contiguous()
 
 
-def check_scatter(n_rays, S, H, W, C, gen, tol):
+def march_indices_3d(n_rays, S, X, Y, Z, gen):
+    """Row indices (x * Y + y) * Z + z of a dense [X, Y, Z] grid along
+    rays in march order, each step at most half a cell per axis (the dense
+    grid's row gather)."""
+    import torch
+
+    dev = "cuda"
+    size = torch.tensor([X - 1.0, Y - 1.0, Z - 1.0], device=dev)
+    start = torch.rand((n_rays, 3), generator=gen, device=dev) * size
+    step = (torch.rand((n_rays, 3), generator=gen, device=dev) - 0.5)
+    t = torch.arange(S, device=dev, dtype=torch.float32)[None, :, None]
+    pos = torch.minimum((start[:, None] + t * step[:, None]).clamp(min=0),
+                        size - 0.001).floor().long()
+    return ((pos[..., 0] * Y + pos[..., 1]) * Z + pos[..., 2]).reshape(-1)
+
+
+def expected_launches(cfg) -> dict:
+    """Launches of one training step with StepConfig ``cfg``: K1 and K2
+    once; K3 once per factor sample's backward (three fused planes, or
+    three density and three appearance planes with the two-stage
+    appearance) and once for the dense grid's row gather (then only the
+    three appearance planes are factor samples)."""
+    if cfg.densify_density:
+        k3 = 1 + 3
+    else:
+        k3 = 6 if cfg.app_k is not None else 3
+    return {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": k3,
+            "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
+
+
+def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None):
+    """K3 on n_rays x S rows of C channels into an H x W plane in march
+    order, or, with grid3d = (X, Y, Z), into the dense grid's X*Y*Z rows."""
     import torch
 
     from joint_tensorf_tpu_torch.ops import segment_scatter as K
 
-    idx = march_indices(n_rays, S, H, W, gen)
+    if grid3d is None:
+        idx = march_indices(n_rays, S, H, W, gen)
+    else:
+        idx = march_indices_3d(n_rays, S, *grid3d, gen)
+        H, W = grid3d[0] * grid3d[1], grid3d[2]
     upd = torch.randn((idx.shape[0], C), generator=gen, device="cuda")
     n_rows = H * W
     got = K.scatter_add_rows_cuda(idx, upd, n_rows)
@@ -274,7 +337,8 @@ def check_scatter(n_rays, S, H, W, C, gen, tol):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: torch.zeros(
                 (n_rows, C), device="cuda").index_add_(0, idx, upd)),
-            "shape": {"N": N, "C": C, "n_rows": n_rows}}
+            "shape": {"N": N, "C": C, "n_rows": n_rows,
+                      "rows": "dense grid" if grid3d else "plane"}}
 
 
 def check_binned(H, W, R, N, gen, tol, samples="uniform"):
@@ -489,13 +553,19 @@ def run_entry_points(gen):
 # ------------------------------------------- small step: card vs the CPU
 def check_small_step():
     """One train step of a tiny field on the card (kernels) and on the CPU
-    (plain versions) from the same state and rays."""
+    (plain versions) from the same state and rays, in three
+    configurations: the dense path under the blur; the blur with in-bbox
+    compaction, the dense-grid density and app_k below the gated count;
+    and an alpha mask with group compaction and app_k."""
     import copy
+    import dataclasses
 
     import torch
 
     from joint_tensorf_tpu_torch.data.synthetic import make_scene
+    from joint_tensorf_tpu_torch.geometry import lie, poses
     from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.models.alpha_mask import AlphaMask
     from joint_tensorf_tpu_torch.render.renderer import BlurSpec
     from joint_tensorf_tpu_torch.train.step import (StepConfig, StepScalars,
                                                     init_train_state,
@@ -511,43 +581,63 @@ def check_small_step():
         for p in list(field.density_planes) + list(field.density_lines):
             p.mul_(8.0)
     noise = torch.randn((V, 6), generator=gen) * 0.05
-    from joint_tensorf_tpu_torch.geometry import lie, poses
     pose_base = poses.compose([lie.se3_to_SE3(noise),
                                torch.as_tensor(scene.poses)])
     images = torch.as_tensor(scene.images).reshape(V, 3, -1).transpose(1, 2)
     edges = (torch.rand((V, H * W), generator=gen) > 0.7).float()
     ray_idx = torch.randperm(H * W, generator=gen)[:R]
     view_sel = torch.arange(V)
-    scfg = StepConfig(H=H, W=W, n_views=V, rays_per_view=R, n_samples=41,
-                      blur=BlurSpec("uniform-gaussian", 8))
+    mask = AlphaMask(grid=(torch.rand(res, generator=gen) > 0.4).float(),
+                     aabb=field.aabb.clone())
+    blur = BlurSpec("uniform-gaussian", 8)
+    base = StepConfig(H=H, W=W, n_views=V, rays_per_view=R, n_samples=41,
+                      blur=blur)
+    variants = {
+        "dense": (base, None),
+        "bbox_compaction_densify_app_k": (dataclasses.replace(
+            base, n_samples=64, compact_k=48, densify_density=True,
+            app_k=4), None),
+        "mask_compaction_app_k": (dataclasses.replace(
+            base, n_samples=64, blur=None, mask_stride=2, compact_k=32,
+            app_k=4), mask)}
     s = StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3,
                     c2f_density=0.1, c2f_color=0.2, l1_weight=8e-5,
                     use_edge=1.0, edge_factor=1.5, non_edge_factor=0.5)
     jitter = torch.rand((V * R, 1), generator=gen)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        f = copy.deepcopy(field).to(dev)
-        st = init_train_state(f, V)
-        mv = lambda t: t.to(dev)  # noqa: E731
-        metrics, grads = train_step(
-            st, scfg, cfg, mv(pose_base), mv(torch.as_tensor(scene.intr_inv)),
-            mv(images.contiguous()), mv(edges), mv(view_sel), mv(ray_idx), s,
-            jitter=mv(jitter))
-        out[dev] = (float(metrics["loss"]),
-                    {k: g.detach().cpu() for k, g in grads.items()})
-    loss_c, g_c = out["cpu"]
-    loss_g, g_g = out["cuda"]
-    if not math.isfinite(loss_g) or abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
-        fail(f"small step: card loss {loss_g} vs CPU {loss_c}")
-    worst = 0.0
-    for k in g_c:
-        scale = float(g_c[k].abs().max()) + 1e-12
-        worst = max(worst, float((g_g[k] - g_c[k]).abs().max()) / scale)
-    if worst > 1e-3:
-        fail(f"small step: card gradients differ from the CPU's by "
-             f"{worst:.3g} of their max")
-    return {"small_step": {"loss_cuda": loss_g, "loss_cpu": loss_c,
-                           "max_grad_err_rel": worst}}
+    result = {}
+    for name, (scfg, am) in variants.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            f = copy.deepcopy(field).to(dev)
+            st = init_train_state(f, V)
+            mv = lambda t: t.to(dev)  # noqa: E731
+            metrics, grads = train_step(
+                st, scfg, cfg, mv(pose_base),
+                mv(torch.as_tensor(scene.intr_inv)), mv(images.contiguous()),
+                mv(edges), mv(view_sel), mv(ray_idx), s, jitter=mv(jitter),
+                alpha_mask=None if am is None else AlphaMask(
+                    grid=mv(am.grid), aabb=mv(am.aabb)), stats=True)
+            out[dev] = (float(metrics["loss"]),
+                        {k: g.detach().cpu() for k, g in grads.items()},
+                        float(metrics["kept_frac"]))
+        loss_c, g_c, kept = out["cpu"]
+        loss_g, g_g, _ = out["cuda"]
+        if not math.isfinite(loss_g) or \
+                abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+            fail(f"small step ({name}): card loss {loss_g} vs CPU {loss_c}")
+        worst = 0.0
+        for k in g_c:
+            scale = float(g_c[k].abs().max()) + 1e-12
+            worst = max(worst, float((g_g[k] - g_c[k]).abs().max()) / scale)
+        if worst > 1e-3:
+            fail(f"small step ({name}): card gradients differ from the "
+                 f"CPU's by {worst:.3g} of their max")
+        result[name] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
+                        "max_grad_err_rel": worst, "kept_frac": kept,
+                        "step_config": {k: getattr(scfg, k) for k in (
+                            "n_samples", "compact_k", "densify_density",
+                            "app_k")}}
+    return {"small_step": result}
 
 
 # --------------------------------------------------------------- main path
@@ -570,6 +660,15 @@ def run_main_path(n_steps: int, profile_dir=None):
     torch.cuda.synchronize()
 
     stamps, losses = [], []
+    expected = {name: 0 for name in cuda_build.LAUNCHES}
+    configs = set()
+
+    def on_step(tr, m):
+        if m is None:
+            return
+        configs.add(step_config_summary(tr.last_step_config))
+        for name, n in expected_launches(tr.last_step_config).items():
+            expected[name] += n
 
     def on_log(tr, m):
         torch.cuda.synchronize()
@@ -578,24 +677,27 @@ def run_main_path(n_steps: int, profile_dir=None):
 
     cuda_build.reset_launches()
     stamps.append(time.perf_counter())
-    trainer.run(max_iter=n_steps, log_every=1, callback=on_log)
+    trainer.run(max_iter=n_steps, log_every=1, callback=on_log,
+                on_step=on_step)
     launches = dict(cuda_build.LAUNCHES)
     steps = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
     if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
         fail(f"main path: losses {losses}")
     # K4 and K5 lie on no trainer path: 0 launches
-    expected = {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": 3,
-                "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
-    for name, per_step in expected.items():
-        if launches[name] != per_step * n_steps:
-            fail(f"main path: {name} launched {launches[name]} times in "
-                 f"{n_steps} steps, expected {per_step} per step")
+    if launches != expected:
+        fail(f"main path: launched {launches} in {n_steps} steps, expected "
+             f"{expected}")
+    if not all(c["densify_density"] for c in map(dict, configs)):
+        fail(f"main path: the first phase did not use the dense grid: "
+             f"{configs}")
     result = {
         "main_path": {
             "config": "configs/bat_blender_VM.yaml --data.dataset=synthetic",
             "image_hw": [trainer.H, trainer.W], "views": trainer.n_views,
             "resolution": trainer.resolution, "n_samples": trainer.n_samples,
             "rays_per_step": trainer.rays_per_step,
+            "step_configs": [dict(c) for c in configs],
+            "budgets": budgets(trainer),
             "steps": n_steps, "loss": losses,
             "step_ms_first": steps[0] * 1e3,
             "step_ms_median": statistics.median(steps[1:]) * 1e3,
@@ -608,14 +710,30 @@ def run_main_path(n_steps: int, profile_dir=None):
         result["profile"] = profile_steps(
             trainer, n_steps + 3,
             os.path.join(profile_dir, "step_profile.txt"))
-    return result, launches
+    return result, launches, (trainer.rays_per_step, trainer.last_step_config,
+                              list(trainer.resolution))
+
+
+def step_config_summary(cfg):
+    """The step's tpu: choices, hashable."""
+    return tuple((k, getattr(cfg, k)) for k in (
+        "n_samples", "compact_k", "densify_density", "app_k"))
+
+
+def budgets(trainer) -> dict:
+    return {k: getattr(trainer, k) for k in (
+        "compact_k_bbox", "compact_k_blur", "compact_k", "app_k_dyn")}
 
 
 def warm_start_density(trainer, seed: int):
-    """Raise the density factors by WARM_DENSITY over the box that holds
-    the synthetic scene's blobs (centres +- 2.5 radii): the density feature
-    there clears the alpha threshold, elsewhere it stays at its fresh
-    value, so the first mask update has an object to keep."""
+    """Raise one density component per blob of the synthetic scene by
+    WARM_DENSITY over a box of +-WARM_RADII radii around the blob's centre
+    (component k of every plane over the box's two axes, of every line over
+    its third): the density feature there clears the alpha threshold,
+    elsewhere it stays at its fresh value, so the first mask update has
+    objects to keep, and rays cross empty space between them.  Its masked
+    phases are sparser than a trained Blender field's, so the gaps between
+    the paths hold for this field only.  Returns the boxes."""
     import numpy as np
     import torch
 
@@ -623,38 +741,39 @@ def warm_start_density(trainer, seed: int):
     from joint_tensorf_tpu_torch.models.vm import MAT_MODE, VEC_MODE
 
     blobs = BlobField(seed=seed)
-    lo = np.clip((blobs.centers - 2.5 * blobs.radii[:, None]).min(0), -1.5,
-                 1.5)
-    hi = np.clip((blobs.centers + 2.5 * blobs.radii[:, None]).max(0), -1.5,
-                 1.5)
     field = trainer.state.field
     aabb = field.aabb.cpu().numpy()
     res = field.resolution()
-    inside = []
-    for a in range(3):
-        x = np.linspace(aabb[0, a], aabb[1, a], res[a])
-        inside.append(torch.as_tensor((x >= lo[a]) & (x <= hi[a]),
-                                      dtype=torch.float32,
-                                      device=field.aabb.device))
+    axes = [np.linspace(aabb[0, a], aabb[1, a], res[a]) for a in range(3)]
+    boxes = []
     with torch.no_grad():
-        for i in range(3):
-            m0, m1 = MAT_MODE[i]
-            field.density_planes[i].add_(
-                WARM_DENSITY * (inside[m1][:, None] * inside[m0][None, :])
-                [..., None])
-            field.density_lines[i].add_(
-                WARM_DENSITY * inside[VEC_MODE[i]][:, None])
-    return lo.tolist(), hi.tolist()
+        for k, (c, r) in enumerate(zip(blobs.centers, blobs.radii)):
+            lo, hi = c - WARM_RADII * r, c + WARM_RADII * r
+            inside = [torch.as_tensor((x >= lo[a]) & (x <= hi[a]),
+                                      dtype=torch.float32,
+                                      device=field.aabb.device)
+                      for a, x in enumerate(axes)]
+            for i in range(3):
+                m0, m1 = MAT_MODE[i]
+                field.density_planes[i][..., k].add_(
+                    WARM_DENSITY * inside[m1][:, None] * inside[m0][None, :])
+                field.density_lines[i][:, k].add_(
+                    WARM_DENSITY * inside[VEC_MODE[i]])
+            boxes.append([lo.tolist(), hi.tolist()])
+    return boxes
 
 
-def run_all_phases(profile_dir=None):
+def run_all_phases(label: str, extra_args=(), profile_dir=None):
     """BAT at full width through every phase of a schedule cut to 40
-    iterations (PHASES_ARGS).  Trainer.run's on_step hook reads the host
-    clock between synchronised points after each step and after each
-    schedule update, so each step and each transition is timed on its own,
-    and the launch counters are read after every step.  With profile_dir,
-    the last 3 steps run under torch.profiler and are left out of the step
-    times.  Returns the last step's shape: (rays, n_samples, resolution)."""
+    iterations (PHASES_ARGS + extra_args).  Trainer.run's on_step hook
+    reads the host clock between synchronised points after each step and
+    after each schedule update, so each step and each transition is timed
+    on its own, and the launch counters are read after every step and held
+    against expected_launches of the step's configuration.  With
+    profile_dir, the last 3 steps run under torch.profiler and are left
+    out of the step times.  Prints one line per phase; returns the last
+    step's shape: (rays, samples per ray as composited, resolution,
+    the step's configuration)."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -663,7 +782,8 @@ def run_all_phases(profile_dir=None):
     from joint_tensorf_tpu_torch.train.trainer import Trainer
 
     opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
-                      PHASES_ARGS)
+                      PHASES_ARGS + list(extra_args))
+    default_path = not extra_args
     data = load_dataset(opt, "train", device="cuda")
     trainer = Trainer(opt, data, device="cuda")
     support = warm_start_density(trainer, int(opt.data.get("seed", 0)))
@@ -681,7 +801,8 @@ def run_all_phases(profile_dir=None):
                 "mask_res": (list(trainer.alphamask_resolution)
                              if mask is not None else None),
                 "mask_kept": (float(mask.grid.mean())
-                              if mask is not None else None)}
+                              if mask is not None else None),
+                **budgets(trainer)}
 
     steps, transitions = [], []
     clock = {"t": time.perf_counter(), "launches": dict(cuda_build.LAUNCHES)}
@@ -695,20 +816,24 @@ def run_all_phases(profile_dir=None):
         ms = (now - clock["t"]) * 1e3
         if m is not None:
             before = state()
+            cfg = tr.last_step_config
             steps.append({
                 "it": tr.it, "step_ms": ms, "blur": bool(m["blur"]),
                 **{k: before[k] for k in ("resolution", "n_samples",
                                           "mask_res")},
                 **{k: float(m[k]) for k in ("loss", "valid_frac",
-                                            "inbbox_frac")},
+                                            "inbbox_frac", "kept_frac")},
+                "config": dict(step_config_summary(cfg)),
+                "budgets": budgets(tr),
                 "launches": {k: launches[k] - clock["launches"][k]
-                             for k in launches}})
+                             for k in launches},
+                "expected": expected_launches(cfg)})
         elif tr.it in ups or tr.it in masks:
             after = state()
             transitions.append({
                 "after_it": tr.it, "ms": ms, **after,
                 "peak_mem_gb_before": torch.cuda.max_memory_allocated() / 1e9})
-            print(f"[phase] after it {tr.it}: {json.dumps(after)} "
+            print(f"[phase {label}] after it {tr.it}: {json.dumps(after)} "
                   f"({ms:.1f} ms)", flush=True)
             torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -722,7 +847,8 @@ def run_all_phases(profile_dir=None):
     prof = None
     if profile_dir:
         prof = profile_steps(trainer, n_iter, os.path.join(
-            profile_dir, "all_phases_last_steps_profile.txt"), on_step)
+            profile_dir, f"all_phases_{label}_last_steps_profile.txt"),
+            on_step)
     peak_last = torch.cuda.max_memory_allocated() / 1e9
 
     # ---------------- checks (collected; raised after the result is out)
@@ -730,10 +856,9 @@ def run_all_phases(profile_dir=None):
     if len(steps) != n_iter or not all(math.isfinite(r["loss"])
                                        for r in steps):
         faults.append(f"losses {[r.get('loss') for r in steps]}")
-    per_step = {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": 3,
-                "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
     faults += [f"step {r['it']} launched {r['launches']}, expected "
-               f"{per_step}" for r in steps if r["launches"] != per_step]
+               f"{r['expected']}" for r in steps
+               if r["launches"] != r["expected"]]
     by_it = {t["after_it"]: t for t in transitions}
     res_prev = steps[0]["resolution"]
     for it in sorted(by_it):
@@ -756,25 +881,66 @@ def run_all_phases(profile_dir=None):
                             for r in gated):
         faults.append("the mask culled no sample (or every sample) once "
                       "the blur was off")
+    last = [r for r in gated if r["resolution"] == steps[-1]["resolution"]]
+    if default_path:
+        if not any((r["config"]["compact_k"] or r["n_samples"])
+                   < r["n_samples"] for r in last):
+            faults.append("no step of the masked last phase compacted "
+                          "(compact_k < S)")
+        if not any(r["config"]["densify_density"] for r in steps
+                   if r["blur"]):
+            faults.append("no step under the blur used the dense grid")
+    elif any(r["config"]["densify_density"] or r["config"]["app_k"]
+             or r["budgets"]["compact_k_blur"] is not None
+             or (r["config"]["compact_k"] and (r["blur"] or not r["mask_res"]))
+             for r in steps):
+        # the alpha mask's own budget stays: the JAX trainer has no switch
+        # for it (joint_tensorf_tpu/train/trainer.py:874)
+        faults.append("a tpu: alternative ran with the alternatives off")
 
     # ---------------- per-phase step times
     phases = []
     for r in steps[:n_timed]:
-        key = (r["resolution"], r["n_samples"], r["mask_res"], r["blur"])
+        key = (r["resolution"], r["n_samples"], r["mask_res"], r["blur"],
+               r["config"]["compact_k"], r["config"]["densify_density"],
+               r["config"]["app_k"])
         if not phases or phases[-1]["key"] != key:
-            phases.append({"key": key, "its": [], "ms": []})
+            phases.append({"key": key, "its": [], "ms": [], "kept": [],
+                           "valid": [], "launches": r["launches"],
+                           "budgets": r["budgets"]})
         phases[-1]["its"].append(r["it"])
         phases[-1]["ms"].append(r["step_ms"])
-    result = {"all_phases": {
-        "config": "configs/bat_blender_VM.yaml " + " ".join(PHASES_ARGS),
+        phases[-1]["kept"].append(r["kept_frac"])
+        phases[-1]["valid"].append(r["valid_frac"])
+    rows = []
+    for p in phases:
+        k = p["key"]
+        row = {"resolution": k[0], "n_samples": k[1], "mask_res": k[2],
+               "blur": k[3], "compact_k": k[4], "densified": k[5],
+               "app_k": k[6], "budgets": p["budgets"],
+               "iterations": [p["its"][0], p["its"][-1]],
+               "kept_frac": statistics.mean(p["kept"]),
+               "valid_frac": statistics.mean(p["valid"]),
+               "launches_per_step": {n: c for n, c in p["launches"].items()
+                                     if n in ("composite_fwd",
+                                              "composite_bwd",
+                                              "scatter_add_rows")},
+               "step_ms_median": statistics.median(p["ms"]),
+               "step_ms": p["ms"]}
+        rows.append(row)
+        print(f"[phase-steps {label}] its {row['iterations']} res {k[0]} "
+              f"S {k[1]} blur {k[3]} mask {k[2]} budgets {p['budgets']} "
+              f"step: compact_k {k[4]} densified {k[5]} app_k {k[6]} "
+              f"kept {row['kept_frac']:.3f} live {row['valid_frac']:.3f} "
+              f"launches {row['launches_per_step']} median "
+              f"{row['step_ms_median']:.1f} ms", flush=True)
+    result = {f"all_phases_{label}": {
+        "config": "configs/bat_blender_VM.yaml " + " ".join(
+            PHASES_ARGS + list(extra_args)),
         "rays_per_step": trainer.rays_per_step, "run_s": t_run,
-        "warm_density": {"add": WARM_DENSITY, "box": support},
-        "transitions": transitions,
-        "phases": [{"resolution": p["key"][0], "n_samples": p["key"][1],
-                    "mask_res": p["key"][2], "blur": p["key"][3],
-                    "iterations": [p["its"][0], p["its"][-1]],
-                    "step_ms_median": statistics.median(p["ms"]),
-                    "step_ms": p["ms"]} for p in phases],
+        "warm_density": {"add": WARM_DENSITY, "radii": WARM_RADII,
+                         "boxes": support},
+        "transitions": transitions, "phases": rows,
         "valid_frac_mean_gated": statistics.mean(
             r["valid_frac"] for r in gated) if gated else None,
         "inbbox_frac_mean_gated": statistics.mean(
@@ -786,8 +952,11 @@ def run_all_phases(profile_dir=None):
         "profile_last_steps": prof}}
     emit(result)
     if faults:
-        fail("all phases: " + "; ".join(faults))
-    return trainer.rays_per_step, trainer.n_samples, list(trainer.resolution)
+        fail(f"all phases ({label}): " + "; ".join(faults))
+    cfg = trainer.last_step_config
+    return (trainer.rays_per_step,
+            min(cfg.compact_k or cfg.n_samples, cfg.n_samples),
+            list(trainer.resolution), cfg)
 
 
 def profile_steps(trainer, end, table_path, on_step=None):
@@ -866,11 +1035,10 @@ def main(argv):
     emit({"build": took, "seconds": time.perf_counter() - t0})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_composite(2028, 221, 1e-6, gen, tol=1e-4)
-    for r in rows:
+    for r in check_composite(2028, 221, 1e-6, gen, tol=1e-4):
         emit({"kernel_check": r})
-    scatter = check_scatter(2028, 221, 64, 64, 256, gen, tol=1e-5)
-    emit({"kernel_check": scatter})
+    emit({"kernel_check": check_scatter(2028, 221, 64, 64, 256, gen,
+                                        tol=1e-5)})
     emit({"kernel_check": check_scatter(2028, 221, 400, 400, 256, gen,
                                         tol=1e-5)})
     binned = [check_binned(400, 400, 64, 2028 * 1000, gen, 1e-5, "march")]
@@ -889,25 +1057,55 @@ def main(argv):
     entry, entry_launches = run_entry_points(gen)
     emit(entry)
 
-    result, launches = run_main_path(N_STEPS, profile_dir)
+    result, launches, (n_rays, cfg, res) = run_main_path(N_STEPS,
+                                                         profile_dir)
     emit(result)
+    main_cfg = cfg
+    # K1/K2 and K3 at the main path's own shapes: the samples each ray
+    # composites; the dense grid's row gather and the appearance planes'
+    # gradient (4 x 48 packed channels) on the app_k samples of each ray
+    S = min(cfg.compact_k or cfg.n_samples, cfg.n_samples)
+    rows = check_composite(n_rays, S, 1e-6, gen, tol=1e-4)
+    for r in rows:
+        emit({"kernel_check": r})
+    dense_rows = check_scatter(n_rays, S, 0, 0, 8, gen, tol=1e-5,
+                               grid3d=tuple(res))
+    emit({"kernel_check": dense_rows})
+    scatter = check_scatter(n_rays, min(cfg.app_k, S), res[1], res[0], 192,
+                            gen, tol=1e-5)
+    emit({"kernel_check": scatter})
     torch.cuda.empty_cache()
-    n_rays, S, res = run_all_phases(profile_dir)
+    n_rays, S, res, cfg = run_all_phases("tpu_default", (), profile_dir)
     torch.cuda.empty_cache()
-    # K1-K3 again at the shapes the last phase gave them: every ray's S
-    # samples, and K3 into the largest of the three planes
+    # K1-K3 again at the shapes the default path's last phase gave them: the
+    # compacted samples of each ray, and K3 into the largest of the three
+    # planes (density planes: 4 x 16 packed channels on every kept sample;
+    # appearance: 4 x 48 on app_k of them)
     from joint_tensorf_tpu_torch.models.vm import MAT_MODE
 
     Hp, Wp = max(((res[m1], res[m0]) for m0, m1 in MAT_MODE),
                  key=lambda hw: hw[0] * hw[1])
     for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
         emit({"kernel_check": r})
+    emit({"kernel_check": check_scatter(n_rays, S, Hp, Wp, 64, gen,
+                                        tol=1e-5)})
+    emit({"kernel_check": check_scatter(n_rays, min(cfg.app_k or S, S), Hp,
+                                        Wp, 192, gen, tol=1e-5)})
+    torch.cuda.empty_cache()
+    # the alternatives off, at the same cut schedule: every slot of S =
+    # 1000 composited, K3 on the fused planes' 4 x 64 channels
+    n_rays, S, res, _ = run_all_phases("alternatives_off", ALTERNATIVES_OFF)
+    torch.cuda.empty_cache()
+    for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
+        emit({"kernel_check": r})
     emit({"kernel_check": check_scatter(n_rays, S, Hp, Wp, 256, gen,
                                         tol=1e-5)})
     launches.update(entry_launches)
     kernels = []
-    # K1 and K2 as the training step calls them (no g_weights)
-    for r in rows[:2] + [scatter, binned[0], tiled[0]]:
+    # K1 and K2 as the main path's step calls them: K2 with g_weights when
+    # the two-stage appearance gathers the selected weights
+    main_k2 = rows[2] if main_cfg.app_k is not None else rows[1]
+    for r in [rows[0], main_k2, scatter, binned[0], tiled[0]]:
         k = {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -72,6 +72,25 @@ def maxpool3d_same(x, k: int = 5):
     return F.max_pool3d(x[None, None], k, stride=1, padding=k // 2)[0, 0]
 
 
+def dilate_mask(mask: AlphaMask, radius) -> AlphaMask:
+    """Max-pool-dilate a mask by ``radius`` cells per axis (an int or a
+    3-tuple), as three separable 1-D max pools (the JAX package's
+    models/alpha_mask.py:135-168).  The factor blur is a 3D convolution of
+    the density field with a normalised positive kernel, so the sharp mask
+    dilated by the kernel's support is a conservative gate for the blurred
+    field (train/trainer.py _refresh_blur_mask)."""
+    if isinstance(radius, int):
+        radius = (radius, radius, radius)
+    g = mask.grid[None, None]
+    for axis, r in enumerate(int(r) for r in radius):
+        if r == 0:
+            continue
+        window, pad = [1, 1, 1], [0, 0, 0]
+        window[axis], pad[axis] = 2 * r + 1, r
+        g = F.max_pool3d(g, window, stride=1, padding=pad)
+    return AlphaMask(grid=g[0, 0], aabb=mask.aabb)
+
+
 def capped_mask_res(res, cap_voxels: int = 256 ** 3):
     """Mask-build resolution: ``res`` scaled down isotropically so the
     voxel count stays under ``cap_voxels`` (the JAX package builds a capped

@@ -149,16 +149,10 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
     app_parts = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
-        den_p, app_p = field.density_planes[i], field.app_planes[i]
-        den_l, app_l = field.density_lines[i], field.app_lines[i]
-        if d_mats is not None:
-            den_p = blur_ops.blur_plane(den_p, d_mats[den_p.shape[0]],
-                                        d_mats[den_p.shape[1]])
-            den_l = blur_ops.blur_line(den_l, d_mats[den_l.shape[0]])
-        if c_mats is not None:
-            app_p = blur_ops.blur_plane(app_p, c_mats[app_p.shape[0]],
-                                        c_mats[app_p.shape[1]])
-            app_l = blur_ops.blur_line(app_l, c_mats[app_l.shape[0]])
+        den_p, den_l = _blurred(field.density_planes[i],
+                                field.density_lines[i], d_mats)
+        app_p, app_l = _blurred(field.app_planes[i], field.app_lines[i],
+                                c_mats)
         plane = torch.cat([den_p, app_p], dim=-1)
         line = torch.cat([den_l, app_l], dim=-1)
         prod = sample_planeline_prod(plane, line, coords[m0], coords[m1],
@@ -168,17 +162,58 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
     return sigma, torch.cat(app_parts, dim=-1) @ field.basis
 
 
-def compute_density_feature(field: VMField, coords):
+def _blurred(plane, line, mats):
+    if mats is None:
+        return plane, line
+    return (blur_ops.blur_plane(plane, mats[plane.shape[0]],
+                                mats[plane.shape[1]]),
+            blur_ops.blur_line(line, mats[line.shape[0]]))
+
+
+def compute_density_feature(field: VMField, coords, blur_mats=None):
     """Density feature [N] at normalized coords (cx, cy, cz) from the
-    density factors alone, unblurred (the alpha-mask build)."""
+    density factors alone, blurred by ``blur_mats`` when given (the
+    alpha-mask build and the probes unblurred; the two-stage appearance
+    path's density)."""
     sigma = torch.zeros_like(coords[0])
     for i in range(3):
         m0, m1 = MAT_MODE[i]
-        prod = sample_planeline_prod(field.density_planes[i],
-                                     field.density_lines[i], coords[m0],
-                                     coords[m1], coords[VEC_MODE[i]])
+        plane, line = _blurred(field.density_planes[i],
+                               field.density_lines[i], blur_mats)
+        prod = sample_planeline_prod(plane, line, coords[m0], coords[m1],
+                                     coords[VEC_MODE[i]])
         sigma = sigma + torch.sum(prod, dim=-1)
     return sigma
+
+
+def compute_app_feature(field: VMField, coords, blur_mats=None):
+    """Appearance features [N, app_dim] at normalized coords (cx, cy, cz)
+    from the appearance factors alone (blurred by ``blur_mats`` when given),
+    through one sample_planeline_prod (K3 in its backward) per axis."""
+    feats = []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        plane, line = _blurred(field.app_planes[i], field.app_lines[i],
+                               blur_mats)
+        feats.append(sample_planeline_prod(plane, line, coords[m0],
+                                           coords[m1], coords[VEC_MODE[i]]))
+    return torch.cat(feats, dim=-1) @ field.basis
+
+
+def compute_density_grid(field: VMField, blur_mats=None):
+    """Dense density-feature grid G [X, Y, Z]: the full rank expansion of
+    the (blurred) density factors, sampled by ops/densify.py.  Every
+    factor transform happens before interpolation, so G commutes with the
+    factored sample; the port's configs hold none of the per-sample
+    variants (convolve_positive_only) that would not."""
+    spec = ("yxr,zr->xyz", "zxr,yr->xyz", "zyr,xr->xyz")
+    G = None
+    for i in range(3):
+        plane, line = _blurred(field.density_planes[i],
+                               field.density_lines[i], blur_mats)
+        term = torch.einsum(spec[i], plane, line)
+        G = term if G is None else G + term
+    return G
 
 
 def density_L1(field: VMField):

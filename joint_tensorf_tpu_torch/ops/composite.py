@@ -37,7 +37,7 @@ _BWD_ARGTYPES = [_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
 
 
 # ------------------------------------------------------------ plain versions
-def _transmittance(alpha):
+def transmittance(alpha):
     """(u, exclusive running product T, w)."""
     u = 1.0 - alpha + EPS
     T_incl = torch.cumprod(u, dim=-1)
@@ -46,7 +46,7 @@ def _transmittance(alpha):
 
 
 def composite_fwd_plain(alpha, rgb, z, thres: float):
-    _, _, w = _transmittance(alpha)
+    _, _, w = transmittance(alpha)
     gate = (w > thres).to(w.dtype)
     rgb_map = torch.sum(w[..., None] * (rgb * gate[..., None]), dim=-2)
     depth = torch.sum(w * z, dim=-1)
@@ -74,7 +74,7 @@ def _suffix_recurrence(c, a):
 def composite_bwd_plain(alpha, rgb, z, weights, thres: float, g_rgb,
                         g_depth, g_acc, g_weights):
     """g_weights may be None: no gradient reaches the weights."""
-    u, T, _ = _transmittance(alpha)
+    u, T, _ = transmittance(alpha)
     w = weights
     gate = (w > thres).to(w.dtype)
     g_w = (gate * torch.sum(g_rgb[:, None, :] * rgb, dim=-1)

@@ -1,19 +1,34 @@
-"""Volume renderer on the dense Euclidean path: ray sampling -> fused
-factor sampling -> density -> compositing -> shading -> white background
-(counterpart of joint_tensorf_tpu/render/renderer.py:222-651).
+"""Volume renderer on the Euclidean path: ray sampling -> alpha-mask gate
+-> sample compaction -> density (factored or dense grid) -> compositing
+-> appearance (dense or two-stage) -> white background (counterpart of
+joint_tensorf_tpu/render/renderer.py:222-651).
 
-The path is the reference's with the TPU-layout alternatives off: no
-dense-grid density (tpu.densify_density=false), no in-bbox or mask
-compaction (tpu.bbox_compact=false, tpu.blur_mask_compact=false), dense
-appearance over all samples gated by weight > thres (tpu.app_k=null).
-With an alpha mask and no factor blur (the reference disables the mask
-under blur), samples whose mask probe is 0 get no density: one probe per
-``mask_stride`` consecutive samples when S is a multiple of it, else one
-per sample (joint_tensorf_tpu/render/renderer.py:297-324, dense path).
-Compositing goes through ops/composite.py (kernels K1/K2 on CUDA).
+The ``tpu:`` alternatives of the JAX renderer, all but the first of them
+RenderConfig fields:
 
-Gradients: sampling coordinates are differentiable w.r.t. ray origins and
-directions, which is how pose gradients flow.
+* the alpha-mask gate: a mask passed to render_rays gates the samples,
+  one probe per ``mask_stride`` consecutive samples when S is a multiple
+  of it, else one per sample.  The JAX RenderConfig's use_alpha_mask and
+  mask_with_blur are folded into which mask the caller passes: under the
+  factor blur the trainer passes the mask dilated by the blur's support,
+  or none;
+* sample compaction (``compact_k`` < S): each ray keeps K of its S slots,
+  the first live ones in march order, chosen by one top-k on a score that
+  is unique per slot.  Three forms: probe groups under the mask, probe
+  groups with the in-bbox gate alone (no mask in use), and single samples
+  (S not a multiple of the stride).  z and dists of a kept slot are
+  recomputed from its index, z = t_min + step * (i + jitter) and
+  dists = step (0 at i = S - 1), and the coordinates from z, so pose
+  gradients flow through o + d * z, not through a gather;
+* the dense-grid density (``densify_density``, ops/densify.py);
+* the two-stage appearance (``app_k``): only the app_k samples of largest
+  weight among those past the weight gate are shaded.
+
+Compositing goes through ops/composite.py (kernels K1/K2 on CUDA) in every
+branch.  In the two-stage branch K1 gives weights, depth and opacity (its
+rgb input is zero), the selected weights are gathered from its weights,
+and K2 receives their gradient as its g_weights: rgb = sum w_sel * rgb_sel
+* gate_sel, as in JAX.
 """
 from __future__ import annotations
 
@@ -24,6 +39,7 @@ import torch
 
 from ..models import vm as vm_lib
 from ..models.alpha_mask import AlphaMask, sample_alpha
+from ..ops import densify
 from ..ops.composite import composite
 
 
@@ -32,10 +48,15 @@ class RenderConfig:
     """White background and detached view directions, as every Euclidean
     BAT config sets them; samples are stratified in training only.
     ``mask_stride``: samples per alpha-mask probe (the JAX RenderConfig's
-    fallback is 4; configs/base.yaml sets tpu.mask_stride = 2)."""
+    fallback is 4; configs/base.yaml sets tpu.mask_stride = 2).  The JAX
+    RenderConfig's densify_impl has no counterpart: its two layouts are one
+    sampler here (ops/densify.py)."""
     n_samples: int
     is_train: bool = False
     mask_stride: int = 4
+    compact_k: Optional[int] = None
+    densify_density: bool = False
+    app_k: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +72,19 @@ def _mean3(x):
     return torch.sum(x) * (1.0 / 3.0)
 
 
+def step_size(aabb, resolution, step_ratio: float):
+    """Ray-march step: the mean grid cell edge times step_ratio."""
+    res_t = torch.as_tensor(resolution, dtype=aabb.dtype, device=aabb.device)
+    return _mean3((aabb[1] - aabb[0]) / (res_t - 1)) * step_ratio
+
+
 def sample_ray_axes(aabb, step_size, n_samples: int, centers, dirs,
                     near: float, far: float, stratified: bool, jitter=None,
                     generator: Optional[torch.Generator] = None):
     """Euclidean ray sampling in per-axis form.
 
-    Returns ((wx, wy, wz) each [N,S], z_vals [N,S], in_bbox [N,S]).
+    Returns ((wx, wy, wz) each [N,S], z_vals [N,S], in_bbox [N,S],
+    (t_min [N], jitter [N,1])); the jitter is 0 when not stratified.
     ``jitter`` [N,1]: pre-drawn stratified offsets; drawn from
     ``generator`` when None.
     """
@@ -74,15 +102,33 @@ def sample_ray_axes(aabb, step_size, n_samples: int, centers, dirs,
             jitter = torch.rand((centers.shape[0], 1), generator=generator,
                                 dtype=centers.dtype, device=centers.device)
         steps = steps + jitter
+    else:
+        jitter = torch.zeros((centers.shape[0], 1), dtype=centers.dtype,
+                             device=centers.device)
     z_vals = t_min[:, None] + step_size * steps                  # [N,S]
-    axes_w = []
-    in_bbox = None
-    for a in range(3):
-        w = centers[:, a, None] + dirs[:, a, None] * z_vals      # [N,S]
+    axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_vals
+                   for a in range(3))                            # [N,S] each
+    return axes_w, z_vals, _in_bbox(axes_w, aabb), (t_min, jitter)
+
+
+def _in_bbox(axes_w, aabb):
+    ok = None
+    for a, w in enumerate(axes_w):
         inb = (w >= aabb[0, a]) & (w <= aabb[1, a])
-        in_bbox = inb if in_bbox is None else (in_bbox & inb)
-        axes_w.append(w)
-    return tuple(axes_w), z_vals, in_bbox
+        ok = inb if ok is None else (ok & inb)
+    return ok
+
+
+def _first_k(valid, K: int):
+    """The first K slots of each row with ``valid`` set, in index order,
+    then the first unset ones: (indices [n, K], slot is valid [n, K]).  The
+    score 2L - i / L - i is unique per slot, so top-k returns march order."""
+    L = valid.shape[1]
+    i = torch.arange(L, device=valid.device)
+    score = torch.where(valid, 2 * L - i, L - i)
+    top = torch.topk(score, K, dim=-1, sorted=True).indices
+    n_valid = valid.sum(dim=-1, keepdim=True)
+    return top, torch.arange(K, device=valid.device)[None, :] < n_valid
 
 
 def render_rays(
@@ -102,9 +148,11 @@ def render_rays(
     alpha_mask: Optional[AlphaMask] = None,
     stats: Optional[dict] = None,
 ):
-    """Returns (rgb_map [N,3], depth_map [N], opacity [N]).  A ``stats``
-    dict receives the fractions of samples in the box ("inbbox_frac") and
-    kept after the mask ("valid_frac"), as 0-d tensors."""
+    """Returns (rgb_map [N,3], depth_map [N], opacity [N]).  A given
+    ``alpha_mask`` gates the samples, with or without the blur.  A ``stats``
+    dict receives, as 0-d tensors, the fractions of the S sample slots in
+    the box ("inbbox_frac"), live after the mask ("valid_frac") and kept
+    by the compaction ("kept_frac", K / S)."""
     n = centers.shape[0]
     S = rcfg.n_samples
     resolution = field.resolution()
@@ -113,23 +161,61 @@ def render_rays(
     res_t = torch.as_tensor(resolution, dtype=aabb.dtype, device=aabb.device)
     near, far = float(near_far[0]), float(near_far[1])
 
-    units = aabb_size / (res_t - 1)
-    step_size = _mean3(units) * cfg.step_ratio
-    axes_w, z_vals, valid = sample_ray_axes(
-        aabb, step_size, S, centers, dirs, near, far, rcfg.is_train,
+    step = step_size(aabb, resolution, cfg.step_ratio)
+    axes_w, z_vals, in_bbox, (t_min, jitter) = sample_ray_axes(
+        aabb, step, S, centers, dirs, near, far, rcfg.is_train,
         jitter=ray_jitter, generator=generator)
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.zeros_like(z_vals[:, :1])], -1)
     if stats is not None:
-        stats["inbbox_frac"] = valid.float().mean()
-    if alpha_mask is not None and blur is None:
-        stride = rcfg.mask_stride if S % max(rcfg.mask_stride, 1) == 0 else 1
+        stats["inbbox_frac"] = in_bbox.float().mean()
+
+    # ------------------------------------------------ alpha-mask gate
+    K = rcfg.compact_k if (rcfg.compact_k is not None
+                           and rcfg.compact_k < S) else None
+    stride = rcfg.mask_stride if S % max(rcfg.mask_stride, 1) == 0 else 1
+    valid = in_bbox
+    group_alive = None      # [n, S // stride]: per-group selection below
+    if alpha_mask is not None:
         probe = tuple(w.detach()[:, ::stride].reshape(-1) for w in axes_w)
         group_alive = sample_alpha(alpha_mask, probe).reshape(
             n, S // stride) > 0
-        valid = valid & torch.repeat_interleave(group_alive, stride, dim=1)
-    if stats is not None:
+        if K is None or stride == 1 or K % stride:
+            valid = valid & torch.repeat_interleave(group_alive, stride,
+                                                    dim=1)
+            group_alive = None
+    elif K is not None and stride > 1 and K % stride == 0:
+        # no mask in use: compact groups on the in-bbox gate alone
+        group_alive = torch.ones((n, S // stride), dtype=torch.bool,
+                                 device=centers.device)
+
+    # ------------------------------------------------ sample compaction
+    if K is not None:
+        if group_alive is not None:
+            # the first K / stride live probe groups, then their samples
+            g = stride
+            gvalid = group_alive & in_bbox.reshape(n, S // g, g).any(-1)
+            topg, gsel = _first_k(gvalid, K // g)
+            idx = (topg[..., None] * g
+                   + torch.arange(g, device=topg.device)).reshape(n, K)
+            live = torch.repeat_interleave(gsel, g, dim=1)
+        else:
+            idx, live = _first_k(valid, K)
+        z_vals = (t_min[:, None] + step * (idx.to(z_vals.dtype)
+                                           + jitter)).detach()
+        dists = torch.where(idx == S - 1, torch.zeros_like(z_vals),
+                            step.expand(z_vals.shape))
+        axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_vals
+                       for a in range(3))
+        valid = live & _in_bbox(axes_w, aabb) if group_alive is not None \
+            else live
+        if stats is not None:
+            stats["valid_frac"] = valid.float().sum() / (n * S)
+            stats["kept_frac"] = torch.tensor(K / S)
+        S = K
+    elif stats is not None:
         stats["valid_frac"] = valid.float().mean()
+        stats["kept_frac"] = torch.tensor(1.0)
 
     d_mats = c_mats = None
     if blur is not None:
@@ -141,20 +227,56 @@ def render_rays(
         d_mats = vm_lib.make_blur_mats(dk, resolution)
         c_mats = vm_lib.make_blur_mats(ck, resolution)
 
+    # ------------------------------------------------ density
     coords = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
                    for a, w in enumerate(axes_w))
-    mlp_viewdirs = dirs.detach()[:, None, :].expand(n, S, 3)
-
-    sigma_feature, app_feat = vm_lib.compute_fused_features(
-        field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
+    app_feat = None
+    if rcfg.densify_density:
+        G = vm_lib.compute_density_grid(field, blur_mats=d_mats)
+        sigma_feature = densify.sample_packed_grid(densify.pack_corners(G),
+                                                   coords)
+    elif rcfg.app_k is None:
+        sigma_feature, app_feat = vm_lib.compute_fused_features(
+            field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
+    else:
+        sigma_feature = vm_lib.compute_density_feature(field, coords,
+                                                       blur_mats=d_mats)
     sigma = vm_lib.feature2density(cfg, sigma_feature.reshape(n, S))
     sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
     alpha = 1.0 - torch.exp(-sigma * dists * cfg.distance_scale)
+    thres = cfg.raymarch_weight_thres
 
-    rgb = field.shading(mlp_viewdirs.reshape(-1, 3), app_feat,
-                        view_pe_progress, fea_pe_progress).reshape(n, S, 3)
-    rgb_map, depth_map, acc_map, _ = composite(
-        alpha, rgb, z_vals, cfg.raymarch_weight_thres)
+    # ------------------------------------------------ appearance
+    if rcfg.app_k is not None:
+        K2 = min(rcfg.app_k, S)
+        _, depth_map, acc_map, weight = composite(
+            alpha, torch.zeros((n, S, 3), dtype=alpha.dtype,
+                               device=alpha.device), z_vals, thres)
+        gate = (weight > thres) & valid
+        score = torch.where(gate, weight, torch.zeros_like(weight)).detach()
+        sel = torch.topk(score, K2, dim=-1).indices.sort(dim=-1).values
+        w_sel = torch.gather(weight, 1, sel)
+        z_sel = torch.gather(z_vals.detach(), 1, sel)
+        gate_sel = torch.gather(gate.to(weight.dtype), 1, sel)
+        axes_sel = tuple(centers[:, a, None] + dirs[:, a, None] * z_sel
+                         for a in range(3))
+        coords_sel = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
+                           for a, w in enumerate(axes_sel))
+        app_sel = vm_lib.compute_app_feature(field, coords_sel,
+                                             blur_mats=c_mats)
+        vd_sel = dirs.detach()[:, None, :].expand(n, K2, 3)
+        rgb_sel = field.shading(vd_sel.reshape(-1, 3), app_sel,
+                                view_pe_progress, fea_pe_progress)
+        rgb_sel = rgb_sel.reshape(n, K2, 3) * gate_sel[..., None]
+        rgb_map = torch.sum(w_sel[..., None] * rgb_sel, dim=-2)
+    else:
+        if app_feat is None:
+            app_feat = vm_lib.compute_app_feature(field, coords,
+                                                  blur_mats=c_mats)
+        mlp_viewdirs = dirs.detach()[:, None, :].expand(n, S, 3)
+        rgb = field.shading(mlp_viewdirs.reshape(-1, 3), app_feat,
+                            view_pe_progress, fea_pe_progress).reshape(n, S, 3)
+        rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals, thres)
 
     rgb_map = torch.clamp(rgb_map + (1.0 - acc_map[..., None]), 0.0, 1.0)
 

@@ -5,9 +5,14 @@
 
 Loads the config (dotted overrides as in train.py), renders the procedural
 scene on the device, and trains BAT through its whole schedule (voxel
-upsamples, alpha-mask updates, bbox shrink), printing one line per log
-interval (freq.scalar) and one per phase transition.  It writes no
-checkpoint and runs no validation yet.
+upsamples, alpha-mask updates, bbox shrink) on the JAX trainer's default
+``tpu:`` path (sample compaction, dense-grid density, two-stage
+appearance; ``--tpu.bbox_compact=false --tpu.blur_mask_compact=false
+--tpu.densify_density=false --tpu.app_k=null`` turn off all but the
+alpha mask's own compaction, which the JAX trainer always runs), printing
+one line per log interval (freq.scalar) and one per phase transition with
+the compaction budgets.  It writes no checkpoint and runs no validation
+yet.
 """
 from __future__ import annotations
 
@@ -60,7 +65,10 @@ def main(argv):
             aabb = tr.state.field.aabb.cpu().numpy().round(4).tolist()
             print(f"[phase] after it {tr.it}: res={tr.resolution} "
                   f"n_samples={tr.n_samples} mask_res={mask_res} "
-                  f"aabb={aabb}", flush=True)
+                  f"aabb={aabb} compact_k(bbox/mask)="
+                  f"{tr.compact_k_bbox}/{tr.compact_k} "
+                  f"app_k={tr.app_k_dyn or tr.opt.tpu.get('app_k')}",
+                  flush=True)
 
     trainer.run(log_every=int(opt.freq.get("scalar", 200)), callback=on_log,
                 on_step=on_step)

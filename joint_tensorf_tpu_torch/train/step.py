@@ -43,7 +43,13 @@ class StepScalars:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """BAT's step: the se(3) pose table is always optimised."""
+    """BAT's step: the se(3) pose table is always optimised.  The renderer
+    options (alpha-mask gate, compaction, dense grid, two-stage appearance)
+    are the JAX StepConfig's (joint_tensorf_tpu/train/step.py:99-138); its
+    remat_* flags are XLA memory choices and its densify_impl picks between
+    two TPU layouts of one sampler, so neither has a counterpart; its
+    use_alpha_mask and mask_with_blur are the choice of the mask passed to
+    train_step (Trainer._step_mask)."""
     H: int
     W: int
     n_views: int
@@ -52,8 +58,17 @@ class StepConfig:
     blur: Optional[BlurSpec] = None
     grid_hw: Optional[tuple[int, int]] = None   # all_view_rand_grid TV-depth
     mask_stride: int = 4                        # alpha-mask probe stride
+    compact_k: Optional[int] = None             # sample compaction budget
+    densify_density: bool = False               # dense-grid density
+    app_k: Optional[int] = None                 # two-stage appearance top-K2
     pose_b2: float = 0.999
     scene_b2: float = 0.99
+
+    def render_config(self) -> RenderConfig:
+        return RenderConfig(
+            n_samples=self.n_samples, is_train=True,
+            mask_stride=self.mask_stride, compact_k=self.compact_k,
+            densify_density=self.densify_density, app_k=self.app_k)
 
 
 @dataclasses.dataclass
@@ -98,15 +113,15 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
 
     images [V, H*W, 3], edge_masks [V, H*W], view_sel [Vs], ray_idx [R];
     ``jitter`` [Vs*R, 1] pre-drawn stratified offsets (else drawn from
-    ``generator``); ``alpha_mask`` gates samples while the blur is off.
+    ``generator``); ``alpha_mask``, when given, gates the samples.
     Returns (metrics {loss, mse, psnr} as 0-d tensors, grads {name: tensor}
     incl. "se3_refine"); with ``stats`` the metrics also hold the fractions
-    of samples in the box and kept after the mask ("inbbox_frac",
-    "valid_frac") and whether the factors were blurred ("blur", 0 or 1).
+    of sample slots in the box, live after the mask and kept by the
+    compaction ("inbbox_frac", "valid_frac", "kept_frac"; render_rays) and
+    whether the factors were blurred ("blur", 0 or 1).
     """
     field = state.field
-    rcfg = RenderConfig(n_samples=cfg.n_samples, is_train=True,
-                        mask_stride=cfg.mask_stride)
+    rcfg = cfg.render_config()
     render_stats = {} if stats else None
     pose = compose_train_pose(state.se3_refine, pose_base, view_sel)
     centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose, intr_inv[view_sel],

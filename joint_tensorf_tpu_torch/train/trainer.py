@@ -1,21 +1,26 @@
 """Host-side training orchestrator
 (counterpart of joint_tensorf_tpu/train/trainer.py).
 
-Runs BAT's whole schedule on the dense Euclidean path: the 2D supervision
-blur cache with its hard edge masks, the random 2D/3D blur scales, the ray
-grid, the learning-rate and pose-lr schedules, the train step, and after
-the scheduled iterations the phase transitions of the JAX trainer's
-_update_schedule / _update_alphamask: voxel upsample with a fresh
-optimiser and the lr reset, the alpha-mask build (at a capped resolution
-past tpu.mask_cap_voxels), and the bbox shrink at the first, uncapped mask
-update.  All schedule randomness comes from one numpy generator, drawn in
-the JAX trainer's order, so both trainers see the same ray indices and
-blur scales; device randomness (pose noise, field init, stratified
-jitter) comes from a torch.Generator.
+Runs BAT's whole schedule: the 2D supervision blur cache with its hard edge
+masks, the random 2D/3D blur scales, the ray grid, the learning-rate and
+pose-lr schedules, the train step, and after the scheduled iterations the
+phase transitions of the JAX trainer's _update_schedule /
+_update_alphamask: voxel upsample with a fresh optimiser and the lr reset,
+the alpha-mask build (at a capped resolution past tpu.mask_cap_voxels),
+and the bbox shrink at the first, uncapped mask update.
 
-The port has no sample compaction: a masked step keeps every sample slot
-and zeroes the density of the culled ones, which the JAX trainer's
-compacted step equals while no ray has more live samples than its budget.
+The step is the JAX trainer's default ``tpu:`` path (_step_config): the
+sample-compaction budgets (in-bbox, _refresh_bbox_k; the dilated mask
+under the blur, _refresh_blur_mask; the alpha mask, _probe_compact_k),
+the dense-grid density while the blur is on or no mask is built, and the
+two-stage appearance with its auto-raised cap (_probe_app_k).  A failed
+probe raises: the JAX trainer's "never block training" fallbacks are not
+copied.
+
+All schedule randomness comes from one numpy generator, drawn in the JAX
+trainer's order (the probes at a mask update included), so both trainers
+see the same ray indices and blur scales; device randomness (pose noise,
+field init, stratified jitter) comes from a torch.Generator.
 """
 from __future__ import annotations
 
@@ -34,11 +39,13 @@ from ..models import vm as vm_lib
 from ..ops import blur as blur_ops
 from ..ops import kernels as kernel_ops
 from ..ops import sobel
-from ..render.renderer import BlurSpec
+from ..geometry.rays import get_center_and_ray
+from ..ops.composite import transmittance
+from ..render.renderer import BlurSpec, sample_ray_axes, step_size
 from ..sched import schedules
 from ..utils.torch_setup import resolve_device, setup_torch
-from .step import (StepConfig, StepScalars, init_train_state,
-                   rebuild_opt_state, train_step)
+from .step import (StepConfig, StepScalars, compose_train_pose,
+                   init_train_state, rebuild_opt_state, train_step)
 
 # (dotted key, the value or values the port runs); others raise.  None,
 # False and 0 all mean "off".
@@ -47,6 +54,10 @@ _PORTED_VALUES = (
     ("camera.ndc", False),
     ("tpu.mesh_shape", None),
     ("tpu.factor_dtype", "float32"),
+    ("tpu.densify_dtype", "float32"),
+    ("tpu.densify_impl", ("packed8", "lane")),
+    ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
+    ("tpu.eval_app_k", None),
     ("arch.tensorf.model", ("BAT_VMSplit", "TensorVMSplit")),
     ("arch.shading.model", "MLP_Fea"),
     ("arch.shading.predict_density", False),
@@ -75,6 +86,20 @@ _PORTED_VALUES = (
     ("sync_2d_3d_scales", None),
 )
 
+# The tpu: keys.  Those in _PORTED_VALUES run only at the values named
+# there: tpu.densify_dtype=bfloat16 (the JAX package's bf16 row gather) is
+# not ported; tpu.densify_impl packed8 and lane are one sampler here
+# (ops/densify.py); tpu.plane_scatter's xla / segsum / runsum compute one
+# function, which K3 computes; tpu.eval_app_k belongs to evaluation, a
+# later slice.  The others run at any value: tpu.mesh_axes matters only
+# with a mesh, tpu.donate_state is an XLA buffer choice with no
+# counterpart.  A tpu: key in neither list raises.
+_TPU_ANY_VALUE = (
+    "mesh_axes", "donate_state", "densify_density", "bbox_compact",
+    "blur_mask_compact", "blur_mask_refresh", "mask_res_cap",
+    "mask_cap_voxels", "densify_min_samples_per_chip", "app_k",
+    "app_k_auto", "app_k_max", "app_k_dense_only", "mask_stride")
+
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported yet (a later slice "
@@ -86,14 +111,18 @@ def _off(v) -> bool:
 
 
 def check_ported(opt: Options):
-    """Raise NotImplementedError naming the first option whose value this
-    slice does not port."""
+    """Raise NotImplementedError naming the first option whose value the
+    port does not run, or a tpu: key it does not know."""
     for key, want in _PORTED_VALUES:
         got = opt.get_path(key)
         ok = (_off(got) if _off(want)
               else got in want if isinstance(want, tuple) else got == want)
         if not ok:
             raise _unported(f"option {key}={got!r}")
+    checked = {k[4:] for k, _ in _PORTED_VALUES if k.startswith("tpu.")}
+    for key in opt.get("tpu") or {}:
+        if key not in checked and key not in _TPU_ANY_VALUE:
+            raise _unported(f"option tpu.{key}")
     # re-initialising factors at the last upsample needs init_vm(prev=...)
     reset = opt.get_path("train_schedule.reset_on_last_upsample")
     if reset and any(reset.get(k) for k in ("density", "appearance",
@@ -210,6 +239,16 @@ class Trainer:
             device=dev)
         self.state = init_train_state(field, V)
         self.metrics_history: list[dict] = []
+
+        # ---------------- sample-compaction budgets (None: all S slots)
+        self.compact_k: Optional[int] = None        # under the alpha mask
+        self.app_k_dyn: Optional[int] = None        # raised tpu.app_k
+        self.compact_k_bbox: Optional[int] = None   # in-bbox gate alone
+        self.alpha_mask_blur: Optional[am_lib.AlphaMask] = None
+        self.compact_k_blur: Optional[int] = None   # dilated mask, blur on
+        self._blur_mask_built_at: Optional[int] = None
+        self.last_step_config: Optional[StepConfig] = None
+        self._refresh_bbox_k()
 
     # ------------------------------------------------------------- schedules
     @property
@@ -379,28 +418,74 @@ class Trainer:
             tv_depth_weight=self._tv_depth_weight())
         return scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d
 
-    def train_iteration(self, stats: bool = False):
+    def train_iteration(self, stats: bool = False, jitter=None):
         """One step; ``stats`` adds the step's sample fractions and blur
-        flag to its metrics (train_step)."""
+        flag to its metrics (train_step); ``jitter`` [rays, 1]: pre-drawn
+        stratified offsets (else drawn from the trainer's generator)."""
         scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d = \
             self.host_schedule()
+        if blur_spec is not None:
+            self._refresh_blur_mask()
         if self.blur_2d:
             self.current_images = self.blurred_images[sc2d]
             edge_scale = float(self.opt.get("edge_mask_use_scale", sc2d))
             self.current_edges = self.edge_masks.get(edge_scale,
                                                      self.edge_masks[sc2d])
-        cfg = StepConfig(H=self.H, W=self.W, n_views=self.n_views,
-                         rays_per_view=len(ray_idx),
-                         n_samples=self.n_samples, blur=blur_spec,
-                         grid_hw=grid_hw, mask_stride=self.mask_stride)
+        cfg = self._step_config(len(ray_idx), blur_spec, grid_hw)
         self.rays_per_step = len(view_sel) * len(ray_idx)
+        self.last_step_config = cfg
         metrics, _ = train_step(
             self.state, cfg, self.vm_cfg, self.pose_base, self.intr_inv,
             self.current_images, self.current_edges,
             torch.as_tensor(view_sel, device=self.device),
             torch.as_tensor(ray_idx, device=self.device), scalars,
-            generator=self.generator, alpha_mask=self.alpha_mask, stats=stats)
+            generator=self.generator, jitter=jitter,
+            alpha_mask=self._step_mask(blur_spec is not None), stats=stats)
         return metrics
+
+    def _step_mask(self, blur_active: bool) -> Optional[am_lib.AlphaMask]:
+        """The mask that gates the step's samples: the JAX trainer's step
+        mask with its use_alpha_mask / mask_with_blur gate applied.  Under
+        the blur, the dilated mask while it has a budget (else none: the
+        sharp mask would cull what the blur spreads); without it, the alpha
+        mask once built."""
+        return self.alpha_mask_blur if blur_active else self.alpha_mask
+
+    def _samples_per_step(self, rays_per_view: int) -> int:
+        """Density samples per step: the dense-grid gate's measure (the
+        JAX trainer's _samples_per_chip on one chip)."""
+        return rays_per_view * self.n_views * self.n_samples
+
+    def _step_config(self, rays_per_view: int, blur: Optional[BlurSpec],
+                     grid_hw) -> StepConfig:
+        """The JAX trainer's _ensure_step choice (trainer.py:576-650):
+        under the blur, compact on the dilated mask's budget when there is
+        one, else on the in-bbox budget; without the blur, on the alpha
+        mask's budget once a mask is built.  The dense grid runs while the
+        blur is on or no mask is built, and only past
+        tpu.densify_min_samples_per_chip samples per step."""
+        tpu = self.opt.tpu
+        blur_active = blur is not None
+        app_k = (self.app_k_dyn if self.app_k_dyn is not None
+                 else (int(tpu.app_k) if tpu.get("app_k") else None))
+        if (not blur_active) and self.compact_k is not None and \
+                bool(tpu.get("app_k_dense_only", False)):
+            app_k = None
+        if blur_active and self.compact_k_blur is not None:
+            compact_k = self.compact_k_blur
+        elif blur_active or self.compact_k is None:
+            compact_k = self.compact_k_bbox
+        else:
+            compact_k = self.compact_k
+        densify = (bool(tpu.get("densify_density", True))
+                   and (blur_active or self.compact_k is None)
+                   and self._samples_per_step(rays_per_view) >= int(
+                       tpu.get("densify_min_samples_per_chip", 100000)))
+        return StepConfig(
+            H=self.H, W=self.W, n_views=self.n_views,
+            rays_per_view=rays_per_view, n_samples=self.n_samples,
+            blur=blur, grid_hw=grid_hw, mask_stride=self.mask_stride,
+            compact_k=compact_k, densify_density=densify, app_k=app_k)
 
     # ------------------------------------------------------ phase transitions
     def _replace_field(self, make_field):
@@ -430,6 +515,7 @@ class Trainer:
                                             self.n_voxels,
                                             self.resolution_scale)
             self._replace_field(lambda f: vm_lib.upsample(f, res))
+            self._refresh_bbox_k()
             # lr reset instead of this iteration's decay
             scale = 1.0 if self.lr_upsample_reset else (
                 self.lr_decay_target ** (it / self.max_iter))
@@ -459,13 +545,204 @@ class Trainer:
         self.alpha_mask, new_aabb = am_lib.update_alpha_mask(
             self.state.field, self.vm_cfg, self.alphamask_resolution, step,
             self.alphamask_thresh)
-        # the JAX trainer's compaction probe draws its probe rays here from
-        # the training generator; the port has no compaction but makes the
-        # same draw, so later ray indices stay the JAX trainer's
-        self.rng_np.permutation(self.H * self.W)
+        # both probes draw their rays from the training generator
+        self.compact_k = self._probe_compact_k()
+        self.app_k_dyn = self._probe_app_k()
         if not capped and it == self.update_alphamask_iters[0] and \
                 opt.train_schedule.get("shrink_bbox_with_alphamask", True):
             self._replace_field(lambda f: vm_lib.shrink(f, new_aabb))
+            self._refresh_bbox_k()
+
+    # ------------------------------------------------ compaction budgets
+    def get_all_training_poses(self):
+        """(poses [V,3,4], GT poses): the learned refinement composed on
+        GT o noise for every view."""
+        views = torch.arange(self.n_views, device=self.device)
+        pose = compose_train_pose(self.state.se3_refine.detach(),
+                                  self.pose_base, views)
+        return pose, self.gt_poses
+
+    def _probe_rays(self, rng: np.random.Generator, n_probe_rays: int):
+        """(centers, dirs) [n, 3] of every view's first n_probe_rays / V
+        pixels of a permutation drawn from ``rng``."""
+        poses, _ = self.get_all_training_poses()
+        per_view = max(1, n_probe_rays // self.n_views)
+        idx = torch.as_tensor(rng.permutation(self.H * self.W)[:per_view],
+                              device=self.device)
+        centers, dirs = get_center_and_ray(self.H, self.W, poses,
+                                           self.intr_inv, ray_idx=idx)
+        return centers.reshape(-1, 3), dirs.reshape(-1, 3)
+
+    @torch.no_grad()
+    def _probe_compact_k(self, n_probe_rays: int = 4096, pad: float = 1.25,
+                         bbox_only: bool = False,
+                         mask: Optional[am_lib.AlphaMask] = None):
+        """The compaction budget K (trainer.py:891-1004): the most live
+        sample slots of any probe ray, counted as the renderer selects
+        them (live probe groups x stride: alpha probed at each group's
+        first sample, and any of its samples in the box), times ``pad``,
+        rounded up to a multiple of 128 (at least 128); None when K would
+        reach S.  ``bbox_only`` counts the in-bbox gate alone.  The probe
+        rays come from the training generator for the alpha mask's probe,
+        and from a generator of their own (seed + 12345) for the in-bbox
+        and blur-mask probes, which must not move the training draws."""
+        probe_mask = mask if mask is not None else self.alpha_mask
+        if probe_mask is None and not bbox_only:
+            return None
+        rng = self.rng_np
+        if bbox_only or mask is not None:
+            rng = np.random.default_rng(int(self.opt.get("seed", 0)) + 12345)
+        centers, dirs = self._probe_rays(rng, n_probe_rays)
+        S = self.n_samples
+        g = self.mask_stride if (self.mask_stride > 1
+                                 and S % self.mask_stride == 0) else 1
+        aabb = self.state.field.aabb
+        axes_w, _, in_bbox, _ = sample_ray_axes(
+            aabb, step_size(aabb, self.resolution, self.vm_cfg.step_ratio),
+            S, centers, dirs, self.near_far[0], self.near_far[1], False)
+        n = centers.shape[0]
+        alive = in_bbox.reshape(n, S // g, g).any(dim=-1)
+        if not bbox_only:
+            first = tuple(w[:, ::g].reshape(-1) for w in axes_w)
+            alive &= am_lib.sample_alpha(probe_mask, first).reshape(
+                n, S // g) > 0
+        mx = int(alive.sum(dim=-1).max()) * g
+        k = min(S, max(128, int(-(-int(mx * pad) // 128) * 128)))
+        return None if k >= S else k
+
+    @torch.no_grad()
+    def _probe_app_k(self, n_probe_rays: int = 4096,
+                     quantile: float = 0.98) -> Optional[int]:
+        """The raised two-stage appearance cap (trainer.py:1006-1093): the
+        ``quantile`` of the per-ray count of samples past the weight gate
+        (mask and box applied, unblurred density), rounded up to a multiple
+        of 64, clamped to [tpu.app_k, tpu.app_k_max]; None (keep tpu.app_k)
+        when it would not rise, when no probe ray clips at tpu.app_k, or
+        with tpu.app_k_auto off.  Draws its probe rays from the training
+        generator."""
+        tpu = self.opt.tpu
+        base = int(tpu.app_k) if tpu.get("app_k") else None
+        if base is None or not bool(tpu.get("app_k_auto", True)):
+            return None
+        centers, dirs = self._probe_rays(self.rng_np, n_probe_rays)
+        S = self.n_samples
+        field = self.state.field
+        near, far = self._near_far()
+        axes_w, z_vals, valid, _ = sample_ray_axes(
+            field.aabb, step_size(field.aabb, self.resolution,
+                                  self.vm_cfg.step_ratio),
+            S, centers, dirs, near, far, False)
+        n = centers.shape[0]
+        flat = tuple(w.reshape(-1) for w in axes_w)
+        if self.alpha_mask is not None:
+            valid = valid & (am_lib.sample_alpha(self.alpha_mask, flat)
+                             .reshape(n, S) > 0)
+        coords = tuple(vm_lib.normalize_coord(w, field.aabb[:, a])
+                       for a, w in enumerate(flat))
+        sigma = vm_lib.feature2density(
+            self.vm_cfg, vm_lib.compute_density_feature(field, coords)
+        ).reshape(n, S)
+        sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.zeros_like(z_vals[:, :1])], -1)
+        _, _, weight = transmittance(
+            1.0 - torch.exp(-sigma * dists * self.vm_cfg.distance_scale))
+        n_gate = ((weight > self.vm_cfg.raymarch_weight_thres) & valid).sum(
+            dim=-1).cpu().numpy()
+        k_q = int(np.quantile(n_gate, quantile))
+        clip = float((n_gate > base).mean())
+        k = min(max(base, int(-(-k_q // 64) * 64)),
+                int(tpu.get("app_k_max", 256)))
+        if (k > base and clip == 0.0) or S <= base:
+            k = base
+        if k != base:
+            print(f"[app_k] gate quantile({quantile})={k_q} clips "
+                  f"{clip:.1%} of rays at app_k={base} -> raising to {k}",
+                  flush=True)
+        return None if k == base else k
+
+    def _refresh_bbox_k(self):
+        """After a shape change: the in-bbox budget anew (pad 1.0: the
+        in-bbox count is camera and box geometry), the blur mask dropped."""
+        self.alpha_mask_blur = None
+        self.compact_k_blur = None
+        self._blur_mask_built_at = None
+        self.compact_k_bbox = (
+            self._probe_compact_k(bbox_only=True, pad=1.0)
+            if bool(self.opt.tpu.get("bbox_compact", True)) else None)
+
+    def _blur_sigma_max(self, lookahead_iters: int) -> float:
+        """The largest world sigma of the density blur over the next
+        ``lookahead_iters`` iterations: the piecewise-linear schedule at
+        both ends and at every knot between, times the largest random
+        scale (trainer.py:260-281)."""
+        opt = self.opt
+        p0 = self.progress
+        p1 = min(1.0, (self.it + lookahead_iters) / self.max_iter)
+        sched = list(opt.c2f_schedule_density)
+        knots = np.linspace(0.0, 1.0, len(sched))
+        pts = [p0, p1] + [float(k) for k in knots if p0 < k < p1]
+        d = max(float(schedules.interp_schedule(p, sched)) for p in pts)
+        if opt.get("c2f_random_density_blur"):
+            d *= max(float(s) for s in opt.c2f_random_density_scale_pool)
+        return d
+
+    def _blur_dilate_radius(self, lookahead_iters: int, mask_res) -> int:
+        """Mask cells that cover the blur kernel's support
+        (trainer.py:283-312): 5 sigma (Gaussian) or sigma (average) in mask
+        cells, rounded up, plus one, at most the kernel's half width."""
+        opt = self.opt
+        smax = self._blur_sigma_max(lookahead_iters)
+        aabb = self._field_aabb_np().astype(np.float64)
+        size = aabb[1] - aabb[0]
+        grid_scale = float(np.mean(np.asarray(self.resolution, np.float64)
+                                   / size))
+        mask_scale = float(np.mean(np.asarray(mask_res, np.float64) / size))
+        sig_mask = smax * mask_scale
+        if str(opt.get("c2f_mode", "uniform-gaussian")) == "uniform-average":
+            r = int(np.ceil(sig_mask)) + 1
+        else:
+            r = int(np.ceil(5.0 * sig_mask)) + 1
+        halfw_mask = int(np.ceil((int(opt.c2f_kernel_size) // 2)
+                                 * mask_scale / grid_scale))
+        return max(1, min(halfw_mask, r))
+
+    def _refresh_blur_mask(self):
+        """The dilated-mask budget while the blur is on
+        (trainer.py:314-382): once the resolution is final, every
+        tpu.blur_mask_refresh iterations, build the sharp mask, dilate it
+        by the blur's support over the window and probe its budget; None
+        (the in-bbox budget stays) when it would keep every slot."""
+        opt = self.opt
+        if not bool(opt.tpu.get("blur_mask_compact", True)):
+            return
+        res = self.resolution
+        cap = int(opt.tpu.get("mask_cap_voxels", 256 ** 3))
+        capped = res[0] * res[1] * res[2] >= cap
+        if capped and not bool(opt.tpu.get("mask_res_cap", True)):
+            return
+        if self.upsample_iters and self.it < self.upsample_iters[-1]:
+            return
+        refresh = int(opt.tpu.get("blur_mask_refresh", 1000))
+        if self._blur_mask_built_at is not None and \
+                self.it - self._blur_mask_built_at < refresh:
+            return
+        mask_res = am_lib.capped_mask_res(res, cap) if capped else list(res)
+        radius = self._blur_dilate_radius(refresh, mask_res)
+        step = schedules.step_size(self._field_aabb_np(), res,
+                                   float(opt.nerf.step_ratio))
+        mask, _ = am_lib.update_alpha_mask(self.state.field, self.vm_cfg,
+                                           mask_res, step,
+                                           self.alphamask_thresh)
+        mask = am_lib.dilate_mask(mask, radius)
+        k = self._probe_compact_k(mask=mask)
+        self._blur_mask_built_at = self.it
+        self.alpha_mask_blur = None if k is None else mask
+        self.compact_k_blur = k
+        if k is not None:
+            print(f"[blur_mask] it {self.it}: dilation r={radius} cells -> "
+                  f"compact_k_blur={k} of S={self.n_samples} "
+                  f"(bbox budget {self.compact_k_bbox})", flush=True)
 
     def run(self, max_iter: Optional[int] = None, log_every: int = 100,
             callback=None, on_step=None, stats: bool = False):

@@ -11,7 +11,8 @@ Tolerances: the compositor at rtol 1e-4 / atol 1e-5 (the kernels' scans
 round differently from the sequential cumprod; in the forward a weight
 within an ulp of the gate threshold may flip its gate, which moves rgb_map
 by at most thres; the backward takes the forward's weights, so its gate is
-exact); the row scatter K3 at rtol 1e-5 / atol 1e-4, the
+exact); the row scatter K3 at rtol 1e-5 / atol 1e-4 (through the dense
+grid's sample, card against CPU, at rtol / atol 1e-5), the
 binned plane scatter K4 and the block-local row scatter K5 at 1e-5 of the
 output's largest magnitude (atomics sum in an order that varies from run
 to run), and exactly where every partial sum is exact (integer updates).
@@ -85,7 +86,7 @@ def test_compositor_bwd_over_ray_lengths(s):
     gen = torch.Generator(device="cuda").manual_seed(s)
     alpha, rgb, z, cots = _ray_inputs(5, s, gen)
     w = C.composite_fwd_cuda(alpha, rgb, z, 1e-6)[3]
-    for g_weights in (cots[3], None):     # None: the training step's case
+    for g_weights in (cots[3], None):     # None: the dense appearance
         args = (alpha, rgb, z, w, 1e-6, *cots[:3], g_weights)
         got = C.composite_bwd_cuda(*args)
         want = C.composite_bwd_plain(*args)
@@ -168,6 +169,31 @@ def test_compositor_autograd_takes_the_kernels():
     (rgb_map.sum() + acc.sum()).backward()
     assert cuda_build.LAUNCHES["composite_fwd"] == 1
     assert cuda_build.LAUNCHES["composite_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_dense_grid_sample_takes_k3():
+    """sample_packed_grid's backward (the dense grid's row scatter) goes
+    through K3 on the card, once, and equals the CPU's index_add_ route."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import cuda_build, densify
+
+    gen = torch.Generator().manual_seed(2)
+    G = torch.randn((23, 19, 29), generator=gen)
+    coords = tuple(torch.rand((5000,), generator=gen) * 2.2 - 1.1
+                   for _ in range(3))
+    cot = torch.randn((5000,), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = G.to(dev).requires_grad_(True)
+        c = tuple(x.to(dev).requires_grad_(True) for x in coords)
+        cuda_build.reset_launches()
+        val = densify.sample_packed_grid(densify.pack_corners(g), c)
+        grads = torch.autograd.grad((val * cot.to(dev)).sum(), (g,) + c)
+        out[dev] = [t.detach().cpu() for t in (val,) + grads]
+        assert cuda_build.LAUNCHES["scatter_add_rows"] == (dev == "cuda")
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
