@@ -59,11 +59,15 @@
    the masked last phase compacts (compact_k < S) and the blurred phases
    use the dense grid; prints each transition and one line per phase
    (budgets, the step's choices, kept and live fractions, launches,
-   median step) and the peak memory;
+   median step) and the peak memory; with --profile, two blurred
+   dense-grid steps at the 64M-voxel grid and the last 3 steps of the
+   default path run under torch.profiler;
 9. holds K1/K2/K3 against their plain versions again at the shapes of
    each path's last phase (the compacted samples, the density and
    appearance planes' scatters; S = 1000 and the fused planes with the
-   alternatives off) and times them there;
+   alternatives off) and K3 at the blurred phase's dense grid of 64M
+   voxels, and times them there (K3's memset and kernel apart, by
+   torch.profiler);
 10. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
@@ -138,7 +142,9 @@ def bound(n_bytes: float, n_flops: float):
 
 def device_times(fn, reps: int = 20, warmup: int = 3) -> dict:
     """Mean device time of one call from torch.profiler (CUPTI), by device
-    activity (kernel or memset): {short name: ms} over ``reps`` calls."""
+    activity (kernel or memset): {short name: ms} over ``reps`` calls.  An
+    activity's mean is taken over the events recorded (a lost event does
+    not lower it), times how many a call launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -156,8 +162,9 @@ def device_times(fn, reps: int = 20, warmup: int = 3) -> dict:
         if e.device_type == DeviceType.CUDA:
             m = re.search(r"(\w+_kernel)", e.key)
             name = m.group(1) if m else e.key[:48]
+            per_call = max(1, round(e.count / reps))
             times[name] = times.get(name, 0.0) + \
-                e.self_device_time_total / reps / 1e3
+                e.self_device_time_total / e.count * per_call / 1e3
     return times
 
 
@@ -301,7 +308,9 @@ def expected_launches(cfg) -> dict:
 
 def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None):
     """K3 on n_rays x S rows of C channels into an H x W plane in march
-    order, or, with grid3d = (X, Y, Z), into the dense grid's X*Y*Z rows."""
+    order, or, with grid3d = (X, Y, Z), into the dense grid's X*Y*Z rows;
+    times the wrapper back to back and, from torch.profiler, its memset
+    and its kernel apart (device_ms_by_kernel; device_ms is the kernel's)."""
     import torch
 
     from joint_tensorf_tpu_torch.ops import segment_scatter as K
@@ -323,20 +332,33 @@ def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None):
     if not torch.isfinite(got).all() or err > tol * scale:
         fail(f"scatter kernel disagrees with index_add_ at {n_rows} rows: "
              f"{err:.3g} > {tol} x {scale:.3g}")
+    del got, want
     N = idx.shape[0]
     b_ms, b_by = bound(N * 8 + N * C * 4 + n_rows * C * 4, N * C)
-    # the plain version is index_add_, which is also the library call
+
+    def k3():
+        return K.scatter_add_rows_cuda(idx, upd, n_rows)
+
+    # the plain version is index_add_, which is also the library call;
+    # the profiler runs last, so that no timing follows its teardown
+    k3_ms = time_ms(k3)
     plain = time_ms(lambda: K.scatter_add_rows_plain(idx, upd, n_rows))
+    library = time_ms(lambda: torch.zeros(
+        (n_rows, C), device="cuda").index_add_(0, idx, upd))
+    # the wrapper's device activities by name: its memset and the kernel
+    by_kernel = device_times(k3)
     return {"name": "scatter_add_rows", "route": "cuda",
             "source": "joint_tensorf_tpu_torch/csrc/segment_scatter.cu",
             "replaces": "joint_tensorf_tpu/ops/segment_scatter.py:168",
             "launches": None, "max_abs_err": err,
             "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
-            "ms": time_ms(lambda: K.scatter_add_rows_cuda(idx, upd, n_rows)),
+            "ms": k3_ms,
+            "device_ms": sum(t for name, t in by_kernel.items()
+                             if "scatter_add_rows" in name),
+            "device_ms_by_kernel": by_kernel,
             "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: torch.zeros(
-                (n_rows, C), device="cuda").index_add_(0, idx, upd)),
+            "library_ms": library,
             "shape": {"N": N, "C": C, "n_rows": n_rows,
                       "rows": "dense grid" if grid3d else "plane"}}
 
@@ -770,10 +792,12 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
     after each schedule update, so each step and each transition is timed
     on its own, and the launch counters are read after every step and held
     against expected_launches of the step's configuration.  With
-    profile_dir, the last 3 steps run under torch.profiler and are left
-    out of the step times.  Prints one line per phase; returns the last
-    step's shape: (rays, samples per ray as composited, resolution,
-    the step's configuration)."""
+    profile_dir, two blurred steps at the last resolution (the dense grid
+    of 64M voxels) and the last 3 steps run under torch.profiler and are
+    left out of the step times.  Prints one line per phase; returns the
+    last step's shape: (rays, samples per ray as composited, resolution,
+    the step's configuration, and (samples per ray kept, resolution) of
+    the last blurred dense-grid step at the last resolution, or None)."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -841,10 +865,22 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
 
     n_iter = int(opt.max_iter)
     n_timed = n_iter - 3 if profile_dir else n_iter
+    # with profile_dir, two blurred steps at the last resolution (after
+    # the last upsample and its first step) run under torch.profiler too
+    blur_window = (ups[-1] + 2, ups[-1] + 4) if profile_dir else None
+    profiled = set(range(n_timed, n_iter))
     t_run = time.perf_counter()
+    prof, prof_blur = None, None
+    if profile_dir:
+        trainer.run(max_iter=blur_window[0], log_every=1, on_step=on_step,
+                    stats=True)
+        prof_blur = profile_steps(trainer, blur_window[1], os.path.join(
+            profile_dir, f"all_phases_{label}_blurred_steps_profile.txt"),
+            on_step)
+        profiled.update(range(*blur_window))
+        clock["t"] = time.perf_counter()
     trainer.run(max_iter=n_timed, log_every=1, on_step=on_step, stats=True)
     t_run = time.perf_counter() - t_run
-    prof = None
     if profile_dir:
         prof = profile_steps(trainer, n_iter, os.path.join(
             profile_dir, f"all_phases_{label}_last_steps_profile.txt"),
@@ -882,14 +918,23 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
         faults.append("the mask culled no sample (or every sample) once "
                       "the blur was off")
     last = [r for r in gated if r["resolution"] == steps[-1]["resolution"]]
+    # the dense grid under the blur at the last resolution (64M voxels)
+    blurred_last = [r for r in steps if r["blur"]
+                    and r["config"]["densify_density"]
+                    and r["resolution"] == steps[-1]["resolution"]]
+    if blur_window and not set(range(*blur_window)) <= {
+            r["it"] for r in blurred_last}:
+        faults.append(f"the profiled steps {list(range(*blur_window))} "
+                      f"were not all blurred dense-grid steps at the last "
+                      f"resolution")
     if default_path:
         if not any((r["config"]["compact_k"] or r["n_samples"])
                    < r["n_samples"] for r in last):
             faults.append("no step of the masked last phase compacted "
                           "(compact_k < S)")
-        if not any(r["config"]["densify_density"] for r in steps
-                   if r["blur"]):
-            faults.append("no step under the blur used the dense grid")
+        if not blurred_last:
+            faults.append("no step under the blur used the dense grid at "
+                          "the last resolution")
     elif any(r["config"]["densify_density"] or r["config"]["app_k"]
              or r["budgets"]["compact_k_blur"] is not None
              or (r["config"]["compact_k"] and (r["blur"] or not r["mask_res"]))
@@ -900,7 +945,9 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
 
     # ---------------- per-phase step times
     phases = []
-    for r in steps[:n_timed]:
+    for r in steps:
+        if r["it"] in profiled:
+            continue
         key = (r["resolution"], r["n_samples"], r["mask_res"], r["blur"],
                r["config"]["compact_k"], r["config"]["densify_density"],
                r["config"]["app_k"])
@@ -949,14 +996,20 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
         "peak_mem_gb_last_phase": peak_last,
         "peak_mem_gb": max([peak_last] + [t["peak_mem_gb_before"]
                                           for t in transitions]),
+        "profile_blurred_steps": prof_blur,
         "profile_last_steps": prof}}
     emit(result)
     if faults:
         fail(f"all phases ({label}): " + "; ".join(faults))
     cfg = trainer.last_step_config
+    blurred = None
+    if blurred_last:
+        r = blurred_last[-1]
+        blurred = (min(r["config"]["compact_k"] or r["n_samples"],
+                       r["n_samples"]), r["resolution"])
     return (trainer.rays_per_step,
             min(cfg.compact_k or cfg.n_samples, cfg.n_samples),
-            list(trainer.resolution), cfg)
+            list(trainer.resolution), cfg, blurred)
 
 
 def profile_steps(trainer, end, table_path, on_step=None):
@@ -980,14 +1033,18 @@ def profile_steps(trainer, end, table_path, on_step=None):
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ours = {name: [e.self_device_time_total / e.count / 1e3
+    # K3's narrow route is the dense grid's scatter, its wide route the
+    # planes'
+    ours = {name: [(e.self_device_time_total, e.count)
                    for e in kernels if name in e.key]
             for name in ("composite_fwd_kernel", "composite_bwd_kernel",
-                         "scatter_add_rows_kernel")}
+                         "scatter_add_rows_narrow_kernel",
+                         "scatter_add_rows_wide_kernel")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {"steps": n, "device_busy_ms_per_step": busy_ms / n,
-            "kernel_mean_ms": {k: v[0] if v else None
-                               for k, v in ours.items()},
+            "kernel_mean_ms": {
+                k: sum(t for t, _ in v) / sum(c for _, c in v) / 1e3
+                if v else None for k, v in ours.items()},
             "top_kernels_ms_per_step": [
                 (e.key[:90], e.self_device_time_total / 1e3 / n, e.count // n)
                 for e in top]}
@@ -1075,7 +1132,13 @@ def main(argv):
                             gen, tol=1e-5)
     emit({"kernel_check": scatter})
     torch.cuda.empty_cache()
-    n_rays, S, res, cfg = run_all_phases("tpu_default", (), profile_dir)
+    n_rays, S, res, cfg, (S_blur, res_blur) = run_all_phases(
+        "tpu_default", (), profile_dir)
+    torch.cuda.empty_cache()
+    # K3 on the dense grid of the blurred phase at the last resolution (64M
+    # voxels at this schedule): the samples each ray kept there
+    emit({"kernel_check": check_scatter(n_rays, S_blur, 0, 0, 8, gen,
+                                        tol=1e-5, grid3d=tuple(res_blur))})
     torch.cuda.empty_cache()
     # K1-K3 again at the shapes the default path's last phase gave them: the
     # compacted samples of each ray, and K3 into the largest of the three
@@ -1094,7 +1157,8 @@ def main(argv):
     torch.cuda.empty_cache()
     # the alternatives off, at the same cut schedule: every slot of S =
     # 1000 composited, K3 on the fused planes' 4 x 64 channels
-    n_rays, S, res, _ = run_all_phases("alternatives_off", ALTERNATIVES_OFF)
+    n_rays, S, res, _, _ = run_all_phases("alternatives_off",
+                                          ALTERNATIVES_OFF)
     torch.cuda.empty_cache()
     for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
         emit({"kernel_check": r})

@@ -4,9 +4,13 @@
     scatter_add_rows(idx, updates, n_rows) == zeros([n_rows, C]).at[idx].add(updates)
 
 The factor planes' gradient in sample_planeline_prod's backward is one such
-scatter per plane (ops/sampling.py).  On a CUDA tensor the wrapper launches
-the hand-written kernel (csrc/segment_scatter.cu); on a CPU tensor it takes
-the plain version, ``index_add_``.  There is no other path.
+scatter per plane (ops/sampling.py), and the dense grid's gradient another
+(ops/densify.py).  On a CUDA tensor the wrapper launches the hand-written
+kernel (csrc/segment_scatter.cu, whose C entry point picks its route from
+C: one row a thread up to 16 channels, groups of C/4 threads beyond; one
+counted launch either way); on a CPU tensor it takes the plain version,
+``index_add_``.  There is no other path.  Indices outside [0, n_rows) are
+dropped by the kernel; ``index_add_`` refuses them.
 """
 from __future__ import annotations
 
@@ -30,8 +34,15 @@ def scatter_add_rows_plain(idx, updates, n_rows: int):
 
 def scatter_add_rows_cuda(idx, updates, n_rows: int):
     """Launch K3: idx [N] int64, updates [N, C] float32, both contiguous on
-    one CUDA device -> [n_rows, C] float32."""
-    if not (idx.is_cuda and updates.is_cuda and idx.device == updates.device):
+    one CUDA device -> [n_rows, C] float32.
+
+    The dense grid's call is short on the card (~0.01 ms at 448k x 8), so
+    the host's work per call sets its pace: the output is allocated here
+    and zeroed by the C entry point (a memset on the stream, not a torch
+    fill), device indices are compared as ints, the stream is read raw, and
+    the device is switched only when it is not the current one."""
+    dev = updates.get_device()
+    if not (idx.is_cuda and updates.is_cuda and idx.get_device() == dev):
         raise ValueError("scatter_add_rows_cuda: idx and updates must be on "
                          "one CUDA device")
     if idx.dtype != torch.int64 or updates.dtype != torch.float32:
@@ -44,13 +55,15 @@ def scatter_add_rows_cuda(idx, updates, n_rows: int):
     if not (idx.is_contiguous() and updates.is_contiguous()):
         raise ValueError("scatter_add_rows_cuda: inputs must be contiguous")
     N, C = updates.shape
-    out = torch.zeros((n_rows, C), dtype=torch.float32, device=updates.device)
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=updates.device)
     fn = cuda_build.kernel("segment_scatter", "scatter_add_rows",
                            _ARGTYPES)
-    with torch.cuda.device(updates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(idx.data_ptr(), updates.data_ptr(), out.data_ptr(), N, C,
-                 n_rows, stream)
+    args = (idx.data_ptr(), updates.data_ptr(), out.data_ptr(), N, C, n_rows)
+    if dev == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     cuda_build.LAUNCHES["scatter_add_rows"] += 1
     cuda_build.check(err, "scatter_add_rows")
     return out

@@ -54,7 +54,6 @@ _PORTED_VALUES = (
     ("camera.ndc", False),
     ("tpu.mesh_shape", None),
     ("tpu.factor_dtype", "float32"),
-    ("tpu.densify_dtype", "float32"),
     ("tpu.densify_impl", ("packed8", "lane")),
     ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
     ("tpu.eval_app_k", None),
@@ -87,13 +86,17 @@ _PORTED_VALUES = (
 )
 
 # The tpu: keys.  Those in _PORTED_VALUES run only at the values named
-# there: tpu.densify_dtype=bfloat16 (the JAX package's bf16 row gather) is
-# not ported; tpu.densify_impl packed8 and lane are one sampler here
+# there: tpu.densify_impl packed8 and lane are one sampler here
 # (ops/densify.py); tpu.plane_scatter's xla / segsum / runsum compute one
 # function, which K3 computes; tpu.eval_app_k belongs to evaluation, a
-# later slice.  The others run at any value: tpu.mesh_axes matters only
-# with a mesh, tpu.donate_state is an XLA buffer choice with no
-# counterpart.  A tpu: key in neither list raises.
+# later slice.  tpu.densify_dtype is checked with the layout
+# (_DENSIFY_DTYPES): the JAX renderer reads it only under densify_impl
+# lane (its bf16 row gather, not ported) and computes float32 under
+# packed8 whatever it says, as the port does.  The others run at any
+# value: tpu.mesh_axes matters only with a mesh, tpu.donate_state is an
+# XLA buffer choice with no counterpart.  A tpu: key in none of these
+# raises.
+_DENSIFY_DTYPES = {"packed8": ("float32", "bfloat16"), "lane": ("float32",)}
 _TPU_ANY_VALUE = (
     "mesh_axes", "donate_state", "densify_density", "bbox_compact",
     "blur_mask_compact", "blur_mask_refresh", "mask_res_cap",
@@ -119,7 +122,13 @@ def check_ported(opt: Options):
               else got in want if isinstance(want, tuple) else got == want)
         if not ok:
             raise _unported(f"option {key}={got!r}")
+    impl = opt.get_path("tpu.densify_impl")
+    dtype = opt.get_path("tpu.densify_dtype") or "float32"
+    if dtype not in _DENSIFY_DTYPES[impl]:
+        raise _unported(f"option tpu.densify_dtype={dtype!r} under "
+                        f"tpu.densify_impl={impl!r}")
     checked = {k[4:] for k, _ in _PORTED_VALUES if k.startswith("tpu.")}
+    checked.add("densify_dtype")
     for key in opt.get("tpu") or {}:
         if key not in checked and key not in _TPU_ANY_VALUE:
             raise _unported(f"option tpu.{key}")

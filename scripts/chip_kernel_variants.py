@@ -1,9 +1,14 @@
 #!/usr/bin/env python
-"""Variants of kernels K1 and K4 on one NVIDIA GPU: the measurements behind
-the designs of joint_tensorf_tpu_torch/csrc/composite.cu and
-csrc/binned_scatter.cu.
+"""Variants of kernels K3, K1 and K4 on one NVIDIA GPU: the measurements
+behind the designs of joint_tensorf_tpu_torch/csrc/segment_scatter.cu,
+csrc/composite.cu and csrc/binned_scatter.cu.
 
-    python3 scripts/chip_kernel_variants.py [OUT_DIR]
+    python3 scripts/chip_kernel_variants.py [--k3] [OUT_DIR]
+
+K3's variants (streaming loads on the narrow route, cached loads on the
+wide route, scalar atomics, one atomic per row on the narrow route, 64
+rows a group and 4 rows in flight on the wide route) run
+at chip_smoke.py's K3 shapes, rows in march order; --k3 runs only those.
 
 Each variant is the checked-in source with one edit (a constant, a loop
 bound, a branch), built with nvcc (-Xptxas -v) into OUT_DIR (default
@@ -122,6 +127,86 @@ def k4_variants(base):
     }
 
 
+K3_EDITS = {
+    "narrow_load": "v[k] = __ldg(upd + r * NV + k);",
+    "wide_load": "__ldcs(src + (long long)(s + u) * E + e)",
+    "vec_atomic": "  atomicAdd(reinterpret_cast<float4*>(p), v);",
+    "depth": "const unsigned depth = __reduce_max_sync(kFull, (unsigned)(lane - head));",
+    "tail": "const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);",
+    "rows": "constexpr int kRowsPerGroup = 32;",
+    "unroll": "constexpr int kUnroll = 8;",
+}
+# K3's shapes: chip_smoke.py's (rays, samples a ray, plane (H, W) or dense
+# grid (X, Y, Z), C), rows in march order
+K3_SHAPES = (
+    (2028, 221, (64, 64, 64), 8), (2028, 1000, (423, 359, 420), 8),
+    (2028, 64, (64, 64), 192), (2028, 512, (420, 423), 64),
+    (2028, 128, (420, 423), 192), (2028, 640, (420, 423), 256))
+
+
+def k3_variants(base):
+    e = K3_EDITS
+    return {
+        "checked_in": base,
+        "narrow_streaming_loads": edit(base, (e["narrow_load"], e[
+            "narrow_load"].replace("__ldg", "__ldcs"))),
+        "wide_cached_loads": edit(base, (e["wide_load"], e[
+            "wide_load"].replace("__ldcs", "__ldg"))),
+        "scalar_atomics": edit(base, (e["vec_atomic"], (
+            "  atomicAdd(p, v.x);\n  atomicAdd(p + 1, v.y);\n"
+            "  atomicAdd(p + 2, v.z);\n  atomicAdd(p + 3, v.w);"))),
+        "narrow_atomic_per_row": edit(
+            base, (e["depth"], "const unsigned depth = 0;"),
+            (e["tail"], "const bool tail = true;")),
+        "rows_per_group_64": edit(base, (e["rows"], e["rows"].replace(
+            "32", "64"))),
+        "unroll_4": edit(base, (e["unroll"], e["unroll"].replace("8", "4"))),
+    }
+
+
+def run_k3(out_dir, gen):
+    """K3's variants at K3_SHAPES: the kernel's device time (the output's
+    memset left out) and the largest difference from index_add_."""
+    import torch
+
+    import chip_smoke as cs
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.ops import segment_scatter as K
+
+    cases = []
+    for n_rays, S, dest, C in K3_SHAPES:
+        if len(dest) == 3:
+            idx = cs.march_indices_3d(n_rays, S, *dest, gen)
+        else:
+            idx = cs.march_indices(n_rays, S, *dest, gen)
+        n_rows = 1
+        for d in dest:
+            n_rows *= d
+        upd = torch.randn((idx.shape[0], C), generator=gen, device="cuda")
+        cases.append((f"{idx.shape[0]} x {C} -> {dest}", idx, upd, n_rows))
+    src = open(os.path.join(cuda_build.CSRC, "segment_scatter.cu")).read()
+    for name, vsrc in k3_variants(src).items():
+        lib, log = build(out_dir, "k3_" + name, "segment_scatter", vsrc)
+        fn = lib.scatter_add_rows
+        fn.argtypes, fn.restype = K._ARGTYPES, ctypes.c_int
+        cuda_build._FNS["scatter_add_rows"] = fn
+        row = {"variant": "K3 " + name,
+               "ptxas": ptxas(log, "scatter_add_rows_narrow_kernel")
+               + ptxas(log, "scatter_add_rows_wide_kernel")}
+        for label, idx, upd, n_rows in cases:
+            got = K.scatter_add_rows_cuda(idx, upd, n_rows)
+            want = K.scatter_add_rows_plain(idx, upd, n_rows)
+            row[label] = {
+                "kernel_device_ms": cs.device_ms(
+                    lambda: K.scatter_add_rows_cuda(idx, upd, n_rows),
+                    "scatter_add_rows_"),
+                "max_abs_err": float((got - want).abs().max()),
+                "max_abs_out": float(want.abs().max())}
+            del got, want
+        print(json.dumps(row), flush=True)
+    cuda_build._FNS.pop("scatter_add_rows")
+
+
 def build(out_dir, name, stem, src):
     from joint_tensorf_tpu_torch.ops import cuda_build
 
@@ -159,6 +244,8 @@ def main(argv):
     from joint_tensorf_tpu_torch.ops import cuda_build
     from joint_tensorf_tpu_torch.utils import setup_torch
 
+    only_k3 = argv[:1] == ["--k3"]
+    argv = argv[1:] if only_k3 else argv
     out_dir = argv[0] if argv else os.path.join(
         HERE, "joint_tensorf_tpu_torch", "_build", "variants")
     setup_torch()
@@ -167,6 +254,9 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    run_k3(out_dir, gen)
+    if only_k3:
+        return
 
     src = open(os.path.join(cuda_build.CSRC, "composite.cu")).read()
     inputs = {S: cs.composite_inputs(2028, S, gen)[:3] for S in (221, 1000)}

@@ -196,19 +196,65 @@ def test_dense_grid_sample_takes_k3():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+def _scatter_case(case, n, rows, c, gen):
+    """K3's inputs for one case: "sorted" (long runs, like march order),
+    "uniform", "runs" (runs of 45 rows: they cross the narrow route's warp
+    and block edges and the wide route's group edges), "one_row" (every row
+    to one destination, integer-valued updates: every partial sum is
+    exact), "dropped" (sorted, every 7th index negative and the next one
+    past n_rows) or "unaligned" (sorted, updates 4 bytes off 16-byte
+    alignment: the scalar route)."""
+    if case == "runs":
+        idx = (torch.arange(n, device="cuda") // 45) % rows
+    elif case == "one_row":
+        idx = torch.full((n,), rows // 2, device="cuda")
+    else:
+        idx = torch.randint(0, rows, (n,), generator=gen, device="cuda")
+        if case != "uniform":
+            idx, _ = torch.sort(idx)
+    if case == "dropped":
+        idx[::7] = -3
+        idx[1::7] = rows + 5
+    if case == "one_row":
+        upd = torch.randint(-4, 5, (n, c), generator=gen,
+                            device="cuda").float()
+    elif case == "unaligned":
+        upd = torch.randn((n * c + 1,), generator=gen,
+                          device="cuda")[1:].view(n, c)
+        assert upd.is_contiguous() and upd.data_ptr() % 16 != 0
+    else:
+        upd = torch.randn((n, c), generator=gen, device="cuda")
+    return idx, upd
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,rows,c", [(448188 // 8, 4096, 256),
-                                      (20000, 160000, 64), (1000, 7, 5)])
-def test_scatter_kernel_matches_plain(n, rows, c):
+@pytest.mark.parametrize("case,n,rows,c", [
+    ("sorted", 448188 // 8, 4096, 256), ("sorted", 20000, 160000, 64),
+    ("sorted", 1000, 7, 5),
+    ("sorted", 56023, 262144, 8),       # the dense grid; N % 32 != 0
+    *[("runs", 10001, 997, c) for c in (8, 5, 64, 192, 256, 4, 12, 16, 32)],
+    ("uniform", 33, 5, 8), ("uniform", 20000, 3000, 64),
+    ("one_row", 50000, 100, 8), ("one_row", 50000, 100, 256),
+    ("one_row", 5000, 100, 5),
+    ("dropped", 6000, 900, 8), ("dropped", 6000, 900, 5),
+    ("dropped", 6000, 900, 192),
+    ("unaligned", 3000, 500, 8), ("unaligned", 3000, 500, 64),
+    ("sorted", 2028 * 100, 423 * 359 * 420, 8)])   # the 64M-voxel grid
+def test_scatter_kernel_matches_plain(case, n, rows, c):
+    """K3 on both routes (narrow: C % 4 == 0 up to 16 channels; wide: the
+    rest, with scalar loads when C % 4 != 0 or the updates are not 16-byte
+    aligned) against index_add_ on the rows it keeps."""
     _need_card()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    idx = torch.randint(0, rows, (n,), generator=gen, device="cuda")
-    idx, _ = torch.sort(idx)                 # long runs, like march order
-    upd = torch.randn((n, c), generator=gen, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(n + c)
+    idx, upd = _scatter_case(case, n, rows, c, gen)
     got = segment_scatter.scatter_add_rows(idx, upd, rows)
-    want = segment_scatter.scatter_add_rows_plain(idx, upd, rows)
+    keep = (idx >= 0) & (idx < rows)
+    want = segment_scatter.scatter_add_rows_plain(idx[keep], upd[keep], rows)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if case == "one_row":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,10 @@
   rtol 1e-4 (tests/test_torch_train.py's tolerance), the port fed the
   JAX step's stratified jitter.
 * check_ported: each unported tpu: value raises NotImplementedError naming
-  the key; configs/bat_blender_VM.yaml's own options pass.
+  the key; configs/bat_blender_VM.yaml's own options pass; densify_dtype
+  bfloat16 raises under densify_impl lane and passes under packed8, where
+  a step equals the float32 step bit for bit (the JAX renderer reads the
+  key only under lane).
 """
 import dataclasses
 
@@ -158,6 +161,41 @@ def test_unported_tpu_values_raise(override):
     key = override.split("=")[0].lstrip("-+")
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_ported(set_options(CFG, SMALL + [override]))
+
+
+def test_densify_dtype_bf16_raises_under_lane():
+    """The JAX renderer reads densify_dtype only under densify_impl lane
+    (its bf16 row gather), which the port does not run."""
+    with pytest.raises(NotImplementedError,
+                       match=r"tpu\.densify_dtype.*densify_impl='lane'"):
+        check_ported(set_options(CFG, SMALL + [
+            "--tpu.densify_impl=lane", "--tpu.densify_dtype=bfloat16"]))
+
+
+def test_densify_dtype_bf16_under_packed8_steps_as_float32(small_scene):
+    """Under packed8 the JAX renderer computes float32 whatever
+    densify_dtype says: the port accepts bfloat16 there, and one step on the
+    dense grid equals the float32 step bit for bit."""
+    packed8 = SMALL + ["--tpu.densify_impl=packed8"]
+    jitter = torch.as_tensor(
+        np.random.default_rng(3).uniform(size=(64, 1)).astype(np.float32))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        opt = set_options(CFG, packed8 + [f"--tpu.densify_dtype={dtype}"])
+        check_ported(opt)
+        pt = Trainer(opt, small_scene, device="cpu")
+        m = pt.train_iteration(jitter=jitter)
+        assert pt.last_step_config.densify_density
+        out[dtype] = (float(m["loss"]), {
+            k: v.detach().clone()
+            for k, v in pt.state.field.named_parameters()},
+            pt.state.se3_refine.detach().clone())
+    (loss_a, field_a, pose_a), (loss_b, field_b, pose_b) = out.values()
+    assert loss_a == loss_b
+    assert field_a.keys() == field_b.keys()
+    for k in field_a:
+        assert torch.equal(field_a[k], field_b[k]), k
+    assert torch.equal(pose_a, pose_b)
 
 
 def test_default_tpu_options_pass():
