@@ -68,7 +68,20 @@
    alternatives off) and K3 at the blurred phase's dense grid of 64M
    voxels, and times them there (K3's memset and kernel apart, by
    torch.profiler);
-10. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+10. evaluates the default path's trained state at full width
+   (run_eval_phase, before the alternatives-off run): a checkpoint
+   round trip into a fresh trainer (every state leaf, the mask bits, both
+   generators and the re-probed budgets equal, one val view rendered
+   equal bit for bit; save / restore seconds and the file's size);
+   validate on 4 val views with the counters zeroed around each 4096-ray
+   chunk (K1 = 1, K2-K5 = 0 each; eval budget, dense-grid choice, ms per
+   view, peak memory); pose_error and eval_clip_stats; test-time pose
+   optimisation of the 4 views, EVAL_TEST_ITER steps each, counters
+   zeroed around each step (K1 = 1, K2 = 1, K3 = 0; median step ms); and
+   the evaluate entry point in-process on the checkpoint (quant_pose.txt,
+   quant.txt, quant_eval.json); then a small state's render_views and
+   test-time pose gradient on the card against the CPU (check_small_eval);
+11. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -104,6 +117,11 @@ ALTERNATIVES_OFF = ["--tpu.bbox_compact=false", "--tpu.blur_mask_compact=false",
 # for Blender (K 256-640 of S = 1000), with far fewer live samples a ray
 WARM_DENSITY = 2.0
 WARM_RADII = 0.5
+# evaluation on the trained default path: 4 val / test views (val_sub: 4,
+# the base config's; BAT's own config takes 10), test-time optimisation cut
+# from BAT's 400 steps to 40
+EVAL_ARGS = ["--data.val_sub=4"]
+EVAL_TEST_ITER = 40
 
 
 def emit(obj):
@@ -797,7 +815,8 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
     left out of the step times.  Prints one line per phase; returns the
     last step's shape: (rays, samples per ray as composited, resolution,
     the step's configuration, and (samples per ray kept, resolution) of
-    the last blurred dense-grid step at the last resolution, or None)."""
+    the last blurred dense-grid step at the last resolution, or None), and
+    (the trainer, its training data)."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -1009,7 +1028,363 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
                        r["n_samples"]), r["resolution"])
     return (trainer.rays_per_step,
             min(cfg.compact_k or cfg.n_samples, cfg.n_samples),
-            list(trainer.resolution), cfg, blurred)
+            list(trainer.resolution), cfg, blurred, (trainer, data))
+
+
+# ------------------------------------------- evaluation and checkpoints
+def _state_leaves(t) -> dict:
+    """Every tensor of a trainer's state by name, and the Adam counts."""
+    st = t.state
+    out = dict(st.field.named_parameters())
+    out.update(aabb=st.field.aabb, se3_refine=st.se3_refine,
+               pose_grad_accum=st.pose_grad_accum)
+    for m in ("mu", "nu"):
+        out.update({f"scene_opt.{m}.{k}": v
+                    for k, v in getattr(st.scene_opt, m).items()})
+        out[f"pose_opt.{m}"] = getattr(st.pose_opt, m)["se3_refine"]
+    return out, (st.scene_opt.count, st.pose_opt.count)
+
+
+def _differing_leaves(a, b) -> list:
+    import torch
+
+    (la, ca), (lb, cb) = _state_leaves(a), _state_leaves(b)
+    bad = [k for k in la if k not in lb or not torch.equal(la[k], lb[k])]
+    return bad + (["adam counts"] if ca != cb else [])
+
+
+def run_eval_phase(trainer, data):
+    """Evaluation on the default path's trained trainer at full width:
+
+    1. checkpoint round trip: save_checkpoint to a temporary directory,
+       restore into a fresh Trainer of the same options; every state leaf,
+       the mask bits and the torch generator's state equal; the budgets
+       restore re-probed (compact_k, app_k_dyn) and the numpy generator
+       equal to the saved trainer's after the same probes; one val view
+       rendered by both equal bit for bit;
+    2. validate on the EVAL_VIEWS val views (sim(3)-aligned poses), the
+       launch counters zeroed around each chunk: K1 = 1, K2-K5 = 0;
+    3. pose_error and eval_clip_stats;
+    4. test-time optimisation of each val view's aligned pose
+       (EVAL_TEST_ITER steps, evaluate.py's render config), the counters
+       zeroed around each step: K1 = 1, K2 = 1, K3-K5 = 0; finite losses,
+       refined poses off their inputs; then K1 against its plain version
+       at an eval chunk's shape and K2 (no g_weights) at a step's;
+    5. the evaluate entry point in-process on the checkpoint of 1.
+    Prints one [eval] line per part; returns {"eval": ...}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from joint_tensorf_tpu_torch import evaluate
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.geometry import align as align_lib
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.pose.test_optim import (
+        make_test_time_optimizer, render_config)
+    from joint_tensorf_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    cfg_path = os.path.join(HERE, "configs", "bat_blender_VM.yaml")
+    opt = set_options(cfg_path, PHASES_ARGS + EVAL_ARGS)
+    val = load_dataset(opt, "val", device="cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    faults, out = [], {}
+    try:
+        # ---------------- 1. checkpoint round trip
+        path = os.path.join(tmp, "model.ckpt.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, trainer)
+        save_s = time.perf_counter() - t0
+        fresh = Trainer(set_options(cfg_path, PHASES_ARGS), data,
+                        device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(path, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = _differing_leaves(trainer, fresh)
+        if bad:
+            faults.append(f"round trip: leaves differ: {bad[:8]}")
+        if not (torch.equal(trainer.alpha_mask.grid, fresh.alpha_mask.grid)
+                and torch.equal(trainer.alpha_mask.aabb,
+                                fresh.alpha_mask.aabb)):
+            faults.append("round trip: the mask differs")
+        if not torch.equal(trainer.generator.get_state(),
+                           fresh.generator.get_state()):
+            faults.append("round trip: the torch generator differs")
+        budgets = (trainer._probe_compact_k(), trainer._probe_app_k())
+        if budgets != (fresh.compact_k, fresh.app_k_dyn) or \
+                trainer.rng_np.bit_generator.state != \
+                fresh.rng_np.bit_generator.state:
+            faults.append(f"round trip: budgets {budgets} vs "
+                          f"{(fresh.compact_k, fresh.app_k_dyn)} or the "
+                          f"numpy generator differ")
+        one = (torch.as_tensor(val.poses[:1], device="cuda"), val.intr[:1],
+               torch.as_tensor(val.intr_inv[:1], device="cuda"))
+        if not torch.equal(trainer.render_views(*one)[0],
+                           fresh.render_views(*one)[0]):
+            faults.append("round trip: a val view renders differently")
+        del fresh
+        torch.cuda.empty_cache()
+        out["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                             "bytes": os.path.getsize(path),
+                             "it": trainer.it, "budgets": list(budgets)}
+        print(f"[eval] checkpoint: save {save_s:.2f} s, restore "
+              f"{restore_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB, "
+              f"leaves / mask / generators / budgets / render equal: "
+              f"{not faults}", flush=True)
+
+        # ---------------- 2. validate, counters zeroed around each chunk
+        expect_chunk = {k: 0 for k in cuda_build.LAUNCHES}
+        expect_chunk["composite_fwd"] = 1
+        chunks = []
+
+        def on_chunk(i):
+            chunks.append(dict(cuda_build.LAUNCHES))
+            cuda_build.reset_launches()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        v = trainer.validate(val, on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        rcfg = trainer.last_eval_config
+        bad = [c for c in chunks if c != expect_chunk]
+        if bad or not chunks:
+            faults.append(f"validate: {len(bad)} of {len(chunks)} chunks "
+                          f"launched otherwise than {expect_chunk}: "
+                          f"{bad[:2]}")
+        if not math.isfinite(v["psnr"]):
+            faults.append(f"validate: psnr {v['psnr']}")
+        out["validate"] = {
+            "views": val.n_views, "hw": [val.H, val.W], "psnr": v["psnr"],
+            "n_samples": rcfg.n_samples, "eval_compact_k": rcfg.compact_k,
+            "dense_grid": rcfg.densify_density, "app_k": rcfg.app_k,
+            "chunks": len(chunks), "launches_per_chunk": expect_chunk,
+            "ms_per_view": val_s * 1e3 / val.n_views,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[eval] validate: {val.n_views} views {val.H}x{val.W}, psnr "
+              f"{v['psnr']:.3f}, budget {rcfg.compact_k} of S "
+              f"{rcfg.n_samples}, dense grid {rcfg.densify_density}, "
+              f"{len(chunks)} chunks at K1 1 / K2-K5 0 each, "
+              f"{out['validate']['ms_per_view']:.1f} ms per view, peak "
+              f"{out['validate']['peak_mem_gb']:.2f} GB", flush=True)
+
+        # ---------------- 3. pose error, clip stats
+        err = trainer.pose_error()
+        pose, pose_GT = trainer.get_all_training_poses()
+        _, sim3 = align_lib.prealign_cameras(pose, pose_GT)
+        test_pose = align_lib.align_test_pose(
+            torch.as_tensor(val.poses, device="cuda"), sim3)
+        intr_inv = torch.as_tensor(val.intr_inv, device="cuda")
+        clip = trainer.eval_clip_stats(test_pose, intr_inv)
+        if not all(math.isfinite(x) for x in err.values()) or not all(
+                math.isfinite(clip[k]) for k in ("compact_clip_rate",
+                                                 "app_k_clip_rate")):
+            faults.append(f"pose error {err} / clip stats {clip}")
+        out["pose_error"], out["clip_stats"] = err, clip
+        print(f"[eval] pose error {err}, clip stats {clip}", flush=True)
+
+        # ---------------- 4. test-time optimisation, counters per step
+        expect_step = dict(expect_chunk, composite_bwd=1)
+        steps = []
+        clock = [0.0]
+
+        def on_step(it, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            steps.append({"ms": (now - clock[0]) * 1e3, "loss": float(loss),
+                          "launches": dict(cuda_build.LAUNCHES)})
+            cuda_build.reset_launches()
+            clock[0] = time.perf_counter()
+
+        n_rays = trainer._n_rays()
+        optimize = make_test_time_optimizer(
+            trainer.vm_cfg, render_config(trainer), val.H, val.W,
+            n_rays=n_rays, test_iter=EVAL_TEST_ITER,
+            lr_init=float(opt.optim.lr_pose_test),
+            lr_end=float(opt.optim.lr_pose_test_end),
+            generator=torch.Generator(device="cuda").manual_seed(7),
+            on_step=on_step)
+        images = torch.as_tensor(val.images, device="cuda").reshape(
+            val.n_views, 3, -1).transpose(1, 2)
+        moved = []
+        for i in range(val.n_views):
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            clock[0] = time.perf_counter()
+            p, _ = optimize(trainer.state.field, trainer.alpha_mask,
+                            test_pose[i], images[i], intr_inv[i],
+                            trainer._near_far())
+            moved.append(float((p - test_pose[i]).abs().max()))
+        bad = [s["launches"] for s in steps if s["launches"] != expect_step]
+        if bad:
+            faults.append(f"test-time: {len(bad)} of {len(steps)} steps "
+                          f"launched otherwise than {expect_step}: {bad[:2]}")
+        if not all(math.isfinite(s["loss"]) for s in steps) or \
+                not all(m > 0 for m in moved):
+            faults.append(f"test-time: losses {[s['loss'] for s in steps]}, "
+                          f"pose moved {moved}")
+        step_ms = statistics.median(s["ms"] for s in steps[1:])
+        out["test_time"] = {
+            "views": val.n_views, "test_iter": EVAL_TEST_ITER,
+            "n_rays": n_rays, "n_samples": trainer.n_samples,
+            "launches_per_step": expect_step, "step_ms_median": step_ms,
+            "step_ms_first": steps[0]["ms"], "pose_moved_max_abs": moved,
+            "loss_first_last": [[steps[i * EVAL_TEST_ITER]["loss"],
+                                 steps[(i + 1) * EVAL_TEST_ITER - 1]["loss"]]
+                                for i in range(val.n_views)]}
+        print(f"[eval] test-time: {val.n_views} views x {EVAL_TEST_ITER} "
+              f"steps of {n_rays} rays x S {trainer.n_samples}, K1 1 / K2 1 "
+              f"/ K3 0 each, median {step_ms:.2f} ms per step", flush=True)
+
+        # ---------------- K1 at an eval chunk's shape (4096 rays at the
+        # eval budget), K2 without g_weights at a test-time step's
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        k1 = check_composite(4096, rcfg.compact_k or rcfg.n_samples, 1e-6,
+                             gen, tol=1e-4)[0]
+        k2 = check_composite(n_rays, trainer.n_samples, 1e-6, gen,
+                             tol=1e-4)[1]
+        for r in (k1, k2):
+            emit({"kernel_check": r})
+        out["kernels_at_eval_shapes"] = {
+            r["name"]: {k: r[k] for k in ("shape", "ms", "device_ms",
+                                          "plain_ms", "bound_ms")}
+            for r in (k1, k2)}
+        print(f"[eval] K1 at {k1['shape']}: {k1['device_ms']:.4f} ms device "
+              f"(plain {k1['plain_ms']:.3f}, bound {k1['bound_ms']:.4f}); "
+              f"K2 at {k2['shape']}: {k2['device_ms']:.4f} (plain "
+              f"{k2['plain_ms']:.3f}, bound {k2['bound_ms']:.4f})",
+              flush=True)
+
+        # ---------------- 5. the evaluate entry point
+        out_root = os.path.join(tmp, "out")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quant = evaluate.main([
+            f"--yaml={cfg_path}", *PHASES_ARGS, *EVAL_ARGS, f"--ckpt={path}",
+            f"--output_root={out_root}", "--name=chip_smoke",
+            f"--optim.test_iter={EVAL_TEST_ITER}", "--generate_video=false",
+            "--generate_pose_video=false", "--+tb_logging=false"])
+        eval_s = time.perf_counter() - t0
+        run_dir = os.path.join(out_root, "default", "chip_smoke")
+        with open(os.path.join(run_dir, "quant_eval.json")) as f:
+            written = json.load(f)
+        with open(os.path.join(run_dir, "quant.txt")) as f:
+            per_view = [json.loads(line) for line in f]
+        with open(os.path.join(run_dir, "quant_pose.txt")) as f:
+            pose_rows = [[float(x) for x in line.split()] for line in f]
+        if written != json.loads(json.dumps(quant)) or \
+                len(per_view) != val.n_views or \
+                len(pose_rows) != trainer.n_views or not all(
+                    math.isfinite(written[k]) for k in ("psnr", "ssim")):
+            faults.append(f"evaluate: quant_eval {written}, {len(per_view)} "
+                          f"views, {len(pose_rows)} pose rows")
+        out["evaluate"] = {"s": eval_s, "psnr": written["psnr"],
+                           "ssim": written["ssim"],
+                           "rot_deg": written["rot_deg"],
+                           "trans": written["trans"],
+                           "files": sorted(os.listdir(run_dir))}
+        print(f"[eval] evaluate entry point: {eval_s:.1f} s, psnr "
+              f"{written['psnr']:.3f} ssim {written['ssim']:.4f}, wrote "
+              f"quant_pose.txt, quant.txt, quant_eval.json", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {"eval": out}
+    if faults:
+        emit(result)
+        fail("evaluation: " + "; ".join(faults))
+    return result
+
+
+def check_small_eval():
+    """Evaluation of a small state on the card (kernels) and on the CPU
+    (plain versions): a CPU trainer with warm density builds its mask (and
+    shrinks its box), its checkpoint restores into a card trainer; one
+    32 x 32 view rendered by both (render_views) agrees within 1e-5 and
+    on the eval budget, and one test-time step's pose gradient
+    (pose_loss, evaluate.py's render config, the field frozen) within 1e-3
+    of its max."""
+    import tempfile
+
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.pose.test_optim import (frozen, pose_loss,
+                                                         render_config)
+    from joint_tensorf_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    args = ["--data.dataset=synthetic", "--data.image_size=[32,32]",
+            "--data.n_views=4", "--data.val_sub=1",
+            "--train_schedule.n_voxel_init=262144"]
+    opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
+                      args)
+    trainers, vals = {}, {}
+    for dev in ("cpu", "cuda"):
+        trainers[dev] = Trainer(opt, load_dataset(opt, "train", device=dev),
+                                device=dev)
+        vals[dev] = load_dataset(opt, "val", device=dev)
+    cpu, card = trainers["cpu"], trainers["cuda"]
+    warm_start_density(cpu, int(opt.data.get("seed", 0)))
+    cpu._update_alphamask(int(opt.train_schedule.update_alphamask_iters[0]))
+    with torch.no_grad():
+        cpu.state.se3_refine.copy_(torch.randn(
+            cpu.state.se3_refine.shape,
+            generator=torch.Generator().manual_seed(3)) * 0.01)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.ckpt.npz")
+        save_checkpoint(path, cpu)
+        restore_checkpoint(path, card)
+    val = vals["cpu"]
+    rgb, cfgs, grads = {}, {}, {}
+    gen = torch.Generator().manual_seed(5)
+    ray_idx = torch.randperm(val.H * val.W, generator=gen)[:card._n_rays()]
+    jitter = torch.rand((ray_idx.shape[0], 1), generator=gen)
+    image = torch.as_tensor(val.images[0]).reshape(3, -1).T
+    for dev, t in trainers.items():
+        rgb[dev] = t.render_views(torch.as_tensor(val.poses, device=dev),
+                                  val.intr, torch.as_tensor(
+                                      val.intr_inv, device=dev))[0].cpu()
+        cfgs[dev] = t.last_eval_config
+        se3 = torch.zeros((1, 6), device=dev, requires_grad=True)
+        mv = lambda x: x.to(dev)  # noqa: E731
+        with frozen(t.state.field):
+            loss = pose_loss(se3, t.state.field, t.vm_cfg, render_config(t),
+                             mv(torch.as_tensor(val.poses[0])), mv(image),
+                             mv(torch.as_tensor(val.intr_inv[0])),
+                             t._near_far(), mv(ray_idx), mv(jitter),
+                             t.alpha_mask, val.H, val.W)
+            grads[dev] = torch.autograd.grad(loss, [se3])[0].cpu()
+    render_err = float((rgb["cuda"] - rgb["cpu"]).abs().max())
+    g_err = float((grads["cuda"] - grads["cpu"]).abs().max()) / (
+        float(grads["cpu"].abs().max()) + 1e-12)
+    result = {"small_eval": {
+        "render_max_abs_err": render_err, "pose_grad_err_rel": g_err,
+        "eval_compact_k": cfgs["cuda"].compact_k,
+        "n_samples": cfgs["cuda"].n_samples, "mask_res":
+            list(card.alphamask_resolution)}}
+    print(f"[eval] small state card vs CPU: render {render_err:.3g}, pose "
+          f"gradient {g_err:.3g} of its max, budget "
+          f"{cfgs['cuda'].compact_k} of S {cfgs['cuda'].n_samples}",
+          flush=True)
+    if render_err > 1e-5 or g_err > 1e-3 or \
+            cfgs["cuda"].compact_k != cfgs["cpu"].compact_k or \
+            not math.isfinite(render_err + g_err):
+        emit(result)
+        fail(f"small eval: card vs CPU render {render_err:.3g}, pose "
+             f"gradient {g_err:.3g}, budgets {cfgs['cuda'].compact_k} / "
+             f"{cfgs['cpu'].compact_k}")
+    return result
 
 
 def profile_steps(trainer, end, table_path, on_step=None):
@@ -1132,7 +1507,7 @@ def main(argv):
                             gen, tol=1e-5)
     emit({"kernel_check": scatter})
     torch.cuda.empty_cache()
-    n_rays, S, res, cfg, (S_blur, res_blur) = run_all_phases(
+    n_rays, S, res, cfg, (S_blur, res_blur), trained = run_all_phases(
         "tpu_default", (), profile_dir)
     torch.cuda.empty_cache()
     # K3 on the dense grid of the blurred phase at the last resolution (64M
@@ -1155,10 +1530,15 @@ def main(argv):
     emit({"kernel_check": check_scatter(n_rays, min(cfg.app_k or S, S), Hp,
                                         Wp, 192, gen, tol=1e-5)})
     torch.cuda.empty_cache()
+    # evaluation on the default path's trained state, then its trainer goes
+    emit(run_eval_phase(*trained))
+    del trained
+    torch.cuda.empty_cache()
+    emit(check_small_eval())
     # the alternatives off, at the same cut schedule: every slot of S =
     # 1000 composited, K3 on the fused planes' 4 x 64 channels
-    n_rays, S, res, _, _ = run_all_phases("alternatives_off",
-                                          ALTERNATIVES_OFF)
+    n_rays, S, res, _, _, _ = run_all_phases("alternatives_off",
+                                             ALTERNATIVES_OFF)
     torch.cuda.empty_cache()
     for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
         emit({"kernel_check": r})

@@ -1,4 +1,5 @@
-"""se(3) -> SE(3) exponential map (counterpart of joint_tensorf_tpu/geometry/lie.py).
+"""se(3) -> SE(3) exponential map and the rotation distance
+(counterpart of joint_tensorf_tpu/geometry/lie.py).
 
 Same truncated Taylor series as the reference (nth=8 for the se(3) forward
 map), evaluated in theta^2 so the map and its gradient are smooth at the
@@ -68,3 +69,10 @@ def se3_to_SE3(wu, nth: int = 8):
     V = I + B * wx + C * wx2
     t = V @ u[..., None]
     return torch.cat([R, t], dim=-1)
+
+
+def rotation_distance(R1, R2, eps: float = 1e-7):
+    """Geodesic angle between rotations [..., 3, 3] (radians)."""
+    R_diff = R1 @ R2.transpose(-2, -1)
+    trace = R_diff[..., 0, 0] + R_diff[..., 1, 1] + R_diff[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1) / 2, -1 + eps, 1 - eps))

@@ -32,3 +32,13 @@ def compose(pose_list):
     for p in pose_list[1:]:
         out = compose_pair(out, p)
     return out
+
+
+def to_hom(X):
+    """[..., 3] -> [..., 4] homogeneous coordinates."""
+    return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+
+
+def cam2world(X, pose):
+    """Camera-frame points X [..., N, 3] of world->cam poses -> world."""
+    return to_hom(X) @ invert(pose).transpose(-1, -2)

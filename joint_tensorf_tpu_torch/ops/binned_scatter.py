@@ -215,15 +215,19 @@ class SamplePlaneBinned(torch.autograd.Function):
         plane, u, v = ctx.saved_tensors
         H, W, _ = plane.shape
         g = g.contiguous()
-        x0, y0, fx, fy = pixel_bins(u.detach(), v.detach(), H, W)
-        d_plane = plane_grad_scatter(g, x0, y0, fx, fy, H, W)
-        # coordinate grads through the gather-only sample, plane constant
-        with torch.enable_grad():
-            uu = u.detach().requires_grad_(True)
-            vv = v.detach().requires_grad_(True)
-            out = sample_plane(plane.detach(), uu, vv)
-            d_u, d_v = torch.autograd.grad(out, (uu, vv), g)
-        return d_plane.to(plane.dtype), d_u, d_v
+        d_plane = d_u = d_v = None
+        if ctx.needs_input_grad[0]:
+            x0, y0, fx, fy = pixel_bins(u.detach(), v.detach(), H, W)
+            d_plane = plane_grad_scatter(g, x0, y0, fx, fy, H, W).to(
+                plane.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            # coordinate grads through the gather-only sample, plane constant
+            with torch.enable_grad():
+                uu = u.detach().requires_grad_(True)
+                vv = v.detach().requires_grad_(True)
+                out = sample_plane(plane.detach(), uu, vv)
+                d_u, d_v = torch.autograd.grad(out, (uu, vv), g)
+        return d_plane, d_u, d_v
 
 
 def sample_plane_binned(plane, u, v):

@@ -170,7 +170,8 @@ class Composite(torch.autograd.Function):
 
     Gradients of unused outputs arrive as None, not as zeros: the training
     step never uses the weights, so their [N, S] zero cotangent is neither
-    made nor read."""
+    made nor read.  K2 computes the three input cotangents in one launch;
+    those autograd does not ask for are returned as None."""
 
     @staticmethod
     def forward(ctx, alpha, rgb, z, thres: float):
@@ -195,7 +196,9 @@ class Composite(torch.autograd.Function):
             alpha, rgb, z, weights, ctx.thres, cot(g_rgb, (N, 3)),
             cot(g_depth, (N,)), cot(g_acc, (N,)),
             None if g_weights is None else g_weights.contiguous())
-        return d_alpha, d_rgb, d_z, None
+        need = ctx.needs_input_grad
+        return (d_alpha if need[0] else None, d_rgb if need[1] else None,
+                d_z if need[2] else None, None)
 
 
 def composite(alpha, rgb, z, thres: float = float("-inf")):

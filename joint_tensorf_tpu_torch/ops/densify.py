@@ -54,7 +54,8 @@ def pack_corners(G):
 
 
 class _RowGather(torch.autograd.Function):
-    """table[idx] with the scatter-add backward of K3."""
+    """table[idx] with the scatter-add backward of K3 (skipped when the
+    table needs no gradient)."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -64,6 +65,8 @@ class _RowGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
         idx, = ctx.saved_tensors
         return scatter_add_rows(idx, g.contiguous(), ctx.n_rows), None
 

@@ -9,11 +9,12 @@ the fused plane x line factor sample with its hand-written backward
     sample_planeline_prod(plane [H,W,R], line [D,R], u, v, w [N]) -> p(u,v) * l(w)  [N,R]
 
 Bilinear plane / linear line sampling with align_corners semantics,
-channels-last, clamped to the border.  The backward returns all five
-gradients: the factor gradients (one corner-packed row scatter per plane,
-folded densely; a one-hot matmul for the short line) and the coordinate
-gradients d_u, d_v, d_w, with the border masks of the reference, which are
-the path pose gradients take.
+channels-last, clamped to the border.  The backward returns those of the
+five gradients that autograd asks for (ctx.needs_input_grad): the factor
+gradients (one corner-packed row scatter per plane, folded densely; a
+one-hot matmul for the short line) and the coordinate gradients d_u, d_v,
+d_w, with the border masks of the reference, which are the path pose
+gradients take.
 
 Forward and backward are plain PyTorch, except the packed-plane scatter,
 which goes through ops/segment_scatter.scatter_add_rows: kernel K3 on a
@@ -157,7 +158,12 @@ class SamplePlaneLineProd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """Only the cotangents autograd asks for: with the factors frozen
+        (test-time pose optimisation) neither the plane scatter (K3) nor
+        the line matmul runs, as JAX's value_and_grad w.r.t. the pose
+        alone drops them."""
         plane, line, u, v, w = ctx.saved_tensors
+        need_p, need_l, need_u, need_v, need_w = ctx.needs_input_grad
         H, W, R = plane.shape
         D = line.shape[0]
         g = g.contiguous()
@@ -174,24 +180,29 @@ class SamplePlaneLineProd(torch.autograd.Function):
         lrows = pack_line(line)[i0]                               # [N, 2R]
         l0, l1 = lrows[:, :R], lrows[:, R:]
         w00, w01, w10, w11 = _bilinear_weights(fx, fy)
-        p = f00 * w00 + f01 * w01 + f10 * w10 + f11 * w11
         l = l0 * (1.0 - fz)[:, None] + l1 * fz[:, None]
         gl = g * l
-        gp = g * p
-        g4 = torch.cat([gl * w00, gl * w01, gl * w10, gl * w11], -1)
-        g2 = torch.cat([gp * (1.0 - fz)[:, None], gp * fz[:, None]], -1)
-        dp_dx = (f01 - f00) * (1 - fy)[:, None] + (f11 - f10) * fy[:, None]
-        dp_dy = (f10 - f00) * (1 - fx)[:, None] + (f11 - f01) * fx[:, None]
-        mx = ((x_raw > 0) & (x_raw < W - 1)).to(g.dtype)
-        my = ((y_raw > 0) & (y_raw < H - 1)).to(g.dtype)
-        mz = ((z_raw > 0) & (z_raw < D - 1)).to(g.dtype)
-        d_u = torch.sum(gl * dp_dx, -1) * (0.5 * (W - 1)) * mx
-        d_v = torch.sum(gl * dp_dy, -1) * (0.5 * (H - 1)) * my
-        d_w = torch.sum(gp * (l1 - l0), -1) * (0.5 * (D - 1)) * mz
-        d_pk = scatter_add_rows(idx, g4, H * W)
-        d_lk = _scatter_rows_matmul(i0, g2, D)
-        return (_plane_fold(d_pk, H, W, R), _line_fold(d_lk, D, R),
-                d_u, d_v, d_w)
+        d_plane = d_line = d_u = d_v = d_w = None
+        if need_p:
+            g4 = torch.cat([gl * w00, gl * w01, gl * w10, gl * w11], -1)
+            d_plane = _plane_fold(scatter_add_rows(idx, g4, H * W), H, W, R)
+        if need_l or need_w:
+            gp = g * (f00 * w00 + f01 * w01 + f10 * w10 + f11 * w11)
+        if need_l:
+            g2 = torch.cat([gp * (1.0 - fz)[:, None], gp * fz[:, None]], -1)
+            d_line = _line_fold(_scatter_rows_matmul(i0, g2, D), D, R)
+        if need_u:
+            dp_dx = (f01 - f00) * (1 - fy)[:, None] + (f11 - f10) * fy[:, None]
+            mx = ((x_raw > 0) & (x_raw < W - 1)).to(g.dtype)
+            d_u = torch.sum(gl * dp_dx, -1) * (0.5 * (W - 1)) * mx
+        if need_v:
+            dp_dy = (f10 - f00) * (1 - fx)[:, None] + (f11 - f01) * fx[:, None]
+            my = ((y_raw > 0) & (y_raw < H - 1)).to(g.dtype)
+            d_v = torch.sum(gl * dp_dy, -1) * (0.5 * (H - 1)) * my
+        if need_w:
+            mz = ((z_raw > 0) & (z_raw < D - 1)).to(g.dtype)
+            d_w = torch.sum(gp * (l1 - l0), -1) * (0.5 * (D - 1)) * mz
+        return d_plane, d_line, d_u, d_v, d_w
 
 
 def sample_planeline_prod(plane, line, u, v, w):

@@ -1,4 +1,5 @@
-"""Training CLI of the port (counterpart of the repository's train.py).
+"""Training CLI of the port (counterpart of the repository's train.py:35-184,
+for ``model: bat``).
 
     python -m joint_tensorf_tpu_torch.train --yaml=configs/bat_blender_VM.yaml \
         --data.dataset=synthetic [--key=value ...] [--device=cpu]
@@ -9,14 +10,37 @@ upsamples, alpha-mask updates, bbox shrink) on the JAX trainer's default
 ``tpu:`` path (sample compaction, dense-grid density, two-stage
 appearance; ``--tpu.bbox_compact=false --tpu.blur_mask_compact=false
 --tpu.densify_density=false --tpu.app_k=null`` turn off all but the
-alpha mask's own compaction, which the JAX trainer always runs), printing
-one line per log interval (freq.scalar) and one per phase transition with
-the compaction budgets.  It writes no checkpoint and runs no validation
-yet.
+alpha mask's own compaction, which the JAX trainer always runs).
+
+Writes into ``output_root/group/name/``:
+
+* ``options.json`` (the config drift against an existing one is printed
+  first, one ``[options]`` line per key);
+* ``log.jsonl``: one row per log interval (freq.scalar) with the step's
+  metrics, the pose errors after sim(3) alignment (``rot_deg``,
+  ``trans``) every 4 x freq.scalar iterations and ``val_psnr`` every
+  freq.val iterations;
+* ``model_it{N}.ckpt.npz`` every freq.ckpt iterations and
+  ``model.ckpt.npz`` at the end (train/checkpoint.py, the JAX layout);
+* ``quant.json`` after the final validation: ``wall_s``, ``iters``,
+  ``val_psnr``, ``rot_deg``, ``trans``; also ``summary.json``.
+
+``--resume=true`` continues from ``model.ckpt.npz`` at its stored
+iteration.  The validation split is ``val``, or ``test`` with
+data.val_on_test.  It also prints one line per phase transition with the
+compaction budgets.
+
+Two departures from train.py: a failed validation (mid-run or final)
+stops the run, where train.py catches it and carries on, because a failed
+render on the card is a fault to see; and ``profiling`` is not ported
+(it raises).
 """
 from __future__ import annotations
 
+import json
+import os
 import sys
+import time
 
 
 def main(argv):
@@ -33,26 +57,76 @@ def main(argv):
                          "--yaml=configs/<cfg>.yaml [--k=v ...]")
 
     from ..config import set_options
+    from ..config.options import diff_options
     from ..data import load_dataset
+    from ..utils.logging import MetricLogger
+    from . import checkpoint as ckpt_lib
     from .trainer import Trainer
 
     opt = set_options(yaml_path, rest)
+    if opt.get("profiling"):
+        raise NotImplementedError("option profiling=true is not ported yet "
+                                  "(a later slice of the PyTorch port)")
+    out_dir = os.path.join(opt.get("output_root", "output"),
+                           str(opt.get("group", "default")),
+                           str(opt.get("name", "run")))
+    os.makedirs(out_dir, exist_ok=True)
+    opts_file = os.path.join(out_dir, "options.json")
+    if os.path.exists(opts_file):
+        with open(opts_file) as f:
+            saved = json.load(f)
+        drift = diff_options(saved, json.loads(
+            json.dumps(opt.to_dict(), default=str)))
+        if drift:
+            print(f"[options] config drift vs saved {opts_file}:")
+            for line in drift:
+                print(f"[options]   {line}")
+    with open(opts_file, "w") as f:
+        json.dump(opt.to_dict(), f, indent=2, default=str)
+
     print(f"[data] rendering {opt.data.dataset} "
           f"{opt.data.image_size} x {opt.data.get('n_views', 12)} views",
           flush=True)
     data = load_dataset(opt, "train", subset=opt.data.get("train_sub"),
                         device=device)
-    trainer = Trainer(opt, data, device=device)
+    val_split = "test" if opt.data.get("val_on_test") else "val"
+    val_data = load_dataset(opt, val_split, subset=opt.data.get("val_sub"),
+                            device=device)
+    trainer = Trainer(opt, data, val_data, device=device)
     print(f"[train] {opt.model} | device={trainer.device} "
           f"views={data.n_views} res={trainer.resolution} "
           f"n_samples={trainer.n_samples} max_iter={trainer.max_iter}",
           flush=True)
 
+    ckpt_file = os.path.join(out_dir, "model.ckpt.npz")
+    if opt.get("resume") and os.path.exists(ckpt_file):
+        ckpt_lib.restore_checkpoint(ckpt_file, trainer)
+        print(f"[resume] restored it={trainer.it}", flush=True)
+
+    logger = MetricLogger(out_dir, opt)
+    t0 = time.time()
+    freq_scalar = int(opt.freq.get("scalar", 200))
+    freq_val = int(opt.freq.get("val", 0) or 0)
+    freq_ckpt = int(opt.freq.get("ckpt", 0) or 0)
     phase = [trainer.resolution, trainer.n_samples, None]
 
     def on_log(tr, m):
-        print(f"it {tr.it:6d} | loss {m['loss']:.5f} | psnr {m['psnr']:.2f} "
-              f"| lr {tr.lr_index:.2e} | {m['wall']:.1f}s", flush=True)
+        line = dict(m)
+        if tr.it % max(1, freq_scalar * 4) == 0:
+            line.update(tr.pose_error())
+        if freq_val and tr.it > 0 and tr.it % freq_val == 0:
+            line["val_psnr"] = tr.validate(val_data)["psnr"]
+            print(f"it {tr.it:6d} | VAL psnr {line['val_psnr']:.2f}",
+                  flush=True)
+        logger.log_scalars(line, tr.it)
+        if freq_ckpt and tr.it > 0 and tr.it % freq_ckpt == 0:
+            ckpt_lib.save_checkpoint(ckpt_file, tr, snapshot_path=os.path.join(
+                out_dir, f"model_it{tr.it}.ckpt.npz"))
+        msg = (f"it {tr.it:6d} | loss {m['loss']:.5f} | psnr {m['psnr']:.2f} "
+               f"| lr {tr.lr_index:.2e} | {m['wall']:.1f}s")
+        if "rot_deg" in line:
+            msg += f" | rot {line['rot_deg']:.3f}° trans {line['trans']:.4f}"
+        print(msg, flush=True)
 
     def on_step(tr, m):
         if m is not None:       # after the step; report after the update
@@ -70,8 +144,19 @@ def main(argv):
                   f"app_k={tr.app_k_dyn or tr.opt.tpu.get('app_k')}",
                   flush=True)
 
-    trainer.run(log_every=int(opt.freq.get("scalar", 200)), callback=on_log,
-                on_step=on_step)
+    trainer.run(log_every=freq_scalar, callback=on_log, on_step=on_step)
+
+    # the checkpoint before the final validation, as in train.py
+    ckpt_lib.save_checkpoint(ckpt_file, trainer)
+    print(f"[ckpt] saved to {ckpt_file}", flush=True)
+    result = {"wall_s": time.time() - t0, "iters": trainer.it,
+              "val_psnr": trainer.validate(val_data)["psnr"]}
+    result.update(trainer.pose_error())
+    with open(os.path.join(out_dir, "quant.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    logger.summary(result)
+    logger.close()
+    print("[done]", json.dumps(result), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,197 @@
+"""Checkpoint save / restore in the JAX package's .npz layout
+(counterpart of joint_tensorf_tpu/train/checkpoint.py:77-108, :159-215).
+
+One .npz holds:
+
+* ``state/<path>``: every array of the train state under the JAX pytree's
+  path strings (``state/.params/.field/.density_planes/[0]``,
+  ``state/.scene_opt/.mu/.shading/['layers']/[1]/['w']``, ...); the
+  field's Adam moments carry an ``.aabb`` entry, zeros, as JAX's do;
+* ``pose_noise``: the SE(3) noise matrices [V, 3, 4] that pose_base is
+  composed from, when the config adds noise;
+* ``alpha_mask/packed|shape|aabb``: the mask's bits (np.packbits), its
+  grid shape and its box;
+* ``meta_json``: the schedule (it, the voxel counts, resolutions, lrs,
+  n_samples), whether a mask exists and the numpy generator's state;
+* ``key``: the uint32 pair of JAX's PRNGKey(seed), which JAX's restore
+  reads; the port ignores it on restore;
+* ``torch_generator_state``: the port's torch.Generator state (its device
+  type in meta_json), which JAX's restore ignores.
+
+Each side restores the other's files: restore rebuilds the field at the
+stored shapes and box, the Adam moments and counts, the pose table and
+pose_base, and the alpha mask, then re-probes compact_k and app_k_dyn from
+the restored numpy generator, as JAX does.  The budgets JAX leaves as they
+are on restore (compact_k_bbox, the blur mask) stay as they are here too.
+Writes are synchronous and atomic (a temporary file, then a rename) and
+not compressed: JAX compresses (np.savez_compressed), which saves little
+on float32 factors and moments at many times the write time; np.load
+reads either.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+
+import numpy as np
+import torch
+
+from .. import convert
+from ..geometry import poses as pose_ops
+from ..models.alpha_mask import AlphaMask
+
+_GROUPS = ("density_planes", "density_lines", "app_planes", "app_lines")
+
+
+def _field_paths(prefix: str, tree: dict, aabb) -> dict:
+    """The converter's field-shaped dict -> {JAX leaf path: array}."""
+    out = {}
+    for g in _GROUPS:
+        for i, a in enumerate(tree[g]):
+            out[f"{prefix}/.{g}/[{i}]"] = a
+    out[f"{prefix}/.basis"] = tree["basis"]
+    for i, layer in enumerate(tree["shading"]["layers"]):
+        for k in ("b", "w"):
+            out[f"{prefix}/.shading/['layers']/[{i}]/['{k}']"] = layer[k]
+    out[f"{prefix}/.aabb"] = aabb
+    return out
+
+
+def _field_tree(prefix: str, arrays: dict) -> dict:
+    """The inverse of _field_paths (the .aabb leaf stays in ``arrays``)."""
+    tree = {g: [] for g in _GROUPS}
+    for g in _GROUPS:
+        while f"{prefix}/.{g}/[{len(tree[g])}]" in arrays:
+            tree[g].append(arrays[f"{prefix}/.{g}/[{len(tree[g])}]"])
+    pat = re.compile(re.escape(prefix) + r"/\.shading/\['layers'\]/\[(\d+)\]"
+                     r"/\['(\w)'\]$")
+    layers: dict[int, dict] = {}
+    for key, a in arrays.items():
+        m = pat.match(key)
+        if m:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = a
+    tree["basis"] = arrays[f"{prefix}/.basis"]
+    tree["shading"] = {"layers": [layers[i] for i in sorted(layers)]}
+    return tree
+
+
+def _state_arrays(trainer) -> dict:
+    """{JAX leaf path: numpy array} of the trainer's state."""
+    d = convert.to_numpy(trainer.state)
+    zeros = np.zeros_like(d["aabb"])
+    out = _field_paths(".params/.field", d, d["aabb"])
+    out[".params/.se3_refine"] = d["se3_refine"]
+    for m in ("mu", "nu"):
+        out.update(_field_paths(f".scene_opt/.{m}", d["scene_opt"][m], zeros))
+        out[f".pose_opt/.{m}"] = d["pose_opt"][m]
+    out[".scene_opt/.count"] = np.int32(d["scene_opt"]["count"])
+    out[".pose_opt/.count"] = np.int32(d["pose_opt"]["count"])
+    out[".pose_grad_accum"] = d["pose_grad_accum"]
+    return out
+
+
+def _state_dict(arrays: dict) -> dict:
+    """{JAX leaf path: array} -> the converter's dict."""
+    missing = [k for k in (".params/.field/.aabb", ".params/.se3_refine",
+                           ".scene_opt/.count", ".pose_opt/.count",
+                           ".pose_grad_accum") if k not in arrays]
+    if missing:
+        raise KeyError(f"checkpoint missing leaves {missing}")
+    d = _field_tree(".params/.field", arrays)
+    d["aabb"] = arrays[".params/.field/.aabb"]
+    d["se3_refine"] = arrays[".params/.se3_refine"]
+    d["scene_opt"] = {m: _field_tree(f".scene_opt/.{m}", arrays)
+                      for m in ("mu", "nu")}
+    d["scene_opt"]["count"] = int(arrays[".scene_opt/.count"])
+    d["pose_opt"] = {m: arrays[f".pose_opt/.{m}"] for m in ("mu", "nu")}
+    d["pose_opt"]["count"] = int(arrays[".pose_opt/.count"])
+    d["pose_grad_accum"] = arrays[".pose_grad_accum"]
+    return d
+
+
+def save_checkpoint(path: str, trainer, snapshot_path: str | None = None):
+    """Write the trainer's checkpoint to ``path`` (and a copy to
+    ``snapshot_path`` when given)."""
+    meta = {
+        "it": trainer.it,
+        "n_voxel_list": [int(n) for n in trainer.n_voxel_list],
+        "n_voxels": int(trainer.n_voxels),
+        "resolution": [int(r) for r in trainer.resolution],
+        "alphamask_resolution": [int(r)
+                                 for r in trainer.alphamask_resolution],
+        "lr_index": trainer.lr_index,
+        "lr_basis": trainer.lr_basis,
+        # the port runs no TV loss on the factors (check_ported)
+        "tv_density_weight": 0.0,
+        "tv_color_weight": 0.0,
+        "n_samples": int(trainer.n_samples),
+        "has_alpha_mask": trainer.alpha_mask is not None,
+        "rng_state": trainer.rng_np.bit_generator.state,
+        "torch_generator_device": trainer.generator.device.type,
+    }
+    payload = {f"state/{k}": v for k, v in _state_arrays(trainer).items()}
+    seed = int(trainer.opt.get("seed", 0))
+    payload["key"] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    payload["torch_generator_state"] = trainer.generator.get_state().numpy()
+    if trainer.pose_noise is not None:
+        payload["pose_noise"] = trainer.pose_noise.cpu().numpy()
+    if trainer.alpha_mask is not None:
+        grid = trainer.alpha_mask.grid.cpu().numpy() > 0.5
+        payload["alpha_mask/packed"] = np.packbits(grid.reshape(-1))
+        payload["alpha_mask/shape"] = np.asarray(grid.shape)
+        payload["alpha_mask/aabb"] = trainer.alpha_mask.aabb.cpu().numpy()
+    payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+    if snapshot_path is not None:
+        shutil.copyfile(path, snapshot_path)
+
+
+def restore_checkpoint(path: str, trainer) -> None:
+    """Restore ``trainer`` in place from a checkpoint of either package."""
+    data = np.load(path, allow_pickle=False)
+    meta = json.loads(bytes(data["meta_json"]).decode())
+    dev = trainer.device
+    arrays = {k[len("state/"):]: data[k] for k in data.files
+              if k.startswith("state/")}
+    trainer.state, _ = convert.train_state_from_numpy(
+        _state_dict(arrays), trainer.vm_cfg, device=dev)
+
+    trainer.it = int(meta["it"])
+    trainer.n_voxel_list = list(meta["n_voxel_list"])
+    trainer.n_voxels = int(meta["n_voxels"])
+    trainer.resolution = list(meta["resolution"])
+    trainer.alphamask_resolution = list(meta["alphamask_resolution"])
+    trainer.lr_index = float(meta["lr_index"])
+    trainer.lr_basis = float(meta["lr_basis"])
+    trainer.n_samples = int(meta["n_samples"])
+    trainer.rng_np.bit_generator.state = meta["rng_state"]
+    if "torch_generator_state" in data.files:
+        if meta.get("torch_generator_device") == trainer.generator.device.type:
+            trainer.generator.set_state(
+                torch.as_tensor(data["torch_generator_state"]))
+        else:
+            # another device's generator: its draws differ whatever its
+            # state, so the seeded one stays
+            print(f"[ckpt] torch generator state is for "
+                  f"{meta.get('torch_generator_device')}, not "
+                  f"{trainer.generator.device.type}: left as seeded",
+                  flush=True)
+    if "pose_noise" in data.files:
+        trainer.pose_noise = torch.as_tensor(data["pose_noise"], device=dev)
+        trainer.pose_base = pose_ops.compose(
+            [trainer.pose_noise, trainer.gt_poses])
+    if meta["has_alpha_mask"]:
+        shape = tuple(int(s) for s in data["alpha_mask/shape"])
+        n = int(np.prod(shape))
+        grid = np.unpackbits(data["alpha_mask/packed"])[:n].reshape(shape)
+        trainer.alpha_mask = AlphaMask(
+            grid=torch.as_tensor(grid, dtype=torch.float32, device=dev),
+            aabb=torch.as_tensor(data["alpha_mask/aabb"], device=dev))
+        trainer.compact_k = trainer._probe_compact_k()
+        trainer.app_k_dyn = trainer._probe_app_k()
+    trainer.last_step_config = None

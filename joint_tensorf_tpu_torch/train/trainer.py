@@ -21,6 +21,15 @@ All schedule randomness comes from one numpy generator, drawn in the JAX
 trainer's order (the probes at a mask update included), so both trainers
 see the same ray indices and blur scales; device randomness (pose noise,
 field init, stratified jitter) comes from a torch.Generator.
+
+Evaluation (trainer.py:1131-1333 of the JAX package, without its viz/
+pose-gradient maps): render_views renders whole views in chunks on an
+eval budget probed on the rendered poses, eval_clip_stats measures how
+often the static caps clip, validate gives the PSNR of a split with the
+test poses sim(3)-aligned to the learned frame, pose_error the aligned
+rotation and translation errors.  None of them draws from the torch
+generator, and only eval_clip_stats draws from the numpy one (as JAX's
+does), so a run with mid-run validation trains as one without.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 
 from ..config import Options
 from ..data.base import SceneData
+from ..geometry import align as align_lib
 from ..geometry import lie, poses as pose_ops
 from ..models import alpha_mask as am_lib
 from ..models import vm as vm_lib
@@ -41,7 +51,8 @@ from ..ops import kernels as kernel_ops
 from ..ops import sobel
 from ..geometry.rays import get_center_and_ray
 from ..ops.composite import transmittance
-from ..render.renderer import BlurSpec, sample_ray_axes, step_size
+from ..render.renderer import (BlurSpec, RenderConfig, render_rays,
+                               sample_ray_axes, step_size)
 from ..sched import schedules
 from ..utils.torch_setup import resolve_device, setup_torch
 from .step import (StepConfig, StepScalars, compose_train_pose,
@@ -56,7 +67,6 @@ _PORTED_VALUES = (
     ("tpu.factor_dtype", "float32"),
     ("tpu.densify_impl", ("packed8", "lane")),
     ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
-    ("tpu.eval_app_k", None),
     ("arch.tensorf.model", ("BAT_VMSplit", "TensorVMSplit")),
     ("arch.shading.model", "MLP_Fea"),
     ("arch.shading.predict_density", False),
@@ -88,8 +98,7 @@ _PORTED_VALUES = (
 # The tpu: keys.  Those in _PORTED_VALUES run only at the values named
 # there: tpu.densify_impl packed8 and lane are one sampler here
 # (ops/densify.py); tpu.plane_scatter's xla / segsum / runsum compute one
-# function, which K3 computes; tpu.eval_app_k belongs to evaluation, a
-# later slice.  tpu.densify_dtype is checked with the layout
+# function, which K3 computes.  tpu.densify_dtype is checked with the layout
 # (_DENSIFY_DTYPES): the JAX renderer reads it only under densify_impl
 # lane (its bf16 row gather, not ported) and computes float32 under
 # packed8 whatever it says, as the port does.  The others run at any
@@ -101,7 +110,8 @@ _TPU_ANY_VALUE = (
     "mesh_axes", "donate_state", "densify_density", "bbox_compact",
     "blur_mask_compact", "blur_mask_refresh", "mask_res_cap",
     "mask_cap_voxels", "densify_min_samples_per_chip", "app_k",
-    "app_k_auto", "app_k_max", "app_k_dense_only", "mask_stride")
+    "app_k_auto", "app_k_max", "app_k_dense_only", "mask_stride",
+    "eval_app_k")
 
 
 def _unported(what: str):
@@ -159,10 +169,12 @@ def build_vm_config(opt: Options) -> vm_lib.VMConfig:
 class Trainer:
     """Joint pose + tensorial-field training (BAT)."""
 
-    def __init__(self, opt: Options, train_data: SceneData, device=None):
+    def __init__(self, opt: Options, train_data: SceneData,
+                 val_data: Optional[SceneData] = None, device=None):
         check_ported(opt)
         setup_torch()
         self.opt = opt
+        self.val_data = val_data
         self.device = dev = resolve_device(device)
         self.it = 0
         self.max_iter = int(opt.max_iter)
@@ -212,17 +224,18 @@ class Trainer:
         self.pose_gamma = ((float(o.lr_pose_end) / self.lr_pose0) ** (
             1.0 / self.max_iter) if self.lr_pose0 > 0 else 1.0)
 
-        # ---------------- pose noise: base = GT o noise
+        # ---------------- pose noise: base = GT o noise (the SE(3) noise
+        # matrices are kept: the checkpoint stores them)
         V, H, W = train_data.n_views, train_data.H, train_data.W
         self.n_views, self.H, self.W = V, H, W
         self.gt_poses = torch.as_tensor(train_data.poses, device=dev)
+        self.pose_noise: Optional[torch.Tensor] = None
         if opt.camera.get("noise"):
             se3_noise = torch.randn((V, 6), generator=self.generator,
                                     device=dev) * float(opt.camera.noise)
-            self.pose_base = pose_ops.compose([lie.se3_to_SE3(se3_noise),
-                                               self.gt_poses])
-        else:
-            self.pose_base = self.gt_poses
+            self.pose_noise = lie.se3_to_SE3(se3_noise)
+        self.pose_base = (self.gt_poses if self.pose_noise is None else
+                          pose_ops.compose([self.pose_noise, self.gt_poses]))
 
         # ---------------- device-side dataset
         self.images_chw = torch.as_tensor(train_data.images, device=dev)
@@ -257,6 +270,7 @@ class Trainer:
         self.compact_k_blur: Optional[int] = None   # dilated mask, blur on
         self._blur_mask_built_at: Optional[int] = None
         self.last_step_config: Optional[StepConfig] = None
+        self.last_eval_config: Optional[RenderConfig] = None
         self._refresh_bbox_k()
 
     # ------------------------------------------------------------- schedules
@@ -571,19 +585,24 @@ class Trainer:
                                   self.pose_base, views)
         return pose, self.gt_poses
 
-    def _probe_rays(self, rng: np.random.Generator, n_probe_rays: int):
+    def _probe_rays(self, rng: np.random.Generator, n_probe_rays: int,
+                    poses=None, intr_inv=None):
         """(centers, dirs) [n, 3] of every view's first n_probe_rays / V
-        pixels of a permutation drawn from ``rng``."""
-        poses, _ = self.get_all_training_poses()
-        per_view = max(1, n_probe_rays // self.n_views)
+        pixels of a permutation drawn from ``rng``: the views of ``poses``
+        with ``intr_inv``, the training views by default."""
+        if poses is None:
+            poses, _ = self.get_all_training_poses()
+            intr_inv = self.intr_inv
+        per_view = max(1, n_probe_rays // poses.shape[0])
         idx = torch.as_tensor(rng.permutation(self.H * self.W)[:per_view],
                               device=self.device)
-        centers, dirs = get_center_and_ray(self.H, self.W, poses,
-                                           self.intr_inv, ray_idx=idx)
+        centers, dirs = get_center_and_ray(self.H, self.W, poses, intr_inv,
+                                           ray_idx=idx)
         return centers.reshape(-1, 3), dirs.reshape(-1, 3)
 
     @torch.no_grad()
-    def _probe_compact_k(self, n_probe_rays: int = 4096, pad: float = 1.25,
+    def _probe_compact_k(self, n_probe_rays: int = 4096, poses=None,
+                         intr_inv=None, pad: float = 1.25,
                          bbox_only: bool = False,
                          mask: Optional[am_lib.AlphaMask] = None):
         """The compaction budget K (trainer.py:891-1004): the most live
@@ -592,16 +611,19 @@ class Trainer:
         first sample, and any of its samples in the box), times ``pad``,
         rounded up to a multiple of 128 (at least 128); None when K would
         reach S.  ``bbox_only`` counts the in-bbox gate alone.  The probe
-        rays come from the training generator for the alpha mask's probe,
-        and from a generator of their own (seed + 12345) for the in-bbox
-        and blur-mask probes, which must not move the training draws."""
+        rays cross every view of ``poses`` (with ``intr_inv``; the
+        training views by default).  They come from the training generator
+        for the alpha mask's probe on the training views, from
+        default_rng(0) on given (evaluation) poses, and from
+        default_rng(seed + 12345) for the in-bbox and blur-mask probes:
+        only the first moves the training draws."""
         probe_mask = mask if mask is not None else self.alpha_mask
         if probe_mask is None and not bbox_only:
             return None
-        rng = self.rng_np
+        rng = self.rng_np if poses is None else np.random.default_rng(0)
         if bbox_only or mask is not None:
             rng = np.random.default_rng(int(self.opt.get("seed", 0)) + 12345)
-        centers, dirs = self._probe_rays(rng, n_probe_rays)
+        centers, dirs = self._probe_rays(rng, n_probe_rays, poses, intr_inv)
         S = self.n_samples
         g = self.mask_stride if (self.mask_stride > 1
                                  and S % self.mask_stride == 0) else 1
@@ -790,3 +812,126 @@ class Trainer:
                     callback(self, m)
             self.it += 1
         return self.metrics_history
+
+    # ------------------------------------------------------------ evaluation
+    @torch.no_grad()
+    def render_views(self, pose, intr, intr_inv, chunk: int = 4096,
+                     on_chunk=None):
+        """Whole views [V, H*W] of ``pose`` [V, 3, 4] in chunks of ``chunk``
+        rays (trainer.py:1139-1196) -> (rgb [V, H*W, 3], depth, opacity
+        [V, H*W]).  The compaction budget is probed on these poses with
+        pad 1.5; the dense grid runs only when that probe leaves no budget;
+        the appearance is dense unless tpu.eval_app_k sets a cap.  Samples
+        are not stratified; the training mask stride and the alpha mask,
+        no blur.  ``intr`` is unused on the Euclidean path (NDC reads it).
+        ``on_chunk(i)`` runs after chunk i."""
+        del intr
+        pose = torch.as_tensor(pose, device=self.device)
+        intr_inv = torch.as_tensor(intr_inv, device=self.device)
+        tpu = self.opt.tpu
+        eval_k = self._probe_compact_k(poses=pose, intr_inv=intr_inv, pad=1.5)
+        rcfg = RenderConfig(
+            n_samples=self.n_samples, is_train=False,
+            mask_stride=self.mask_stride, compact_k=eval_k,
+            densify_density=(bool(tpu.get("densify_density", True))
+                             and eval_k is None),
+            app_k=int(tpu.eval_app_k) if tpu.get("eval_app_k") else None)
+        self.last_eval_config = rcfg
+        V = pose.shape[0]
+        centers, dirs = get_center_and_ray(self.H, self.W, pose, intr_inv)
+        centers, dirs = centers.reshape(-1, 3), dirs.reshape(-1, 3)
+        outs = []
+        for i, s in enumerate(range(0, centers.shape[0], chunk)):
+            outs.append(render_rays(
+                self.state.field, self.vm_cfg, rcfg, centers[s:s + chunk],
+                dirs[s:s + chunk], self._near_far(),
+                alpha_mask=self.alpha_mask))
+            if on_chunk:
+                on_chunk(i)
+        rgb, depth, opacity = (torch.cat(o) for o in zip(*outs))
+        return (rgb.reshape(V, -1, 3), depth.reshape(V, -1),
+                opacity.reshape(V, -1))
+
+    @torch.no_grad()
+    def eval_clip_stats(self, pose, intr_inv, n_probe_rays: int = 4096):
+        """How often the static caps clip on probe rays of ``pose``
+        (trainer.py:1198-1271): the eval budget (compact_k) and the
+        training appearance cap tpu.app_k (app_k) against each ray's live
+        sample count and its count past the weight gate; a clip rate of 0
+        means those rays render exactly.  The pixel permutation comes from
+        the training generator, as in JAX."""
+        pose = torch.as_tensor(pose, device=self.device)
+        intr_inv = torch.as_tensor(intr_inv, device=self.device)
+        field = self.state.field
+        S = self.n_samples
+        per_view = max(1, n_probe_rays // max(1, pose.shape[0]))
+        idx = torch.as_tensor(self.rng_np.permutation(self.H * self.W)[
+            :per_view], device=self.device)
+        centers, dirs = get_center_and_ray(self.H, self.W, pose, intr_inv,
+                                           ray_idx=idx)
+        centers, dirs = centers.reshape(-1, 3), dirs.reshape(-1, 3)
+        tpu = self.opt.tpu
+        app_k = int(tpu.app_k) if tpu.get("app_k") else None
+        compact_k = self._probe_compact_k(poses=pose, intr_inv=intr_inv,
+                                          pad=1.5)
+        near, far = self._near_far()
+        axes_w, z_vals, valid, _ = sample_ray_axes(
+            field.aabb, step_size(field.aabb, self.resolution,
+                                  self.vm_cfg.step_ratio),
+            S, centers, dirs, near, far, False)
+        n = centers.shape[0]
+        flat = tuple(w.reshape(-1) for w in axes_w)
+        if self.alpha_mask is not None:
+            valid = valid & (am_lib.sample_alpha(self.alpha_mask, flat)
+                             .reshape(n, S) > 0)
+        coords = tuple(vm_lib.normalize_coord(w, field.aabb[:, a])
+                       for a, w in enumerate(flat))
+        sigma = vm_lib.feature2density(
+            self.vm_cfg, vm_lib.compute_density_feature(field, coords)
+        ).reshape(n, S)
+        sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.zeros_like(z_vals[:, :1])], -1)
+        _, _, weight = transmittance(
+            1.0 - torch.exp(-sigma * dists * self.vm_cfg.distance_scale))
+        n_alive = valid.sum(dim=-1).cpu().numpy()
+        n_gate = ((weight > self.vm_cfg.raymarch_weight_thres) & valid).sum(
+            dim=-1).cpu().numpy()
+        return {"compact_k": compact_k, "app_k": app_k,
+                "max_alive": int(n_alive.max()), "max_gate": int(n_gate.max()),
+                "compact_clip_rate": (float((n_alive > compact_k).mean())
+                                      if compact_k is not None else 0.0),
+                "app_k_clip_rate": (float((n_gate > app_k).mean())
+                                    if app_k is not None else 0.0)}
+
+    def validate(self, data: Optional[SceneData] = None, align: bool = True,
+                 on_chunk=None):
+        """Mean PSNR over a split (the validation split by default), its
+        GT poses sim(3)-aligned into the learned frame first
+        (trainer.py:1273-1290) -> {"psnr", "rgb", "depth"}."""
+        data = data or self.val_data
+        if data is None:
+            raise ValueError("validate: no split given and no val_data")
+        pose = torch.as_tensor(data.poses, device=self.device)
+        if align:
+            tr_pose, tr_gt = self.get_all_training_poses()
+            _, sim3 = align_lib.prealign_cameras(tr_pose, tr_gt)
+            pose = align_lib.align_test_pose(pose, sim3)
+        rgb, depth, _ = self.render_views(pose, data.intr, data.intr_inv,
+                                          on_chunk=on_chunk)
+        V = data.n_views
+        target = torch.as_tensor(data.images, device=self.device).reshape(
+            V, 3, -1).transpose(1, 2)
+        mse_per = torch.mean((rgb - target) ** 2, dim=(1, 2))
+        return {"psnr": float(torch.mean(-10 * torch.log10(mse_per))),
+                "rgb": rgb, "depth": depth}
+
+    @torch.no_grad()
+    def pose_error(self) -> dict:
+        """Mean rotation (degrees) and translation errors of the training
+        poses after sim(3) alignment to GT (trainer.py:1326-1333)."""
+        pose, pose_GT = self.get_all_training_poses()
+        aligned, _ = align_lib.prealign_cameras(pose, pose_GT)
+        r_err, t_err = align_lib.evaluate_camera_alignment(aligned, pose_GT)
+        return {"rot_deg": float(torch.rad2deg(torch.mean(r_err))),
+                "trans": float(torch.mean(t_err))}

@@ -1,0 +1,197 @@
+"""Checkpoints across the two packages (train/checkpoint.py, the JAX .npz
+layout).
+
+* A checkpoint written by JAX's save_checkpoint (a box of density, its
+  mask, a random pose refinement, the noise matrices) restores into a fresh
+  JAX trainer and a fresh port trainer alike: equal iteration, shapes,
+  re-probed budgets (compact_k, app_k_dyn) and numpy generator state, and
+  render_views of the validation views within 1e-5 of max|rgb|.
+* A checkpoint the port writes from that state restores the same way into
+  both, and holds JAX's own key (PRNGKey(seed)) and noise matrices.
+* A port save / restore round trip keeps every state leaf, the mask bits
+  and the torch generator's state, and the numpy generator's state equals
+  the saved trainer's after the same two re-probes (restore draws them
+  from it, as JAX's restore does).
+* Port save -> port restore -> more steps equals the uninterrupted run
+  (state leaves within 1e-6, equal draws).  The save falls before the
+  first upsample and mask update, and the 2D blur schedule is constant:
+  on restore JAX (and so the port) keeps the in-bbox budget of the fresh
+  trainer, re-probes the mask budget from the training generator and
+  rebuilds the 2D blur cache at the restored iteration's progress, each
+  of which would part a later resume from the uninterrupted run (ROADMAP
+  Queue 3).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_eval import (CFG, SMALL, _box_field, _jscene,  # noqa: F401
+                             one_torch_thread)
+
+from joint_tensorf_tpu.config import set_options as jset_options
+from joint_tensorf_tpu.train import checkpoint as jckpt
+from joint_tensorf_tpu.train.trainer import Trainer as JTrainer
+from joint_tensorf_tpu_torch.config import set_options
+from joint_tensorf_tpu_torch.data import synthetic
+from joint_tensorf_tpu_torch.train import checkpoint as ckpt
+from joint_tensorf_tpu_torch.train.trainer import Trainer
+from joint_tensorf_tpu_torch.utils import setup_torch
+
+setup_torch()
+
+BUDGETS = ("compact_k", "app_k_dyn")
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return (synthetic.make_scene(n_views=6, H=32, W=32, device="cpu"),
+            synthetic.make_scene(n_views=2, H=32, W=32, pose_seed=1000,
+                                 device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def jax_ckpt(scenes, tmp_path_factory):
+    sc, val = scenes
+    jt = JTrainer(jset_options(CFG, SMALL), _jscene(sc), _jscene(val))
+    rng = np.random.default_rng(0)
+    jt.state = dataclasses.replace(jt.state, params=dataclasses.replace(
+        jt.state.params, field=_box_field(jt.state.params.field, rng),
+        se3_refine=jnp.asarray(rng.normal(size=(6, 6)) * 0.01,
+                               jnp.float32)))
+    jt._update_alphamask(12)
+    jt.it = 13
+    path = str(tmp_path_factory.mktemp("ckpt") / "jax.ckpt.npz")
+    jckpt.save_checkpoint(path, jt)
+    return path
+
+
+def _restore_both(path, scenes):
+    sc, val = scenes
+    jt = JTrainer(jset_options(CFG, SMALL), _jscene(sc), _jscene(val))
+    jckpt.restore_checkpoint(path, jt)
+    pt = Trainer(set_options(CFG, SMALL), sc, val, device="cpu")
+    ckpt.restore_checkpoint(path, pt)
+    return jt, pt
+
+
+def _check_pair(jt, pt, val):
+    assert pt.it == jt.it == 13
+    assert pt.resolution == jt.resolution
+    assert pt.n_samples == jt.n_samples
+    assert pt.alpha_mask is not None and jt.alpha_mask is not None
+    np.testing.assert_array_equal(pt.alpha_mask.grid.numpy(),
+                                  np.asarray(jt.alpha_mask.grid))
+    for k in BUDGETS:
+        assert getattr(pt, k) == getattr(jt, k), k
+    assert pt.compact_k is not None
+    assert pt.rng_np.bit_generator.state == jt.rng_np.bit_generator.state
+    np.testing.assert_allclose(pt.pose_base.numpy(), np.asarray(jt.pose_base),
+                               atol=1e-6)
+    rgb_j = np.asarray(jt.render_views(jnp.asarray(val.poses),
+                                       jnp.asarray(val.intr),
+                                       jnp.asarray(val.intr_inv))[0])
+    rgb_p = pt.render_views(torch.as_tensor(val.poses), val.intr,
+                            torch.as_tensor(val.intr_inv))[0].numpy()
+    np.testing.assert_allclose(rgb_p, rgb_j,
+                               atol=1e-5 * float(np.abs(rgb_j).max()))
+
+
+def test_jax_checkpoint_restores_into_port(jax_ckpt, scenes):
+    jt, pt = _restore_both(jax_ckpt, scenes)
+    _check_pair(jt, pt, scenes[1])
+
+
+def test_port_checkpoint_restores_into_jax(jax_ckpt, scenes, tmp_path):
+    _, pt = _restore_both(jax_ckpt, scenes)
+    path = str(tmp_path / "port.ckpt.npz")
+    ckpt.save_checkpoint(path, pt)
+    data = np.load(path)
+    np.testing.assert_array_equal(data["key"], np.asarray(
+        jax.random.PRNGKey(int(pt.opt.get("seed", 0)))))
+    assert data["key"].dtype == np.uint32
+    np.testing.assert_array_equal(data["pose_noise"],
+                                  np.load(jax_ckpt)["pose_noise"])
+    jt, pt = _restore_both(path, scenes)
+    _check_pair(jt, pt, scenes[1])
+
+
+TINY = ["--data.dataset=synthetic", "--data.image_size=[16,16]",
+        "--data.n_views=4", "--train_schedule.n_voxel_init=4096",
+        "--train_schedule.n_voxel_final=32768",
+        "--train_schedule.n_rays_init=64", "--c2f_kernel_size=8",
+        "--blur_2d_c2f_kernel_size=15", "--max_iter=14",
+        "--blur_2d_c2f_schedule=[0.025,0.025]",
+        "--train_schedule.upsample_iters=[4,6]",
+        "--train_schedule.update_alphamask_iters=[7,10]"]
+
+
+@pytest.fixture(scope="module")
+def tiny_scene():
+    return synthetic.make_scene(n_views=4, H=16, W=16, device="cpu")
+
+
+def _leaves(t):
+    out = {k: v.detach().clone()
+           for k, v in t.state.field.named_parameters()}
+    out["aabb"] = t.state.field.aabb.clone()
+    out["se3_refine"] = t.state.se3_refine.detach().clone()
+    out["pose_grad_accum"] = t.state.pose_grad_accum.clone()
+    for m in ("mu", "nu"):
+        for k, v in getattr(t.state.scene_opt, m).items():
+            out[f"scene_opt.{m}.{k}"] = v.clone()
+        out[f"pose_opt.{m}"] = getattr(t.state.pose_opt, m)[
+            "se3_refine"].clone()
+    return out
+
+
+def test_port_round_trip_keeps_everything(tiny_scene, tmp_path):
+    a = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    a.run(max_iter=9, log_every=3)
+    assert a.alpha_mask is not None
+    path = str(tmp_path / "model.ckpt.npz")
+    ckpt.save_checkpoint(path, a)
+    b = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    ckpt.restore_checkpoint(path, b)
+    la, lb = _leaves(a), _leaves(b)
+    assert la.keys() == lb.keys()
+    for k in la:
+        assert torch.equal(la[k], lb[k]), k
+    assert (a.state.scene_opt.count, a.state.pose_opt.count) == \
+        (b.state.scene_opt.count, b.state.pose_opt.count)
+    assert torch.equal(a.alpha_mask.grid, b.alpha_mask.grid)
+    assert torch.equal(a.alpha_mask.aabb, b.alpha_mask.aabb)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert torch.equal(a.pose_base, b.pose_base)
+    for k in ("it", "resolution", "n_samples", "alphamask_resolution",
+              "n_voxels", "n_voxel_list", "lr_index", "lr_basis"):
+        assert getattr(a, k) == getattr(b, k), k
+    # restore re-probed both budgets from the restored numpy generator
+    assert a._probe_compact_k() == b.compact_k
+    assert a._probe_app_k() == b.app_k_dyn
+    assert a.rng_np.bit_generator.state == b.rng_np.bit_generator.state
+
+
+def test_port_resume_equals_uninterrupted_run(tiny_scene, tmp_path):
+    full = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    full.run(log_every=2)
+    first = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    first.run(max_iter=3, log_every=3)
+    path = str(tmp_path / "model.ckpt.npz")
+    ckpt.save_checkpoint(path, first)
+    resumed = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    ckpt.restore_checkpoint(path, resumed)
+    assert resumed.it == 3
+    resumed.run(log_every=2)
+    assert resumed.it == full.it == 14
+    assert resumed.alpha_mask is not None
+    lf, lr = _leaves(full), _leaves(resumed)
+    for k in lf:
+        np.testing.assert_allclose(lr[k].numpy(), lf[k].numpy(), atol=1e-6,
+                                   err_msg=k)
+    assert resumed.rng_np.bit_generator.state == \
+        full.rng_np.bit_generator.state
+    for k in BUDGETS + ("compact_k_bbox", "resolution", "n_samples"):
+        assert getattr(resumed, k) == getattr(full, k), k

@@ -154,7 +154,7 @@ def test_tpu_path_trainer_matches_jax(small_scene):
 
 
 @pytest.mark.parametrize("override", [
-    "--tpu.densify_dtype=bfloat16", "--tpu.eval_app_k=64",
+    "--tpu.densify_dtype=bfloat16", "--tpu.factor_dtype=bfloat16",
     "--tpu.densify_impl=blocked", "--tpu.plane_scatter=tiled",
     "--+tpu.remat_everything=true"])
 def test_unported_tpu_values_raise(override):
@@ -196,6 +196,12 @@ def test_densify_dtype_bf16_under_packed8_steps_as_float32(small_scene):
     for k in field_a:
         assert torch.equal(field_a[k], field_b[k]), k
     assert torch.equal(pose_a, pose_b)
+
+
+def test_eval_app_k_is_ported():
+    """tpu.eval_app_k caps the appearance of evaluation renders
+    (Trainer.render_views); the port runs it at any value."""
+    check_ported(set_options(CFG, SMALL + ["--tpu.eval_app_k=64"]))
 
 
 def test_default_tpu_options_pass():
