@@ -27,8 +27,11 @@
 5. runs one small train step on the card and on the CPU (plain versions)
    from the same state and compares loss and gradients: on the dense path,
    with in-bbox compaction, the dense-grid density and app_k below the
-   gated count under the blur, and with an alpha mask, group compaction
-   and app_k;
+   gated count under the blur, with an alpha mask, group compaction and
+   app_k, as TensoRF's step (no pose optimisation: the pose gradient
+   exactly zero), with bfloat16 factors, and with the dense grid's rows
+   read in bfloat16; and renders 3 views of the solids scene on the card
+   and on the CPU (within 1e-5);
 6. drives K4 and K5 through their own entry points (sample_plane_binned
    forward + backward, scatter_add_rows_tiled), counters zeroed just
    before and read just after each: each must launch once;
@@ -81,7 +84,19 @@
    the evaluate entry point in-process on the checkpoint (quant_pose.txt,
    quant.txt, quant_eval.json); then a small state's render_views and
    test-time pose gradient on the card against the CPU (check_small_eval);
-11. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+11. trains TensoRF (configs/tensorf_blender_VM.yaml on the blob scene at
+   its widths: 400x400, 12 views, 4096 rays, 128^3 -> 300^3, S up to
+   1000, ranks 16/48) and BAT on the solids scene
+   (configs/bat_synthetic_convergence_20k.yaml: 128^2, 100 views, 48^3 ->
+   160^3, S up to 384, 2048 rays) through every phase of 40-iteration
+   schedules (TENSORF_ARGS, SOLIDS_ARGS), with run_all_phases' checks,
+   launches and per-phase lines and the scene's render time, and K1-K3 at
+   each one's last-phase shapes;
+12. the variants (run_variants) at BAT's widths on the 64M-voxel grid,
+   blurred: float32, bfloat16 factors and lane's bfloat16 dense-grid
+   reads, 6 steps each (peak memory, step median, launches, the first
+   loss against float32's), and one reset_on_last_upsample transition;
+13. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -117,6 +132,25 @@ ALTERNATIVES_OFF = ["--tpu.bbox_compact=false", "--tpu.blur_mask_compact=false",
 # for Blender (K 256-640 of S = 1000), with far fewer live samples a ray
 WARM_DENSITY = 2.0
 WARM_RADII = 0.5
+# TensoRF (configs/tensorf_blender_VM.yaml) cut to 40 iterations in the
+# published schedule's order: upsamples after 2, 4, 6, 8, 10 (128^3 ->
+# 300^3), mask updates after 2 (uncapped at 151^3: the bbox shrink) and 6
+TENSORF_ARGS = ["--data.dataset=synthetic", "--max_iter=40",
+                "--train_schedule.upsample_iters=[2,4,6,8,10]",
+                "--train_schedule.update_alphamask_iters=[2,6]"]
+# BAT on the solids scene (configs/bat_synthetic_convergence_20k.yaml: 128^2,
+# 100 views, 48^3 -> 160^3, S up to 384) cut to 40 iterations at the
+# published schedule's fractions: upsamples after 2, 4, 6, 8, mask updates
+# after 12 and 20 (0.3 and 0.5 of the run), the blur until 12
+SOLIDS_ARGS = ["--max_iter=40", "--train_schedule.upsample_iters=[2,4,6,8]",
+               "--train_schedule.update_alphamask_iters=[12,20]"]
+# the variants at BAT's widths on the final 400^3 grid (64M voxels) from
+# the start, blurred (the first iterations of 40k), no upsample or mask
+VARIANT_ARGS = ["--data.dataset=synthetic",
+                "--train_schedule.n_voxel_init=64000000",
+                "--train_schedule.upsample_iters=[1000000]",
+                "--train_schedule.update_alphamask_iters=[1000000]"]
+VARIANT_STEPS = 6
 # evaluation on the trained default path: 4 val / test views (val_sub: 4,
 # the base config's; BAT's own config takes 10), test-time optimisation cut
 # from BAT's 400 steps to 40
@@ -315,7 +349,10 @@ def expected_launches(cfg) -> dict:
     once; K3 once per factor sample's backward (three fused planes, or
     three density and three appearance planes with the two-stage
     appearance) and once for the dense grid's row gather (then only the
-    three appearance planes are factor samples)."""
+    three appearance planes are factor samples).  The same without pose
+    optimisation (TensoRF): detached coordinates drop the coordinate
+    derivatives, not the factors' scatters; bf16 factors and bf16 dense
+    reads scatter float32 gradients through the same calls."""
     if cfg.densify_density:
         k3 = 1 + 3
     else:
@@ -593,10 +630,15 @@ def run_entry_points(gen):
 # ------------------------------------------- small step: card vs the CPU
 def check_small_step():
     """One train step of a tiny field on the card (kernels) and on the CPU
-    (plain versions) from the same state and rays, in three
-    configurations: the dense path under the blur; the blur with in-bbox
-    compaction, the dense-grid density and app_k below the gated count;
-    and an alpha mask with group compaction and app_k."""
+    (plain versions) from the same state and rays, in six configurations:
+    the dense path under the blur; the blur with in-bbox compaction, the
+    dense-grid density and app_k below the gated count; an alpha mask with
+    group compaction and app_k; TensoRF's step (no pose optimisation: the
+    pose gradient must be exactly zero and the pose table unchanged on
+    both); that compacted dense-grid step with bfloat16 factors (gradients
+    within 2^-7 of each bf16 leaf's max: a bf16 gradient keeps 8 mantissa
+    bits, and a float32 sum in another order can round it one ulp apart);
+    and with the dense grid's rows read in bfloat16 (lane's bf16 reads)."""
     import copy
     import dataclasses
 
@@ -632,24 +674,33 @@ def check_small_step():
     blur = BlurSpec("uniform-gaussian", 8)
     base = StepConfig(H=H, W=W, n_views=V, rays_per_view=R, n_samples=41,
                       blur=blur)
+    compacted = dataclasses.replace(base, n_samples=64, compact_k=48,
+                                    densify_density=True, app_k=4)
     variants = {
-        "dense": (base, None),
-        "bbox_compaction_densify_app_k": (dataclasses.replace(
-            base, n_samples=64, compact_k=48, densify_density=True,
-            app_k=4), None),
+        "dense": (base, None, False),
+        "bbox_compaction_densify_app_k": (compacted, None, False),
         "mask_compaction_app_k": (dataclasses.replace(
             base, n_samples=64, blur=None, mask_stride=2, compact_k=32,
-            app_k=4), mask)}
+            app_k=4), mask, False),
+        "tensorf_densify_app_k": (dataclasses.replace(
+            compacted, blur=None, pose_opt=False), None, False),
+        "bf16_factors": (compacted, None, True),
+        "lane_bf16_reads": (dataclasses.replace(
+            compacted, densify_dtype="bfloat16"), None, False)}
+    bf16_field = vm_lib._with_factors(
+        field, lambda i, p: p.to(torch.bfloat16),
+        lambda i, l: l.to(torch.bfloat16))
     s = StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3,
                     c2f_density=0.1, c2f_color=0.2, l1_weight=8e-5,
                     use_edge=1.0, edge_factor=1.5, non_edge_factor=0.5)
     jitter = torch.rand((V * R, 1), generator=gen)
     result = {}
-    for name, (scfg, am) in variants.items():
+    for name, (scfg, am, bf16) in variants.items():
         out = {}
         for dev in ("cpu", "cuda"):
-            f = copy.deepcopy(field).to(dev)
+            f = copy.deepcopy(bf16_field if bf16 else field).to(dev)
             st = init_train_state(f, V)
+            se3 = st.se3_refine.detach().clone()
             mv = lambda t: t.to(dev)  # noqa: E731
             metrics, grads = train_step(
                 st, scfg, cfg, mv(pose_base),
@@ -660,23 +711,35 @@ def check_small_step():
             out[dev] = (float(metrics["loss"]),
                         {k: g.detach().cpu() for k, g in grads.items()},
                         float(metrics["kept_frac"]))
+            if not scfg.pose_opt and (
+                    torch.count_nonzero(grads["se3_refine"]) > 0
+                    or not torch.equal(st.se3_refine.detach(), se3)):
+                fail(f"small step ({name}) on {dev}: the pose table got a "
+                     f"gradient or moved without pose optimisation")
+            if bf16 and f.density_planes[0].dtype != torch.bfloat16:
+                fail(f"small step ({name}): the factors left bfloat16")
         loss_c, g_c, kept = out["cpu"]
         loss_g, g_g, _ = out["cuda"]
         if not math.isfinite(loss_g) or \
                 abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
             fail(f"small step ({name}): card loss {loss_g} vs CPU {loss_c}")
-        worst = 0.0
+        worst = over = 0.0      # max |card - CPU| / leaf max; / tolerance
         for k in g_c:
             scale = float(g_c[k].abs().max()) + 1e-12
-            worst = max(worst, float((g_g[k] - g_c[k]).abs().max()) / scale)
-        if worst > 1e-3:
+            err = float((g_g[k].float() - g_c[k].float()).abs().max())
+            tol = 2.0 ** -7 if g_c[k].dtype == torch.bfloat16 else 1e-3
+            worst = max(worst, err / scale)
+            over = max(over, err / scale / tol)
+        if over > 1.0:
             fail(f"small step ({name}): card gradients differ from the "
                  f"CPU's by {worst:.3g} of their max")
         result[name] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
-                        "max_grad_err_rel": worst, "kept_frac": kept,
+                        "max_grad_err_rel": worst,
+                        "max_grad_err_over_tol": over,
+                        "kept_frac": kept, "bf16_factors": bf16,
                         "step_config": {k: getattr(scfg, k) for k in (
                             "n_samples", "compact_k", "densify_density",
-                            "app_k")}}
+                            "densify_dtype", "app_k", "pose_opt")}}
     return {"small_step": result}
 
 
@@ -766,28 +829,34 @@ def budgets(trainer) -> dict:
 
 
 def warm_start_density(trainer, seed: int):
-    """Raise one density component per blob of the synthetic scene by
-    WARM_DENSITY over a box of +-WARM_RADII radii around the blob's centre
-    (component k of every plane over the box's two axes, of every line over
-    its third): the density feature there clears the alpha threshold,
-    elsewhere it stays at its fresh value, so the first mask update has
-    objects to keep, and rays cross empty space between them.  Its masked
-    phases are sparser than a trained Blender field's, so the gaps between
-    the paths hold for this field only.  Returns the boxes."""
+    """Raise one density component per object of the synthetic scene (a
+    blob, or with data.scene: solids a sphere or box) by WARM_DENSITY over
+    a box of +-WARM_RADII radii around its centre (component k of every
+    plane over the box's two axes, of every line over its third): the
+    density feature there clears the alpha threshold, elsewhere it stays at
+    its fresh value, so the first mask update has objects to keep, and rays
+    cross empty space between them.  Its masked phases are sparser than a
+    trained Blender field's, so the gaps between the paths hold for this
+    field only.  Returns the boxes."""
     import numpy as np
     import torch
 
-    from joint_tensorf_tpu_torch.data.synthetic import BlobField
+    from joint_tensorf_tpu_torch.data.synthetic import BlobField, SolidField
     from joint_tensorf_tpu_torch.models.vm import MAT_MODE, VEC_MODE
 
-    blobs = BlobField(seed=seed)
+    if str(trainer.opt.data.get("scene")) == "solids":
+        solids = SolidField(seed=seed)
+        objects = zip(solids.centers, solids.sizes)
+    else:
+        blobs = BlobField(seed=seed)
+        objects = zip(blobs.centers, blobs.radii)
     field = trainer.state.field
     aabb = field.aabb.cpu().numpy()
     res = field.resolution()
     axes = [np.linspace(aabb[0, a], aabb[1, a], res[a]) for a in range(3)]
     boxes = []
     with torch.no_grad():
-        for k, (c, r) in enumerate(zip(blobs.centers, blobs.radii)):
+        for k, (c, r) in enumerate(objects):
             lo, hi = c - WARM_RADII * r, c + WARM_RADII * r
             inside = [torch.as_tensor((x >= lo[a]) & (x <= hi[a]),
                                       dtype=torch.float32,
@@ -803,9 +872,18 @@ def warm_start_density(trainer, seed: int):
     return boxes
 
 
-def run_all_phases(label: str, extra_args=(), profile_dir=None):
-    """BAT at full width through every phase of a schedule cut to 40
-    iterations (PHASES_ARGS + extra_args).  Trainer.run's on_step hook
+def run_all_phases(label: str, extra_args=(), profile_dir=None,
+                   yaml="bat_blender_VM.yaml", base_args=PHASES_ARGS,
+                   sparse=True):
+    """A model at full width through every phase of a schedule cut to 40
+    iterations (configs/<yaml> with base_args + extra_args: BAT by
+    default, TensoRF and the solids scene with their own).  The scene's
+    render is timed (synchronised).  ``sparse``: the warm-started field
+    stays sparse over the cut schedule, so the first mask update must
+    shrink the box and the default path's masked last phase must compact
+    (the blobs; the solids' field fills the box within 12 steps of their
+    100 views, and keeps as many live samples a ray as S).  Trainer.run's
+    on_step hook
     reads the host clock between synchronised points after each step and
     after each schedule update, so each step and each transition is timed
     on its own, and the launch counters are read after every step and held
@@ -824,10 +902,14 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
     from joint_tensorf_tpu_torch.ops import cuda_build
     from joint_tensorf_tpu_torch.train.trainer import Trainer
 
-    opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
-                      PHASES_ARGS + list(extra_args))
+    args = list(base_args) + list(extra_args)
+    opt = set_options(os.path.join(HERE, "configs", yaml), args)
     default_path = not extra_args
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter()
     data = load_dataset(opt, "train", device="cuda")
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter() - t_scene
     trainer = Trainer(opt, data, device="cuda")
     support = warm_start_density(trainer, int(opt.data.get("seed", 0)))
     torch.cuda.synchronize()
@@ -839,6 +921,7 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
     def state():
         mask = trainer.alpha_mask
         return {"resolution": list(trainer.resolution),
+                "n_voxels": int(trainer.n_voxels),
                 "n_samples": trainer.n_samples,
                 "aabb": trainer.state.field.aabb.cpu().numpy().tolist(),
                 "mask_res": (list(trainer.alphamask_resolution)
@@ -862,6 +945,8 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
             cfg = tr.last_step_config
             steps.append({
                 "it": tr.it, "step_ms": ms, "blur": bool(m["blur"]),
+                # peak since the last transition (reset there)
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 **{k: before[k] for k in ("resolution", "n_samples",
                                           "mask_res")},
                 **{k: float(m[k]) for k in ("loss", "valid_frac",
@@ -915,45 +1000,52 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
                f"{r['expected']}" for r in steps
                if r["launches"] != r["expected"]]
     by_it = {t["after_it"]: t for t in transitions}
-    res_prev = steps[0]["resolution"]
+    n_prev = int(opt.train_schedule.n_voxel_init)
     for it in sorted(by_it):
         t = by_it[it]
-        if it in ups and math.prod(t["resolution"]) <= math.prod(res_prev):
+        if it in ups and t["n_voxels"] <= n_prev:
             faults.append(f"the upsample after it {it} did not grow the "
-                          f"grid ({res_prev} -> {t['resolution']})")
-        res_prev = t["resolution"]
+                          f"grid ({n_prev} -> {t['n_voxels']} voxels)")
+        n_prev = t["n_voxels"]
     first, second = by_it[masks[0]], by_it[masks[1]]
-    if not 0 < first["mask_kept"] < 1 or first["aabb"] == [[-1.5] * 3,
-                                                           [1.5] * 3]:
-        faults.append(f"the first mask update kept nothing or did not "
-                      f"shrink the box: {first}")
-    if first["mask_res"] != steps[masks[0]]["resolution"]:
+    if not 0 < first["mask_kept"] < 1 or (
+            sparse and first["aabb"] == [[-1.5] * 3, [1.5] * 3]):
+        faults.append(f"the first mask update kept nothing or every "
+                      f"voxel, or did not shrink the box: {first}")
+    cap = int(opt.tpu.get("mask_cap_voxels", 256 ** 3))
+    if math.prod(first["mask_res"]) >= cap:
         faults.append(f"the first mask update was capped: {first}")
-    if math.prod(second["mask_res"]) >= math.prod(second["resolution"]):
-        faults.append(f"the second mask update was not capped: {second}")
+    # capped exactly when the grid has reached the cap
+    want_capped = math.prod(second["resolution"]) >= cap
+    if (math.prod(second["mask_res"]) < math.prod(second["resolution"])) \
+            != want_capped:
+        faults.append(f"the second mask update was {'not ' * want_capped}"
+                      f"capped: {second}")
     gated = [r for r in steps if r["mask_res"] and not r["blur"]]
     if not gated or not any(0 < r["valid_frac"] < r["inbbox_frac"]
                             for r in gated):
         faults.append("the mask culled no sample (or every sample) once "
                       "the blur was off")
     last = [r for r in gated if r["resolution"] == steps[-1]["resolution"]]
-    # the dense grid under the blur at the last resolution (64M voxels)
+    # the dense grid under the blur after the last upsample (64M voxels)
     blurred_last = [r for r in steps if r["blur"]
-                    and r["config"]["densify_density"]
-                    and r["resolution"] == steps[-1]["resolution"]]
+                    and r["config"]["densify_density"] and r["it"] > ups[-1]]
     if blur_window and not set(range(*blur_window)) <= {
             r["it"] for r in blurred_last}:
         faults.append(f"the profiled steps {list(range(*blur_window))} "
                       f"were not all blurred dense-grid steps at the last "
                       f"resolution")
     if default_path:
-        if not any((r["config"]["compact_k"] or r["n_samples"])
-                   < r["n_samples"] for r in last):
+        if sparse and not any(
+                (r["config"]["compact_k"] or r["n_samples"]) < r["n_samples"]
+                for r in last):
             faults.append("no step of the masked last phase compacted "
                           "(compact_k < S)")
-        if not blurred_last:
+        if trainer.is_bat and not blurred_last:
             faults.append("no step under the blur used the dense grid at "
                           "the last resolution")
+        if not any(r["config"]["densify_density"] for r in steps):
+            faults.append("no step used the dense grid")
     elif any(r["config"]["densify_density"] or r["config"]["app_k"]
              or r["budgets"]["compact_k_blur"] is not None
              or (r["config"]["compact_k"] and (r["blur"] or not r["mask_res"]))
@@ -972,12 +1064,14 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
                r["config"]["app_k"])
         if not phases or phases[-1]["key"] != key:
             phases.append({"key": key, "its": [], "ms": [], "kept": [],
-                           "valid": [], "launches": r["launches"],
+                           "valid": [], "peak": [],
+                           "launches": r["launches"],
                            "budgets": r["budgets"]})
         phases[-1]["its"].append(r["it"])
         phases[-1]["ms"].append(r["step_ms"])
         phases[-1]["kept"].append(r["kept_frac"])
         phases[-1]["valid"].append(r["valid_frac"])
+        phases[-1]["peak"].append(r["peak_gb"])
     rows = []
     for p in phases:
         k = p["key"]
@@ -992,17 +1086,19 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
                                               "composite_bwd",
                                               "scatter_add_rows")},
                "step_ms_median": statistics.median(p["ms"]),
-               "step_ms": p["ms"]}
+               "peak_mem_gb": max(p["peak"]), "step_ms": p["ms"]}
         rows.append(row)
         print(f"[phase-steps {label}] its {row['iterations']} res {k[0]} "
               f"S {k[1]} blur {k[3]} mask {k[2]} budgets {p['budgets']} "
               f"step: compact_k {k[4]} densified {k[5]} app_k {k[6]} "
               f"kept {row['kept_frac']:.3f} live {row['valid_frac']:.3f} "
               f"launches {row['launches_per_step']} median "
-              f"{row['step_ms_median']:.1f} ms", flush=True)
+              f"{row['step_ms_median']:.1f} ms peak "
+              f"{row['peak_mem_gb']:.2f} GB", flush=True)
     result = {f"all_phases_{label}": {
-        "config": "configs/bat_blender_VM.yaml " + " ".join(
-            PHASES_ARGS + list(extra_args)),
+        "config": f"configs/{yaml} " + " ".join(args),
+        "model": opt.model, "image_hw": [trainer.H, trainer.W],
+        "views": trainer.n_views, "scene_render_s": t_scene,
         "rays_per_step": trainer.rays_per_step, "run_s": t_run,
         "warm_density": {"add": WARM_DENSITY, "radii": WARM_RADII,
                          "boxes": support},
@@ -1029,6 +1125,166 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None):
     return (trainer.rays_per_step,
             min(cfg.compact_k or cfg.n_samples, cfg.n_samples),
             list(trainer.resolution), cfg, blurred, (trainer, data))
+
+
+def check_solids_render():
+    """A 3-view solids render (64x64, 512 samples a ray) on the card and
+    on the CPU: within 1e-5 (float32 sums in another order)."""
+    import numpy as np
+
+    from joint_tensorf_tpu_torch.data.synthetic import make_scene
+
+    t0 = time.perf_counter()
+    card = make_scene(n_views=3, H=64, W=64, kind="solids", device="cuda")
+    t_card = time.perf_counter() - t0
+    cpu = make_scene(n_views=3, H=64, W=64, kind="solids", device="cpu")
+    err = float(np.abs(card.images - cpu.images).max())
+    if not np.isfinite(card.images).all() or err > 1e-5:
+        fail(f"solids render: card vs CPU {err:.3g} > 1e-5")
+    return {"solids_render_card_vs_cpu": {
+        "views": 3, "hw": [64, 64], "max_abs_err": err, "tolerance": 1e-5,
+        "card_s": t_card, "min_pixel": float(card.images.min())}}
+
+
+def run_variants():
+    """The variants at BAT's widths on the 64M-voxel grid from the start
+    (VARIANT_ARGS: blurred steps, the dense grid under the in-bbox budget),
+    VARIANT_STEPS steps each from the same seed, on one scene: float32
+    factors with float32 dense-grid reads (the lane layout's default),
+    bfloat16 factors, and lane's bfloat16 reads.  Per variant: the peak
+    memory, the step median (host clock between synchronised points), the
+    launches of every step against expected_launches, and the first
+    step's loss (the same draws: only the rounding differs, so it stays
+    within 1e-2 of float32's).  Then one reset_on_last_upsample transition
+    (density re-drawn after the last upsample, 64^3 -> 400^3): the carried
+    groups equal the upsampled field's bit for bit, the re-drawn ones are
+    new, and the next step launches as its configuration asks."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    cfg_path = os.path.join(HERE, "configs", "bat_blender_VM.yaml")
+    data = load_dataset(set_options(cfg_path, VARIANT_ARGS), "train",
+                        device="cuda")
+    variants = {"float32": [],
+                "bf16_factors": ["--tpu.factor_dtype=bfloat16"],
+                "lane_bf16_reads": ["--tpu.densify_impl=lane",
+                                    "--tpu.densify_dtype=bfloat16"]}
+    rows, faults = {}, []
+    for name, extra in variants.items():
+        opt = set_options(cfg_path, VARIANT_ARGS + extra)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(opt, data, device="cuda")
+        stamps, losses, configs = [], [], []
+
+        def on_step(tr, m):
+            if m is None:
+                return
+            torch.cuda.synchronize()
+            stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
+            losses.append(float(m["loss"]))
+            configs.append(tr.last_step_config)
+
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
+        trainer.run(max_iter=VARIANT_STEPS, log_every=1, on_step=on_step)
+        for (_, a), (_, b), cfg in zip(stamps[:-1], stamps[1:], configs):
+            got = {k: b[k] - a[k] for k in b}
+            if got != expected_launches(cfg):
+                faults.append(f"{name}: a step launched {got}, expected "
+                              f"{expected_launches(cfg)}")
+        ms = [(b - a) * 1e3 for (a, _), (b, _) in zip(stamps[:-1],
+                                                      stamps[1:])]
+        field = trainer.state.field
+        cfg = configs[-1]
+        rows[name] = {
+            "factor_dtype": str(field.density_planes[0].dtype),
+            "densify_dtype": cfg.densify_dtype,
+            "resolution": trainer.resolution, "n_samples": cfg.n_samples,
+            "compact_k": cfg.compact_k, "densified": cfg.densify_density,
+            "blur": cfg.blur is not None, "loss": losses,
+            "step_ms_median": statistics.median(ms[1:]), "step_ms": ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "factor_mb": sum(p.numel() * p.element_size() for n, p in
+                             field.named_parameters()
+                             if field.is_factor(n)) / 1e6}
+        if not all(math.isfinite(x) for x in losses) or not all(
+                c.densify_density and c.blur is not None for c in configs):
+            faults.append(f"{name}: losses {losses} or a step off the "
+                          f"blurred dense grid")
+        del trainer, field
+    ref = rows["float32"]["loss"][0]
+    for name, r in rows.items():
+        if abs(r["loss"][0] - ref) > 1e-2 * abs(ref):
+            faults.append(f"{name}: first loss {r['loss'][0]} vs float32 "
+                          f"{ref}")
+    if rows["bf16_factors"]["factor_dtype"] != "torch.bfloat16" or \
+            rows["lane_bf16_reads"]["densify_dtype"] != "bfloat16":
+        faults.append(f"a variant did not run as asked: {rows}")
+    for name, r in rows.items():
+        print(f"[variants] {name}: factors {r['factor_dtype']} "
+              f"({r['factor_mb']:.1f} MB), dense-grid reads "
+              f"{r['densify_dtype']}, res {r['resolution']} S "
+              f"{r['n_samples']} K {r['compact_k']}: median "
+              f"{r['step_ms_median']:.1f} ms, peak {r['peak_mem_gb']:.2f} GB",
+              flush=True)
+
+    # ---- one reset_on_last_upsample transition
+    torch.cuda.empty_cache()
+    opt = set_options(cfg_path, [
+        "--data.dataset=synthetic", "--train_schedule.upsample_iters=[1]",
+        "--train_schedule.update_alphamask_iters=[1000000]",
+        "--train_schedule.reset_on_last_upsample.density=true"])
+    trainer = Trainer(opt, data, device="cuda")
+    seen = {}
+
+    def on_step(tr, m):
+        torch.cuda.synchronize()
+        if m is not None and tr.it == 1:
+            seen["old"] = tr.state.field
+            seen["t"] = time.perf_counter()
+            seen["launches"] = dict(cuda_build.LAUNCHES)
+        elif m is None and tr.it == 1:
+            seen["ms"] = (time.perf_counter() - seen["t"]) * 1e3
+        elif m is not None and tr.it == 2:
+            seen["step"] = ({k: v - seen["launches"][k] for k, v in
+                             cuda_build.LAUNCHES.items()},
+                            expected_launches(tr.last_step_config),
+                            float(m["loss"]))
+
+    trainer.run(max_iter=3, log_every=1, on_step=on_step)
+    new = trainer.state.field
+    up = vm_lib.upsample(seen["old"], trainer.resolution)
+    carried = all(torch.equal(a, b) for g in ("app_planes", "app_lines")
+                  for a, b in zip(getattr(new, g), getattr(up, g))) and \
+        torch.equal(new.basis, up.basis) and new.shading is up.shading
+    redrawn = all(not torch.equal(a, b) and a.shape == b.shape
+                  for g in ("density_planes", "density_lines")
+                  for a, b in zip(getattr(new, g), getattr(up, g)))
+    launches, expected, loss = seen["step"]
+    if not (carried and redrawn) or launches != expected or \
+            not math.isfinite(loss) or trainer.state.scene_opt.count != 1:
+        faults.append(f"reset_on_last_upsample: carried {carried}, "
+                      f"re-drawn {redrawn}, launches {launches} vs "
+                      f"{expected}, loss {loss}")
+    reset = {"resolution": trainer.resolution, "transition_ms": seen["ms"],
+             "carried_equal": carried, "redrawn": redrawn,
+             "launches_next_step": launches, "loss_next_step": loss}
+    print(f"[variants] reset_on_last_upsample (density) after it 1: "
+          f"{seen['ms']:.1f} ms to {trainer.resolution}, carried groups "
+          f"equal {carried}, density re-drawn {redrawn}", flush=True)
+    result = {"variants": {"config": "configs/bat_blender_VM.yaml " +
+                           " ".join(VARIANT_ARGS), "steps": VARIANT_STEPS,
+                           "runs": rows, "reset_on_last_upsample": reset}}
+    emit(result)
+    if faults:
+        fail("variants: " + "; ".join(faults))
+    return rows
 
 
 # ------------------------------------------- evaluation and checkpoints
@@ -1486,6 +1742,7 @@ def main(argv):
         emit({"kernel_check": r})
     torch.cuda.empty_cache()
     emit(check_small_step())
+    emit(check_solids_render())
     entry, entry_launches = run_entry_points(gen)
     emit(entry)
 
@@ -1544,6 +1801,37 @@ def main(argv):
         emit({"kernel_check": r})
     emit({"kernel_check": check_scatter(n_rays, S, Hp, Wp, 256, gen,
                                         tol=1e-5)})
+    torch.cuda.empty_cache()
+    # TensoRF and BAT on the solids scene through every phase, then K1-K3
+    # at the shapes of each one's last phase (the composited samples; the
+    # density planes' 4 x 16 channels on every kept sample, the
+    # appearance planes' 4 x 48 on app_k of them) and, for the solids, K3
+    # on the blurred phase's dense grid at the last resolution
+    for label, yaml, args, sparse in (
+            ("tensorf", "tensorf_blender_VM.yaml", TENSORF_ARGS, True),
+            ("solids", "bat_synthetic_convergence_20k.yaml", SOLIDS_ARGS,
+             False)):
+        n_rays, S, res, cfg, blurred, trained = run_all_phases(
+            label, yaml=yaml, base_args=args, sparse=sparse)
+        del trained
+        torch.cuda.empty_cache()
+        Hp, Wp = max(((res[m1], res[m0]) for m0, m1 in MAT_MODE),
+                     key=lambda hw: hw[0] * hw[1])
+        for S_k in sorted({S, cfg.n_samples}):
+            for r in check_composite(n_rays, S_k, 1e-6, gen, tol=1e-4):
+                emit({"kernel_check": dict(r, path=label)})
+        emit({"kernel_check": dict(check_scatter(
+            n_rays, S, Hp, Wp, 64, gen, tol=1e-5), path=label)})
+        emit({"kernel_check": dict(check_scatter(
+            n_rays, min(cfg.app_k or S, S), Hp, Wp, 192, gen, tol=1e-5),
+            path=label)})
+        if blurred:
+            emit({"kernel_check": dict(check_scatter(
+                n_rays, blurred[0], 0, 0, 8, gen, tol=1e-5,
+                grid3d=tuple(blurred[1])), path=label)})
+        torch.cuda.empty_cache()
+    run_variants()
+    torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []
     # K1 and K2 as the main path's step calls them: K2 with g_weights when

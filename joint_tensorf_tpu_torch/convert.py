@@ -17,6 +17,11 @@ Keys (factor layouts as in the JAX package: planes [H, W, R], lines
     pose_opt         {"mu": [V, 6], "nu": [V, 6], "count": int}
     pose_grad_accum  [V, 6]
     pose_base        [V, 3, 4]
+
+Arrays are float32, but for bfloat16 factors (tpu.factor_dtype), which
+stay bfloat16 both ways.  numpy has no bfloat16: the JAX package's arrays
+are ml_dtypes.bfloat16, which np.savez writes and np.load reads back as
+2-byte void ('|V2'); either is taken bit for bit, and to_numpy gives '|V2'.
 """
 from __future__ import annotations
 
@@ -32,8 +37,17 @@ from .train.step import TrainState, init_train_state
 _GROUPS = ("density_planes", "density_lines", "app_planes", "app_lines")
 
 
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.itemsize == 2 and (a.dtype.kind == "V"
+                                      or a.dtype.name == "bfloat16")
+
+
 def _t(x, device):
-    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+    a = np.asarray(x)
+    if _is_bf16(a):
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
 def field_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None) -> vm_lib.VMField:
@@ -94,7 +108,10 @@ def train_state_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None):
 
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def _field_tree(named: dict) -> dict:

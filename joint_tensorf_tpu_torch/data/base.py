@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -32,14 +33,72 @@ class SceneData:
         return self.images.shape[0]
 
 
+def scale_intrinsics(intr: np.ndarray, raw_hw, target_hw,
+                     center_crop: float | None = None) -> np.ndarray:
+    """Intrinsics after a center crop (a fraction of the raw size), then a
+    resize to ``target_hw``."""
+    intr = intr.copy().astype(np.float32)
+    raw_h, raw_w = raw_hw
+    if center_crop is not None:
+        crop_h, crop_w = int(raw_h * center_crop), int(raw_w * center_crop)
+        intr[..., 0, 2] -= (raw_w - crop_w) / 2
+        intr[..., 1, 2] -= (raw_h - crop_h) / 2
+        raw_h, raw_w = crop_h, crop_w
+    h, w = target_hw
+    intr[..., 0, :] *= w / raw_w
+    intr[..., 1, :] *= h / raw_h
+    return intr
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """[n_in, n_out] weights of jax.image.resize(method="bilinear") along
+    one axis, computed as JAX computes them, in float32: a triangle kernel
+    at half-pixel centers, widened by the scale when it downsamples (its
+    antialiasing), each column normalised to sum 1."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = ((torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale
+                - 0.5)
+    x = torch.abs(sample_f[None, :] - torch.arange(
+        n_in, dtype=torch.float32)[:, None]) / kernel_scale
+    w = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_images(images: np.ndarray, target_hw) -> np.ndarray:
+    """[B, C, H, W] -> [B, C, h, w], jax.image.resize's "bilinear" (which
+    antialiases when it downsamples): its separable weights as two
+    matrices, applied with matmuls in float32.  An axis whose size is kept
+    is left as it is."""
+    h, w = target_hw
+    H, W = images.shape[-2:]
+    if (H, W) == (h, w):
+        return images
+    out = torch.as_tensor(np.asarray(images, dtype=np.float32))
+    if H != h:
+        out = torch.einsum("bchw,hy->bcyw", out, _resize_weights(H, h))
+    if W != w:
+        out = torch.einsum("bchw,wx->bchx", out, _resize_weights(W, w))
+    return out.numpy()
+
+
 def load_dataset(opt, split: str = "train", subset: int | None = None,
                  device=None) -> SceneData:
-    """Dispatch by opt.data.dataset.  This slice ports the procedural scene
-    only (no dataset ships with the repository)."""
+    """Dispatch by opt.data.dataset: the procedural scene (rendered on
+    ``device``) or a Blender scene from disk."""
     name = opt.data.dataset
     if name == "synthetic":
         from . import synthetic
         return synthetic.load(opt, split, subset, device=device)
+    if name == "blender":
+        from . import blender
+        return blender.load(opt, split, subset)
     raise NotImplementedError(
         f"dataset {name!r} is not ported yet (the port reads the procedural "
-        f"'synthetic' scene; the Blender/LLFF loaders are a later slice)")
+        f"'synthetic' scene and Blender scenes; the LLFF / t2 / iphone "
+        f"loaders come with the NDC route)")

@@ -1,24 +1,26 @@
 """Evaluation entry point of the port (counterpart of the repository's
-evaluate.py:19-268, for ``model: bat``).
+evaluate.py:19-268, for ``model: bat`` and ``model: tensorf``).
 
     python -m joint_tensorf_tpu_torch.evaluate --yaml=configs/bat_blender_VM.yaml \
         [--ckpt=output/<group>/<name>/model.ckpt.npz] [--device=cpu] \
         --generate_video=false --generate_pose_video=false [--key=value ...]
 
-Restores the checkpoint (either package's), writes the training poses'
-errors after sim(3) alignment (``quant_pose.txt``: view, rotation in
-radians, translation), aligns the test poses into the learned frame,
-refines each by test-time photometric optimisation when
-``optim.test_photo`` is set, measures the static caps' clip rates, renders
-the test views and writes per-view PSNR / SSIM (``quant.txt``) and their
-means with the clip rates and the pose errors (``quant_eval.json``, also
-``summary.json``).  LPIPS is not computed (``lpips_note`` says so).
+Restores the checkpoint (either package's).  With BAT it writes the
+training poses' errors after sim(3) alignment (``quant_pose.txt``: view,
+rotation in radians, translation), aligns the test poses into the learned
+frame and refines each by test-time photometric optimisation when
+``optim.test_photo`` is set; TensoRF renders the test views at their GT
+poses and writes no pose file.  Then it measures the static caps' clip
+rates, renders the test views and writes per-view PSNR / SSIM
+(``quant.txt``) and their means with the clip rates and, with BAT, the
+pose errors (``quant_eval.json``, also ``summary.json``).  LPIPS is not computed (``lpips_note`` says so).
 
 Runs on ``cuda`` unless ``--device=cpu`` is given.  The novel-view and
 pose videos, the pose plot and the PNG dump of the renders belong to the
-viz/ slice, not ported: ``generate_video`` and ``generate_pose_video``
-(both on unless set false) raise NotImplementedError naming the key; the
-plot and the dump are no options, and one line says they are skipped.
+viz/ slice, not ported: ``generate_video`` and, with BAT,
+``generate_pose_video`` (both on unless set false) raise
+NotImplementedError naming the key; the plot and the dump are no options,
+and one line says they are skipped.
 """
 from __future__ import annotations
 
@@ -58,7 +60,9 @@ def main(argv) -> dict:
     # generate_pose_video is read with a default in JAX's evaluate.py and
     # stands in no config file
     opt = set_options(yaml_path, rest, allow_new_keys=("generate_pose_video",))
-    for key in ("generate_video", "generate_pose_video"):
+    pose_optimizing = opt.model == "bat"
+    for key in (("generate_video", "generate_pose_video") if pose_optimizing
+                else ("generate_video",)):
         if opt.get(key, True):
             raise NotImplementedError(
                 f"option {key}=true is not ported yet (viz/, a later slice "
@@ -79,24 +83,28 @@ def main(argv) -> dict:
           flush=True)
 
     results = {"iters": trainer.it}
-    err = trainer.pose_error()
-    results.update(err)
-    print("--------------------------")
-    print("rot:   {:8.3f}".format(err["rot_deg"]))
-    print("trans: {:10.5f}".format(err["trans"]))
-    print("--------------------------", flush=True)
-    pose, pose_GT = trainer.get_all_training_poses()
-    aligned, sim3 = align_lib.prealign_cameras(pose, pose_GT)
-    test_pose = align_lib.align_test_pose(
-        torch.as_tensor(test_data.poses, device=dev), sim3)
     os.makedirs(out_dir, exist_ok=True)
-    r_err, t_err = align_lib.evaluate_camera_alignment(aligned, pose_GT)
-    with open(os.path.join(out_dir, "quant_pose.txt"), "w") as f:
-        for i, (r, t) in enumerate(zip(r_err.cpu().numpy(),
-                                       t_err.cpu().numpy())):
-            f.write(f"{i} {r} {t}\n")
-    print("[vis] the pose plot and the PNG dump of the renders are not "
-          "ported yet (viz/)", flush=True)
+    test_pose = torch.as_tensor(test_data.poses, device=dev)
+    if pose_optimizing:
+        err = trainer.pose_error()
+        results.update(err)
+        print("--------------------------")
+        print("rot:   {:8.3f}".format(err["rot_deg"]))
+        print("trans: {:10.5f}".format(err["trans"]))
+        print("--------------------------", flush=True)
+        pose, pose_GT = trainer.get_all_training_poses()
+        aligned, sim3 = align_lib.prealign_cameras(pose, pose_GT)
+        test_pose = align_lib.align_test_pose(test_pose, sim3)
+        r_err, t_err = align_lib.evaluate_camera_alignment(aligned, pose_GT)
+        with open(os.path.join(out_dir, "quant_pose.txt"), "w") as f:
+            for i, (r, t) in enumerate(zip(r_err.cpu().numpy(),
+                                           t_err.cpu().numpy())):
+                f.write(f"{i} {r} {t}\n")
+        print("[vis] the pose plot and the PNG dump of the renders are not "
+              "ported yet (viz/)", flush=True)
+    else:
+        print("[vis] the PNG dump of the renders is not ported yet (viz/)",
+              flush=True)
 
     V, H, W = test_data.n_views, test_data.H, test_data.W
     images = torch.as_tensor(test_data.images, device=dev)
@@ -104,7 +112,7 @@ def main(argv) -> dict:
     intr_inv = torch.as_tensor(test_data.intr_inv, device=dev)
 
     # ---- test-time photometric pose optimisation (the Euclidean branch)
-    if opt.optim.get("test_photo", False):
+    if pose_optimizing and opt.optim.get("test_photo", False):
         seed = int(opt.get("seed", 0))
         optimize = make_test_time_optimizer(
             trainer.vm_cfg, render_config(trainer), H, W,

@@ -14,6 +14,12 @@ Axis conventions: matMode=[[0,1],[0,2],[1,2]], vecMode=[2,1,0]; plane i is
 A shape transition (upsample, shrink) builds a new VMField around new
 factor tensors and keeps the basis and shading head; nothing is replaced
 in place under autograd.
+
+Factors are stored in ``VMConfig.factor_dtype`` (float32, or bfloat16 as
+the JAX package's tpu.factor_dtype offers); every computation reads them
+as float32 (_blurred), so a bf16 factor's gradient is the float32 one
+rounded once to bf16 where the factor is converted, as JAX's cotangent of
+its float32 promotion is.  Basis, shading and the box stay float32.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ class VMConfig:
     distance_scale: float = 25.0
     raymarch_weight_thres: float = 1e-6
     step_ratio: float = 0.5
+    factor_dtype: str = "float32"            # factor storage: or "bfloat16"
 
 
 class VMField(nn.Module):
@@ -80,10 +87,16 @@ class VMField(nn.Module):
 
 def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
             generator: torch.Generator, init_scale: float = 0.1,
-            init_bias: float = 0.0, device=None) -> VMField:
-    """Factors |bias + scale*N(0,1)|, basis U(+-1/sqrt(fan_in)), shading
-    with nn.Linear's default init, drawn from ``generator``."""
+            init_bias: float = 0.0, device=None, init_density: bool = True,
+            init_app: bool = True, init_basis: bool = True,
+            prev: VMField | None = None) -> VMField:
+    """Factors |bias + scale*N(0,1)| in cfg.factor_dtype, basis
+    U(+-1/sqrt(fan_in)), shading with nn.Linear's default init, drawn from
+    ``generator``.  With ``prev`` (the reference's reset_on_last_upsample,
+    joint_tensorf_tpu/models/vm.py:106-151), the groups not re-initialised
+    are carried over from it unchanged, and so is the shading head."""
     res = list(resolution)
+    fdt = getattr(torch, cfg.factor_dtype)
 
     def normal(shape):
         return torch.randn(shape, generator=generator, device=device)
@@ -93,9 +106,9 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
         for i in range(3):
             m0, m1 = MAT_MODE[i]
             p = normal((res[m1], res[m0], n_comp[i]))
-            planes.append(torch.abs(init_bias + init_scale * p))
+            planes.append(torch.abs(init_bias + init_scale * p).to(fdt))
             l = normal((res[VEC_MODE[i]], n_comp[i]))
-            lines.append(torch.abs(init_bias + init_scale * l))
+            lines.append(torch.abs(init_bias + init_scale * l).to(fdt))
         return planes, lines
 
     d_planes, d_lines = one_svd(cfg.density_n_comp)
@@ -106,6 +119,18 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
                         device=device) * 2 - 1) * bound
     shading = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.hidden,
                      device=device, generator=generator)
+    if prev is not None:
+        def carry(group):
+            return [t.detach() for t in group]
+
+        if not init_density:
+            d_planes = carry(prev.density_planes)
+            d_lines = carry(prev.density_lines)
+        if not init_app:
+            a_planes, a_lines = carry(prev.app_planes), carry(prev.app_lines)
+        if not init_basis:
+            basis = prev.basis.detach()
+        shading = prev.shading
     aabb = torch.as_tensor(aabb, dtype=torch.float32, device=device)
     return VMField(d_planes, d_lines, a_planes, a_lines, basis, shading, aabb)
 
@@ -163,6 +188,8 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
 
 
 def _blurred(plane, line, mats):
+    """The factors as float32, blurred by ``mats`` when given."""
+    plane, line = plane.float(), line.float()
     if mats is None:
         return plane, line
     return (blur_ops.blur_plane(plane, mats[plane.shape[0]],
@@ -216,13 +243,19 @@ def compute_density_grid(field: VMField, blur_mats=None):
     return G
 
 
+def _abs(x):
+    """|x| with JAX's derivative at 0, +1 (torch.abs's is 0): factors that
+    are exactly zero still get the L1 term's push."""
+    return torch.where(x >= 0, x, -x)
+
+
 def density_L1(field: VMField):
     """Mean-abs sparsity on the density factors (planes and lines)."""
     total = 0.0
     for p in field.density_planes:
-        total = total + torch.mean(torch.abs(p))
+        total = total + torch.mean(_abs(p))
     for l in field.density_lines:
-        total = total + torch.mean(torch.abs(l))
+        total = total + torch.mean(_abs(l))
     return total
 
 
@@ -245,13 +278,15 @@ def _with_factors(field: VMField, planes_fn, lines_fn, aabb=None) -> VMField:
 @torch.no_grad()
 def upsample(field: VMField, res_target: Sequence[int]) -> VMField:
     """Align-corners bilinear upsampling of all factors (the reference's
-    tensoRF.py:274-295)."""
+    tensoRF.py:274-295), computed in float32 and stored back in each
+    factor's dtype."""
     res = [int(r) for r in res_target]
     return _with_factors(
         field,
-        lambda i, p: resample.resize_plane(p, res[MAT_MODE[i][1]],
-                                           res[MAT_MODE[i][0]]),
-        lambda i, l: resample.resize_line(l, res[VEC_MODE[i]]))
+        lambda i, p: resample.resize_plane(
+            p.float(), res[MAT_MODE[i][1]], res[MAT_MODE[i][0]]).to(p.dtype),
+        lambda i, l: resample.resize_line(l.float(),
+                                          res[VEC_MODE[i]]).to(l.dtype))
 
 
 @torch.no_grad()

@@ -54,35 +54,43 @@ def pack_corners(G):
 
 
 class _RowGather(torch.autograd.Function):
-    """table[idx] with the scatter-add backward of K3 (skipped when the
-    table needs no gradient)."""
+    """table[idx] (read in bf16 and returned as float32 when ``bf16``) with
+    the float32 scatter-add backward of K3 (skipped when the table needs no
+    gradient)."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, bf16: bool):
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
+        if bf16:
+            return table.to(torch.bfloat16)[idx].to(torch.float32)
         return table[idx]
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         idx, = ctx.saved_tensors
-        return scatter_add_rows(idx, g.contiguous(), ctx.n_rows), None
+        return scatter_add_rows(idx, g.contiguous(), ctx.n_rows), None, None
 
 
-def sample_packed_grid(G8, coords):
+def sample_packed_grid(G8, coords, row_dtype: str = "float32"):
     """Trilinear sample of a corner-packed grid: G8 [X, Y, Z, 8] from
     pack_corners, coords (cx, cy, cz) [N] in [-1, 1] (x -> X) -> [N].
     Gradients reach G8 through the row gather and the coordinates through
-    the interpolation fractions (the pose path)."""
+    the interpolation fractions (the pose path).  ``row_dtype`` "bfloat16"
+    reads the rows rounded to bf16 (JAX's lane_grid._bf16_row_gather: the
+    grid is cast once, each row fetch moves half the bytes); the weights,
+    the coordinate gradients and the float32 scatter of the grid's
+    gradient stay float32."""
     X, Y, Z, _ = G8.shape
     cx, cy, cz = coords
     x0, fx = _floor_frac(_pix(cx, X), X)
     y0, fy = _floor_frac(_pix(cy, Y), Y)
     z0, fz = _floor_frac(_pix(cz, Z), Z)
     rows = _RowGather.apply(G8.reshape(X * Y * Z, 8),
-                            (x0 * Y + y0) * Z + z0)                # [N, 8]
+                            (x0 * Y + y0) * Z + z0,
+                            row_dtype == "bfloat16")               # [N, 8]
     wx = torch.stack([1.0 - fx, fx], dim=-1)
     wy = torch.stack([1.0 - fy, fy], dim=-1)
     wz = torch.stack([1.0 - fz, fz], dim=-1)

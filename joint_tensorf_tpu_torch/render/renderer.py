@@ -20,7 +20,12 @@ RenderConfig fields:
   recomputed from its index, z = t_min + step * (i + jitter) and
   dists = step (0 at i = S - 1), and the coordinates from z, so pose
   gradients flow through o + d * z, not through a gather;
-* the dense-grid density (``densify_density``, ops/densify.py);
+* the dense-grid density (``densify_density``, ops/densify.py), its
+  corner rows read in bfloat16 with ``densify_dtype`` "bfloat16" (the JAX
+  renderer's lane branch, renderer.py:465-477);
+* ``stop_coord_grad``: the sample coordinates are detached before the
+  factor samples and the dense-grid read (TensoRF, whose poses are not
+  optimised: the backward then computes no coordinate derivatives);
 * the two-stage appearance (``app_k``): only the app_k samples of largest
   weight among those past the weight gate are shaded.
 
@@ -56,7 +61,9 @@ class RenderConfig:
     mask_stride: int = 4
     compact_k: Optional[int] = None
     densify_density: bool = False
+    densify_dtype: str = "float32"
     app_k: Optional[int] = None
+    stop_coord_grad: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,11 +237,13 @@ def render_rays(
     # ------------------------------------------------ density
     coords = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
                    for a, w in enumerate(axes_w))
+    if rcfg.stop_coord_grad:
+        coords = tuple(c.detach() for c in coords)
     app_feat = None
     if rcfg.densify_density:
         G = vm_lib.compute_density_grid(field, blur_mats=d_mats)
-        sigma_feature = densify.sample_packed_grid(densify.pack_corners(G),
-                                                   coords)
+        sigma_feature = densify.sample_packed_grid(
+            densify.pack_corners(G), coords, row_dtype=rcfg.densify_dtype)
     elif rcfg.app_k is None:
         sigma_feature, app_feat = vm_lib.compute_fused_features(
             field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
@@ -262,6 +271,8 @@ def render_rays(
                          for a in range(3))
         coords_sel = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
                            for a, w in enumerate(axes_sel))
+        if rcfg.stop_coord_grad:
+            coords_sel = tuple(c.detach() for c in coords_sel)
         app_sel = vm_lib.compute_app_feature(field, coords_sel,
                                              blur_mats=c_mats)
         vd_sel = dirs.detach()[:, None, :].expand(n, K2, 3)

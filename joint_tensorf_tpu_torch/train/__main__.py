@@ -1,12 +1,13 @@
 """Training CLI of the port (counterpart of the repository's train.py:35-184,
-for ``model: bat``).
+for ``model: bat`` and ``model: tensorf``).
 
     python -m joint_tensorf_tpu_torch.train --yaml=configs/bat_blender_VM.yaml \
         --data.dataset=synthetic [--key=value ...] [--device=cpu]
 
 Loads the config (dotted overrides as in train.py), renders the procedural
-scene on the device, and trains BAT through its whole schedule (voxel
-upsamples, alpha-mask updates, bbox shrink) on the JAX trainer's default
+scene on the device (or reads a Blender scene, ``dataset: blender``), and
+trains BAT or TensoRF through its whole schedule (voxel upsamples,
+alpha-mask updates, bbox shrink) on the JAX trainer's default
 ``tpu:`` path (sample compaction, dense-grid density, two-stage
 appearance; ``--tpu.bbox_compact=false --tpu.blur_mask_compact=false
 --tpu.densify_density=false --tpu.app_k=null`` turn off all but the
@@ -17,13 +18,14 @@ Writes into ``output_root/group/name/``:
 * ``options.json`` (the config drift against an existing one is printed
   first, one ``[options]`` line per key);
 * ``log.jsonl``: one row per log interval (freq.scalar) with the step's
-  metrics, the pose errors after sim(3) alignment (``rot_deg``,
-  ``trans``) every 4 x freq.scalar iterations and ``val_psnr`` every
-  freq.val iterations;
+  metrics, with BAT the pose errors after sim(3) alignment (``rot_deg``,
+  ``trans``) every 4 x freq.scalar iterations, and ``val_psnr`` every
+  freq.val iterations (the validation poses aligned with BAT);
 * ``model_it{N}.ckpt.npz`` every freq.ckpt iterations and
   ``model.ckpt.npz`` at the end (train/checkpoint.py, the JAX layout);
 * ``quant.json`` after the final validation: ``wall_s``, ``iters``,
-  ``val_psnr``, ``rot_deg``, ``trans``; also ``summary.json``.
+  ``val_psnr``, and with BAT ``rot_deg``, ``trans``; also
+  ``summary.json``.
 
 ``--resume=true`` continues from ``model.ckpt.npz`` at its stored
 iteration.  The validation split is ``val``, or ``test`` with
@@ -112,7 +114,7 @@ def main(argv):
 
     def on_log(tr, m):
         line = dict(m)
-        if tr.it % max(1, freq_scalar * 4) == 0:
+        if tr.is_bat and tr.it % max(1, freq_scalar * 4) == 0:
             line.update(tr.pose_error())
         if freq_val and tr.it > 0 and tr.it % freq_val == 0:
             line["val_psnr"] = tr.validate(val_data)["psnr"]
@@ -151,7 +153,8 @@ def main(argv):
     print(f"[ckpt] saved to {ckpt_file}", flush=True)
     result = {"wall_s": time.time() - t0, "iters": trainer.it,
               "val_psnr": trainer.validate(val_data)["psnr"]}
-    result.update(trainer.pose_error())
+    if trainer.is_bat:
+        result.update(trainer.pose_error())
     with open(os.path.join(out_dir, "quant.json"), "w") as f:
         json.dump(result, f, indent=2)
     logger.summary(result)

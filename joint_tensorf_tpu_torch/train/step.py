@@ -1,11 +1,14 @@
 """One training step: geometry -> renderer -> VM field -> kernels -> loss
 -> Adam (counterpart of joint_tensorf_tpu/train/step.py:159-304).
 
-One backward pass over (factor grids, basis, shading MLP, se(3) pose table)
-gives the joint gradient: pose gradients reach the se3 table through ray
-generation -> sample positions -> bilinear coordinate derivatives.  The
-scene update happens every step (b2 = 0.99); the pose update (b2 = 0.999)
-applies the accumulated pose gradient on the accumulation cadence.
+With pose optimisation (BAT), one backward pass over (factor grids, basis,
+shading MLP, se(3) pose table) gives the joint gradient: pose gradients
+reach the se3 table through ray generation -> sample positions -> bilinear
+coordinate derivatives.  The scene update happens every step (b2 = 0.99);
+the pose update (b2 = 0.999) applies the accumulated pose gradient on the
+accumulation cadence.  Without it (TensoRF) the rays come from the base
+poses, the sample coordinates are detached, and the pose table, its
+moments and its accumulator stay as they are.
 """
 from __future__ import annotations
 
@@ -43,11 +46,13 @@ class StepScalars:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """BAT's step: the se(3) pose table is always optimised.  The renderer
-    options (alpha-mask gate, compaction, dense grid, two-stage appearance)
-    are the JAX StepConfig's (joint_tensorf_tpu/train/step.py:99-138); its
-    remat_* flags are XLA memory choices and its densify_impl picks between
-    two TPU layouts of one sampler, so neither has a counterpart; its
+    """The step's static choices.  ``pose_opt``: the se(3) pose table is
+    optimised (BAT; TensoRF runs with it off, and the JAX StepConfig's
+    default is off).  The renderer options (alpha-mask gate, compaction,
+    dense grid with its row dtype, two-stage appearance) are the JAX
+    StepConfig's (joint_tensorf_tpu/train/step.py:99-138); its remat_*
+    flags are XLA memory choices and its densify_impl picks between two
+    TPU layouts of one sampler, so neither has a counterpart; its
     use_alpha_mask and mask_with_blur are the choice of the mask passed to
     train_step (Trainer._step_mask)."""
     H: int
@@ -55,11 +60,13 @@ class StepConfig:
     n_views: int
     rays_per_view: int
     n_samples: int
+    pose_opt: bool = True
     blur: Optional[BlurSpec] = None
     grid_hw: Optional[tuple[int, int]] = None   # all_view_rand_grid TV-depth
     mask_stride: int = 4                        # alpha-mask probe stride
     compact_k: Optional[int] = None             # sample compaction budget
     densify_density: bool = False               # dense-grid density
+    densify_dtype: str = "float32"              # dense-grid row reads
     app_k: Optional[int] = None                 # two-stage appearance top-K2
     pose_b2: float = 0.999
     scene_b2: float = 0.99
@@ -68,7 +75,9 @@ class StepConfig:
         return RenderConfig(
             n_samples=self.n_samples, is_train=True,
             mask_stride=self.mask_stride, compact_k=self.compact_k,
-            densify_density=self.densify_density, app_k=self.app_k)
+            densify_density=self.densify_density,
+            densify_dtype=self.densify_dtype, app_k=self.app_k,
+            stop_coord_grad=not self.pose_opt)
 
 
 @dataclasses.dataclass
@@ -98,8 +107,12 @@ def rebuild_opt_state(state: TrainState) -> TrainState:
     return state
 
 
-def compose_train_pose(se3_refine, pose_base, view_sel):
-    """pose = refine o (GT o noise) for the selected views."""
+def compose_train_pose(se3_refine, pose_base, view_sel,
+                       pose_opt: bool = True):
+    """pose = refine o (GT o noise) for the selected views; the base poses
+    alone without pose optimisation."""
+    if not pose_opt:
+        return pose_base[view_sel]
     refine = lie.se3_to_SE3(se3_refine[view_sel])
     return pose_ops.compose([refine, pose_base[view_sel]])
 
@@ -115,7 +128,8 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     ``jitter`` [Vs*R, 1] pre-drawn stratified offsets (else drawn from
     ``generator``); ``alpha_mask``, when given, gates the samples.
     Returns (metrics {loss, mse, psnr} as 0-d tensors, grads {name: tensor}
-    incl. "se3_refine"); with ``stats`` the metrics also hold the fractions
+    incl. "se3_refine", zeros without pose optimisation, as JAX's gradient
+    of the unused table is); with ``stats`` the metrics also hold the fractions
     of sample slots in the box, live after the mask and kept by the
     compaction ("inbbox_frac", "valid_frac", "kept_frac"; render_rays) and
     whether the factors were blurred ("blur", 0 or 1).
@@ -123,7 +137,8 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     field = state.field
     rcfg = cfg.render_config()
     render_stats = {} if stats else None
-    pose = compose_train_pose(state.se3_refine, pose_base, view_sel)
+    pose = compose_train_pose(state.se3_refine, pose_base, view_sel,
+                              cfg.pose_opt)
     centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose, intr_inv[view_sel],
                                        ray_idx=ray_idx)
     B, R = centers.shape[0], centers.shape[1]
@@ -141,7 +156,9 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     loss = losses.edge_weighted_render_loss(
         rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
     plain_mse = losses.mse(rgb, target)
-    loss = loss + s.l1_weight * vm_lib.density_L1(field)
+    # float32 like JAX's product with a traced weight (bf16 factors make
+    # density_L1 bf16)
+    loss = loss + s.l1_weight * vm_lib.density_L1(field).float()
     if cfg.grid_hw is not None:
         gh, gw = cfg.grid_hw
         loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
@@ -149,9 +166,12 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
 
     params = dict(field.named_parameters())
     names = list(params)
-    g = torch.autograd.grad(loss, [params[k] for k in names]
-                            + [state.se3_refine])
-    grads = dict(zip(names + ["se3_refine"], g))
+    wrt = [params[k] for k in names]
+    if cfg.pose_opt:
+        wrt.append(state.se3_refine)
+    grads = dict(zip(names + ["se3_refine"], torch.autograd.grad(loss, wrt)))
+    if not cfg.pose_opt:
+        grads["se3_refine"] = torch.zeros_like(state.se3_refine)
 
     with torch.no_grad():
         lrs = field_lr_tree(field, s.lr_index, s.lr_basis)
@@ -160,17 +180,20 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
         for k in names:
             params[k].copy_(new_params[k])
 
-        # pose update on the accumulation cadence (pose_do_step)
-        accum = state.pose_grad_accum + grads["se3_refine"]
-        do_step = s.pose_do_step > 0
-        old = {"se3_refine": state.se3_refine}
-        new_se3, new_opt = adam_update(
-            {"se3_refine": accum}, state.pose_opt, old, s.lr_pose,
-            b2=cfg.pose_b2)
-        new_se3, state.pose_opt = masked_update(
-            do_step, new_se3, new_opt, old, state.pose_opt)
-        state.se3_refine.copy_(new_se3["se3_refine"])
-        state.pose_grad_accum = torch.zeros_like(accum) if do_step else accum
+    # pose update on the accumulation cadence (pose_do_step)
+    if cfg.pose_opt:
+        with torch.no_grad():
+            accum = state.pose_grad_accum + grads["se3_refine"]
+            do_step = s.pose_do_step > 0
+            old = {"se3_refine": state.se3_refine}
+            new_se3, new_opt = adam_update(
+                {"se3_refine": accum}, state.pose_opt, old, s.lr_pose,
+                b2=cfg.pose_b2)
+            new_se3, state.pose_opt = masked_update(
+                do_step, new_se3, new_opt, old, state.pose_opt)
+            state.se3_refine.copy_(new_se3["se3_refine"])
+            state.pose_grad_accum = (torch.zeros_like(accum) if do_step
+                                     else accum)
 
     metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
                "psnr": losses.psnr_from_mse(plain_mse.detach())}

@@ -1,13 +1,16 @@
 """Host-side training orchestrator
 (counterpart of joint_tensorf_tpu/train/trainer.py).
 
-Runs BAT's whole schedule: the 2D supervision blur cache with its hard edge
-masks, the random 2D/3D blur scales, the ray grid, the learning-rate and
-pose-lr schedules, the train step, and after the scheduled iterations the
-phase transitions of the JAX trainer's _update_schedule /
-_update_alphamask: voxel upsample with a fresh optimiser and the lr reset,
-the alpha-mask build (at a capped resolution past tpu.mask_cap_voxels),
-and the bbox shrink at the first, uncapped mask update.
+Runs BAT's whole schedule (and TensoRF's: BAT's without the pose table,
+the blurs and the pose schedules): the 2D supervision blur cache with its
+hard edge masks, the random 2D/3D blur scales, the ray grid, the
+learning-rate and pose-lr schedules, the train step, and after the
+scheduled iterations the phase transitions of the JAX trainer's
+_update_schedule / _update_alphamask: voxel upsample with a fresh
+optimiser and the lr reset, the alpha-mask build (at a capped resolution
+past tpu.mask_cap_voxels), the bbox shrink at the first, uncapped mask
+update, and with train_schedule.reset_on_last_upsample the groups it
+names re-drawn after the last upsample.
 
 The step is the JAX trainer's default ``tpu:`` path (_step_config): the
 sample-compaction budgets (in-bbox, _refresh_bbox_k; the dilated mask
@@ -61,10 +64,10 @@ from .step import (StepConfig, StepScalars, compose_train_pose,
 # (dotted key, the value or values the port runs); others raise.  None,
 # False and 0 all mean "off".
 _PORTED_VALUES = (
-    ("model", "bat"),
+    ("model", ("bat", "tensorf")),
     ("camera.ndc", False),
     ("tpu.mesh_shape", None),
-    ("tpu.factor_dtype", "float32"),
+    ("tpu.factor_dtype", ("float32", "bfloat16")),
     ("tpu.densify_impl", ("packed8", "lane")),
     ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
     ("arch.tensorf.model", ("BAT_VMSplit", "TensorVMSplit")),
@@ -97,15 +100,16 @@ _PORTED_VALUES = (
 
 # The tpu: keys.  Those in _PORTED_VALUES run only at the values named
 # there: tpu.densify_impl packed8 and lane are one sampler here
-# (ops/densify.py); tpu.plane_scatter's xla / segsum / runsum compute one
-# function, which K3 computes.  tpu.densify_dtype is checked with the layout
-# (_DENSIFY_DTYPES): the JAX renderer reads it only under densify_impl
-# lane (its bf16 row gather, not ported) and computes float32 under
-# packed8 whatever it says, as the port does.  The others run at any
-# value: tpu.mesh_axes matters only with a mesh, tpu.donate_state is an
-# XLA buffer choice with no counterpart.  A tpu: key in none of these
-# raises.
-_DENSIFY_DTYPES = {"packed8": ("float32", "bfloat16"), "lane": ("float32",)}
+# (ops/densify.py; lane's 128-lane row layout is a TPU tiling with no
+# function of its own); tpu.plane_scatter's xla / segsum / runsum compute
+# one function, which K3 computes.  tpu.densify_dtype runs at float32 and
+# bfloat16 (_DENSIFY_DTYPES, named with the layout when refused): the JAX
+# renderer reads it only under densify_impl lane (the bf16 row reads) and
+# computes float32 under packed8 whatever it says, as the port does.  The
+# others run at any value: tpu.mesh_axes matters only with a mesh,
+# tpu.donate_state is an XLA buffer choice with no counterpart.  A tpu:
+# key in none of these raises.
+_DENSIFY_DTYPES = ("float32", "bfloat16")
 _TPU_ANY_VALUE = (
     "mesh_axes", "donate_state", "densify_density", "bbox_compact",
     "blur_mask_compact", "blur_mask_refresh", "mask_res_cap",
@@ -123,10 +127,16 @@ def _off(v) -> bool:
     return v is None or v is False or (isinstance(v, (int, float)) and v == 0)
 
 
+# read only with pose optimisation (BAT): TensoRF's pose lr is 0
+_POSE_SCHEDULE_KEYS = ("optim.sched_pose.type", "optim.warmup_pose")
+
+
 def check_ported(opt: Options):
     """Raise NotImplementedError naming the first option whose value the
     port does not run, or a tpu: key it does not know."""
     for key, want in _PORTED_VALUES:
+        if key in _POSE_SCHEDULE_KEYS and opt.model != "bat":
+            continue
         got = opt.get_path(key)
         ok = (_off(got) if _off(want)
               else got in want if isinstance(want, tuple) else got == want)
@@ -134,7 +144,7 @@ def check_ported(opt: Options):
             raise _unported(f"option {key}={got!r}")
     impl = opt.get_path("tpu.densify_impl")
     dtype = opt.get_path("tpu.densify_dtype") or "float32"
-    if dtype not in _DENSIFY_DTYPES[impl]:
+    if dtype not in _DENSIFY_DTYPES:
         raise _unported(f"option tpu.densify_dtype={dtype!r} under "
                         f"tpu.densify_impl={impl!r}")
     checked = {k[4:] for k, _ in _PORTED_VALUES if k.startswith("tpu.")}
@@ -142,12 +152,6 @@ def check_ported(opt: Options):
     for key in opt.get("tpu") or {}:
         if key not in checked and key not in _TPU_ANY_VALUE:
             raise _unported(f"option tpu.{key}")
-    # re-initialising factors at the last upsample needs init_vm(prev=...)
-    reset = opt.get_path("train_schedule.reset_on_last_upsample")
-    if reset and any(reset.get(k) for k in ("density", "appearance",
-                                            "basis")):
-        raise _unported(f"option train_schedule.reset_on_last_upsample="
-                        f"{dict(reset)!r}")
 
 
 def build_vm_config(opt: Options) -> vm_lib.VMConfig:
@@ -163,11 +167,15 @@ def build_vm_config(opt: Options) -> vm_lib.VMConfig:
         distance_scale=float(arch.distance_scale),
         raymarch_weight_thres=float(arch.tensorf.rayMarch_weight_thres),
         step_ratio=float(opt.nerf.step_ratio),
+        factor_dtype=str(opt.tpu.get("factor_dtype") or "float32"),
     )
 
 
 class Trainer:
-    """Joint pose + tensorial-field training (BAT)."""
+    """Tensorial-field training: joint with the camera poses (BAT,
+    ``model: bat``) or at the given poses (TensoRF, ``model: tensorf``:
+    no pose noise, no factor blur, no near-plane schedule, no pose
+    learning rate, validation without alignment)."""
 
     def __init__(self, opt: Options, train_data: SceneData,
                  val_data: Optional[SceneData] = None, device=None):
@@ -182,6 +190,7 @@ class Trainer:
         self.rng_np = np.random.default_rng(seed)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
+        self.is_bat = opt.model == "bat"
         self.vm_cfg = build_vm_config(opt)
 
         # ---------------- scene geometry / voxel schedule
@@ -230,7 +239,7 @@ class Trainer:
         self.n_views, self.H, self.W = V, H, W
         self.gt_poses = torch.as_tensor(train_data.poses, device=dev)
         self.pose_noise: Optional[torch.Tensor] = None
-        if opt.camera.get("noise"):
+        if self.is_bat and opt.camera.get("noise"):
             se3_noise = torch.randn((V, 6), generator=self.generator,
                                     device=dev) * float(opt.camera.noise)
             self.pose_noise = lie.se3_to_SE3(se3_noise)
@@ -296,9 +305,9 @@ class Trainer:
 
     def _blur_spec(self, c2f_d: float, c2f_c: float) -> Optional[BlurSpec]:
         opt = self.opt
-        # no blur without a mode, or below the kernel-drop epsilon
-        if opt.get("c2f_mode", "None") in (None, "None") or \
-                max(c2f_d, c2f_c) < 1e-3:
+        # no blur without BAT or a mode, or below the kernel-drop epsilon
+        if not self.is_bat or opt.get("c2f_mode", "None") in (None, "None") \
+                or max(c2f_d, c2f_c) < 1e-3:
             return None
         return BlurSpec(mode=opt.c2f_mode, kernel_size=int(opt.c2f_kernel_size))
 
@@ -306,7 +315,7 @@ class Trainer:
         """(c2f_density, c2f_color, scale_2d) for this iteration; draws the
         2D scale, then the density scale, from rng_np."""
         opt = self.opt
-        if opt.get("c2f_mode", "None") in (None, "None"):
+        if not self.is_bat or opt.get("c2f_mode", "None") in (None, "None"):
             return 0.0, 0.0, 0.0
         d = schedules.interp_schedule(self.progress, opt.c2f_schedule_density)
         c = schedules.interp_schedule(self.progress, opt.c2f_schedule_color)
@@ -320,7 +329,7 @@ class Trainer:
 
     def _near_far(self):
         opt = self.opt
-        if opt.data.dataset != "blender" and \
+        if self.is_bat and opt.data.dataset != "blender" and \
                 opt.get("tensorf_near_plane_schedule") is not None:
             near = schedules.interp_schedule(
                 self.progress, opt.tensorf_near_plane_schedule)
@@ -328,6 +337,8 @@ class Trainer:
         return self.near_far
 
     def _lr_pose(self) -> float:
+        if not self.is_bat:
+            return 0.0
         return float(self.lr_pose0 * self.pose_gamma ** self.it)
 
     def _l1_weight(self) -> float:
@@ -504,11 +515,14 @@ class Trainer:
                    and (blur_active or self.compact_k is None)
                    and self._samples_per_step(rays_per_view) >= int(
                        tpu.get("densify_min_samples_per_chip", 100000)))
+        lane = str(tpu.get("densify_impl", "packed8")) == "lane"
         return StepConfig(
             H=self.H, W=self.W, n_views=self.n_views,
             rays_per_view=rays_per_view, n_samples=self.n_samples,
-            blur=blur, grid_hw=grid_hw, mask_stride=self.mask_stride,
-            compact_k=compact_k, densify_density=densify, app_k=app_k)
+            pose_opt=self.is_bat, blur=blur, grid_hw=grid_hw, mask_stride=self.mask_stride,
+            compact_k=compact_k, densify_density=densify,
+            densify_dtype=(str(tpu.get("densify_dtype") or "float32")
+                           if lane else "float32"), app_k=app_k)
 
     # ------------------------------------------------------ phase transitions
     def _replace_field(self, make_field):
@@ -537,7 +551,13 @@ class Trainer:
             res = schedules.find_resolution(self._field_aabb_np(),
                                             self.n_voxels,
                                             self.resolution_scale)
-            self._replace_field(lambda f: vm_lib.upsample(f, res))
+            reset = self.opt.train_schedule.get("reset_on_last_upsample")
+            if reset and it == self.upsample_iters[-1] and any(
+                    reset.get(k) for k in ("density", "appearance", "basis")):
+                self._replace_field(lambda f: self._reinit_groups(
+                    vm_lib.upsample(f, res), reset))
+            else:
+                self._replace_field(lambda f: vm_lib.upsample(f, res))
             self._refresh_bbox_k()
             # lr reset instead of this iteration's decay
             scale = 1.0 if self.lr_upsample_reset else (
@@ -549,6 +569,18 @@ class Trainer:
             self.lr_basis *= self.decay_factor
         if it in self.update_alphamask_iters:
             self._update_alphamask(it)
+
+    def _reinit_groups(self, field: vm_lib.VMField, reset) -> vm_lib.VMField:
+        """reset_on_last_upsample (trainer.py:807-816): the groups it names
+        drawn anew at the field's resolution (without the init bias, as in
+        JAX), the others and the shading head carried over."""
+        return vm_lib.init_vm(
+            self.vm_cfg, field.resolution(), field.aabb, self.generator,
+            init_scale=float(self.opt.arch.tensorf.get("volume_init_scale",
+                                                       0.1)),
+            device=self.device, init_density=bool(reset.get("density")),
+            init_app=bool(reset.get("appearance")),
+            init_basis=bool(reset.get("basis")), prev=field)
 
     def _update_alphamask(self, it: int):
         """The JAX trainer's _update_alphamask (trainer.py:844-889): build
@@ -579,10 +611,10 @@ class Trainer:
     # ------------------------------------------------ compaction budgets
     def get_all_training_poses(self):
         """(poses [V,3,4], GT poses): the learned refinement composed on
-        GT o noise for every view."""
+        GT o noise for every view (the base poses without BAT)."""
         views = torch.arange(self.n_views, device=self.device)
         pose = compose_train_pose(self.state.se3_refine.detach(),
-                                  self.pose_base, views)
+                                  self.pose_base, views, self.is_bat)
         return pose, self.gt_poses
 
     def _probe_rays(self, rng: np.random.Generator, n_probe_rays: int,
@@ -907,13 +939,13 @@ class Trainer:
     def validate(self, data: Optional[SceneData] = None, align: bool = True,
                  on_chunk=None):
         """Mean PSNR over a split (the validation split by default), its
-        GT poses sim(3)-aligned into the learned frame first
+        GT poses sim(3)-aligned into the learned frame first with BAT
         (trainer.py:1273-1290) -> {"psnr", "rgb", "depth"}."""
         data = data or self.val_data
         if data is None:
             raise ValueError("validate: no split given and no val_data")
         pose = torch.as_tensor(data.poses, device=self.device)
-        if align:
+        if self.is_bat and align:
             tr_pose, tr_gt = self.get_all_training_poses()
             _, sim3 = align_lib.prealign_cameras(tr_pose, tr_gt)
             pose = align_lib.align_test_pose(pose, sim3)

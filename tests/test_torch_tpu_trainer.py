@@ -15,9 +15,10 @@
   JAX step's stratified jitter.
 * check_ported: each unported tpu: value raises NotImplementedError naming
   the key; configs/bat_blender_VM.yaml's own options pass; densify_dtype
-  bfloat16 raises under densify_impl lane and passes under packed8, where
-  a step equals the float32 step bit for bit (the JAX renderer reads the
-  key only under lane).
+  bfloat16 passes under densify_impl lane (the bf16 reads,
+  tests/test_torch_variants.py) and under packed8, where a step equals the
+  float32 step bit for bit (the JAX renderer reads the key only under
+  lane); float16 raises under lane.
 """
 import dataclasses
 
@@ -154,7 +155,7 @@ def test_tpu_path_trainer_matches_jax(small_scene):
 
 
 @pytest.mark.parametrize("override", [
-    "--tpu.densify_dtype=bfloat16", "--tpu.factor_dtype=bfloat16",
+    "--tpu.densify_dtype=float16", "--tpu.factor_dtype=float16",
     "--tpu.densify_impl=blocked", "--tpu.plane_scatter=tiled",
     "--+tpu.remat_everything=true"])
 def test_unported_tpu_values_raise(override):
@@ -165,11 +166,14 @@ def test_unported_tpu_values_raise(override):
 
 def test_densify_dtype_bf16_raises_under_lane():
     """The JAX renderer reads densify_dtype only under densify_impl lane
-    (its bf16 row gather), which the port does not run."""
+    (its bf16 row reads): the port runs bfloat16 there, and a dtype the
+    JAX renderer has no reads for still raises naming the layout."""
+    check_ported(set_options(CFG, SMALL + [
+        "--tpu.densify_impl=lane", "--tpu.densify_dtype=bfloat16"]))
     with pytest.raises(NotImplementedError,
                        match=r"tpu\.densify_dtype.*densify_impl='lane'"):
         check_ported(set_options(CFG, SMALL + [
-            "--tpu.densify_impl=lane", "--tpu.densify_dtype=bfloat16"]))
+            "--tpu.densify_impl=lane", "--tpu.densify_dtype=float16"]))
 
 
 def test_densify_dtype_bf16_under_packed8_steps_as_float32(small_scene):

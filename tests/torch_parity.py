@@ -5,7 +5,20 @@ import numpy as np
 
 
 def _a(x):
-    return np.asarray(x, dtype=np.float32)
+    """float32, but bfloat16 (ml_dtypes) stays bfloat16."""
+    a = np.asarray(x)
+    return a if a.dtype.name == "bfloat16" else a.astype(np.float32)
+
+
+def as_f32(a):
+    """An array of either package (bfloat16 as ml_dtypes or as the port's
+    2-byte void) as float32, for comparisons."""
+    import ml_dtypes
+
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and a.dtype.kind == "V":
+        a = a.view(ml_dtypes.bfloat16)
+    return a.astype(np.float32)
 
 
 def flatten_field(st) -> dict:
