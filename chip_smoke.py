@@ -25,7 +25,9 @@
    shapes; both routes run under torch's sync debug mode "error" (which
    sees the torch calls of their glue, not the ctypes launches);
 5. runs one small train step on the card and on the CPU (plain versions)
-   from the same state and compares loss and gradients: on the dense path,
+   from the same state and compares loss and gradients (and a small L2G
+   step and a small NDC step: loss, gradients, error map, registered
+   poses, check_small_l2g_ndc): on the dense path,
    with in-bbox compaction, the dense-grid density and app_k below the
    gated count under the blur, with an alpha mask, group compaction and
    app_k, as TensoRF's step (no pose optimisation: the pose gradient
@@ -96,7 +98,30 @@
    blurred: float32, bfloat16 factors and lane's bfloat16 dense-grid
    reads, 6 steps each (peak memory, step median, launches, the first
    loss against float32's), and one reset_on_last_upsample transition;
-13. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+13. trains L2G-BAT at BAT's widths (configs/l2g_bat_blender_VM.yaml:
+   400x400, 12 views, error map 128^2, warp MLP 64-64-6, embedding 32)
+   through every phase of PHASES_ARGS' schedule with run_all_phases'
+   checks and lines (the in-bbox budget probed from the registered poses,
+   the live samples it dropped), counts the host syncs of 3 steps (sync
+   debug "warn"), runs the registration's SVD, determinant and backward
+   under sync debug "error", then 5 steps of
+   configs/l2g_synthetic_convergence.yaml; K1-K3 at its last phase's
+   shapes;
+14. trains BAT on the NDC route at configs/bat_llff_VM_MLP.yaml's widths
+   (ranks 16/20, app_dim 20, MLP_Fea_WeakView 32 hidden, relu, S up to
+   1000, 50^3 -> 800^3) on the facing scene at 480x640 with 20 views
+   through LLFF_ARGS' 40 iterations (warmup_pose, the pose reset, the
+   n_rays switch 20480 -> 4096 with the first upsample, the second
+   upsample to 771x859x771, one capped mask update), every step's
+   launches held against its configuration (the dense grid in every
+   phase: no budget under NDC); 10 test-time steps on 2 views with the
+   test-kernel blur rising (K1 = K2 = 1, K3 = 0 each); K1/K2 and K3 at its
+   last phase's shapes; then 3 steps at the 800^3 grid from the start at
+   the largest ray count of LLFF_FINAL_RAYS that fits (a cut: the
+   published first phase's 20480 rays x 1000 samples does not fit there,
+   its line factors' one-hot gradient alone asks for a [19.44M, 771]
+   float32 buffer of 60 GB; 10240 runs) and K3 into the grid's 510M rows;
+15. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -156,6 +181,34 @@ VARIANT_STEPS = 6
 # from BAT's 400 steps to 40
 EVAL_ARGS = ["--data.val_sub=4"]
 EVAL_TEST_ITER = 40
+# L2G-BAT's solids convergence config: steps run
+L2G_CONV_STEPS = 5
+# BAT on the NDC route (configs/bat_llff_VM_MLP.yaml) on the facing scene at
+# 480x640, cut to 40 iterations in the published order (warmup 500, reset
+# 2500, n_rays switch and first upsample 6000, second upsample 8000, mask
+# 19500, accumulation switch 20000 of 50000): warmup_pose 2, pose
+# accumulation 2 (of 8, so that the reset finds moved poses), the reset
+# before step 4, the n_rays switch and the first upsample after 6 (50^3
+# -> 200^3), the second after 8 (-> 800^3), the mask after 16, the
+# accumulation 2 -> 1 at 16; dense appearance (tpu.app_k null, as
+# configs/bat_synthetic_llff.yaml sets for forward-facing rays)
+LLFF_VIEWS = 20
+LLFF_ARGS = ["--data.dataset=synthetic", "--data.scene=facing",
+             f"--data.n_views={LLFF_VIEWS}", "--data.val_sub=2",
+             "--max_iter=40", "--optim.warmup_pose=2",
+             "--train_schedule.n_AccumPoseGrad_init=2",
+             "--train_schedule.reset_pose_on_iter=4",
+             "--train_schedule.change_n_rays_after_n_iters=6",
+             "--train_schedule.upsample_iters=[6,8]",
+             "--train_schedule.update_alphamask_iters=[16]",
+             "--train_schedule.change_AccumPoseGrad_after_n_iters=16",
+             "--tpu.app_k=null"]
+# test-time steps on the trained NDC state, with the test-kernel blur
+# rising from 0 to 0.05 world units
+LLFF_TEST_ITER = 10
+LLFF_TEST_KERNEL = [0.0, 0.05]
+# ray counts tried at the final 800^3 grid, the first that fits runs
+LLFF_FINAL_RAYS = [20480, 10240, 4096]
 
 
 def emit(obj):
@@ -900,6 +953,7 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
     from joint_tensorf_tpu_torch.config import set_options
     from joint_tensorf_tpu_torch.data import load_dataset
     from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.l2g_trainer import L2GTrainer
     from joint_tensorf_tpu_torch.train.trainer import Trainer
 
     args = list(base_args) + list(extra_args)
@@ -910,7 +964,8 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
     data = load_dataset(opt, "train", device="cuda")
     torch.cuda.synchronize()
     t_scene = time.perf_counter() - t_scene
-    trainer = Trainer(opt, data, device="cuda")
+    trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
+        opt, data, device="cuda")
     support = warm_start_density(trainer, int(opt.data.get("seed", 0)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -950,7 +1005,8 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                 **{k: before[k] for k in ("resolution", "n_samples",
                                           "mask_res")},
                 **{k: float(m[k]) for k in ("loss", "valid_frac",
-                                            "inbbox_frac", "kept_frac")},
+                                            "inbbox_frac", "kept_frac",
+                                            "dropped_frac")},
                 "config": dict(step_config_summary(cfg)),
                 "budgets": budgets(tr),
                 "launches": {k: launches[k] - clock["launches"][k]
@@ -1064,13 +1120,14 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                r["config"]["app_k"])
         if not phases or phases[-1]["key"] != key:
             phases.append({"key": key, "its": [], "ms": [], "kept": [],
-                           "valid": [], "peak": [],
+                           "valid": [], "dropped": [], "peak": [],
                            "launches": r["launches"],
                            "budgets": r["budgets"]})
         phases[-1]["its"].append(r["it"])
         phases[-1]["ms"].append(r["step_ms"])
         phases[-1]["kept"].append(r["kept_frac"])
         phases[-1]["valid"].append(r["valid_frac"])
+        phases[-1]["dropped"].append(r["dropped_frac"])
         phases[-1]["peak"].append(r["peak_gb"])
     rows = []
     for p in phases:
@@ -1081,6 +1138,7 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                "iterations": [p["its"][0], p["its"][-1]],
                "kept_frac": statistics.mean(p["kept"]),
                "valid_frac": statistics.mean(p["valid"]),
+               "dropped_frac_max": max(p["dropped"]),
                "launches_per_step": {n: c for n, c in p["launches"].items()
                                      if n in ("composite_fwd",
                                               "composite_bwd",
@@ -1092,6 +1150,7 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
               f"S {k[1]} blur {k[3]} mask {k[2]} budgets {p['budgets']} "
               f"step: compact_k {k[4]} densified {k[5]} app_k {k[6]} "
               f"kept {row['kept_frac']:.3f} live {row['valid_frac']:.3f} "
+              f"dropped {row['dropped_frac_max']:.3g} "
               f"launches {row['launches_per_step']} median "
               f"{row['step_ms_median']:.1f} ms peak "
               f"{row['peak_mem_gb']:.2f} GB", flush=True)
@@ -1643,6 +1702,547 @@ def check_small_eval():
     return result
 
 
+# ------------------------------------------------------ L2G-BAT and NDC
+def _small_field(cfg, res, gen):
+    """A small field drawn from ``gen`` with its density raised."""
+    import torch
+
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    field = vm_lib.init_vm(cfg, res, [-1.5, -1.67, -2.0, 1.5, 1.67, 1.0],
+                           gen, init_scale=0.3, init_bias=0.2)
+    with torch.no_grad():
+        for p in field.density_planes:
+            p.mul_(4.0)
+    return field
+
+
+def check_small_l2g_ndc():
+    """One small L2G step and one small NDC step on the card (kernels) and
+    on the CPU (plain versions) from the same state and draws.  L2G: the
+    blob scene, an error map (its Gumbel and cell-jitter uniforms
+    pre-drawn), a live warp MLP, the in-bbox compaction with the dense
+    grid and app_k under the blur; NDC: the facing scene, MLP_Fea_WeakView
+    and relu, setbg_opaque false (the coin pre-drawn), the per-sample
+    jitter, TV weights, pin_first_pose, the dense grid.  Loss within 1e-5
+    relative, every gradient within 1e-3 of its leaf's max, the updated
+    error map and registered poses within 1e-5."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from joint_tensorf_tpu_torch.data.synthetic import make_scene
+    from joint_tensorf_tpu_torch.geometry import lie, poses
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.render.renderer import BlurSpec
+    from joint_tensorf_tpu_torch.train import l2g
+    from joint_tensorf_tpu_torch.train.step import (StepConfig, StepScalars,
+                                                    init_train_state,
+                                                    train_step)
+
+    gen = torch.Generator().manual_seed(1)
+    result = {}
+    # ---- L2G
+    cfg = vm_lib.VMConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8),
+                          app_dim=9, hidden=16)
+    lcfg = l2g.L2GConfig(embedding_dim=8, layers_warp=(16, 16, 6),
+                         error_map_size=8)
+    V, H, W, R = 3, 24, 24, 25
+    scene = make_scene(n_views=V, H=H, W=W, device="cpu")
+    field = _small_field(cfg, (24, 24, 24), gen)
+    noise = torch.randn((V, 6), generator=gen) * 0.05
+    pose_base = poses.compose([lie.se3_to_SE3(noise),
+                               torch.as_tensor(scene.poses)])
+    state0 = l2g.init_l2g_state(field, lcfg, V, pose_base, generator=gen)
+    with torch.no_grad():
+        state0.warp_mlp.w[-1].normal_(0.0, 0.02, generator=gen)
+    images = torch.as_tensor(scene.images).reshape(V, 3, -1).transpose(1, 2)
+    edges = (torch.rand((V, H * W), generator=gen) > 0.7).float()
+    scfg = StepConfig(H=H, W=W, n_views=V, rays_per_view=R, n_samples=64,
+                      blur=BlurSpec("uniform-gaussian", 8), compact_k=48,
+                      densify_density=True, app_k=4)
+    s = StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3,
+                    c2f_density=0.1, c2f_color=0.2, l1_weight=8e-5,
+                    use_edge=1.0, edge_factor=1.5, non_edge_factor=0.5)
+    draws = l2g.draw_error_map_uniforms(V, 8, R, gen, "cpu")
+    jitter = torch.rand((V * R, 1), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = copy.deepcopy(state0)
+        st.field, st.warp_mlp = st.field.to(dev), st.warp_mlp.to(dev)
+        for k in ("warp_embedding", "optimised_poses", "error_map"):
+            t = getattr(st, k).detach().to(dev)
+            setattr(st, k, t.requires_grad_(k == "warp_embedding"))
+        st.scene_opt = l2g.adam_init(dict(st.field.named_parameters()))
+        params = l2g.pose_params(st)
+        st.pose_opt = l2g.adam_init(params)
+        st.pose_grad_accum = {k: torch.zeros_like(p)
+                              for k, p in params.items()}
+        mv = lambda t: t.to(dev)  # noqa: E731
+        m, g = l2g.l2g_train_step(
+            st, scfg, lcfg, cfg, mv(pose_base), mv(torch.as_tensor(
+                scene.intr)), mv(torch.as_tensor(scene.intr_inv)),
+            mv(images.contiguous()), mv(edges), mv(torch.arange(V)),
+            mv(torch.arange(R)), s, jitter=mv(jitter),
+            error_draws=tuple(mv(d) for d in draws), stats=True)
+        out[dev] = (float(m["loss"]), {k: v.detach().cpu()
+                                       for k, v in g.items()},
+                    st.error_map.cpu(), st.optimised_poses.cpu(),
+                    float(m["kept_frac"]))
+    result["l2g"] = _compare_small("l2g", out)
+    # ---- NDC
+    cfg = dataclasses.replace(cfg, shading_mode="MLP_Fea_WeakView",
+                              fea2dense="relu", density_shift=0.0)
+    scene = make_scene(n_views=V, H=H, W=W, kind="facing", near=0.0,
+                       far=1.0, device="cpu")
+    field = _small_field(cfg, (24, 26, 24), gen)
+    images = torch.as_tensor(scene.images).reshape(V, 3, -1).transpose(1, 2)
+    ray_idx = torch.randperm(H * W, generator=gen)[:R]
+    scfg = StepConfig(H=H, W=W, n_views=V, rays_per_view=R, n_samples=48,
+                      densify_density=True, ndc=True, white_bg=False,
+                      pin_first_pose=True)
+    s = dataclasses.replace(s, c2f_density=0.0, c2f_color=0.0,
+                            near_far=(0.2, 1.0), tv_density_weight=10.0,
+                            tv_color_weight=10.0)
+    jitter = torch.rand((V * R, 48), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = init_train_state(copy.deepcopy(field).to(dev), V)
+        with torch.no_grad():
+            st.se3_refine.copy_(noise.to(dev) * 0.1)
+        mv = lambda t: t.to(dev)  # noqa: E731
+        m, g = train_step(
+            st, scfg, cfg, mv(torch.as_tensor(scene.poses)),
+            mv(torch.as_tensor(scene.intr_inv)), mv(images.contiguous()),
+            mv(edges), mv(torch.arange(V)), mv(ray_idx), s,
+            jitter=mv(jitter), intr=mv(torch.as_tensor(scene.intr)),
+            bg_coin=True, stats=True)
+        out[dev] = (float(m["loss"]), {k: v.detach().cpu()
+                                       for k, v in g.items()},
+                    None, None, float(m["kept_frac"]))
+    result["ndc"] = _compare_small("ndc", out)
+    return {"small_step_l2g_ndc": result}
+
+
+def _compare_small(name, out):
+    loss_c, g_c, em_c, op_c, kept = out["cpu"]
+    loss_g, g_g, em_g, op_g, _ = out["cuda"]
+    if not math.isfinite(loss_g) or abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"small {name} step: card loss {loss_g} vs CPU {loss_c}")
+    worst = 0.0
+    for k in g_c:
+        scale = float(g_c[k].abs().max()) + 1e-12
+        worst = max(worst, float((g_g[k] - g_c[k]).abs().max()) / scale)
+    if worst > 1e-3:
+        fail(f"small {name} step: card gradients differ from the CPU's by "
+             f"{worst:.3g} of their max")
+    tables = 0.0
+    if em_c is not None:
+        tables = max(float((em_g - em_c).abs().max()),
+                     float((op_g - op_c).abs().max()))
+        if tables > 1e-5:
+            fail(f"small {name} step: error map or registered poses differ "
+                 f"by {tables:.3g}")
+    return {"loss_cuda": loss_g, "loss_cpu": loss_c,
+            "max_grad_err_rel": worst, "max_table_err": tables,
+            "kept_frac": kept, "n_grads": len(g_c)}
+
+
+def check_registration_sync():
+    """L2G's batched Kabsch fit (rigid_points_registration on [12, 4096, 3]:
+    torch.linalg.svd and torch.linalg.det of [12, 3, 3]) under torch's
+    sync debug mode "error", the SVD, the determinant and the whole fit's
+    backward each alone: which of them synchronise the host.  Also the
+    fit's forward + backward time."""
+    import torch
+
+    from joint_tensorf_tpu_torch.geometry.align import \
+        rigid_points_registration
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((12, 4096, 3), generator=gen, device="cuda",
+                    requires_grad=True)
+    y = x.detach() * 0.9 + 0.1 * torch.randn((12, 4096, 3), generator=gen,
+                                             device="cuda")
+    H = torch.randn((12, 3, 3), generator=gen, device="cuda")
+
+    def fwd_bwd():
+        R, t = rigid_points_registration(x, y)
+        return torch.autograd.grad(R.sum() + t.sum(), [x])
+
+    pieces = {"svd": lambda: torch.linalg.svd(H),
+              "det": lambda: torch.linalg.det(H),
+              "fit_forward_backward": fwd_bwd}
+    syncs = {}
+    for name, fn in pieces.items():
+        fn()                                        # load the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            syncs[name] = None
+        except RuntimeError as e:
+            syncs[name] = str(e).splitlines()[0][:160]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ms = time_ms(fwd_bwd)
+    print(f"[l2g] rigid_points_registration [12, 4096, 3] fwd+bwd "
+          f"{ms:.3f} ms; under sync debug 'error': "
+          + ", ".join(f"{k} {'syncs' if v else 'no sync'}"
+                      for k, v in syncs.items()), flush=True)
+    return {"batch": 12, "points": 4096, "fwd_bwd_ms": ms,
+            "synchronises": {k: v is not None for k, v in syncs.items()},
+            "sync_errors": syncs}
+
+
+def count_host_syncs(trainer, n_steps: int) -> list:
+    """Synchronising CUDA calls of each of ``n_steps`` training steps (the
+    schedule updates included), counted as the warnings of torch's sync
+    debug mode "warn"."""
+    import warnings
+
+    import torch
+
+    counts = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                trainer.train_iteration()
+                trainer._update_schedule()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        trainer.it += 1
+        counts.append(sum("synchroniz" in str(x.message) for x in w))
+    return counts
+
+
+def run_l2g(profile_dir=None):
+    """L2G-BAT at BAT's widths (configs/l2g_bat_blender_VM.yaml: 400x400,
+    12 views, error map 128^2, warp MLP 64-64-6, embedding 32) through
+    every phase of PHASES_ARGS' 40-iteration schedule (run_all_phases'
+    checks, launches and per-phase lines, the live fraction against the
+    in-bbox budget probed from the registered poses, and the samples the
+    budget dropped); the host syncs of 3 steps in its last phase; the
+    registration under sync debug "error"; then the solids convergence
+    config (configs/l2g_synthetic_convergence.yaml: 128^2, 100 views,
+    error map 64^2) for L2G_CONV_STEPS steps."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.l2g_trainer import L2GTrainer
+
+    out = run_all_phases("l2g", yaml="l2g_bat_blender_VM.yaml",
+                         base_args=PHASES_ARGS)
+    trainer = out[5][0]
+    trainer.it -= 3                  # the last phase's last 3 steps again
+    syncs = count_host_syncs(trainer, 3)
+    print(f"[l2g] host syncs per step (sync debug 'warn', last phase, "
+          f"schedule updates included): {syncs}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    reg = check_registration_sync()
+
+    opt = set_options(os.path.join(HERE, "configs",
+                                   "l2g_synthetic_convergence.yaml"), [])
+    data = load_dataset(opt, "train", device="cuda")
+    trainer = L2GTrainer(opt, data, device="cuda")
+    stamps, losses, faults = [], [], []
+
+    def on_step(tr, m):
+        if m is None:
+            return
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
+        losses.append(float(m["loss"]))
+        got = {k: stamps[-1][1][k] - stamps[-2][1][k] for k in
+               stamps[-1][1]}
+        if got != expected_launches(tr.last_step_config):
+            faults.append(f"step {tr.it} launched {got}")
+
+    torch.cuda.synchronize()
+    stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
+    trainer.run(max_iter=L2G_CONV_STEPS, log_every=1, on_step=on_step)
+    ms = [(b - a) * 1e3 for (a, _), (b, _) in zip(stamps[:-1], stamps[1:])]
+    if not all(math.isfinite(x) for x in losses):
+        faults.append(f"losses {losses}")
+    conv = {"config": "configs/l2g_synthetic_convergence.yaml",
+            "views": trainer.n_views, "hw": [trainer.H, trainer.W],
+            "resolution": trainer.resolution,
+            "n_samples": trainer.n_samples, "steps": L2G_CONV_STEPS,
+            "loss": losses, "step_ms": ms,
+            "step_ms_median": statistics.median(ms[1:]),
+            "error_map_size": trainer.l2g_cfg.error_map_size,
+            "pose_error": trainer.pose_error()}
+    print(f"[l2g] solids convergence config: {L2G_CONV_STEPS} steps, "
+          f"median {conv['step_ms_median']:.1f} ms, losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    emit({"l2g": {"host_syncs_per_step": syncs, "registration": reg,
+                  "solids_convergence": conv}})
+    if faults:
+        fail("l2g: " + "; ".join(faults))
+    return out
+
+
+def run_ndc_route():
+    """BAT on the NDC route at configs/bat_llff_VM_MLP.yaml's widths (ranks
+    16/20, app_dim 20, WeakView hidden 32, S up to 1000, relu, 50^3 ->
+    800^3) on the facing scene (480x640, LLFF_VIEWS views) through
+    LLFF_ARGS' 40-iteration schedule: warmup_pose, reset_pose_on_iter, the
+    n_rays switch 20480 -> 4096 with the first upsample, the second
+    upsample to the final grid, one (capped) mask update, the pose
+    accumulation switch.  Every step's launches against its configuration
+    (the dense grid in every phase: no budget under NDC), finite losses,
+    one line per phase; then LLFF_TEST_ITER test-time steps on 2 views with
+    the test-kernel blur rising (optim.test_kernel_schedule LLFF_TEST_KERNEL:
+    the configs' [0, 0] blurs nothing), counters around each step (K1 = 1,
+    K2 = 1, K3 = 0).  Returns (rays, S, resolution) of the last phase."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.pose.test_optim import (
+        make_test_time_optimizer, render_config)
+    from joint_tensorf_tpu_torch.render.renderer import BlurSpec
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    yaml = os.path.join(HERE, "configs", "bat_llff_VM_MLP.yaml")
+    opt = set_options(yaml, LLFF_ARGS)
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter()
+    data = load_dataset(opt, "train", device="cuda")
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter() - t_scene
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(opt, data, device="cuda")
+    steps, faults = [], []
+    clock = {"t": time.perf_counter(), "launches": dict(cuda_build.LAUNCHES)}
+
+    def on_step(tr, m):
+        torch.cuda.synchronize()
+        now, launches = time.perf_counter(), dict(cuda_build.LAUNCHES)
+        if m is not None:
+            cfg = tr.last_step_config
+            steps.append({
+                "it": tr.it, "step_ms": (now - clock["t"]) * 1e3,
+                "loss": float(m["loss"]), "blur": bool(m["blur"]),
+                "resolution": list(tr.resolution), "n_samples": cfg.n_samples,
+                "rays": tr.rays_per_step, "densified": cfg.densify_density,
+                "compact_k": cfg.compact_k, "app_k": cfg.app_k,
+                "mask": tr.alpha_mask is not None,
+                "valid_frac": float(m["valid_frac"]),
+                "lr_pose": tr._lr_pose(),
+                "pose_absmax": float(tr.state.se3_refine.detach().abs()
+                                     .max()),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: launches[k] - clock["launches"][k]
+                             for k in launches},
+                "expected": expected_launches(cfg)})
+        else:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        clock["t"], clock["launches"] = time.perf_counter(), launches
+
+    t_run = time.perf_counter()
+    trainer.run(log_every=1, on_step=on_step, stats=True)
+    t_run = time.perf_counter() - t_run
+    faults += [f"step {r['it']} launched {r['launches']}, expected "
+               f"{r['expected']}" for r in steps
+               if r["launches"] != r["expected"]]
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        faults.append(f"losses {[r['loss'] for r in steps]}")
+    if not all(r["densified"] and r["compact_k"] is None for r in steps):
+        faults.append("a step under NDC left the dense grid or compacted")
+    final = steps[-1]["resolution"]
+    if math.prod(final) < 400e6 or not steps[-1]["mask"]:
+        faults.append(f"the run did not reach the 800^3 grid and its mask: "
+                      f"{final}")
+    reset = int(opt.train_schedule.reset_pose_on_iter)
+    before = [r["pose_absmax"] for r in steps if r["it"] == reset - 1]
+    phases = []
+    for r in steps:
+        key = (tuple(r["resolution"]), r["n_samples"], r["rays"], r["blur"],
+               r["mask"])
+        if not phases or phases[-1]["key"] != key:
+            phases.append({"key": key, "rows": []})
+        phases[-1]["rows"].append(r)
+    rows = []
+    for p in phases:
+        rs = p["rows"]
+        ms = [r["step_ms"] for r in rs]
+        row = {"iterations": [rs[0]["it"], rs[-1]["it"]],
+               "resolution": list(p["key"][0]), "n_samples": p["key"][1],
+               "rays": p["key"][2], "blur": p["key"][3], "mask": p["key"][4],
+               "densified": rs[0]["densified"], "app_k": rs[0]["app_k"],
+               "launches_per_step": {k: v for k, v in rs[0]["launches"].items()
+                                     if k in ("composite_fwd",
+                                              "composite_bwd",
+                                              "scatter_add_rows")},
+               "valid_frac": statistics.mean(r["valid_frac"] for r in rs),
+               "step_ms_median": statistics.median(ms), "step_ms": ms,
+               "peak_mem_gb": max(r["peak_gb"] for r in rs),
+               "lr_pose": [rs[0]["lr_pose"], rs[-1]["lr_pose"]],
+               "pose_absmax": rs[-1]["pose_absmax"]}
+        rows.append(row)
+        print(f"[phase-steps llff] its {row['iterations']} res "
+              f"{row['resolution']} S {row['n_samples']} rays {row['rays']} "
+              f"blur {row['blur']} mask {row['mask']} dense grid "
+              f"{row['densified']} live {row['valid_frac']:.3f} launches "
+              f"{row['launches_per_step']} median "
+              f"{row['step_ms_median']:.1f} ms peak "
+              f"{row['peak_mem_gb']:.2f} GB lr_pose {row['lr_pose']}",
+              flush=True)
+
+    # ---- test-time steps with the test-kernel blur
+    val = load_dataset(opt, "val", device="cuda")
+    optimize = make_test_time_optimizer(
+        trainer.vm_cfg, render_config(trainer), trainer.H, trainer.W,
+        n_rays=trainer._n_rays(), test_iter=LLFF_TEST_ITER,
+        lr_init=float(opt.optim.lr_pose_test),
+        lr_end=float(opt.optim.lr_pose_test_end),
+        generator=torch.Generator(device="cuda").manual_seed(7),
+        blur=BlurSpec("uniform-gaussian", int(opt.c2f_kernel_size)),
+        test_kernel_schedule=LLFF_TEST_KERNEL,
+        on_step=lambda it, loss: test_steps.append(
+            (torch.cuda.synchronize() or time.perf_counter(),
+             dict(cuda_build.LAUNCHES))))
+    V, H, W = 2, trainer.H, trainer.W
+    target = torch.as_tensor(val.images[:V], device="cuda").reshape(
+        V, 3, -1).transpose(1, 2)
+    test_rows = []
+    for i in range(V):
+        torch.cuda.synchronize()
+        test_steps = [(time.perf_counter(), dict(cuda_build.LAUNCHES))]
+        _, loss = optimize(
+            trainer.state.field, trainer.alpha_mask,
+            torch.as_tensor(val.poses[i], device="cuda"), target[i],
+            torch.as_tensor(val.intr_inv[i], device="cuda"),
+            trainer._near_far(), intr=torch.as_tensor(val.intr[i],
+                                                      device="cuda"))
+        per = [{k: b[1][k] - a[1][k] for k in b[1]}
+               for a, b in zip(test_steps[:-1], test_steps[1:])]
+        want = {"composite_fwd": 1, "composite_bwd": 1,
+                "scatter_add_rows": 0, "binned_plane_scatter": 0,
+                "scatter_add_rows_tiled": 0}
+        if any(p != want for p in per) or not math.isfinite(loss):
+            faults.append(f"test-time view {i}: launches {per[:2]}, loss "
+                          f"{loss}")
+        ms = [(b[0] - a[0]) * 1e3
+              for a, b in zip(test_steps[:-1], test_steps[1:])]
+        test_rows.append({"view": i, "final_loss": loss,
+                          "step_ms_median": statistics.median(ms[1:]),
+                          "launches_per_step": per[-1]})
+    print(f"[llff] test-time with the test-kernel blur "
+          f"{LLFF_TEST_KERNEL}: {LLFF_TEST_ITER} steps a view, median "
+          f"{[round(r['step_ms_median'], 1) for r in test_rows]} ms, "
+          f"launches {test_rows[0]['launches_per_step']}", flush=True)
+    n_rays, S, res = trainer.rays_per_step, trainer.n_samples, \
+        list(trainer.resolution)
+    del trainer
+    torch.cuda.empty_cache()
+    emit({"llff_route": {
+        "config": "configs/bat_llff_VM_MLP.yaml " + " ".join(LLFF_ARGS),
+        "views": data.n_views, "image_hw": [data.H, data.W],
+        "scene_render_s": t_scene, "run_s": t_run, "phases": rows,
+        "pose_absmax_before_reset": before,
+        "loss": [r["loss"] for r in steps], "test_time": test_rows}})
+    if faults:
+        fail("llff route: " + "; ".join(faults))
+    return n_rays, S, res
+
+
+def run_llff_final_grid():
+    """3 steps at the LLFF config's final grid (800^3 voxels: 771 x 859 x
+    771, S = 1000) from the start, as VARIANT_ARGS does for 64M voxels,
+    at the first ray count of LLFF_FINAL_RAYS that fits in the card's
+    memory: the published first phase's 20480 rays never meets this grid
+    (the n_rays switch to 4096 comes with the first upsample), and a step
+    of 20480 rays x 1000 samples there needs more than the card holds
+    (the appearance lines' one-hot gradient, [rays x S, 771] float32, is
+    60 GB of it; the failed allocation is printed).  Returns (rays, S,
+    resolution) of the steps that ran."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    yaml = os.path.join(HERE, "configs", "bat_llff_VM_MLP.yaml")
+    base = [a for a in LLFF_ARGS if not a.startswith(
+        ("--train_schedule.upsample_iters", "--train_schedule.update_alpha",
+         "--max_iter"))]
+    base += ["--train_schedule.n_voxel_init=512000000",
+             "--train_schedule.upsample_iters=[1000000]",
+             "--train_schedule.update_alphamask_iters=[1000000]"]
+    data = load_dataset(set_options(yaml, base), "train", device="cuda")
+    tried = []
+    for n_rays in LLFF_FINAL_RAYS:
+        opt = set_options(yaml, base + [
+            f"--train_schedule.n_rays_init={n_rays}"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(opt, data, device="cuda")
+        stamps = []
+        try:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                stamps.append((time.perf_counter(),
+                               dict(cuda_build.LAUNCHES)))
+                m = trainer.train_iteration()
+                trainer._update_schedule()
+                trainer.it += 1
+                float(m["loss"])
+            torch.cuda.synchronize()
+            stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append({"rays": trainer.rays_per_step, "fits": False,
+                          "peak_gb_before_failure":
+                          torch.cuda.max_memory_allocated() / 1e9,
+                          "error": str(e).splitlines()[0][:160]})
+            print(f"[llff-800] {trainer.rays_per_step} rays x "
+                  f"{trainer.n_samples} samples at {trainer.resolution}: "
+                  f"out of memory ({tried[-1]['error']})", flush=True)
+            del trainer
+            continue
+        cfg = trainer.last_step_config
+        ms = [(b[0] - a[0]) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+        per = [{k: b[1][k] - a[1][k] for k in b[1]}
+               for a, b in zip(stamps[:-1], stamps[1:])]
+        res = list(trainer.resolution)
+        row = {"rays": trainer.rays_per_step, "fits": True,
+               "resolution": res, "n_samples": cfg.n_samples,
+               "voxels": math.prod(res), "densified": cfg.densify_density,
+               "blur": cfg.blur is not None, "step_ms": ms,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": per, "loss": float(m["loss"]),
+               "packed_grid_gb": math.prod(res) * 8 * 4 / 1e9}
+        tried.append(row)
+        print(f"[llff-800] {row['rays']} rays x {row['n_samples']} samples "
+              f"at {res} ({row['voxels'] / 1e6:.1f}M voxels, packed grid "
+              f"{row['packed_grid_gb']:.1f} GB): steps "
+              f"{[round(x, 1) for x in ms]} ms, peak {row['peak_gb']:.2f} "
+              f"GB, launches {per[-1]}", flush=True)
+        if any(p != expected_launches(cfg) for p in per) or \
+                not math.isfinite(row["loss"]):
+            fail(f"llff 800^3: launches {per} vs "
+                 f"{expected_launches(cfg)}, loss {row['loss']}")
+        n_rays, S = trainer.rays_per_step, cfg.n_samples
+        del trainer
+        torch.cuda.empty_cache()
+        emit({"llff_final_grid": tried})
+        return n_rays, S, res
+    emit({"llff_final_grid": tried})
+    fail("llff 800^3: no ray count fit")
+
+
 def profile_steps(trainer, end, table_path, on_step=None):
     """torch.profiler over the steps up to ``end``: device time by kernel,
     written as a table to table_path; returns the device-busy time per step
@@ -1742,6 +2342,7 @@ def main(argv):
         emit({"kernel_check": r})
     torch.cuda.empty_cache()
     emit(check_small_step())
+    emit(check_small_l2g_ndc())
     emit(check_solids_render())
     entry, entry_launches = run_entry_points(gen)
     emit(entry)
@@ -1787,6 +2388,12 @@ def main(argv):
     emit({"kernel_check": check_scatter(n_rays, min(cfg.app_k or S, S), Hp,
                                         Wp, 192, gen, tol=1e-5)})
     torch.cuda.empty_cache()
+    # the host syncs of BAT's last 3 steps (L2G's are counted the same way)
+    trained[0].it -= 3
+    syncs = count_host_syncs(trained[0], 3)
+    print(f"[bat] host syncs per step (sync debug 'warn', last phase, "
+          f"schedule updates included): {syncs}", flush=True)
+    emit({"bat_host_syncs_per_step": syncs})
     # evaluation on the default path's trained state, then its trainer goes
     emit(run_eval_phase(*trained))
     del trained
@@ -1831,6 +2438,33 @@ def main(argv):
                 grid3d=tuple(blurred[1])), path=label)})
         torch.cuda.empty_cache()
     run_variants()
+    torch.cuda.empty_cache()
+    # L2G-BAT through every phase, then K1-K3 at its last phase's shapes
+    n_rays, S, res, cfg, _, trained = run_l2g()
+    del trained
+    torch.cuda.empty_cache()
+    Hp, Wp = max(((res[m1], res[m0]) for m0, m1 in MAT_MODE),
+                 key=lambda hw: hw[0] * hw[1])
+    for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
+        emit({"kernel_check": dict(r, path="l2g")})
+    emit({"kernel_check": dict(check_scatter(
+        n_rays, S, Hp, Wp, 64, gen, tol=1e-5), path="l2g")})
+    torch.cuda.empty_cache()
+    # BAT on the NDC route, then K1/K2 and K3 at its last phase's shapes
+    # (S = 1000 dense; the appearance planes' 20 channels), and at the
+    # final 800^3 grid: 3 steps and K3 into its 510M rows
+    n_rays, S, res = run_ndc_route()
+    Hp, Wp = max(((res[m1], res[m0]) for m0, m1 in MAT_MODE),
+                 key=lambda hw: hw[0] * hw[1])
+    for r in check_composite(n_rays, S, 1e-7, gen, tol=1e-4):
+        emit({"kernel_check": dict(r, path="llff")})
+    emit({"kernel_check": dict(check_scatter(
+        n_rays, S, Hp, Wp, 20, gen, tol=1e-5), path="llff")})
+    torch.cuda.empty_cache()
+    n_rays, S, res = run_llff_final_grid()
+    emit({"kernel_check": dict(check_scatter(
+        n_rays, S, 0, 0, 8, gen, tol=1e-5, grid3d=tuple(res)),
+        path="llff_800")})
     torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []

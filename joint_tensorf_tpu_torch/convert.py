@@ -9,6 +9,8 @@ Keys (factor layouts as in the JAX package: planes [H, W, R], lines
     density_planes, density_lines, app_planes, app_lines   lists of 3 arrays
     basis                                                  [sum(app comps), app_dim]
     shading        {"layers": [{"w": [fan_in, fan_out], "b": [fan_out]}, ...]}
+                   (MLP_Fea), or {"layer1": {"w", "b"}, "layer2", "layer3"}
+                   (MLP_Fea_WeakView), as the JAX package keeps them
     aabb           [2, 3]
   optional:
     se3_refine       [V, 6]
@@ -17,6 +19,17 @@ Keys (factor layouts as in the JAX package: planes [H, W, R], lines
     pose_opt         {"mu": [V, 6], "nu": [V, 6], "count": int}
     pose_grad_accum  [V, 6]
     pose_base        [V, 3, 4]
+
+L2G-BAT's state (l2g_state_from_numpy / l2g_to_numpy) holds the field
+keys and scene_opt as above, and instead of the pose table:
+
+    warp_embedding   [V, E]
+    warp_mlp         [[W [fan_in, fan_out], b [fan_out]], ...]
+    pose_opt         {"mu": P, "nu": P, "count": int}   P: {"warp_embedding",
+                     "warp_mlp"} shaped as above
+    pose_grad_accum  P
+    optimised_poses  [V, 3, 4]
+    error_map        [V, ems * ems]
 
 Arrays are float32, but for bfloat16 factors (tpu.factor_dtype), which
 stay bfloat16 both ways.  numpy has no bfloat16: the JAX package's arrays
@@ -30,7 +43,8 @@ import torch
 import torch.nn as nn
 
 from .models import vm as vm_lib
-from .models.shading import MLPFea
+from .models.shading import MLPFeaWeakView
+from .train import l2g as l2g_lib
 from .train.optim import AdamState
 from .train.step import TrainState, init_train_state
 
@@ -50,10 +64,23 @@ def _t(x, device):
     return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
+def shading_layers(tree: dict) -> list:
+    """Either JAX form of a shading head's parameters -> its 3 layers."""
+    if "layers" in tree:
+        return list(tree["layers"])
+    return [tree[f"layer{i + 1}"] for i in range(3)]
+
+
+def shading_tree(layers: list, weakview: bool) -> dict:
+    """The inverse of shading_layers, in the head's JAX form."""
+    if weakview:
+        return {f"layer{i + 1}": layer for i, layer in enumerate(layers)}
+    return {"layers": list(layers)}
+
+
 def field_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None) -> vm_lib.VMField:
-    shading = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.hidden,
-                     device=device)
-    for i, layer in enumerate(d["shading"]["layers"]):
+    shading = vm_lib.make_shading(cfg, device)
+    for i, layer in enumerate(shading_layers(d["shading"])):
         for key, plist in (("w", shading.w), ("b", shading.b)):
             t = _t(layer[key], device)
             if t.shape != plist[i].shape:
@@ -77,9 +104,15 @@ def _moments_from_numpy(tree: dict, field: vm_lib.VMField, device) -> dict:
         elif head == "basis":
             out[name] = _t(tree["basis"], device)
         else:                                   # shading.{w,b}.i
-            out[name] = _t(tree["shading"]["layers"][int(rest[1])][rest[0]],
-                           device)
+            out[name] = _t(shading_layers(tree["shading"])[int(rest[1])][
+                rest[0]], device)
     return out
+
+
+def _scene_opt_from_numpy(so: dict, field, device) -> AdamState:
+    return AdamState(mu=_moments_from_numpy(so["mu"], field, device),
+                     nu=_moments_from_numpy(so["nu"], field, device),
+                     count=int(so["count"]))
 
 
 def train_state_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None):
@@ -90,11 +123,7 @@ def train_state_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None):
     with torch.no_grad():
         state.se3_refine.copy_(_t(se3, device))
     if "scene_opt" in d:
-        so = d["scene_opt"]
-        state.scene_opt = AdamState(
-            mu=_moments_from_numpy(so["mu"], field, device),
-            nu=_moments_from_numpy(so["nu"], field, device),
-            count=int(so["count"]))
+        state.scene_opt = _scene_opt_from_numpy(d["scene_opt"], field, device)
     if "pose_opt" in d:
         po = d["pose_opt"]
         state.pose_opt = AdamState(
@@ -114,7 +143,7 @@ def _np(t):
     return t.numpy()
 
 
-def _field_tree(named: dict) -> dict:
+def _field_tree(named: dict, weakview: bool) -> dict:
     """{parameter name: tensor} -> the field-shaped dict of numpy arrays."""
     tree = {g: [] for g in _GROUPS}
     layers: dict[int, dict] = {}
@@ -126,22 +155,86 @@ def _field_tree(named: dict) -> dict:
             tree["basis"] = _np(t)
         else:
             layers.setdefault(int(rest[1]), {})[rest[0]] = _np(t)
-    tree["shading"] = {"layers": [layers[i] for i in sorted(layers)]}
+    tree["shading"] = shading_tree([layers[i] for i in sorted(layers)],
+                                   weakview)
     return tree
+
+
+def _field_numpy(state) -> dict:
+    """The field keys, aabb and scene_opt of a TrainState or L2GState."""
+    weakview = isinstance(state.field.shading, MLPFeaWeakView)
+    d = _field_tree(dict(state.field.named_parameters()), weakview)
+    d["aabb"] = _np(state.field.aabb)
+    d["scene_opt"] = {"mu": _field_tree(state.scene_opt.mu, weakview),
+                      "nu": _field_tree(state.scene_opt.nu, weakview),
+                      "count": state.scene_opt.count}
+    return d
 
 
 def to_numpy(state: TrainState, pose_base=None) -> dict:
     """The inverse of train_state_from_numpy, for comparisons."""
-    d = _field_tree(dict(state.field.named_parameters()))
-    d["aabb"] = _np(state.field.aabb)
+    d = _field_numpy(state)
     d["se3_refine"] = _np(state.se3_refine)
-    d["scene_opt"] = {"mu": _field_tree(state.scene_opt.mu),
-                      "nu": _field_tree(state.scene_opt.nu),
-                      "count": state.scene_opt.count}
     d["pose_opt"] = {"mu": _np(state.pose_opt.mu["se3_refine"]),
                      "nu": _np(state.pose_opt.nu["se3_refine"]),
                      "count": state.pose_opt.count}
     d["pose_grad_accum"] = _np(state.pose_grad_accum)
     if pose_base is not None:
         d["pose_base"] = _np(pose_base)
+    return d
+
+
+# ------------------------------------------------------------------ L2G-BAT
+def _pose_tree(flat: dict) -> dict:
+    """{pose parameter name: tensor} (l2g.pose_params' keys) -> P."""
+    n = len([k for k in flat if k.startswith("warp_mlp.w.")])
+    return {"warp_embedding": _np(flat["warp_embedding"]),
+            "warp_mlp": [[_np(flat[f"warp_mlp.w.{i}"]),
+                          _np(flat[f"warp_mlp.b.{i}"])] for i in range(n)]}
+
+
+def _pose_flat(tree: dict, device) -> dict:
+    """The inverse of _pose_tree."""
+    out = {"warp_embedding": _t(tree["warp_embedding"], device)}
+    for i, (w, b) in enumerate(tree["warp_mlp"]):
+        out[f"warp_mlp.w.{i}"] = _t(w, device)
+        out[f"warp_mlp.b.{i}"] = _t(b, device)
+    return out
+
+
+def l2g_state_from_numpy(d: dict, cfg: vm_lib.VMConfig,
+                         l2g_cfg: "l2g_lib.L2GConfig", device=None):
+    """-> L2GState."""
+    field = field_from_numpy(d, cfg, device)
+    state = l2g_lib.init_l2g_state(
+        field, l2g_cfg, int(np.shape(d["warp_embedding"])[0]),
+        _t(d["optimised_poses"], device), device=device)
+    with torch.no_grad():
+        for k, v in _pose_flat({"warp_embedding": d["warp_embedding"],
+                                "warp_mlp": d["warp_mlp"]}, device).items():
+            l2g_lib.pose_params(state)[k].copy_(v)
+    state.error_map = _t(d["error_map"], device)
+    if "scene_opt" in d:
+        state.scene_opt = _scene_opt_from_numpy(d["scene_opt"], field, device)
+    if "pose_opt" in d:
+        po = d["pose_opt"]
+        state.pose_opt = AdamState(mu=_pose_flat(po["mu"], device),
+                                   nu=_pose_flat(po["nu"], device),
+                                   count=int(po["count"]))
+    if "pose_grad_accum" in d:
+        state.pose_grad_accum = _pose_flat(d["pose_grad_accum"], device)
+    return state
+
+
+def l2g_to_numpy(state) -> dict:
+    """The inverse of l2g_state_from_numpy, for comparisons and
+    checkpoints."""
+    d = _field_numpy(state)
+    d.update(_pose_tree(l2g_lib.pose_params(state)))
+    d["pose_opt"] = {"mu": _pose_tree(state.pose_opt.mu),
+                     "nu": _pose_tree(state.pose_opt.nu),
+                     "count": state.pose_opt.count}
+    d["pose_grad_accum"] = _pose_tree(state.pose_grad_accum)
+    d["optimised_poses"] = _np(state.optimised_poses)
+    d["error_map"] = _np(state.error_map)
     return d

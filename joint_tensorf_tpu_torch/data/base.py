@@ -90,15 +90,20 @@ def resize_images(images: np.ndarray, target_hw) -> np.ndarray:
 def load_dataset(opt, split: str = "train", subset: int | None = None,
                  device=None) -> SceneData:
     """Dispatch by opt.data.dataset: the procedural scene (rendered on
-    ``device``) or a Blender scene from disk."""
+    ``device``), or a Blender, LLFF, Tanks & Temples (t2) or iPhone scene
+    from disk."""
     name = opt.data.dataset
     if name == "synthetic":
         from . import synthetic
         return synthetic.load(opt, split, subset, device=device)
     if name == "blender":
-        from . import blender
-        return blender.load(opt, split, subset)
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported yet (the port reads the procedural "
-        f"'synthetic' scene and Blender scenes; the LLFF / t2 / iphone "
-        f"loaders come with the NDC route)")
+        from . import blender as loader
+    elif name == "llff":
+        from . import llff as loader
+    elif name == "t2":
+        from . import t2 as loader
+    elif name == "iphone":
+        from . import iphone as loader
+    else:
+        raise ValueError(f"unknown dataset {name!r}")
+    return loader.load(opt, split, subset)

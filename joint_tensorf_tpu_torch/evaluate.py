@@ -1,16 +1,20 @@
 """Evaluation entry point of the port (counterpart of the repository's
-evaluate.py:19-268, for ``model: bat`` and ``model: tensorf``).
+evaluate.py:19-268, for ``model: bat``, ``l2g_bat`` and ``tensorf``).
 
     python -m joint_tensorf_tpu_torch.evaluate --yaml=configs/bat_blender_VM.yaml \
         [--ckpt=output/<group>/<name>/model.ckpt.npz] [--device=cpu] \
         --generate_video=false --generate_pose_video=false [--key=value ...]
 
-Restores the checkpoint (either package's).  With BAT it writes the
-training poses' errors after sim(3) alignment (``quant_pose.txt``: view,
-rotation in radians, translation), aligns the test poses into the learned
-frame and refines each by test-time photometric optimisation when
-``optim.test_photo`` is set; TensoRF renders the test views at their GT
-poses and writes no pose file.  Then it measures the static caps' clip
+Restores the checkpoint (either package's).  With BAT (and L2G-BAT,
+whose training poses are its registered ones) it writes the training
+poses' errors after sim(3) alignment (``quant_pose.txt``: view, rotation
+in radians, translation), aligns the test poses into the learned frame
+and refines each by test-time photometric optimisation when
+``optim.test_photo`` is set (NDC rays under ``camera.ndc``; on LLFF
+captures blurred by ``optim.test_kernel_schedule``); TensoRF renders the
+test views at their GT poses and writes no pose file.  A dataset without
+a test split (LLFF-style captures name their held-out frames "val") is
+evaluated on its val split.  Then it measures the static caps' clip
 rates, renders the test views and writes per-view PSNR / SSIM
 (``quant.txt``) and their means with the clip rates and, with BAT, the
 pose errors (``quant_eval.json``, also ``summary.json``).  LPIPS is not computed (``lpips_note`` says so).
@@ -52,15 +56,17 @@ def main(argv) -> dict:
     from .data import load_dataset
     from .geometry import align as align_lib
     from .metrics import lpips_fn, psnr, ssim
-    from .pose.test_optim import make_test_time_optimizer, render_config
+    from .pose.test_optim import (blur_of_test_kernel,
+                                  make_test_time_optimizer, render_config)
     from .train.checkpoint import restore_checkpoint
+    from .train.l2g_trainer import L2GTrainer
     from .train.trainer import Trainer
     from .utils.logging import MetricLogger
 
     # generate_pose_video is read with a default in JAX's evaluate.py and
     # stands in no config file
     opt = set_options(yaml_path, rest, allow_new_keys=("generate_pose_video",))
-    pose_optimizing = opt.model == "bat"
+    pose_optimizing = opt.model in ("bat", "l2g_bat")
     for key in (("generate_video", "generate_pose_video") if pose_optimizing
                 else ("generate_video",)):
         if opt.get(key, True):
@@ -74,9 +80,14 @@ def main(argv) -> dict:
 
     train_data = load_dataset(opt, "train", subset=opt.data.get("train_sub"),
                               device=device)
-    test_data = load_dataset(opt, "test", subset=opt.data.get("test_sub"),
-                             device=device)
-    trainer = Trainer(opt, train_data, device=device)
+    try:
+        test_data = load_dataset(opt, "test", subset=opt.data.get("test_sub"),
+                                 device=device)
+    except FileNotFoundError:
+        test_data = load_dataset(opt, "val", subset=opt.data.get("val_sub"),
+                                 device=device)
+    trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
+        opt, train_data, device=device)
     restore_checkpoint(ckpt_path, trainer)
     dev = trainer.device
     print(f"[ckpt] restored it={trainer.it} res={trainer.resolution}",
@@ -109,22 +120,25 @@ def main(argv) -> dict:
     V, H, W = test_data.n_views, test_data.H, test_data.W
     images = torch.as_tensor(test_data.images, device=dev)
     target = images.reshape(V, 3, -1).transpose(1, 2)
+    intr = torch.as_tensor(test_data.intr, device=dev)
     intr_inv = torch.as_tensor(test_data.intr_inv, device=dev)
 
-    # ---- test-time photometric pose optimisation (the Euclidean branch)
+    # ---- test-time photometric pose optimisation
     if pose_optimizing and opt.optim.get("test_photo", False):
         seed = int(opt.get("seed", 0))
+        blur, sched = blur_of_test_kernel(opt)
         optimize = make_test_time_optimizer(
             trainer.vm_cfg, render_config(trainer), H, W,
             n_rays=trainer._n_rays(), test_iter=int(opt.optim.test_iter),
             lr_init=float(opt.optim.lr_pose_test),
             lr_end=float(opt.optim.lr_pose_test_end),
-            generator=torch.Generator(device=dev).manual_seed(seed + 7))
+            generator=torch.Generator(device=dev).manual_seed(seed + 7),
+            blur=blur, test_kernel_schedule=sched)
         refined = []
         for i in range(V):
             p, loss = optimize(trainer.state.field, trainer.alpha_mask,
                                test_pose[i], target[i], intr_inv[i],
-                               trainer._near_far())
+                               trainer._near_far(), intr=intr[i])
             refined.append(p)
             print(f"[test-optim] view {i}: final loss {loss:.5f}", flush=True)
         test_pose = torch.stack(refined)

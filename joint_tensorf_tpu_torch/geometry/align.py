@@ -1,9 +1,11 @@
-"""sim(3) Procrustes alignment and camera-pose error metrics
+"""sim(3) Procrustes alignment, camera-pose error metrics and the
+batched rigid registration of L2G-BAT
 (counterpart of joint_tensorf_tpu/geometry/align.py:18-120).
 
-Evaluation only.  The SVD runs on the host in float64 numpy, as in JAX
-(the reference also upcasts to double); the poses stay float32 tensors on
-their device.  The L2G engine's rigid_points_registration is not ported.
+The evaluation's SVD runs on the host in float64 numpy, as in JAX (the
+reference also upcasts to double); the poses stay float32 tensors on
+their device.  rigid_points_registration runs on the device inside the
+L2G training step and is differentiable.
 """
 from __future__ import annotations
 
@@ -44,6 +46,26 @@ def procrustes_analysis(X0, X1) -> Sim3:
     if np.linalg.det(R) < 0:
         R[2] *= -1
     return Sim3(t0=t0, t1=t1, s0=float(s0), s1=float(s1), R=R)
+
+
+def rigid_points_registration(x, y):
+    """Differentiable batched Kabsch: (R, t) with R @ x_i + t ~= y_i.
+
+    x, y: [..., N, 3] -> (R [..., 3, 3] with det +1, t [..., 3]).  The
+    SVD of the [..., 3, 3] covariance is torch.linalg.svd's; a reflection
+    is fixed by the sign of det(U V^T) on U's last column.  Its backward
+    divides by s_i^2 - s_j^2, as JAX's does: equal singular values (a
+    symmetric point set) give a non-finite gradient on both sides."""
+    cx = x.mean(dim=-2, keepdim=True)
+    cy = y.mean(dim=-2, keepdim=True)
+    xc, yc = x - cx, y - cy
+    H = yc.transpose(-2, -1) @ xc                       # [..., 3, 3]
+    U, _, Vt = torch.linalg.svd(H)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+    R = (U * D[..., None, :]) @ Vt
+    t = cy[..., 0, :] - (R @ cx[..., 0, :, None])[..., 0]
+    return R, t
 
 
 def camera_centers(pose):

@@ -1,13 +1,35 @@
-"""se(3) -> SE(3) exponential map and the rotation distance
+"""se(3) <-> SE(3) maps and the rotation distance
 (counterpart of joint_tensorf_tpu/geometry/lie.py).
 
 Same truncated Taylor series as the reference (nth=8 for the se(3) forward
 map), evaluated in theta^2 so the map and its gradient are smooth at the
-zero-initialised pose refinement.
+zero-initialised pose refinement.  The log map (SE3_to_se3) starts the
+pose table at the GT poses of LLFF / t2 captures (start_with_GT_pose).
 """
 from __future__ import annotations
 
 import torch
+
+
+def taylor_A(x, nth: int = 10):
+    """sin(x)/x."""
+    ans = torch.zeros_like(x)
+    denom = 1.0
+    for i in range(nth + 1):
+        if i > 0:
+            denom *= (2 * i) * (2 * i + 1)
+        ans = ans + (-1) ** i * (x ** (2 * i) / denom)
+    return ans
+
+
+def taylor_B(x, nth: int = 10):
+    """(1-cos(x))/x^2."""
+    ans = torch.zeros_like(x)
+    denom = 1.0
+    for i in range(nth + 1):
+        denom *= (2 * i + 1) * (2 * i + 2)
+        ans = ans + (-1) ** i * (x ** (2 * i) / denom)
+    return ans
 
 
 def _taylor_A_sq(x2, nth: int = 10):
@@ -69,6 +91,30 @@ def se3_to_SE3(wu, nth: int = 8):
     V = I + B * wx + C * wx2
     t = V @ u[..., None]
     return torch.cat([R, t], dim=-1)
+
+
+def SO3_to_so3(R, eps: float = 1e-7):
+    """Log map SO(3) -> so(3). [...,3,3] -> [...,3]."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1) / 2, -1 + eps, 1 - eps))
+    theta = torch.remainder(theta, torch.pi)[..., None, None]
+    lnR = 1 / (2 * taylor_A(theta) + 1e-8) * (R - R.transpose(-2, -1))
+    return torch.stack([lnR[..., 2, 1], lnR[..., 0, 2], lnR[..., 1, 0]],
+                       dim=-1)
+
+
+def SE3_to_se3(Rt, eps: float = 1e-8):
+    """Log map SE(3) -> se(3). [...,3,4] -> [...,6]."""
+    R, t = Rt[..., :3], Rt[..., 3:]
+    w = SO3_to_so3(R)
+    wx = skew(w)
+    theta = torch.linalg.norm(w, dim=-1)[..., None, None]
+    I = torch.eye(3, dtype=Rt.dtype, device=Rt.device)
+    A = taylor_A(theta)
+    B = taylor_B(theta)
+    invV = I - 0.5 * wx + (1 - A / (2 * B)) / (theta**2 + eps) * (wx @ wx)
+    u = (invV @ t)[..., 0]
+    return torch.cat([w, u], dim=-1)
 
 
 def rotation_distance(R1, R2, eps: float = 1e-7):

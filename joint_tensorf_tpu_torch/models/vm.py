@@ -3,8 +3,11 @@
 shape transitions).
 
 The field is an nn.Module: channels-last factor grids ([H, W, R] planes,
-[D, R] lines), the appearance basis, the MLP_Fea shading head, and the
-scene box ``aabb`` as a buffer.  The box gets no gradient: pose and plane
+[D, R] lines), the appearance basis, the shading head (MLP_Fea or
+MLP_Fea_WeakView, VMConfig.shading_mode), and the scene box ``aabb`` as
+a buffer.  The density activation is softplus or relu
+(VMConfig.fea2dense); the TV terms of the LLFF configs are tv_loss_density
+and tv_loss_app.  The box gets no gradient: pose and plane
 gradients flow through the sampling coordinates, never into the box
 (joint_tensorf_tpu/render/renderer.py:243-250).
 
@@ -34,7 +37,7 @@ from ..ops import blur as blur_ops
 from ..ops import resample
 from ..ops.kernels import average_kernel, gaussian_kernel
 from ..ops.sampling import sample_planeline_prod
-from .shading import MLPFea
+from .shading import SHADING_HEADS
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
@@ -55,6 +58,8 @@ class VMConfig:
     raymarch_weight_thres: float = 1e-6
     step_ratio: float = 0.5
     factor_dtype: str = "float32"            # factor storage: or "bfloat16"
+    shading_mode: str = "MLP_Fea"            # or "MLP_Fea_WeakView"
+    fea2dense: str = "softplus"              # or "relu"
 
 
 class VMField(nn.Module):
@@ -62,7 +67,7 @@ class VMField(nn.Module):
     ``aabb`` buffer."""
 
     def __init__(self, density_planes, density_lines, app_planes, app_lines,
-                 basis, shading: MLPFea, aabb):
+                 basis, shading: nn.Module, aabb):
         super().__init__()
         P = nn.ParameterList
         self.density_planes = P([nn.Parameter(t) for t in density_planes])
@@ -117,8 +122,7 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
     bound = 1.0 / (basis_in ** 0.5)
     basis = (torch.rand((basis_in, cfg.app_dim), generator=generator,
                         device=device) * 2 - 1) * bound
-    shading = MLPFea(cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.hidden,
-                     device=device, generator=generator)
+    shading = make_shading(cfg, device, generator)
     if prev is not None:
         def carry(group):
             return [t.detach() for t in group]
@@ -135,13 +139,24 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
     return VMField(d_planes, d_lines, a_planes, a_lines, basis, shading, aabb)
 
 
+def make_shading(cfg: VMConfig, device=None,
+                 generator: torch.Generator | None = None) -> nn.Module:
+    """The config's shading head, drawn from ``generator``."""
+    return SHADING_HEADS[cfg.shading_mode](
+        cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.hidden, device=device,
+        generator=generator)
+
+
 def normalize_coord(xyz, aabb):
     """World -> [-1,1]; aabb [2, 3] for [..., 3] points or [2] for one axis."""
     return (xyz - aabb[0]) * (2.0 / (aabb[1] - aabb[0])) - 1.0
 
 
 def feature2density(cfg: VMConfig, feat):
-    """softplus(feat + shift), the Blender configs' activation."""
+    """softplus(feat + shift) (the Blender configs) or relu(feat + shift)
+    (the LLFF configs)."""
+    if cfg.fea2dense == "relu":
+        return torch.relu(feat + cfg.density_shift)
     return torch.nn.functional.softplus(feat + cfg.density_shift)
 
 
@@ -257,6 +272,22 @@ def density_L1(field: VMField):
     for l in field.density_lines:
         total = total + torch.mean(_abs(l))
     return total
+
+
+def _tv_plane(p):
+    """TV of a [H, W, R] plane as the reference's TVLoss on [1, R, H, W]:
+    2 * (mean dh^2 + mean dw^2)."""
+    h_tv = torch.mean((p[1:, :, :] - p[:-1, :, :]) ** 2)
+    w_tv = torch.mean((p[:, 1:, :] - p[:, :-1, :]) ** 2)
+    return 2.0 * (h_tv + w_tv)
+
+
+def tv_loss_density(field: VMField):
+    return sum(_tv_plane(p) for p in field.density_planes) * 1e-2
+
+
+def tv_loss_app(field: VMField):
+    return sum(_tv_plane(p) for p in field.app_planes) * 1e-2
 
 
 # --------------------------------------------------------- shape transitions

@@ -1,4 +1,4 @@
-"""Test-time photometric pose optimisation, the Euclidean branch
+"""Test-time photometric pose optimisation
 (counterpart of joint_tensorf_tpu/pose/test_optim.py:27-96).
 
 For each test view a fresh se(3) parameter [1, 6] absorbs the remaining
@@ -9,9 +9,13 @@ The field is frozen while it runs (its parameters need no gradient), so
 the backward pass computes the pose's cotangent alone: the compositor's
 backward (K2 on CUDA) runs, the factor scatters (K3) do not.
 
-The ray indices and the stratified jitter come from a torch.Generator, or
-from a ``draws(it)`` callable given to ``optimize`` (the parity tests feed
-it JAX's own draws).  The LLFF test-kernel blur waits with the NDC route.
+The ray indices, the stratified jitter and (without a white background)
+the background coin come from a torch.Generator, or from a ``draws(it)``
+callable given to ``optimize`` (the parity tests feed it JAX's own
+draws).  Under NDC the rays are converted with the view's intrinsics.
+With ``blur`` (LLFF captures, evaluate.py) the field's factors are
+blurred by optim.test_kernel_schedule's value at it / test_iter, for
+density and appearance alike.
 """
 from __future__ import annotations
 
@@ -21,9 +25,11 @@ from typing import Callable, Optional
 import torch
 
 from ..geometry import lie, poses as pose_ops
+from ..geometry.ndc import convert_ndc
 from ..geometry.rays import get_center_and_ray
 from ..models import vm as vm_lib
-from ..render.renderer import RenderConfig, render_rays
+from ..render.renderer import BlurSpec, RenderConfig, render_rays
+from ..sched.schedules import interp_schedule
 from ..train.losses import mse
 from ..train.optim import adam_init, adam_update
 
@@ -42,15 +48,23 @@ def frozen(field: vm_lib.VMField):
 
 def pose_loss(se3, field, vm_cfg: vm_lib.VMConfig, rcfg: RenderConfig,
               pose, image, intr_inv, near_far, ray_idx, jitter, alpha_mask,
-              H: int, W: int):
+              H: int, W: int, intr=None, bg_coin=None,
+              blur: Optional[BlurSpec] = None, c2f: float = 0.0):
     """The photometric MSE of the ``ray_idx`` pixels of one view rendered
-    from refine(se3 [1, 6]) o pose [3, 4] with stratified ``jitter``."""
+    from refine(se3 [1, 6]) o pose [3, 4] with stratified ``jitter``
+    (NDC rays with the view's ``intr`` [3, 3] under rcfg.ndc; the factors
+    blurred by ``blur`` at ``c2f``)."""
     composed = pose_ops.compose([lie.se3_to_SE3(se3), pose[None]])
     centers, dirs = get_center_and_ray(H, W, composed, intr_inv[None],
                                        ray_idx=ray_idx)
+    if rcfg.ndc:
+        centers, dirs = convert_ndc(centers, dirs, intr[None],
+                                    near=rcfg.ndc_near_plane)
     rgb, _, _ = render_rays(field, vm_cfg, rcfg, centers.reshape(-1, 3),
-                            dirs.reshape(-1, 3), near_far, ray_jitter=jitter,
-                            alpha_mask=alpha_mask)
+                            dirs.reshape(-1, 3), near_far, blur=blur,
+                            c2f_density=c2f, c2f_color=c2f,
+                            ray_jitter=jitter, alpha_mask=alpha_mask,
+                            bg_coin=bg_coin)
     return mse(rgb, image[ray_idx])
 
 
@@ -58,26 +72,34 @@ def make_test_time_optimizer(vm_cfg: vm_lib.VMConfig, rcfg: RenderConfig,
                              H: int, W: int, n_rays: int, test_iter: int,
                              lr_init: float, lr_end: float,
                              generator: Optional[torch.Generator] = None,
-                             on_step: Optional[Callable] = None):
+                             on_step: Optional[Callable] = None,
+                             blur: Optional[BlurSpec] = None,
+                             test_kernel_schedule=None):
     """Returns optimize(field, alpha_mask, pose [3,4], image [H*W,3],
-    intr_inv [3,3], near_far, draws=None) -> (refined pose [3,4], final
-    loss).  ``rcfg`` is stratified (is_train=True).  ``draws(it)`` ->
-    (ray_idx [n_rays] int64, jitter [n_rays, 1]); by default both come
-    from ``generator``.  ``on_step(it, loss)`` runs after each step with
-    the loss as a 0-d device tensor."""
+    intr_inv [3,3], near_far, draws=None, intr=None) -> (refined pose
+    [3,4], final loss).  ``rcfg`` is stratified (is_train=True).
+    ``draws(it)`` -> (ray_idx [n_rays] int64, jitter [n_rays, 1] or
+    [n_rays, S] under NDC[, background coin]); by default all come from
+    ``generator``.  ``intr`` [3,3] converts the rays under NDC.  With
+    ``blur`` the factors are blurred at test_kernel_schedule's value.
+    ``on_step(it, loss)`` runs after each step with the loss as a 0-d
+    device tensor."""
     gamma = (lr_end / lr_init) ** (1.0 / test_iter)
 
     def default_draws(device):
         def draw(it):
             idx = torch.randperm(H * W, generator=generator,
                                  device=device)[:n_rays]
-            jitter = torch.rand((idx.shape[0], 1), generator=generator,
-                                device=device)
-            return idx, jitter
+            jitter = torch.rand(
+                (idx.shape[0], rcfg.n_samples if rcfg.ndc else 1),
+                generator=generator, device=device)
+            coin = (None if rcfg.white_bg else
+                    torch.rand((), generator=generator, device=device) < 0.5)
+            return idx, jitter, coin
         return draw
 
     def optimize(field, alpha_mask, pose, image, intr_inv, near_far,
-                 draws=None):
+                 draws=None, intr=None):
         dev = pose.device
         draws = draws or default_draws(dev)
         pose = pose.detach()
@@ -86,10 +108,14 @@ def make_test_time_optimizer(vm_cfg: vm_lib.VMConfig, rcfg: RenderConfig,
         loss = None
         with frozen(field):
             for it in range(test_iter):
-                ray_idx, jitter = draws(it)
+                ray_idx, jitter, *coin = draws(it)
+                c2f = (interp_schedule(it / test_iter, test_kernel_schedule)
+                       if test_kernel_schedule is not None else 0.0)
                 loss = pose_loss(se3, field, vm_cfg, rcfg, pose, image,
                                  intr_inv, near_far, ray_idx, jitter,
-                                 alpha_mask, H, W)
+                                 alpha_mask, H, W, intr=intr,
+                                 bg_coin=coin[0] if coin else None,
+                                 blur=blur, c2f=float(c2f))
                 g, = torch.autograd.grad(loss, [se3])
                 with torch.no_grad():
                     new, opt_state = adam_update(
@@ -108,6 +134,22 @@ def make_test_time_optimizer(vm_cfg: vm_lib.VMConfig, rcfg: RenderConfig,
 def render_config(trainer) -> RenderConfig:
     """The render config of evaluate.py's test-time optimisation: stratified,
     the alpha mask if any at the JAX RenderConfig's default stride 4 (not
-    tpu.mask_stride), no compaction, no dense grid, dense appearance."""
-    return RenderConfig(n_samples=trainer.n_samples, is_train=True,
-                        mask_stride=4)
+    tpu.mask_stride), no compaction, no dense grid, dense appearance; the
+    config's background and NDC choice, with the JAX RenderConfig's
+    defaults for the near plane (1) and the simulate flags (off)."""
+    return RenderConfig(
+        n_samples=trainer.n_samples, is_train=True, mask_stride=4,
+        white_bg=bool(trainer.opt.nerf.get("setbg_opaque", True)),
+        ndc=trainer.ndc)
+
+
+def blur_of_test_kernel(opt):
+    """(BlurSpec or None, test_kernel_schedule or None) of evaluate.py: the
+    test-kernel blur on LLFF captures when the schedule rises past 1e-3."""
+    sched = (opt.optim.get("test_kernel_schedule")
+             if opt.data.dataset == "llff" else None)
+    blur = None
+    if sched and max(sched) > 1e-3:
+        blur = BlurSpec(mode="uniform-gaussian",
+                        kernel_size=int(opt.c2f_kernel_size))
+    return blur, (list(sched) if sched else None)

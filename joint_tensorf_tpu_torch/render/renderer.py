@@ -1,7 +1,7 @@
-"""Volume renderer on the Euclidean path: ray sampling -> alpha-mask gate
--> sample compaction -> density (factored or dense grid) -> compositing
--> appearance (dense or two-stage) -> white background (counterpart of
-joint_tensorf_tpu/render/renderer.py:222-651).
+"""Volume renderer: ray sampling (Euclidean or NDC) -> alpha-mask gate ->
+sample compaction -> density (factored or dense grid) -> compositing ->
+appearance (dense or two-stage) -> background (counterpart of
+joint_tensorf_tpu/render/renderer.py:166-651).
 
 The ``tpu:`` alternatives of the JAX renderer, all but the first of them
 RenderConfig fields:
@@ -14,12 +14,13 @@ RenderConfig fields:
   or none;
 * sample compaction (``compact_k`` < S): each ray keeps K of its S slots,
   the first live ones in march order, chosen by one top-k on a score that
-  is unique per slot.  Three forms: probe groups under the mask, probe
-  groups with the in-bbox gate alone (no mask in use), and single samples
-  (S not a multiple of the stride).  z and dists of a kept slot are
-  recomputed from its index, z = t_min + step * (i + jitter) and
+  is unique per slot.  Three Euclidean forms: probe groups under the
+  mask, probe groups with the in-bbox gate alone (no mask in use), and
+  single samples (S not a multiple of the stride).  z and dists of a kept
+  slot are recomputed from its index, z = t_min + step * (i + jitter) and
   dists = step (0 at i = S - 1), and the coordinates from z, so pose
-  gradients flow through o + d * z, not through a gather;
+  gradients flow through o + d * z, not through a gather.  Under NDC the
+  kept slots' z, dists (detached) and points are gathered;
 * the dense-grid density (``densify_density``, ops/densify.py), its
   corner rows read in bfloat16 with ``densify_dtype`` "bfloat16" (the JAX
   renderer's lane branch, renderer.py:465-477);
@@ -28,6 +29,13 @@ RenderConfig fields:
   optimised: the backward then computes no coordinate derivatives);
 * the two-stage appearance (``app_k``): only the app_k samples of largest
   weight among those past the weight gate are shaded.
+
+``ndc``: the rays are in NDC (geometry/ndc.py); samples sit at
+linspace(near, far, S) with a stratified offset per sample, distances
+are scaled by |d| and the view directions normalised
+(sample_ray_ndc).  ``white_bg`` false: in training a coin (pre-drawn, or
+drawn from the generator) adds the white background to every ray or to
+none, at evaluation nothing is added.
 
 Compositing goes through ops/composite.py (kernels K1/K2 on CUDA) in every
 branch.  In the two-stage branch K1 gives weights, depth and opacity (its
@@ -42,6 +50,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..geometry.ndc import grad_rescale
 from ..models import vm as vm_lib
 from ..models.alpha_mask import AlphaMask, sample_alpha
 from ..ops import densify
@@ -50,12 +59,12 @@ from ..ops.composite import composite
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """White background and detached view directions, as every Euclidean
-    BAT config sets them; samples are stratified in training only.
-    ``mask_stride``: samples per alpha-mask probe (the JAX RenderConfig's
-    fallback is 4; configs/base.yaml sets tpu.mask_stride = 2).  The JAX
-    RenderConfig's densify_impl has no counterpart: its two layouts are one
-    sampler here (ops/densify.py)."""
+    """Detached view directions and points, as every config sets them;
+    samples are stratified in training only.  ``mask_stride``: samples per
+    alpha-mask probe (the JAX RenderConfig's fallback is 4;
+    configs/base.yaml sets tpu.mask_stride = 2).  The JAX RenderConfig's
+    densify_impl has no counterpart: its two layouts are one sampler here
+    (ops/densify.py)."""
     n_samples: int
     is_train: bool = False
     mask_stride: int = 4
@@ -64,6 +73,11 @@ class RenderConfig:
     densify_dtype: str = "float32"
     app_k: Optional[int] = None
     stop_coord_grad: bool = False
+    white_bg: bool = True
+    ndc: bool = False
+    ndc_near_plane: float = 1.0
+    ndc_simulate_euclid_sample: bool = False
+    ndc_simulate_euclid_depth: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +132,43 @@ def sample_ray_axes(aabb, step_size, n_samples: int, centers, dirs,
     return axes_w, z_vals, _in_bbox(axes_w, aabb), (t_min, jitter)
 
 
+def _linspace(start, stop, num: int, device):
+    """jnp.linspace in float32 as JAX computes it: start * (1 - i / (num -
+    1)) + stop * (i / (num - 1)), then ``stop`` itself."""
+    start = torch.tensor(start, dtype=torch.float32, device=device)
+    stop = torch.tensor(stop, dtype=torch.float32, device=device)
+    t = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
+    return torch.cat([start * (1 - t) + stop * t, stop[None]]), start, stop
+
+
+def sample_ray_ndc(aabb, n_samples: int, centers, dirs, near: float,
+                   far: float, stratified: bool, ndc_near_plane: float,
+                   simulate_euclid_sample: bool,
+                   simulate_euclid_depth: bool, jitter=None,
+                   generator: Optional[torch.Generator] = None):
+    """NDC ray sampling: S samples at linspace(near, far), each offset by
+    its own stratified jitter [N,S] (pre-drawn, or drawn from
+    ``generator``) times (far - near) / S; with simulate_euclid_sample the
+    points' depths carry the Euclidean depth's gradient scale
+    (grad_rescale), with simulate_euclid_depth z is that depth.
+    Returns ((wx, wy, wz) each [N,S], z_vals [N,S], in_bbox [N,S])."""
+    n = centers.shape[0]
+    line, start, stop = _linspace(near, far, n_samples, centers.device)
+    interpx = line[None, :].expand(n, n_samples)
+    if stratified:
+        if jitter is None:
+            jitter = torch.rand((n, n_samples), generator=generator,
+                                dtype=centers.dtype, device=centers.device)
+        interpx = interpx + jitter * ((stop - start) / n_samples)
+    ndc_depth = 2 * ndc_near_plane / (1 - ndc_near_plane - interpx)
+    z_for_pts = (grad_rescale(interpx, ndc_depth) if simulate_euclid_sample
+                 else interpx)
+    axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_for_pts
+                   for a in range(3))
+    z_vals = ndc_depth if simulate_euclid_depth else interpx
+    return axes_w, z_vals, _in_bbox(axes_w, aabb)
+
+
 def _in_bbox(axes_w, aabb):
     ok = None
     for a, w in enumerate(axes_w):
@@ -150,16 +201,18 @@ def render_rays(
     c2f_color: Any = None,
     view_pe_progress: Any = 1.0,
     fea_pe_progress: Any = 1.0,
-    ray_jitter=None,              # [N,1] pre-drawn stratified offsets
+    ray_jitter=None,              # [N,1] Euclidean / [N,S] NDC offsets
     generator: Optional[torch.Generator] = None,
     alpha_mask: Optional[AlphaMask] = None,
     stats: Optional[dict] = None,
+    bg_coin=None,                 # pre-drawn background coin (0 or 1)
 ):
     """Returns (rgb_map [N,3], depth_map [N], opacity [N]).  A given
     ``alpha_mask`` gates the samples, with or without the blur.  A ``stats``
     dict receives, as 0-d tensors, the fractions of the S sample slots in
-    the box ("inbbox_frac"), live after the mask ("valid_frac") and kept
-    by the compaction ("kept_frac", K / S)."""
+    the box ("inbbox_frac"), live after the mask ("valid_frac"), kept by
+    the compaction ("kept_frac", K / S) and live but dropped by it
+    ("dropped_frac": a ray with more live slots than K)."""
     n = centers.shape[0]
     S = rcfg.n_samples
     resolution = field.resolution()
@@ -167,13 +220,26 @@ def render_rays(
     aabb_size = aabb[1] - aabb[0]
     res_t = torch.as_tensor(resolution, dtype=aabb.dtype, device=aabb.device)
     near, far = float(near_far[0]), float(near_far[1])
+    stratified = rcfg.is_train
 
-    step = step_size(aabb, resolution, cfg.step_ratio)
-    axes_w, z_vals, in_bbox, (t_min, jitter) = sample_ray_axes(
-        aabb, step, S, centers, dirs, near, far, rcfg.is_train,
-        jitter=ray_jitter, generator=generator)
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                       torch.zeros_like(z_vals[:, :1])], -1)
+    viewdirs = dirs
+    if rcfg.ndc:
+        axes_w, z_vals, in_bbox = sample_ray_ndc(
+            aabb, S, centers, dirs, near, far, stratified,
+            rcfg.ndc_near_plane, rcfg.ndc_simulate_euclid_sample,
+            rcfg.ndc_simulate_euclid_depth, jitter=ray_jitter,
+            generator=generator)
+        rays_norm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.zeros_like(z_vals[:, :1])], -1) * rays_norm
+        viewdirs = dirs / rays_norm
+    else:
+        step = step_size(aabb, resolution, cfg.step_ratio)
+        axes_w, z_vals, in_bbox, (t_min, jitter) = sample_ray_axes(
+            aabb, step, S, centers, dirs, near, far, stratified,
+            jitter=ray_jitter, generator=generator)
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.zeros_like(z_vals[:, :1])], -1)
     if stats is not None:
         stats["inbbox_frac"] = in_bbox.float().mean()
 
@@ -187,11 +253,11 @@ def render_rays(
         probe = tuple(w.detach()[:, ::stride].reshape(-1) for w in axes_w)
         group_alive = sample_alpha(alpha_mask, probe).reshape(
             n, S // stride) > 0
-        if K is None or stride == 1 or K % stride:
+        if K is None or stride == 1 or K % stride or rcfg.ndc:
             valid = valid & torch.repeat_interleave(group_alive, stride,
                                                     dim=1)
             group_alive = None
-    elif K is not None and stride > 1 and K % stride == 0:
+    elif K is not None and stride > 1 and K % stride == 0 and not rcfg.ndc:
         # no mask in use: compact groups on the in-bbox gate alone
         group_alive = torch.ones((n, S // stride), dtype=torch.bool,
                                  device=centers.device)
@@ -202,27 +268,42 @@ def render_rays(
             # the first K / stride live probe groups, then their samples
             g = stride
             gvalid = group_alive & in_bbox.reshape(n, S // g, g).any(-1)
+            live_before = gvalid
             topg, gsel = _first_k(gvalid, K // g)
             idx = (topg[..., None] * g
                    + torch.arange(g, device=topg.device)).reshape(n, K)
             live = torch.repeat_interleave(gsel, g, dim=1)
         else:
+            live_before = valid
             idx, live = _first_k(valid, K)
-        z_vals = (t_min[:, None] + step * (idx.to(z_vals.dtype)
-                                           + jitter)).detach()
-        dists = torch.where(idx == S - 1, torch.zeros_like(z_vals),
-                            step.expand(z_vals.shape))
-        axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_vals
-                       for a in range(3))
+        if rcfg.ndc:
+            # the points are not o + d * z under the simulate flags: the
+            # kept slots' points ride a gather
+            z_vals = torch.gather(z_vals.detach(), 1, idx)
+            dists = torch.gather(dists.detach(), 1, idx)
+            axes_w = tuple(torch.gather(w, 1, idx) for w in axes_w)
+        else:
+            z_vals = (t_min[:, None] + step * (idx.to(z_vals.dtype)
+                                               + jitter)).detach()
+            dists = torch.where(idx == S - 1, torch.zeros_like(z_vals),
+                                step.expand(z_vals.shape))
+            axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_vals
+                           for a in range(3))
         valid = live & _in_bbox(axes_w, aabb) if group_alive is not None \
             else live
         if stats is not None:
+            if group_alive is not None:     # the live samples of live groups
+                live_before = torch.repeat_interleave(
+                    live_before, stride, dim=1) & in_bbox
             stats["valid_frac"] = valid.float().sum() / (n * S)
             stats["kept_frac"] = torch.tensor(K / S)
+            stats["dropped_frac"] = (live_before.float().sum()
+                                     - valid.float().sum()) / (n * S)
         S = K
     elif stats is not None:
         stats["valid_frac"] = valid.float().mean()
         stats["kept_frac"] = torch.tensor(1.0)
+        stats["dropped_frac"] = torch.tensor(0.0)
 
     d_mats = c_mats = None
     if blur is not None:
@@ -265,17 +346,20 @@ def render_rays(
         score = torch.where(gate, weight, torch.zeros_like(weight)).detach()
         sel = torch.topk(score, K2, dim=-1).indices.sort(dim=-1).values
         w_sel = torch.gather(weight, 1, sel)
-        z_sel = torch.gather(z_vals.detach(), 1, sel)
         gate_sel = torch.gather(gate.to(weight.dtype), 1, sel)
-        axes_sel = tuple(centers[:, a, None] + dirs[:, a, None] * z_sel
-                         for a in range(3))
+        if rcfg.ndc:
+            axes_sel = tuple(torch.gather(w, 1, sel) for w in axes_w)
+        else:
+            z_sel = torch.gather(z_vals.detach(), 1, sel)
+            axes_sel = tuple(centers[:, a, None] + dirs[:, a, None] * z_sel
+                             for a in range(3))
         coords_sel = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
                            for a, w in enumerate(axes_sel))
         if rcfg.stop_coord_grad:
             coords_sel = tuple(c.detach() for c in coords_sel)
         app_sel = vm_lib.compute_app_feature(field, coords_sel,
                                              blur_mats=c_mats)
-        vd_sel = dirs.detach()[:, None, :].expand(n, K2, 3)
+        vd_sel = viewdirs.detach()[:, None, :].expand(n, K2, 3)
         rgb_sel = field.shading(vd_sel.reshape(-1, 3), app_sel,
                                 view_pe_progress, fea_pe_progress)
         rgb_sel = rgb_sel.reshape(n, K2, 3) * gate_sel[..., None]
@@ -284,13 +368,25 @@ def render_rays(
         if app_feat is None:
             app_feat = vm_lib.compute_app_feature(field, coords,
                                                   blur_mats=c_mats)
-        mlp_viewdirs = dirs.detach()[:, None, :].expand(n, S, 3)
+        mlp_viewdirs = viewdirs.detach()[:, None, :].expand(n, S, 3)
         rgb = field.shading(mlp_viewdirs.reshape(-1, 3), app_feat,
                             view_pe_progress, fea_pe_progress).reshape(n, S, 3)
         rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals, thres)
 
-    rgb_map = torch.clamp(rgb_map + (1.0 - acc_map[..., None]), 0.0, 1.0)
+    if rcfg.white_bg:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    elif rcfg.is_train:
+        if bg_coin is None:
+            bg_coin = torch.rand((), generator=generator,
+                                 device=centers.device) < 0.5
+        rgb_map = rgb_map + torch.as_tensor(
+            bg_coin, dtype=rgb_map.dtype, device=rgb_map.device) * (
+                1.0 - acc_map[..., None])
+    rgb_map = torch.clamp(rgb_map, 0.0, 1.0)
 
     depth_map = depth_map + (1.0 - acc_map) * dirs[..., -1]
-    depth_map = (depth_map - near + 0.05).detach()
-    return rgb_map, depth_map, acc_map
+    if rcfg.ndc_simulate_euclid_depth:
+        depth_map = torch.clamp(depth_map, 0.0, 10.0)
+    else:
+        depth_map = depth_map - near + 0.05
+    return rgb_map, depth_map.detach(), acc_map

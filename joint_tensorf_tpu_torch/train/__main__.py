@@ -1,12 +1,12 @@
 """Training CLI of the port (counterpart of the repository's train.py:35-184,
-for ``model: bat`` and ``model: tensorf``).
+for ``model: bat``, ``l2g_bat`` and ``tensorf``).
 
     python -m joint_tensorf_tpu_torch.train --yaml=configs/bat_blender_VM.yaml \
         --data.dataset=synthetic [--key=value ...] [--device=cpu]
 
 Loads the config (dotted overrides as in train.py), renders the procedural
-scene on the device (or reads a Blender scene, ``dataset: blender``), and
-trains BAT or TensoRF through its whole schedule (voxel upsamples,
+scene on the device (or reads a Blender, LLFF, t2 or iPhone scene from
+disk), and trains BAT, L2G-BAT or TensoRF through its whole schedule (voxel upsamples,
 alpha-mask updates, bbox shrink) on the JAX trainer's default
 ``tpu:`` path (sample compaction, dense-grid density, two-stage
 appearance; ``--tpu.bbox_compact=false --tpu.blur_mask_compact=false
@@ -29,7 +29,8 @@ Writes into ``output_root/group/name/``:
 
 ``--resume=true`` continues from ``model.ckpt.npz`` at its stored
 iteration.  The validation split is ``val``, or ``test`` with
-data.val_on_test.  It also prints one line per phase transition with the
+data.val_on_test; a scene without it on disk validates on the training
+views, as train.py does.  It also prints one line per phase transition with the
 compaction budgets.
 
 Two departures from train.py: a failed validation (mid-run or final)
@@ -63,6 +64,7 @@ def main(argv):
     from ..data import load_dataset
     from ..utils.logging import MetricLogger
     from . import checkpoint as ckpt_lib
+    from .l2g_trainer import L2GTrainer
     from .trainer import Trainer
 
     opt = set_options(yaml_path, rest)
@@ -92,9 +94,14 @@ def main(argv):
     data = load_dataset(opt, "train", subset=opt.data.get("train_sub"),
                         device=device)
     val_split = "test" if opt.data.get("val_on_test") else "val"
-    val_data = load_dataset(opt, val_split, subset=opt.data.get("val_sub"),
-                            device=device)
-    trainer = Trainer(opt, data, val_data, device=device)
+    try:
+        val_data = load_dataset(opt, val_split,
+                                subset=opt.data.get("val_sub"), device=device)
+    except FileNotFoundError as e:
+        print(f"[data] no val split ({e}); validating on train views")
+        val_data = data
+    trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
+        opt, data, val_data, device=device)
     print(f"[train] {opt.model} | device={trainer.device} "
           f"views={data.n_views} res={trainer.resolution} "
           f"n_samples={trainer.n_samples} max_iter={trainer.max_iter}",

@@ -5,14 +5,21 @@ One .npz holds:
 
 * ``state/<path>``: every array of the train state under the JAX pytree's
   path strings (``state/.params/.field/.density_planes/[0]``,
-  ``state/.scene_opt/.mu/.shading/['layers']/[1]/['w']``, ...); the
-  field's Adam moments carry an ``.aabb`` entry, zeros, as JAX's do;
+  ``state/.scene_opt/.mu/.shading/['layers']/[1]/['w']``, or
+  ``.../.shading/['layer2']/['w']`` for MLP_Fea_WeakView, ...); the
+  field's Adam moments carry an ``.aabb`` entry, zeros, as JAX's do.
+  L2G-BAT's state holds ``.params/.warp_embedding``,
+  ``.params/.warp_mlp/[i]/[j]`` (j = 0 the weight, 1 the bias), the pose
+  optimiser's moments and the accumulator over ``[0]`` (the embedding)
+  and ``[1]/[i]/[j]`` (the MLP), ``.optimised_poses`` and ``.error_map``
+  in place of the pose table;
 * ``pose_noise``: the SE(3) noise matrices [V, 3, 4] that pose_base is
   composed from, when the config adds noise;
 * ``alpha_mask/packed|shape|aabb``: the mask's bits (np.packbits), its
   grid shape and its box;
 * ``meta_json``: the schedule (it, the voxel counts, resolutions, lrs,
-  n_samples), whether a mask exists and the numpy generator's state;
+  the TV weights, n_samples), whether a mask exists and the numpy
+  generator's state;
 * ``key``: the uint32 pair of JAX's PRNGKey(seed), which JAX's restore
   reads; the port ignores it on restore;
 * ``torch_generator_state``: the port's torch.Generator state (its device
@@ -41,6 +48,7 @@ import torch
 from .. import convert
 from ..geometry import poses as pose_ops
 from ..models.alpha_mask import AlphaMask
+from .l2g import L2GState
 
 _GROUPS = ("density_planes", "density_lines", "app_planes", "app_lines")
 
@@ -52,9 +60,13 @@ def _field_paths(prefix: str, tree: dict, aabb) -> dict:
         for i, a in enumerate(tree[g]):
             out[f"{prefix}/.{g}/[{i}]"] = a
     out[f"{prefix}/.basis"] = tree["basis"]
-    for i, layer in enumerate(tree["shading"]["layers"]):
+    sh = tree["shading"]
+    named = ([(f"['layers']/[{i}]", layer)
+              for i, layer in enumerate(sh["layers"])] if "layers" in sh
+             else [(f"['{name}']", layer) for name, layer in sh.items()])
+    for path, layer in named:
         for k in ("b", "w"):
-            out[f"{prefix}/.shading/['layers']/[{i}]/['{k}']"] = layer[k]
+            out[f"{prefix}/.shading/{path}/['{k}']"] = layer[k]
     out[f"{prefix}/.aabb"] = aabb
     return out
 
@@ -67,47 +79,98 @@ def _field_tree(prefix: str, arrays: dict) -> dict:
             tree[g].append(arrays[f"{prefix}/.{g}/[{len(tree[g])}]"])
     pat = re.compile(re.escape(prefix) + r"/\.shading/\['layers'\]/\[(\d+)\]"
                      r"/\['(\w)'\]$")
+    weak = re.compile(re.escape(prefix) + r"/\.shading/\['layer(\d)'\]"
+                      r"/\['(\w)'\]$")
     layers: dict[int, dict] = {}
+    weakview = False
     for key, a in arrays.items():
-        m = pat.match(key)
+        m = pat.match(key) or weak.match(key)
         if m:
+            weakview = m.re is weak
             layers.setdefault(int(m.group(1)), {})[m.group(2)] = a
     tree["basis"] = arrays[f"{prefix}/.basis"]
-    tree["shading"] = {"layers": [layers[i] for i in sorted(layers)]}
+    tree["shading"] = convert.shading_tree([layers[i] for i in sorted(layers)],
+                                           weakview)
     return tree
+
+
+def _pose_paths(prefix: str, tree: dict) -> dict:
+    """L2G's (embedding, MLP) pair -> {JAX leaf path: array}."""
+    out = {f"{prefix}/[0]": tree["warp_embedding"]}
+    for i, wb in enumerate(tree["warp_mlp"]):
+        for j, a in enumerate(wb):
+            out[f"{prefix}/[1]/[{i}]/[{j}]"] = a
+    return out
+
+
+def _pose_pair(prefix: str, arrays: dict, emb: str = "[0]",
+               mlp: str = "[1]") -> dict:
+    """The inverse of _pose_paths (also for the params' own names)."""
+    layers = []
+    while f"{prefix}/{mlp}/[{len(layers)}]/[0]" in arrays:
+        i = len(layers)
+        layers.append([arrays[f"{prefix}/{mlp}/[{i}]/[0]"],
+                       arrays[f"{prefix}/{mlp}/[{i}]/[1]"]])
+    return {"warp_embedding": arrays[f"{prefix}/{emb}"], "warp_mlp": layers}
 
 
 def _state_arrays(trainer) -> dict:
     """{JAX leaf path: numpy array} of the trainer's state."""
-    d = convert.to_numpy(trainer.state)
+    l2g = isinstance(trainer.state, L2GState)
+    d = (convert.l2g_to_numpy(trainer.state) if l2g
+         else convert.to_numpy(trainer.state))
     zeros = np.zeros_like(d["aabb"])
     out = _field_paths(".params/.field", d, d["aabb"])
-    out[".params/.se3_refine"] = d["se3_refine"]
     for m in ("mu", "nu"):
         out.update(_field_paths(f".scene_opt/.{m}", d["scene_opt"][m], zeros))
-        out[f".pose_opt/.{m}"] = d["pose_opt"][m]
     out[".scene_opt/.count"] = np.int32(d["scene_opt"]["count"])
     out[".pose_opt/.count"] = np.int32(d["pose_opt"]["count"])
+    if l2g:
+        out[".params/.warp_embedding"] = d["warp_embedding"]
+        for i, wb in enumerate(d["warp_mlp"]):
+            for j, a in enumerate(wb):
+                out[f".params/.warp_mlp/[{i}]/[{j}]"] = a
+        for m in ("mu", "nu"):
+            out.update(_pose_paths(f".pose_opt/.{m}", d["pose_opt"][m]))
+        out.update(_pose_paths(".pose_grad_accum", d["pose_grad_accum"]))
+        out[".optimised_poses"] = d["optimised_poses"]
+        out[".error_map"] = d["error_map"]
+        return out
+    out[".params/.se3_refine"] = d["se3_refine"]
+    for m in ("mu", "nu"):
+        out[f".pose_opt/.{m}"] = d["pose_opt"][m]
     out[".pose_grad_accum"] = d["pose_grad_accum"]
     return out
 
 
-def _state_dict(arrays: dict) -> dict:
-    """{JAX leaf path: array} -> the converter's dict."""
-    missing = [k for k in (".params/.field/.aabb", ".params/.se3_refine",
-                           ".scene_opt/.count", ".pose_opt/.count",
-                           ".pose_grad_accum") if k not in arrays]
+def _state_dict(arrays: dict, l2g: bool) -> dict:
+    """{JAX leaf path: array} -> the converter's dict (L2G-BAT's with
+    ``l2g``)."""
+    need = [".params/.field/.aabb", ".scene_opt/.count", ".pose_opt/.count"]
+    need += ([".params/.warp_embedding", ".optimised_poses", ".error_map",
+              ".pose_grad_accum/[0]"] if l2g
+             else [".params/.se3_refine", ".pose_grad_accum"])
+    missing = [k for k in need if k not in arrays]
     if missing:
         raise KeyError(f"checkpoint missing leaves {missing}")
     d = _field_tree(".params/.field", arrays)
     d["aabb"] = arrays[".params/.field/.aabb"]
-    d["se3_refine"] = arrays[".params/.se3_refine"]
     d["scene_opt"] = {m: _field_tree(f".scene_opt/.{m}", arrays)
                       for m in ("mu", "nu")}
     d["scene_opt"]["count"] = int(arrays[".scene_opt/.count"])
-    d["pose_opt"] = {m: arrays[f".pose_opt/.{m}"] for m in ("mu", "nu")}
+    if l2g:
+        d.update(_pose_pair(".params", arrays, ".warp_embedding",
+                            ".warp_mlp"))
+        d["pose_opt"] = {m: _pose_pair(f".pose_opt/.{m}", arrays)
+                         for m in ("mu", "nu")}
+        d["pose_grad_accum"] = _pose_pair(".pose_grad_accum", arrays)
+        d["optimised_poses"] = arrays[".optimised_poses"]
+        d["error_map"] = arrays[".error_map"]
+    else:
+        d["se3_refine"] = arrays[".params/.se3_refine"]
+        d["pose_opt"] = {m: arrays[f".pose_opt/.{m}"] for m in ("mu", "nu")}
+        d["pose_grad_accum"] = arrays[".pose_grad_accum"]
     d["pose_opt"]["count"] = int(arrays[".pose_opt/.count"])
-    d["pose_grad_accum"] = arrays[".pose_grad_accum"]
     return d
 
 
@@ -123,9 +186,8 @@ def save_checkpoint(path: str, trainer, snapshot_path: str | None = None):
                                  for r in trainer.alphamask_resolution],
         "lr_index": trainer.lr_index,
         "lr_basis": trainer.lr_basis,
-        # the port runs no TV loss on the factors (check_ported)
-        "tv_density_weight": 0.0,
-        "tv_color_weight": 0.0,
+        "tv_density_weight": trainer.tv_density_weight,
+        "tv_color_weight": trainer.tv_color_weight,
         "n_samples": int(trainer.n_samples),
         "has_alpha_mask": trainer.alpha_mask is not None,
         "rng_state": trainer.rng_np.bit_generator.state,
@@ -158,8 +220,13 @@ def restore_checkpoint(path: str, trainer) -> None:
     dev = trainer.device
     arrays = {k[len("state/"):]: data[k] for k in data.files
               if k.startswith("state/")}
-    trainer.state, _ = convert.train_state_from_numpy(
-        _state_dict(arrays), trainer.vm_cfg, device=dev)
+    if isinstance(trainer.state, L2GState):
+        trainer.state = convert.l2g_state_from_numpy(
+            _state_dict(arrays, True), trainer.vm_cfg, trainer.l2g_cfg,
+            device=dev)
+    else:
+        trainer.state, _ = convert.train_state_from_numpy(
+            _state_dict(arrays, False), trainer.vm_cfg, device=dev)
 
     trainer.it = int(meta["it"])
     trainer.n_voxel_list = list(meta["n_voxel_list"])
@@ -168,6 +235,8 @@ def restore_checkpoint(path: str, trainer) -> None:
     trainer.alphamask_resolution = list(meta["alphamask_resolution"])
     trainer.lr_index = float(meta["lr_index"])
     trainer.lr_basis = float(meta["lr_basis"])
+    trainer.tv_density_weight = float(meta["tv_density_weight"])
+    trainer.tv_color_weight = float(meta["tv_color_weight"])
     trainer.n_samples = int(meta["n_samples"])
     trainer.rng_np.bit_generator.state = meta["rng_state"]
     if "torch_generator_state" in data.files:

@@ -1,6 +1,11 @@
 """One training step: geometry -> renderer -> VM field -> kernels -> loss
 -> Adam (counterpart of joint_tensorf_tpu/train/step.py:159-304).
 
+Under ``ndc`` the rays are converted to NDC (geometry/ndc.py) before the
+renderer; ``pin_first_pose`` zeroes view 0's pose gradient (the gauge
+anchor of forward-facing captures); the TV terms of the factor planes
+join the loss with their weights.
+
 With pose optimisation (BAT), one backward pass over (factor grids, basis,
 shading MLP, se(3) pose table) gives the joint gradient: pose gradients
 reach the se3 table through ray generation -> sample positions -> bilinear
@@ -18,6 +23,7 @@ from typing import Any, Optional
 import torch
 
 from ..geometry import lie, poses as pose_ops
+from ..geometry.ndc import convert_ndc
 from ..geometry.rays import get_center_and_ray
 from ..models import vm as vm_lib
 from ..render.renderer import BlurSpec, RenderConfig, render_rays
@@ -42,6 +48,8 @@ class StepScalars:
     fea_pe_progress: float = 1.0
     pose_do_step: float = 1.0
     tv_depth_weight: float = 0.0
+    tv_density_weight: float = 0.0
+    tv_color_weight: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +62,9 @@ class StepConfig:
     flags are XLA memory choices and its densify_impl picks between two
     TPU layouts of one sampler, so neither has a counterpart; its
     use_alpha_mask and mask_with_blur are the choice of the mask passed to
-    train_step (Trainer._step_mask)."""
+    train_step (Trainer._step_mask).  ``white_bg`` false: the random
+    background coin in training; ``ndc``: NDC rays, with the near plane
+    and the simulate flags of the JAX StepConfig."""
     H: int
     W: int
     n_views: int
@@ -70,6 +80,12 @@ class StepConfig:
     app_k: Optional[int] = None                 # two-stage appearance top-K2
     pose_b2: float = 0.999
     scene_b2: float = 0.99
+    white_bg: bool = True
+    ndc: bool = False
+    ndc_near_plane: float = 1.0
+    ndc_simulate_euclid_sample: bool = False
+    ndc_simulate_euclid_depth: bool = False
+    pin_first_pose: bool = False
 
     def render_config(self) -> RenderConfig:
         return RenderConfig(
@@ -77,7 +93,10 @@ class StepConfig:
             mask_stride=self.mask_stride, compact_k=self.compact_k,
             densify_density=self.densify_density,
             densify_dtype=self.densify_dtype, app_k=self.app_k,
-            stop_coord_grad=not self.pose_opt)
+            stop_coord_grad=not self.pose_opt, white_bg=self.white_bg,
+            ndc=self.ndc, ndc_near_plane=self.ndc_near_plane,
+            ndc_simulate_euclid_sample=self.ndc_simulate_euclid_sample,
+            ndc_simulate_euclid_depth=self.ndc_simulate_euclid_depth)
 
 
 @dataclasses.dataclass
@@ -120,13 +139,16 @@ def compose_train_pose(se3_refine, pose_base, view_sel,
 def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                pose_base, intr_inv, images, edge_masks, view_sel, ray_idx,
                s: StepScalars, generator: Optional[torch.Generator] = None,
-               jitter=None, alpha_mask=None, stats: bool = False):
+               jitter=None, alpha_mask=None, stats: bool = False, intr=None,
+               bg_coin=None):
     """One step, updating ``state`` in place (parameters are overwritten
     with their Adam update; the parity tests read them back).
 
     images [V, H*W, 3], edge_masks [V, H*W], view_sel [Vs], ray_idx [R];
-    ``jitter`` [Vs*R, 1] pre-drawn stratified offsets (else drawn from
-    ``generator``); ``alpha_mask``, when given, gates the samples.
+    ``jitter`` [Vs*R, 1] (Euclidean) or [Vs*R, S] (NDC) pre-drawn
+    stratified offsets and ``bg_coin`` the background coin (else drawn
+    from ``generator``); ``alpha_mask``, when given, gates the samples;
+    ``intr`` [V, 3, 3] (read under NDC).
     Returns (metrics {loss, mse, psnr} as 0-d tensors, grads {name: tensor}
     incl. "se3_refine", zeros without pose optimisation, as JAX's gradient
     of the unused table is); with ``stats`` the metrics also hold the fractions
@@ -141,13 +163,17 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                               cfg.pose_opt)
     centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose, intr_inv[view_sel],
                                        ray_idx=ray_idx)
+    if cfg.ndc:
+        centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
+                                    near=cfg.ndc_near_plane)
     B, R = centers.shape[0], centers.shape[1]
     rgb, depth, _ = render_rays(
         field, vm_cfg, rcfg, centers.reshape(-1, 3), dirs.reshape(-1, 3),
         s.near_far, blur=cfg.blur, c2f_density=s.c2f_density,
         c2f_color=s.c2f_color, view_pe_progress=s.view_pe_progress,
         fea_pe_progress=s.fea_pe_progress, ray_jitter=jitter,
-        generator=generator, alpha_mask=alpha_mask, stats=render_stats)
+        generator=generator, alpha_mask=alpha_mask, stats=render_stats,
+        bg_coin=bg_coin)
     rgb = rgb.reshape(B, R, 3)
     # the small ray subset first, then the views
     target = images[:, ray_idx][view_sel]                        # [B,R,3]
@@ -159,6 +185,11 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     # float32 like JAX's product with a traced weight (bf16 factors make
     # density_L1 bf16)
     loss = loss + s.l1_weight * vm_lib.density_L1(field).float()
+    if s.tv_density_weight:
+        loss = loss + s.tv_density_weight * vm_lib.tv_loss_density(
+            field).float()
+    if s.tv_color_weight:
+        loss = loss + s.tv_color_weight * vm_lib.tv_loss_app(field).float()
     if cfg.grid_hw is not None:
         gh, gw = cfg.grid_hw
         loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
@@ -183,7 +214,11 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     # pose update on the accumulation cadence (pose_do_step)
     if cfg.pose_opt:
         with torch.no_grad():
-            accum = state.pose_grad_accum + grads["se3_refine"]
+            g_se3 = grads["se3_refine"]
+            if cfg.pin_first_pose:
+                g_se3 = g_se3.clone()
+                g_se3[0] = 0.0
+            accum = state.pose_grad_accum + g_se3
             do_step = s.pose_do_step > 0
             old = {"se3_refine": state.se3_refine}
             new_se3, new_opt = adam_update(

@@ -2,15 +2,21 @@
 (counterpart of joint_tensorf_tpu/train/trainer.py).
 
 Runs BAT's whole schedule (and TensoRF's: BAT's without the pose table,
-the blurs and the pose schedules): the 2D supervision blur cache with its
-hard edge masks, the random 2D/3D blur scales, the ray grid, the
-learning-rate and pose-lr schedules, the train step, and after the
-scheduled iterations the phase transitions of the JAX trainer's
-_update_schedule / _update_alphamask: voxel upsample with a fresh
-optimiser and the lr reset, the alpha-mask build (at a capped resolution
-past tpu.mask_cap_voxels), the bbox shrink at the first, uncapped mask
-update, and with train_schedule.reset_on_last_upsample the groups it
-names re-drawn after the last upsample.
+the blurs and the pose schedules; L2G-BAT's through train/l2g_trainer.py):
+the 2D supervision blur cache with its hard edge masks, the random 2D/3D
+blur scales, the ray strategies (the grid, and all-view or single-view
+random rays from their switch iterations), the learning-rate and pose-lr
+schedules (with warmup_pose), the pose resets, the TV weights' decay, the
+train step, and after the scheduled iterations the phase transitions of
+the JAX trainer's _update_schedule / _update_alphamask: voxel upsample
+with a fresh optimiser and the lr reset, the alpha-mask build (at a
+capped resolution past tpu.mask_cap_voxels), the bbox shrink at the
+first, uncapped mask update, and with train_schedule.reset_on_last_upsample
+the groups it names re-drawn after the last upsample.
+
+Under ``camera.ndc`` the rays are NDC rays; as in JAX no compaction budget
+is probed and no blur mask built there, so the dense grid runs in every
+phase with enough samples.
 
 The step is the JAX trainer's default ``tpu:`` path (_step_config): the
 sample-compaction budgets (in-bbox, _refresh_bbox_k; the dilated mask
@@ -52,6 +58,7 @@ from ..models import vm as vm_lib
 from ..ops import blur as blur_ops
 from ..ops import kernels as kernel_ops
 from ..ops import sobel
+from ..geometry.ndc import convert_ndc
 from ..geometry.rays import get_center_and_ray
 from ..ops.composite import transmittance
 from ..render.renderer import (BlurSpec, RenderConfig, render_rays,
@@ -64,36 +71,30 @@ from .step import (StepConfig, StepScalars, compose_train_pose,
 # (dotted key, the value or values the port runs); others raise.  None,
 # False and 0 all mean "off".
 _PORTED_VALUES = (
-    ("model", ("bat", "tensorf")),
-    ("camera.ndc", False),
+    ("model", ("bat", "tensorf", "l2g_bat")),
+    ("camera.ndc", (None, False, True)),
     ("tpu.mesh_shape", None),
     ("tpu.factor_dtype", ("float32", "bfloat16")),
     ("tpu.densify_impl", ("packed8", "lane")),
     ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
     ("arch.tensorf.model", ("BAT_VMSplit", "TensorVMSplit")),
-    ("arch.shading.model", "MLP_Fea"),
+    ("arch.shading.model", ("MLP_Fea", "MLP_Fea_WeakView")),
     ("arch.shading.predict_density", False),
     ("arch.shading.detach_viewdirs", True),
-    ("arch.feature_to_density_activation", "softplus"),
+    ("arch.feature_to_density_activation", ("softplus", "relu")),
     ("arch.abs_components", False),
     ("arch.component_wise_feature2density", False),
     ("arch.plane_feature2density", False),
     ("arch.convolve_plane_only", False),
     ("arch.convolve_positive_only", False),
     ("arch.ignore_negative_split", False),
-    ("nerf.setbg_opaque", True),
+    ("nerf.setbg_opaque", (None, False, True)),
     ("nerf.sample_stratified", True),
-    ("nerf.ray_sampling_strategy", "all_view_rand_grid"),
-    ("train_schedule.all_view_sample_after_n_iters", None),
-    ("train_schedule.single_view_sample_after_n_iters", None),
-    ("train_schedule.reset_pose_on_iter", None),
-    ("train_schedule.reset_pose_on_iters", None),
-    ("train_schedule.reset_pose_on_first_upsample", None),
-    ("train_schedule.pin_first_pose", False),
-    ("optim.sched_pose.type", "ExponentialLR"),
-    ("optim.warmup_pose", None),
-    ("loss_weight.TV_density", 0.0),
-    ("loss_weight.TV_color", 0.0),
+    ("nerf.ray_sampling_strategy", ("all_view_rand_grid",
+                                    "all_view_rand_rays",
+                                    "single_view_rand_rays")),
+    ("optim.sched_pose.type", (None, "ExponentialLR")),
+    ("optim.sched_pose.lr_pose_schedule", None),
     ("soft_edge_mask", False),
     ("sync_2d_3d_scales", None),
 )
@@ -127,15 +128,18 @@ def _off(v) -> bool:
     return v is None or v is False or (isinstance(v, (int, float)) and v == 0)
 
 
-# read only with pose optimisation (BAT): TensoRF's pose lr is 0
-_POSE_SCHEDULE_KEYS = ("optim.sched_pose.type", "optim.warmup_pose")
+# read only with pose optimisation (BAT, L2G-BAT): TensoRF's pose lr is 0.
+# Without a schedule type the pose lr is constant, as in JAX.
+_POSE_SCHEDULE_KEYS = ("optim.sched_pose.type",
+                       "optim.sched_pose.lr_pose_schedule")
+_POSE_MODELS = ("bat", "l2g_bat")
 
 
 def check_ported(opt: Options):
     """Raise NotImplementedError naming the first option whose value the
     port does not run, or a tpu: key it does not know."""
     for key, want in _PORTED_VALUES:
-        if key in _POSE_SCHEDULE_KEYS and opt.model != "bat":
+        if key in _POSE_SCHEDULE_KEYS and opt.model not in _POSE_MODELS:
             continue
         got = opt.get_path(key)
         ok = (_off(got) if _off(want)
@@ -168,6 +172,8 @@ def build_vm_config(opt: Options) -> vm_lib.VMConfig:
         raymarch_weight_thres=float(arch.tensorf.rayMarch_weight_thres),
         step_ratio=float(opt.nerf.step_ratio),
         factor_dtype=str(opt.tpu.get("factor_dtype") or "float32"),
+        shading_mode=str(arch.shading.model),
+        fea2dense=str(arch.feature_to_density_activation),
     )
 
 
@@ -190,7 +196,8 @@ class Trainer:
         self.rng_np = np.random.default_rng(seed)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
-        self.is_bat = opt.model == "bat"
+        self.is_bat = opt.model in _POSE_MODELS
+        self.ndc = bool(opt.camera.get("ndc", False))
         self.vm_cfg = build_vm_config(opt)
 
         # ---------------- scene geometry / voxel schedule
@@ -230,8 +237,16 @@ class Trainer:
                                                       duration)
         self.lr_upsample_reset = bool(o.get("lr_upsample_reset", True))
         self.lr_pose0 = float(o.get("lr_pose", 0.0) or 0.0)
+        exponential = (o.get("sched_pose") or {}).get("type") == \
+            "ExponentialLR"
         self.pose_gamma = ((float(o.lr_pose_end) / self.lr_pose0) ** (
-            1.0 / self.max_iter) if self.lr_pose0 > 0 else 1.0)
+            1.0 / self.max_iter) if self.lr_pose0 > 0 and exponential
+                           else 1.0)
+        self.warmup_pose = o.get("warmup_pose")
+        # the TV weights decay with the learning rate
+        lw = opt.loss_weight
+        self.tv_density_weight = float(lw.get("TV_density", 0.0) or 0.0)
+        self.tv_color_weight = float(lw.get("TV_color", 0.0) or 0.0)
 
         # ---------------- pose noise: base = GT o noise (the SE(3) noise
         # matrices are kept: the checkpoint stores them)
@@ -250,6 +265,7 @@ class Trainer:
         self.images_chw = torch.as_tensor(train_data.images, device=dev)
         self.images_sharp = self.images_chw.reshape(V, 3, H * W).transpose(
             1, 2).contiguous()                                   # [V,HW,3]
+        self.intr = torch.as_tensor(train_data.intr, device=dev)
         self.intr_inv = torch.as_tensor(train_data.intr_inv, device=dev)
         self.near_far = list(train_data.near_far)
 
@@ -268,7 +284,7 @@ class Trainer:
             init_scale=float(opt.arch.tensorf.get("volume_init_scale", 0.1)),
             init_bias=float(opt.arch.tensorf.get("volume_init_bias", 0.0)),
             device=dev)
-        self.state = init_train_state(field, V)
+        self.state = self._init_state(field)
         self.metrics_history: list[dict] = []
 
         # ---------------- sample-compaction budgets (None: all S slots)
@@ -281,6 +297,17 @@ class Trainer:
         self.last_step_config: Optional[StepConfig] = None
         self.last_eval_config: Optional[RenderConfig] = None
         self._refresh_bbox_k()
+
+    def _init_state(self, field: vm_lib.VMField):
+        """The train state around the initial field: the zero pose table,
+        or with start_with_GT_pose on LLFF / t2 captures the GT poses' log
+        (the JAX trainer's __init__); L2GTrainer builds its own."""
+        state = init_train_state(field, self.n_views)
+        if self.is_bat and self.opt.get("start_with_GT_pose") and \
+                self.opt.data.dataset in ("llff", "t2"):
+            with torch.no_grad():
+                state.se3_refine.copy_(lie.SE3_to_se3(self.gt_poses))
+        return state
 
     # ------------------------------------------------------------- schedules
     @property
@@ -336,10 +363,24 @@ class Trainer:
             return [float(near), self.near_far[1]]
         return self.near_far
 
+    def _strategy(self) -> str:
+        ts = self.opt.train_schedule
+        strat = self.opt.nerf.ray_sampling_strategy
+        if ts.get("all_view_sample_after_n_iters") is not None and \
+                self.it >= ts.all_view_sample_after_n_iters:
+            strat = "all_view_rand_rays"
+        if ts.get("single_view_sample_after_n_iters") is not None and \
+                self.it >= ts.single_view_sample_after_n_iters:
+            strat = "single_view_rand_rays"
+        return strat
+
     def _lr_pose(self) -> float:
         if not self.is_bat:
             return 0.0
-        return float(self.lr_pose0 * self.pose_gamma ** self.it)
+        lr = self.lr_pose0 * self.pose_gamma ** self.it
+        if self.warmup_pose:
+            lr *= min(1.0, self.it / float(self.warmup_pose))
+        return float(lr)
 
     def _l1_weight(self) -> float:
         lw = self.opt.loss_weight.get("L1")
@@ -403,10 +444,22 @@ class Trainer:
                 imgs_chw, thresh).to(torch.float32)
 
     # -------------------------------------------------------- ray sampling
-    def _sample_rays(self, n_rays: int):
-        """all_view_rand_grid: a regular pixel grid with a random offset,
-        the same for every view -> (view_sel [V], ray_idx [R], (ny, nx))."""
+    def _sample_rays(self, strategy: str, n_rays: int):
+        """-> (view_sel [Vs], ray_idx [R], (ny, nx) or None), drawn from
+        rng_np: single_view_rand_rays, view it % V and n_rays pixels of a
+        permutation; all_view_rand_rays, every view and the first
+        n_rays / V pixels of one permutation; all_view_rand_grid, a
+        regular pixel grid with a random offset, the same for every
+        view."""
         V, H, W = self.n_views, self.H, self.W
+        if strategy == "single_view_rand_rays":
+            idx = self.rng_np.permutation(H * W)[:n_rays]
+            return np.array([self.it % V]), idx.astype(np.int64), None
+        if strategy == "all_view_rand_rays":
+            idx = self.rng_np.permutation(H * W)[:max(1, n_rays // V)]
+            return np.arange(V), idx.astype(np.int64), None
+        if strategy != "all_view_rand_grid":
+            raise ValueError(f"unknown ray sampling strategy {strategy!r}")
         rays_per_view = max(1, n_rays // V)
         step = math.ceil((H * W / rays_per_view) ** 0.5)
         off_x = int(self.rng_np.integers(step))
@@ -434,7 +487,8 @@ class Trainer:
         c2f_d, c2f_c, sc2d = self._c2f_params()
         blur_spec = self._blur_spec(c2f_d, c2f_c)
         use_edge, ef, nef = self._edge_scalars()
-        view_sel, ray_idx, grid_hw = self._sample_rays(self._n_rays())
+        view_sel, ray_idx, grid_hw = self._sample_rays(self._strategy(),
+                                                       self._n_rays())
         vp = fp = 1.0
         if opt.get("c2f_view_pe_schedule") is not None:
             vp = schedules.interp_schedule(self.progress,
@@ -449,13 +503,35 @@ class Trainer:
             use_edge=use_edge, edge_factor=ef, non_edge_factor=nef,
             view_pe_progress=float(vp), fea_pe_progress=float(fp),
             pose_do_step=1.0 if it % self._pose_accum() == 0 else 0.0,
-            tv_depth_weight=self._tv_depth_weight())
+            tv_depth_weight=self._tv_depth_weight(),
+            tv_density_weight=self.tv_density_weight,
+            tv_color_weight=self.tv_color_weight)
         return scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d
 
-    def train_iteration(self, stats: bool = False, jitter=None):
+    def _reset_poses(self):
+        """Zero the pose table (not its moments) at reset_pose_on_iter,
+        each of reset_pose_on_iters and, with
+        reset_pose_on_first_upsample, the first upsample's iteration
+        (trainer.py:714-725); L2G-BAT has no table to reset."""
+        ts = self.opt.train_schedule
+        its = set(int(i) for i in ts.get("reset_pose_on_iters") or [])
+        if ts.get("reset_pose_on_iter") is not None:
+            its.add(int(ts.reset_pose_on_iter))
+        if ts.get("reset_pose_on_first_upsample") and self.upsample_iters:
+            its.add(int(self.upsample_iters[0]))
+        if self.it in its and hasattr(self.state, "se3_refine"):
+            with torch.no_grad():
+                self.state.se3_refine.zero_()
+
+    def train_iteration(self, stats: bool = False, jitter=None,
+                        bg_coin=None, **draws):
         """One step; ``stats`` adds the step's sample fractions and blur
-        flag to its metrics (train_step); ``jitter`` [rays, 1]: pre-drawn
-        stratified offsets (else drawn from the trainer's generator)."""
+        flag to its metrics (train_step); ``jitter`` ([rays, 1], or
+        [rays, S] under NDC) and ``bg_coin``: pre-drawn stratified offsets
+        and background coin (else drawn from the trainer's generator);
+        ``draws``: the step's other pre-drawn inputs (L2G's
+        error_draws)."""
+        self._reset_poses()
         scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d = \
             self.host_schedule()
         if blur_spec is not None:
@@ -468,14 +544,21 @@ class Trainer:
         cfg = self._step_config(len(ray_idx), blur_spec, grid_hw)
         self.rays_per_step = len(view_sel) * len(ray_idx)
         self.last_step_config = cfg
-        metrics, _ = train_step(
-            self.state, cfg, self.vm_cfg, self.pose_base, self.intr_inv,
-            self.current_images, self.current_edges,
-            torch.as_tensor(view_sel, device=self.device),
+        metrics, _ = self._step(
+            cfg, torch.as_tensor(view_sel, device=self.device),
             torch.as_tensor(ray_idx, device=self.device), scalars,
-            generator=self.generator, jitter=jitter,
-            alpha_mask=self._step_mask(blur_spec is not None), stats=stats)
+            generator=self.generator, jitter=jitter, bg_coin=bg_coin,
+            alpha_mask=self._step_mask(blur_spec is not None), stats=stats,
+            **draws)
         return metrics
+
+    def _step(self, cfg: StepConfig, view_sel, ray_idx, scalars, **kw):
+        """The training step on this trainer's state and data (the hook
+        L2GTrainer replaces, as the JAX trainer's _make_raw_step)."""
+        return train_step(self.state, cfg, self.vm_cfg, self.pose_base,
+                          self.intr_inv, self.current_images,
+                          self.current_edges, view_sel, ray_idx, scalars,
+                          intr=self.intr, **kw)
 
     def _step_mask(self, blur_active: bool) -> Optional[am_lib.AlphaMask]:
         """The mask that gates the step's samples: the JAX trainer's step
@@ -522,7 +605,22 @@ class Trainer:
             pose_opt=self.is_bat, blur=blur, grid_hw=grid_hw, mask_stride=self.mask_stride,
             compact_k=compact_k, densify_density=densify,
             densify_dtype=(str(tpu.get("densify_dtype") or "float32")
-                           if lane else "float32"), app_k=app_k)
+                           if lane else "float32"), app_k=app_k,
+            pin_first_pose=bool(self.opt.train_schedule.get(
+                "pin_first_pose", False)),
+            **self._ray_options())
+
+    def _ray_options(self) -> dict:
+        """The background and NDC choices of the config, as the JAX
+        trainer reads them."""
+        opt = self.opt
+        return dict(
+            white_bg=bool(opt.nerf.get("setbg_opaque", True)), ndc=self.ndc,
+            ndc_near_plane=float(opt.arch.get("ndc_near_plane", 1.0)),
+            ndc_simulate_euclid_sample=bool(
+                opt.get("ndc_simulate_euclid_sample", False)),
+            ndc_simulate_euclid_depth=bool(
+                opt.get("ndc_simulate_euclid_depth", False)))
 
     # ------------------------------------------------------ phase transitions
     def _replace_field(self, make_field):
@@ -569,6 +667,10 @@ class Trainer:
             self.lr_basis *= self.decay_factor
         if it in self.update_alphamask_iters:
             self._update_alphamask(it)
+        if self.tv_density_weight > 0:
+            self.tv_density_weight *= self.decay_factor
+        if self.tv_color_weight > 0:
+            self.tv_color_weight *= self.decay_factor
 
     def _reinit_groups(self, field: vm_lib.VMField, reset) -> vm_lib.VMField:
         """reset_on_last_upsample (trainer.py:807-816): the groups it names
@@ -648,7 +750,10 @@ class Trainer:
         for the alpha mask's probe on the training views, from
         default_rng(0) on given (evaluation) poses, and from
         default_rng(seed + 12345) for the in-bbox and blur-mask probes:
-        only the first moves the training draws."""
+        only the first moves the training draws.  None under NDC, as in
+        JAX."""
+        if self.ndc:
+            return None
         probe_mask = mask if mask is not None else self.alpha_mask
         if probe_mask is None and not bbox_only:
             return None
@@ -777,7 +882,7 @@ class Trainer:
         by the blur's support over the window and probe its budget; None
         (the in-bbox budget stays) when it would keep every slot."""
         opt = self.opt
-        if not bool(opt.tpu.get("blur_mask_compact", True)):
+        if not bool(opt.tpu.get("blur_mask_compact", True)) or self.ndc:
             return
         res = self.resolution
         cap = int(opt.tpu.get("mask_cap_voxels", 256 ** 3))
@@ -855,9 +960,8 @@ class Trainer:
         pad 1.5; the dense grid runs only when that probe leaves no budget;
         the appearance is dense unless tpu.eval_app_k sets a cap.  Samples
         are not stratified; the training mask stride and the alpha mask,
-        no blur.  ``intr`` is unused on the Euclidean path (NDC reads it).
-        ``on_chunk(i)`` runs after chunk i."""
-        del intr
+        no blur, no background coin.  ``intr`` converts the rays under
+        NDC.  ``on_chunk(i)`` runs after chunk i."""
         pose = torch.as_tensor(pose, device=self.device)
         intr_inv = torch.as_tensor(intr_inv, device=self.device)
         tpu = self.opt.tpu
@@ -867,10 +971,15 @@ class Trainer:
             mask_stride=self.mask_stride, compact_k=eval_k,
             densify_density=(bool(tpu.get("densify_density", True))
                              and eval_k is None),
-            app_k=int(tpu.eval_app_k) if tpu.get("eval_app_k") else None)
+            app_k=int(tpu.eval_app_k) if tpu.get("eval_app_k") else None,
+            **self._ray_options())
         self.last_eval_config = rcfg
         V = pose.shape[0]
         centers, dirs = get_center_and_ray(self.H, self.W, pose, intr_inv)
+        if self.ndc:
+            centers, dirs = convert_ndc(
+                centers, dirs, torch.as_tensor(intr, device=self.device),
+                near=rcfg.ndc_near_plane)
         centers, dirs = centers.reshape(-1, 3), dirs.reshape(-1, 3)
         outs = []
         for i, s in enumerate(range(0, centers.shape[0], chunk)):

@@ -23,7 +23,8 @@ voxels (S 138 -> 221), 64 rays, small ranks:
   bit for bit, mask bits, renders within 5e-5 of max|rgb|);
 * the train CLI logs no pose rows and quant.json holds no pose errors;
   the evaluate CLI writes no quant_pose.txt and renders at GT poses;
-* check_ported still refuses model: l2g_bat by name.
+* check_ported accepts model: l2g_bat (tests/test_torch_l2g.py) and
+  still refuses, by name, a model the port does not run.
 """
 import dataclasses
 import json
@@ -303,6 +304,9 @@ def test_cli_writes_no_pose_files(tmp_path):
 
 
 def test_check_ported_refuses_l2g_bat():
+    """l2g_bat runs (tests/test_torch_l2g.py); a model
+    the port does not run is still refused by name."""
     check_ported(set_options(CFG, SMALL))
-    with pytest.raises(NotImplementedError, match="model='l2g_bat'"):
-        check_ported(set_options(CFG, SMALL + ["--model=l2g_bat"]))
+    check_ported(set_options(CFG, SMALL + ["--model=l2g_bat"]))
+    with pytest.raises(NotImplementedError, match="model='barf'"):
+        check_ported(set_options(CFG, SMALL + ["--model=barf"]))

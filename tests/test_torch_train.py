@@ -242,8 +242,9 @@ def test_cpu_smoke_run_crosses_the_upsample(small_scene):
     assert pt.state.pose_opt.count == 10      # the pose optimiser is kept
 
 
-@pytest.mark.parametrize("override", ["--model=l2g_bat", "--camera.ndc=true",
-                                      "--nerf.setbg_opaque=false",
+@pytest.mark.parametrize("override", ["--model=barf",
+                                      "--arch.shading.model=MLP_PE",
+                                      "--nerf.sample_stratified=false",
                                       "--tpu.factor_dtype=float16"])
 def test_unported_options_raise(small_scene, override):
     with pytest.raises(NotImplementedError, match=override.split("=")[0][2:]):

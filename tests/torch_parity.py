@@ -21,6 +21,15 @@ def as_f32(a):
     return a.astype(np.float32)
 
 
+def _shading(sh) -> dict:
+    """A JAX shading head's parameters (MLP_Fea's ["layers"] list or
+    MLP_Fea_WeakView's "layer1".."layer3") as numpy, in the same form."""
+    if "layers" in sh:
+        return {"layers": [{"w": _a(l["w"]), "b": _a(l["b"])}
+                           for l in sh["layers"]]}
+    return {k: {"w": _a(l["w"]), "b": _a(l["b"])} for k, l in sh.items()}
+
+
 def flatten_field(st) -> dict:
     """JAX VMState -> the converter's field keys."""
     return {
@@ -29,8 +38,7 @@ def flatten_field(st) -> dict:
         "app_planes": [_a(p) for p in st.app_planes],
         "app_lines": [_a(l) for l in st.app_lines],
         "basis": _a(st.basis),
-        "shading": {"layers": [{"w": _a(l["w"]), "b": _a(l["b"])}
-                               for l in st.shading["layers"]]},
+        "shading": _shading(st.shading),
         "aabb": _a(st.aabb),
     }
 
@@ -50,6 +58,29 @@ def flatten_train_state(ts, pose_base=None) -> dict:
     return d
 
 
+def _pose_pair(pair) -> dict:
+    """JAX L2G (embedding, warp MLP) pair -> the converter's keys."""
+    emb, mlp = pair
+    return {"warp_embedding": _a(emb),
+            "warp_mlp": [[_a(w), _a(b)] for w, b in mlp]}
+
+
+def flatten_l2g_state(st) -> dict:
+    """JAX L2GState -> the converter's L2G dict."""
+    d = flatten_field(st.params.field)
+    d.update(_pose_pair((st.params.warp_embedding, st.params.warp_mlp)))
+    d["scene_opt"] = {"mu": flatten_field(st.scene_opt.mu),
+                      "nu": flatten_field(st.scene_opt.nu),
+                      "count": int(st.scene_opt.count)}
+    d["pose_opt"] = {"mu": _pose_pair(st.pose_opt.mu),
+                     "nu": _pose_pair(st.pose_opt.nu),
+                     "count": int(st.pose_opt.count)}
+    d["pose_grad_accum"] = _pose_pair(st.pose_grad_accum)
+    d["optimised_poses"] = _a(st.optimised_poses)
+    d["error_map"] = _a(st.error_map)
+    return d
+
+
 def field_leaves(d: dict) -> dict:
     """A field-shaped dict -> {port parameter name: array}."""
     out = {}
@@ -57,7 +88,10 @@ def field_leaves(d: dict) -> dict:
         for i, a in enumerate(d[g]):
             out[f"{g}.{i}"] = np.asarray(a)
     out["basis"] = np.asarray(d["basis"])
-    for i, layer in enumerate(d["shading"]["layers"]):
+    sh = d["shading"]
+    layers = sh["layers"] if "layers" in sh else [sh[f"layer{i + 1}"]
+                                                  for i in range(3)]
+    for i, layer in enumerate(layers):
         out[f"shading.w.{i}"] = np.asarray(layer["w"])
         out[f"shading.b.{i}"] = np.asarray(layer["b"])
     return out
