@@ -121,13 +121,34 @@
    published first phase's 20480 rays x 1000 samples does not fit there,
    its line factors' one-hot gradient alone asks for a [19.44M, 771]
    float32 buffer of 60 GB; 10240 runs) and K3 into the grid's 510M rows;
-15. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+15. compares one small step of BARF (fine sampling, density noise, NDC
+   rays; at progress 0) and of each planar image on the card with the CPU
+   from the same parameters and draws (check_small_mlp_planar: loss rel
+   1e-5, gradients 1e-3 of each leaf's max), and reports BARF's distance
+   at progress 0.3 beside the CPU's own under a 1e-7 perturbation of the
+   weights (a fresh MLP's float32 gradients inside the c2f window are
+   ill-conditioned); trains BARF
+   (configs/barf_blender.yaml: 400x400, 12 views, 1020 rays x 128
+   samples, 8 x 256 with skip, L 10 / 4) and MLP-NeRF with fine sampling
+   (configs/nerf_blender_repr.yaml, 64 + 192 samples, density noise 1)
+   through BarfTrainer.run for MLP_STEPS steps with max_iter cut to 40, so
+   that BARF's c2f window is crossed (step ms against the bound of the
+   MLPs' float32 operations, peak memory, host syncs of 3 steps),
+   validates 2 views (ms a view) and runs BARF's test-time optimisation
+   on 2 views (MLP_TEST_ITER steps each); trains the three planar configs
+   as they stand (planar_bat, planar_fft, planar_barf) for PLANAR_STEPS
+   steps each (step ms, peak memory, host syncs, warp_error) and checks
+   whether torch.linalg.matrix_exp synchronises the host; the counters
+   zeroed before and read after each piece: K1-K5 launch 0 times there
+   (none lies on these paths, as no Pallas kernel does in JAX);
+16. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -209,6 +230,25 @@ LLFF_TEST_ITER = 10
 LLFF_TEST_KERNEL = [0.0, 0.05]
 # ray counts tried at the final 800^3 grid, the first that fits runs
 LLFF_FINAL_RAYS = [20480, 10240, 4096]
+# BARF (configs/barf_blender.yaml) and MLP-NeRF with fine sampling
+# (configs/nerf_blender_repr.yaml, density noise 1 as nerf_llff_repr.yaml
+# sets it) at their widths on the procedural scene (400x400, 12 views,
+# 1020 rays); max_iter cut from 200000 to 40, so that the 20 steps cross
+# BARF's c2f window [0.1, 0.5] (partial band weights from step 4); 2
+# validation views; BARF's test-time optimisation on 2 views cut from 100
+# steps to 20
+MLP_ARGS = ["--data.dataset=synthetic", "--max_iter=40", "--data.val_sub=2"]
+MLP_STEPS = 20
+MLP_TEST_ITER = 20
+# the planar configs as they stand (500^2 rank 100, 400^2 FFT, 4 x 256
+# MLP; 5 patches of 180^2 under SL(3)), 50 steps each at the schedule's
+# start (kernel_t sigma 128 -> 127.6 for the SVD and FFT images)
+PLANAR_CFGS = ("planar_bat.yaml", "planar_fft.yaml", "planar_barf.yaml")
+PLANAR_STEPS = 50
+# K1-K5: none lies on the MLP or planar paths (JAX computes them in plain
+# XLA, no Pallas kernel)
+NO_LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "scatter_add_rows": 0,
+               "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
 
 
 def emit(obj):
@@ -1898,26 +1938,12 @@ def check_registration_sync():
 
 def count_host_syncs(trainer, n_steps: int) -> list:
     """Synchronising CUDA calls of each of ``n_steps`` training steps (the
-    schedule updates included), counted as the warnings of torch's sync
-    debug mode "warn"."""
-    import warnings
-
-    import torch
-
-    counts = []
-    for _ in range(n_steps):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as w:
-                warnings.simplefilter("always")
-                trainer.train_iteration()
-                trainer._update_schedule()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    schedule updates included)."""
+    def step():
+        trainer.train_iteration()
+        trainer._update_schedule()
         trainer.it += 1
-        counts.append(sum("synchroniz" in str(x.message) for x in w))
-    return counts
+    return count_step_syncs(step, n_steps)
 
 
 def run_l2g(profile_dir=None):
@@ -2243,6 +2269,384 @@ def run_llff_final_grid():
     fail("llff 800^3: no ray count fit")
 
 
+# ------------------------------------------------- BARF / MLP-NeRF, planar
+def mlp_step_flops(cfg, n_points: int) -> float:
+    """Float32 operations of one MLP-NeRF step on ``n_points`` samples: 2
+    per MAC of every layer in the forward, 4 in the backward (the
+    weights' and the inputs' gradients)."""
+    dims = [cfg.input_3d_dim] + list(cfg.layers_feat)
+    macs = 0
+    for li in range(len(dims) - 1):
+        k_in = dims[li] + (cfg.input_3d_dim if li in cfg.skip else 0)
+        k_out = dims[li + 1] + (1 if li == len(dims) - 2 else 0)
+        macs += k_in * k_out
+    rdims = [cfg.layers_feat[-1] + (cfg.input_view_dim if cfg.view_dep
+                                    else 0)] + list(cfg.layers_rgb)
+    macs += sum(a * b for a, b in zip(rdims[:-1], rdims[1:]))
+    return 6.0 * macs * n_points
+
+
+def count_step_syncs(step, n_steps: int, where: dict = None) -> list:
+    """Synchronising CUDA calls of each of ``n_steps`` calls of ``step``,
+    counted as the warnings of torch's sync debug mode "warn"; ``where``
+    collects how many came from each source line (file:line of the
+    Python call that synchronised)."""
+    import warnings
+
+    import torch
+
+    counts = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [x for x in w if "synchroniz" in str(x.message)]
+        counts.append(len(syncs))
+        for x in syncs if where is not None else ():
+            key = f"{os.path.relpath(x.filename, HERE)}:{x.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return counts
+
+
+def _no_launches(label, launches, faults):
+    if launches != NO_LAUNCHES:
+        faults.append(f"{label}: launched {launches}, expected none of "
+                      f"K1-K5")
+
+
+def run_mlp_nerf(yaml: str, extra=()):
+    """BARF / MLP-NeRF at the config's widths through the train and
+    evaluation entry points: MLP_STEPS steps of BarfTrainer.run (step ms,
+    the bound of the coarse MLP's operations, peak memory), the host syncs
+    of 3 more steps, validate on 2 views (ms a view), with BARF
+    MLP_TEST_ITER test-time steps on each of 2 views; the counters zeroed
+    before and read after each piece: K1-K5 launch 0 times."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.pose.test_optim import \
+        make_barf_test_time_optimizer
+    from joint_tensorf_tpu_torch.train.barf_trainer import BarfTrainer
+
+    opt = set_options(os.path.join(HERE, "configs", yaml),
+                      MLP_ARGS + list(extra))
+    data = load_dataset(opt, "train", device="cuda")
+    val = load_dataset(opt, "val", device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = BarfTrainer(opt, data, device="cuda")
+    faults, stamps, losses = [], [], []
+
+    def on_log(tr, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    stamps.append(time.perf_counter())
+    trainer.run(max_iter=MLP_STEPS, log_every=1, callback=on_log)
+    _no_launches(f"{yaml} train", dict(cuda_build.LAUNCHES), faults)
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    if not all(math.isfinite(x) for x in losses):
+        faults.append(f"{yaml}: losses {losses}")
+    n_rays = trainer.n_views * (int(opt.nerf.n_rays) // trainer.n_views)
+    # every MLP call: the coarse samples, and the fine MLP's S + n_fine
+    points = n_rays * (trainer.n_samples + (
+        trainer.n_samples + trainer.n_fine if trainer.fine_sampling else 0))
+    bound_ms = mlp_step_flops(trainer.mlp_cfg, points) / \
+        PEAK_F32_FLOP_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def step():
+        trainer.train_iteration()
+        trainer.it += 1
+
+    sync_lines = {}
+    syncs = count_step_syncs(step, 3, sync_lines)
+    val_times = []
+    cuda_build.reset_launches()
+    for i in range(val.n_views):
+        sub = dataclasses.replace(val, images=val.images[i:i + 1],
+                                  poses=val.poses[i:i + 1],
+                                  intr=val.intr[i:i + 1],
+                                  intr_inv=val.intr_inv[i:i + 1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psnr = trainer.validate(sub)["psnr"]
+        val_times.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(psnr):
+            faults.append(f"{yaml}: val psnr {psnr}")
+    _no_launches(f"{yaml} validate", dict(cuda_build.LAUNCHES), faults)
+    row = {"config": f"configs/{yaml} " + " ".join(MLP_ARGS + list(extra)),
+           "model": opt.model, "image_hw": [trainer.H, trainer.W],
+           "views": trainer.n_views, "rays_per_step": n_rays,
+           "samples": [trainer.n_samples, trainer.n_fine],
+           "fine_sampling": trainer.fine_sampling,
+           "density_noise": trainer.density_noise,
+           "steps": MLP_STEPS, "loss": losses,
+           "step_ms_first": ms[0], "step_ms_median": statistics.median(ms[1:]),
+           "mlp_points": points, "bound_ms": bound_ms,
+           "bound_ratio": statistics.median(ms[1:]) / bound_ms,
+           "peak_mem_gb": peak, "host_syncs_per_step": syncs,
+           "host_sync_lines": sync_lines, "val_ms_per_view": val_times,
+           "pose_error": trainer.pose_error() if trainer.is_barf else None}
+    if trainer.is_barf:
+        test_steps = []
+        optimize = make_barf_test_time_optimizer(
+            trainer, trainer.H, trainer.W, int(opt.nerf.n_rays),
+            MLP_TEST_ITER, float(opt.optim.lr_pose),
+            generator=torch.Generator(device="cuda").manual_seed(7),
+            on_step=lambda it, loss: test_steps.append(
+                torch.cuda.synchronize() or time.perf_counter()))
+        target = torch.as_tensor(val.images, device="cuda").reshape(
+            val.n_views, 3, -1).transpose(1, 2)
+        cuda_build.reset_launches()
+        losses_t, per = [], []
+        for i in range(val.n_views):
+            torch.cuda.synchronize()
+            test_steps[:] = [time.perf_counter()]
+            _, loss = optimize(torch.as_tensor(val.poses[i], device="cuda"),
+                               target[i], torch.as_tensor(val.intr[i],
+                                                          device="cuda"),
+                               torch.as_tensor(val.intr_inv[i],
+                                               device="cuda"))
+            losses_t.append(loss)
+            per += [(b - a) * 1e3
+                    for a, b in zip(test_steps[1:-1], test_steps[2:])]
+        _no_launches(f"{yaml} test-time", dict(cuda_build.LAUNCHES), faults)
+        row["test_time"] = {"views": val.n_views, "steps": MLP_TEST_ITER,
+                            "final_loss": losses_t,
+                            "step_ms_median": statistics.median(per)}
+        if not all(math.isfinite(x) for x in losses_t):
+            faults.append(f"{yaml}: test-time losses {losses_t}")
+    print(f"[{opt.model}] {MLP_STEPS} steps at {n_rays} rays x "
+          f"{trainer.n_samples}+{trainer.n_fine} samples: median "
+          f"{row['step_ms_median']:.2f} ms (MLP bound {bound_ms:.2f} ms, "
+          f"x{row['bound_ratio']:.1f}), peak {peak:.2f} GB, host syncs "
+          f"{syncs} {sync_lines}, val {[round(t, 1) for t in val_times]} "
+          f"ms a view"
+          + (f", test-time step {row['test_time']['step_ms_median']:.2f} ms"
+             if "test_time" in row else ""), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    emit({"mlp_nerf": row})
+    if faults:
+        fail("; ".join(faults))
+    return row
+
+
+def run_planar():
+    """The three planar configs at their widths through PlanarTrainer.run:
+    PLANAR_STEPS steps each (step ms, peak memory, host syncs of 3 more
+    steps, warp_error, the counters zeroed before and read after: K1-K5
+    launch 0 times), and whether torch.linalg.matrix_exp of the 5
+    homographies synchronises the host (sync debug "error")."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.geometry import warp2d
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.planar_trainer import PlanarTrainer
+
+    rows, faults = [], []
+    for yaml in PLANAR_CFGS:
+        opt = set_options(os.path.join(HERE, "configs", yaml), [])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = PlanarTrainer(opt, device="cuda")
+        stamps, losses = [], []
+
+        def on_log(t, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            losses.append(m["loss"])
+
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        stamps.append(time.perf_counter())
+        tr.run(max_iter=PLANAR_STEPS, log_every=1, callback=on_log)
+        _no_launches(f"planar {yaml}", dict(cuda_build.LAUNCHES), faults)
+        ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(x) for x in losses):
+            faults.append(f"planar {yaml}: losses {losses}")
+
+        def step():
+            tr.train_iteration()
+            tr.it += 1
+
+        sync_lines = {}
+        syncs = count_step_syncs(step, 3, sync_lines)
+        row = {"config": f"configs/{yaml}", "model": opt.model,
+               "image_hw": [tr.H, tr.W], "patches": tr.B,
+               "crop": [tr.H_crop, tr.W_crop], "warp": tr.warp_type,
+               "steps": PLANAR_STEPS, "loss_first_last": [losses[0],
+                                                         losses[-1]],
+               "sigma_first_last": [tr.metrics_history[0]["sigma"],
+                                    tr.metrics_history[-1]["sigma"]],
+               "step_ms_first": ms[0],
+               "step_ms_median": statistics.median(ms[1:]),
+               "peak_mem_gb": peak, "host_syncs_per_step": syncs,
+               "host_sync_lines": sync_lines, "warp_error": tr.warp_error()}
+        rows.append(row)
+        print(f"[planar] {opt.model} ({yaml}): {PLANAR_STEPS} steps, median "
+              f"{row['step_ms_median']:.2f} ms, peak {peak:.3f} GB, host "
+              f"syncs {syncs} {sync_lines}, warp_error "
+              f"{row['warp_error']:.4f}, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+        del tr
+    h = torch.randn((5, 8), device="cuda") * 0.1
+    warp2d.sl3_to_SL3(h)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warp2d.sl3_to_SL3(h)
+        expm_sync = None
+    except RuntimeError as e:
+        expm_sync = str(e).splitlines()[0][:160]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[planar] matrix_exp of [5, 3, 3] under sync debug 'error': "
+          f"{'syncs: ' + expm_sync if expm_sync else 'no sync'}", flush=True)
+    emit({"planar": rows, "matrix_exp_synchronises": expm_sync is not None,
+          "matrix_exp_sync_error": expm_sync})
+    if faults:
+        fail("; ".join(faults))
+    return rows
+
+
+def _grad_dist(a, b) -> dict:
+    """Loss distance (relative) and the worst leaf's gradient distance
+    relative to that leaf's max, with the leaf's name."""
+    (loss_a, g_a), (loss_b, g_b) = a, b
+    rel = {k: float((g_b[k] - g_a[k]).abs().max())
+           / (float(g_a[k].abs().max()) + 1e-12) for k in g_a}
+    worst = max(rel, key=rel.get)
+    return {"loss_rel": abs(loss_b - loss_a) / abs(loss_a),
+            "max_grad_err_rel": rel[worst], "leaf": worst}
+
+
+def check_small_mlp_planar():
+    """One small step of BARF with fine sampling, density noise and NDC
+    rays, and of each planar image, on the card and on the CPU from the
+    same parameters and draws: the loss and every gradient."""
+    import numpy as np
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.convert import (simple_state_from_numpy,
+                                                 simple_to_numpy)
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.train.barf_trainer import BarfTrainer
+    from joint_tensorf_tpu_torch.train.planar_trainer import PlanarTrainer
+
+    def copy(src, dst):
+        dst.params, dst.opt_state = simple_state_from_numpy(
+            simple_to_numpy(src.params, src.opt_state), device=dst.device)
+
+    def grads(loss, params):
+        """(loss, {leaf: gradient on the CPU})."""
+        names = list(params)
+        g = torch.autograd.grad(loss, [params[k] for k in names],
+                                allow_unused=True)
+        return float(loss.detach()), {
+            k: (torch.zeros_like(params[k]) if x is None else x).cpu()
+            for k, x in zip(names, g)}
+
+    def compare(name, cpu, card):
+        """_compare_small's loss and gradient gates (no tables here)."""
+        return _compare_small(name, {"cpu": cpu + (None, None, None),
+                                     "cuda": card + (None, None, None)})
+
+    out = {}
+    opt = set_options(os.path.join(HERE, "configs", "barf_blender.yaml"), [
+        "--data.dataset=synthetic", "--data.scene=facing",
+        "--camera.ndc=true", "--nerf.depth.range=[0,1]",
+        "--data.image_size=[32,32]", "--data.n_views=4",
+        "--nerf.n_rays=256", "--nerf.fine_sampling=true",
+        "--+nerf.sample_intvs_fine=64", "--nerf.density_noise_reg=1",
+        "--+loss_weight.render_fine=0", "--max_iter=20"])
+    data = load_dataset(opt, "train", device="cpu")
+    cpu = BarfTrainer(opt, data, device="cpu")
+    card = BarfTrainer(opt, data, device="cuda")
+    copy(cpu, card)
+    card.pose_noise = cpu.pose_noise.cuda()
+    card.pose_base = cpu.pose_base.cuda()
+    view_sel, ray_idx = (torch.as_tensor(a) for a in cpu._sample_rays())
+    draws = cpu.draw(len(view_sel) * len(ray_idx))
+
+    def barf_grads(tr, params=None):
+        d = {k: v.to(tr.device) for k, v in draws.items()}
+        if params is not None:
+            tr.params, kept = params, tr.params
+        loss, _ = tr.loss(view_sel.to(tr.device), ray_idx.to(tr.device),
+                          tr.progress, d)
+        g = grads(loss, tr.params)
+        if params is not None:
+            tr.params = kept
+        return g
+
+    # gated at progress 0 (the c2f weights all 0); inside the c2f window
+    # (progress 0.3) the fresh MLP's float32 gradients are ill-conditioned:
+    # there the card's distance from the CPU is reported beside the CPU's
+    # own change under a 1e-7 relative perturbation of the weights
+    cpu.it = card.it = 0
+    out["barf_fine_ndc"] = compare(
+        "barf", *[barf_grads(tr) for tr in (cpu, card)])
+    cpu.it = card.it = 6
+    ref, got = barf_grads(cpu), barf_grads(card)
+    noise = torch.Generator().manual_seed(1)
+    perturbed = barf_grads(cpu, {
+        k: (v.detach() * (1 + 1e-7 * torch.randn(v.shape, generator=noise))
+            ).requires_grad_(True) for k, v in cpu.params.items()})
+    out["barf_fine_ndc_progress_0.3"] = {
+        "card_vs_cpu": _grad_dist(ref, got),
+        "cpu_vs_cpu_perturbed_1e-7": _grad_dist(ref, perturbed)}
+    for yaml, extra in (("planar_bat.yaml", ["--arch.resolution=[96,96]",
+                                             "--arch.max_ranks=16",
+                                             "--arch.kernel_size=32",
+                                             "--c2f_schedule.rank=[16]",
+                                             "--c2f_schedule.kernel_t=[8,0]"]),
+                        ("planar_fft.yaml", ["--arch.resolution=[60,60]",
+                                             "--arch.kernel_size=32",
+                                             "--c2f_schedule.kernel_t=[8,0]"]),
+                        ("planar_barf.yaml", ["--arch.layers=[null,64,64,3]",
+                                              "--barf_c2f=[0.1,0.5]"])):
+        popt = set_options(os.path.join(HERE, "configs", yaml), [
+            "--data.image_size=[72,96]", "--data.patch_crop=[36,36]",
+            "--batch_size=3", "--max_iter=10"] + extra)
+        cpu = PlanarTrainer(popt, device="cpu")
+        card = PlanarTrainer(popt, device="cuda")
+        copy(cpu, card)
+        with torch.no_grad():           # a warp away from zero
+            w = torch.as_tensor(np.random.default_rng(1).normal(
+                size=tuple(cpu.params["warp"].shape)) * 0.02,
+                dtype=torch.float32)
+            cpu.params["warp"].copy_(w)
+            card.params["warp"].copy_(w.cuda())
+        cpu.it = card.it = 3
+        sigma, rank = cpu.schedule()
+        res = [grads(tr.loss(tr.params, sigma, rank, tr.progress)[0],
+                     tr.params) for tr in (cpu, card)]
+        out[popt.model] = compare(popt.model, *res)
+    conditioning = out.pop("barf_fine_ndc_progress_0.3")
+    print("[mlp/planar] small steps card vs CPU: " + ", ".join(
+        f"{k} loss {v['loss_cuda']:.6g}/{v['loss_cpu']:.6g} grads "
+        f"{v['max_grad_err_rel']:.2g}" for k, v in out.items())
+        + f"; barf at progress 0.3 (not gated): {conditioning}", flush=True)
+    out["barf_fine_ndc_progress_0.3"] = conditioning
+    return {"small_mlp_planar": out}
+
+
+
 def profile_steps(trainer, end, table_path, on_step=None):
     """torch.profiler over the steps up to ``end``: device time by kernel,
     written as a table to table_path; returns the device-busy time per step
@@ -2465,6 +2869,13 @@ def main(argv):
     emit({"kernel_check": dict(check_scatter(
         n_rays, S, 0, 0, 8, gen, tol=1e-5, grid3d=tuple(res)),
         path="llff_800")})
+    torch.cuda.empty_cache()
+    # BARF, MLP-NeRF with fine sampling and the planar images: none of
+    # K1-K5 on their paths; their small steps on the card against the CPU
+    emit(check_small_mlp_planar())
+    run_mlp_nerf("barf_blender.yaml")
+    run_mlp_nerf("nerf_blender_repr.yaml", ["--nerf.density_noise_reg=1"])
+    run_planar()
     torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []

@@ -31,6 +31,18 @@ keys and scene_opt as above, and instead of the pose table:
     optimised_poses  [V, 3, 4]
     error_map        [V, ems * ems]
 
+The trainers without phases (BARF / MLP-NeRF, the planar images) keep a
+flat {name: tensor} parameter dict and its AdamState; simple_to_numpy /
+simple_state_from_numpy carry them as
+
+    params     the JAX params as a nested dict: BARF's {"mlp": M,
+               "se3_refine": [V, 6], "mlp_fine": M (with fine sampling)},
+               M = {"feat": [{"w", "b"}, ...], "rgb": [...]}; the planar
+               {"image": I, "warp": [B, dof]}, I = {"rank1", "rank2"}
+               (SVD: float32; FFT: complex64) or the MLP's [{"w", "b"}, ...]
+    opt_state  {"mu": like params, "nu": like params, "count": int}
+               (moments float32, also for complex leaves)
+
 Arrays are float32, but for bfloat16 factors (tpu.factor_dtype), which
 stay bfloat16 both ways.  numpy has no bfloat16: the JAX package's arrays
 are ml_dtypes.bfloat16, which np.savez writes and np.load reads back as
@@ -47,6 +59,7 @@ from .models.shading import MLPFeaWeakView
 from .train import l2g as l2g_lib
 from .train.optim import AdamState
 from .train.step import TrainState, init_train_state
+from .utils import tree as tree_lib
 
 _GROUPS = ("density_planes", "density_lines", "app_planes", "app_lines")
 
@@ -238,3 +251,36 @@ def l2g_to_numpy(state) -> dict:
     d["optimised_poses"] = _np(state.optimised_poses)
     d["error_map"] = _np(state.error_map)
     return d
+
+
+# ------------------------------------------------- BARF / planar (no phases)
+def _leaf(a, device) -> torch.Tensor:
+    """A numpy leaf of a simple state: complex stays complex64, the rest
+    becomes float32."""
+    a = np.asarray(a)
+    dtype = np.complex64 if np.iscomplexobj(a) else np.float32
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def simple_to_numpy(params: dict, opt_state: AdamState) -> dict:
+    """A flat parameter dict and its AdamState -> {"params",
+    "opt_state"} of nested numpy arrays (see the module docstring)."""
+    def nested(flat):
+        return tree_lib.unflatten({k: _np(v) for k, v in flat.items()})
+    return {"params": nested(params),
+            "opt_state": {"mu": nested(opt_state.mu),
+                          "nu": nested(opt_state.nu),
+                          "count": int(opt_state.count)}}
+
+
+def simple_state_from_numpy(d: dict, device=None):
+    """The inverse of simple_to_numpy -> (flat params, each requiring a
+    gradient; AdamState)."""
+    params = {k: _leaf(v, device).requires_grad_(True)
+              for k, v in tree_lib.flatten(d["params"]).items()}
+    so = d["opt_state"]
+    state = AdamState(
+        mu={k: _leaf(v, device) for k, v in tree_lib.flatten(so["mu"]).items()},
+        nu={k: _leaf(v, device) for k, v in tree_lib.flatten(so["nu"]).items()},
+        count=int(so["count"]))
+    return params, state

@@ -1,5 +1,6 @@
 """Evaluation entry point of the port (counterpart of the repository's
-evaluate.py:19-268, for ``model: bat``, ``l2g_bat`` and ``tensorf``).
+evaluate.py:19-268, for ``model: bat``, ``l2g_bat``, ``tensorf``,
+``barf`` and ``nerf``).
 
     python -m joint_tensorf_tpu_torch.evaluate --yaml=configs/bat_blender_VM.yaml \
         [--ckpt=output/<group>/<name>/model.ckpt.npz] [--device=cpu] \
@@ -12,7 +13,11 @@ in radians, translation), aligns the test poses into the learned frame
 and refines each by test-time photometric optimisation when
 ``optim.test_photo`` is set (NDC rays under ``camera.ndc``; on LLFF
 captures blurred by ``optim.test_kernel_schedule``); TensoRF renders the
-test views at their GT poses and writes no pose file.  A dataset without
+test views at their GT poses and writes no pose file.  BARF and MLP-NeRF
+restore the simple checkpoint and go the same way, BARF's test-time
+optimisation by make_barf_test_time_optimizer at the constant
+optim.lr_pose (as evaluate.py passes it), n_rays rays a step; they have
+no compaction caps, so no clip rates.  A dataset without
 a test split (LLFF-style captures name their held-out frames "val") is
 evaluated on its val split.  Then it measures the static caps' clip
 rates, renders the test views and writes per-view PSNR / SSIM
@@ -57,8 +62,10 @@ def main(argv) -> dict:
     from .geometry import align as align_lib
     from .metrics import lpips_fn, psnr, ssim
     from .pose.test_optim import (blur_of_test_kernel,
+                                  make_barf_test_time_optimizer,
                                   make_test_time_optimizer, render_config)
-    from .train.checkpoint import restore_checkpoint
+    from .train.barf_trainer import BarfTrainer
+    from .train.checkpoint import restore_checkpoint, restore_simple_checkpoint
     from .train.l2g_trainer import L2GTrainer
     from .train.trainer import Trainer
     from .utils.logging import MetricLogger
@@ -66,7 +73,8 @@ def main(argv) -> dict:
     # generate_pose_video is read with a default in JAX's evaluate.py and
     # stands in no config file
     opt = set_options(yaml_path, rest, allow_new_keys=("generate_pose_video",))
-    pose_optimizing = opt.model in ("bat", "l2g_bat")
+    is_mlp = opt.model in ("barf", "nerf")
+    pose_optimizing = opt.model in ("bat", "l2g_bat", "barf")
     for key in (("generate_video", "generate_pose_video") if pose_optimizing
                 else ("generate_video",)):
         if opt.get(key, True):
@@ -86,12 +94,17 @@ def main(argv) -> dict:
     except FileNotFoundError:
         test_data = load_dataset(opt, "val", subset=opt.data.get("val_sub"),
                                  device=device)
-    trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
-        opt, train_data, device=device)
-    restore_checkpoint(ckpt_path, trainer)
+    if is_mlp:
+        trainer = BarfTrainer(opt, train_data, device=device)
+        restore_simple_checkpoint(ckpt_path, trainer)
+        desc = ""
+    else:
+        trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
+            opt, train_data, device=device)
+        restore_checkpoint(ckpt_path, trainer)
+        desc = f" res={trainer.resolution}"
     dev = trainer.device
-    print(f"[ckpt] restored it={trainer.it} res={trainer.resolution}",
-          flush=True)
+    print(f"[ckpt] restored it={trainer.it}{desc}", flush=True)
 
     results = {"iters": trainer.it}
     os.makedirs(out_dir, exist_ok=True)
@@ -124,8 +137,19 @@ def main(argv) -> dict:
     intr_inv = torch.as_tensor(test_data.intr_inv, device=dev)
 
     # ---- test-time photometric pose optimisation
-    if pose_optimizing and opt.optim.get("test_photo", False):
-        seed = int(opt.get("seed", 0))
+    seed = int(opt.get("seed", 0))
+    if is_mlp and pose_optimizing and opt.optim.get("test_photo", False):
+        optimize = make_barf_test_time_optimizer(
+            trainer, H, W, n_rays=int(opt.nerf.n_rays),
+            test_iter=int(opt.optim.test_iter), lr=float(opt.optim.lr_pose),
+            generator=torch.Generator(device=dev).manual_seed(seed + 7))
+        refined = []
+        for i in range(V):
+            p, loss = optimize(test_pose[i], target[i], intr[i], intr_inv[i])
+            refined.append(p)
+            print(f"[test-optim] view {i}: final loss {loss:.5f}", flush=True)
+        test_pose = torch.stack(refined)
+    elif pose_optimizing and opt.optim.get("test_photo", False):
         blur, sched = blur_of_test_kernel(opt)
         optimize = make_test_time_optimizer(
             trainer.vm_cfg, render_config(trainer), H, W,
@@ -144,12 +168,13 @@ def main(argv) -> dict:
         test_pose = torch.stack(refined)
 
     # ---- full renders + metrics
-    clip = trainer.eval_clip_stats(test_pose, intr_inv)
-    results["clip_stats"] = clip
-    if clip["compact_clip_rate"] > 0 or clip["app_k_clip_rate"] > 0:
-        print(f"[eval] WARNING static-cap clipping: {clip}")
-    else:
-        print(f"[eval] compaction caps exact on probe rays: {clip}")
+    if not is_mlp:
+        clip = trainer.eval_clip_stats(test_pose, intr_inv)
+        results["clip_stats"] = clip
+        if clip["compact_clip_rate"] > 0 or clip["app_k_clip_rate"] > 0:
+            print(f"[eval] WARNING static-cap clipping: {clip}")
+        else:
+            print(f"[eval] compaction caps exact on probe rays: {clip}")
     rgb, _, _ = trainer.render_views(test_pose, test_data.intr, intr_inv)
     per_view = []
     for i in range(V):

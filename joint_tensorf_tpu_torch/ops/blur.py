@@ -3,25 +3,31 @@
 
 The banded matrix B[i, j] = sum_k kernel[k] * [clip(i + k - half) == j] is
 the 1D 'same' convolution with replicate padding (the reference's grouped
-conv1d, bateRF.py:8-39).  Applying it is a plain float32 matmul, as XLA did
-it; TF32 is off (utils/torch_setup.py).
+conv1d, bateRF.py:8-39), or with zero padding for the planar images
+(terms past either end dropped).  Applying it is a plain float32 matmul,
+as XLA did it; TF32 is off (utils/torch_setup.py).
 """
 from __future__ import annotations
 
 import torch
 
 
-def blur_matrix(kernel, length: int):
-    """[L, L] matrix equivalent to 1D 'same' convolution with replicate
-    padding; blurred = B @ x."""
+def blur_matrix(kernel, length: int, padding: str = "replicate"):
+    """[L, L] matrix equivalent to 1D 'same' convolution; blurred = B @ x.
+    ``padding``: "replicate" (the 3D factor blur, bateRF.py:16) or "zero"
+    (the planar pipeline's conv1d padding="same", planar_svd.py:318)."""
     taps = kernel.shape[-1]
     half = taps // 2
     dev = kernel.device
     i = torch.arange(length, device=dev)[:, None]         # [L, 1]
     k = torch.arange(taps, device=dev)[None, :]           # [1, T]
-    cols = torch.clamp(i + k - half, 0, length - 1)       # [L, T]
+    raw = i + k - half
+    cols = torch.clamp(raw, 0, length - 1)                # [L, T]
     rows = i.expand(cols.shape)
     vals = kernel.expand(cols.shape)
+    if padding == "zero":
+        vals = torch.where((raw >= 0) & (raw < length), vals,
+                           torch.zeros_like(vals))
     B = torch.zeros((length, length), dtype=kernel.dtype, device=dev)
     return B.index_put((rows.reshape(-1), cols.reshape(-1)),
                        vals.reshape(-1), accumulate=True)

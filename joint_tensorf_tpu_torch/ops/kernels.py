@@ -15,11 +15,18 @@ def num_taps(kernel_size: int) -> int:
     return (kernel_size // 2) * 2 + 1
 
 
+def _scalar(t, device):
+    """``t`` as a 0-d float32 tensor; a host number is filled on the device
+    (a copy from the host would synchronise it)."""
+    if torch.is_tensor(t):
+        return t.to(dtype=torch.float32, device=device)
+    return torch.full((), float(t), dtype=torch.float32, device=device)
+
+
 def gaussian_kernel(t, kernel_size: int, device=None):
     """[num_taps] sampled Gaussian; impulse at t=0 (sigma clamped at 1e-4,
     values clamped at 1.0)."""
-    t = torch.clamp(torch.as_tensor(t, dtype=torch.float32, device=device),
-                    min=1e-4)
+    t = torch.clamp(_scalar(t, device), min=1e-4)
     ns = torch.arange(-(kernel_size // 2), kernel_size // 2 + 1,
                       dtype=torch.float32, device=t.device)
     exponent = -0.5 * (ns / t) ** 2
@@ -32,7 +39,7 @@ def average_kernel(t, kernel_size: int, device=None):
     if kernel_size % 2 == 0:
         kernel_size += 1
     half = kernel_size // 2
-    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    t = _scalar(t, device)
     ns = torch.abs(torch.arange(-half, half + 1, dtype=torch.float32,
                                 device=t.device))
     t0 = torch.clamp(torch.floor(t), max=half)

@@ -19,6 +19,12 @@ gradients take.
 Forward and backward are plain PyTorch, except the packed-plane scatter,
 which goes through ops/segment_scatter.scatter_add_rows: kernel K3 on a
 CUDA tensor, ``index_add_`` on a CPU tensor.
+
+The planar pipeline's image sample (:428-463) is here too:
+
+    sample_image(img [C,H,W], coords [N,2]) -> [N,C]    grid_sample's
+        align_corners=False with zero padding (or nearest), in JAX's
+        gather form; autograd through the gathers and the fractions
 """
 from __future__ import annotations
 
@@ -209,3 +215,34 @@ def sample_planeline_prod(plane, line, u, v, w):
     """p(u,v) * l(w): plane [H,W,R], line [D,R], u (->W), v (->H),
     w (->D) [N] in [-1,1] -> [N,R]."""
     return SamplePlaneLineProd.apply(plane, line, u, v, w)
+
+
+def sample_image(img, coords, mode: str = "bilinear"):
+    """grid_sample(align_corners=False, padding=zeros) of ``img`` [C, H, W]
+    at ``coords`` [N, 2] (x, y in [-1, 1]) -> [N, C]; ``mode`` "nearest"
+    rounds half to even, as jnp.round.  The floor is taken on the detached
+    coordinate, so the coordinates' gradient flows through the fractions
+    alone (F.grid_sample rounds its pixel coordinates differently)."""
+    C, H, W = img.shape
+    x = (coords[:, 0] + 1.0) * W / 2.0 - 0.5
+    y = (coords[:, 1] + 1.0) * H / 2.0 - 0.5
+    flat = img.reshape(C, H * W)
+
+    def corner(xi, yi, w=None):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        idx = torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1)
+        vals = flat[:, idx].T                                  # [N, C]
+        return vals * (inb if w is None else w * inb)[:, None]
+
+    if mode == "nearest":
+        return corner(torch.round(x).long(), torch.round(y).long())
+    x0f = torch.floor(x.detach())
+    y0f = torch.floor(y.detach())
+    fx = x - x0f
+    fy = y - y0f
+    x0 = x0f.long()
+    y0 = y0f.long()
+    return (corner(x0, y0, (1 - fx) * (1 - fy))
+            + corner(x0 + 1, y0, fx * (1 - fy))
+            + corner(x0, y0 + 1, (1 - fx) * fy)
+            + corner(x0 + 1, y0 + 1, fx * fy))

@@ -1,5 +1,7 @@
 """Test-time photometric pose optimisation
-(counterpart of joint_tensorf_tpu/pose/test_optim.py:27-96).
+(counterpart of joint_tensorf_tpu/pose/test_optim.py:27-188): the VM
+field's (make_test_time_optimizer) and the MLP-NeRF's
+(make_barf_test_time_optimizer).
 
 For each test view a fresh se(3) parameter [1, 6] absorbs the remaining
 pose error through ``test_iter`` Adam steps (b2 = 0.999) on the
@@ -30,8 +32,10 @@ from ..geometry.rays import get_center_and_ray
 from ..models import vm as vm_lib
 from ..render.renderer import BlurSpec, RenderConfig, render_rays
 from ..sched.schedules import interp_schedule
+from ..train.barf_trainer import render_mlp_rays
 from ..train.losses import mse
 from ..train.optim import adam_init, adam_update
+from ..utils import tree as tree_lib
 
 
 @contextlib.contextmanager
@@ -153,3 +157,70 @@ def blur_of_test_kernel(opt):
         blur = BlurSpec(mode="uniform-gaussian",
                         kernel_size=int(opt.c2f_kernel_size))
     return blur, (list(sched) if sched else None)
+
+
+def make_barf_test_time_optimizer(trainer, H: int, W: int, n_rays: int,
+                                  test_iter: int, lr: float,
+                                  generator: Optional[torch.Generator] = None,
+                                  on_step: Optional[Callable] = None):
+    """MLP-NeRF test-time photometric pose optimisation (barf.py:162-197;
+    pose/test_optim.py:97-188 of the JAX package): a fresh se(3) [1, 6]
+    takes ``test_iter`` Adam steps (b2 = 0.999) at the constant ``lr``
+    (evaluate.py passes optim.lr_pose, not lr_pose_test, as JAX does) on
+    the photometric MSE of ``n_rays`` pixels of a fresh permutation per
+    step, stratified as in training (nerf.sample_stratified), with the
+    trainer's MLPs frozen and no density noise; NDC rays and fine sampling
+    as the trainer has them.
+
+    Returns optimize(pose [3, 4], image [H*W, 3] of an H x W view,
+    intr [3, 3], intr_inv [3, 3], draws=None) -> (refined pose [3, 4],
+    final loss).
+    ``draws(it)`` -> (ray_idx [n_rays] int64, uniforms [n_rays, S] or
+    None); by default both come from ``generator``.  ``on_step(it, loss)``
+    runs after each step with the loss as a 0-d device tensor."""
+    def default_draws(device):
+        def draw(it):
+            idx = torch.randperm(H * W, generator=generator,
+                                 device=device)[:n_rays]
+            u = (torch.rand((idx.shape[0], trainer.n_samples),
+                            generator=generator, device=device)
+                 if trainer.stratified else None)
+            return idx, u
+        return draw
+
+    def optimize(pose, image, intr, intr_inv, draws=None):
+        dev = pose.device
+        draws = draws or default_draws(dev)
+        pose = pose.detach()
+        frozen_params = {k: v.detach() for k, v in trainer.params.items()}
+        mlp = tree_lib.unflatten(frozen_params, "mlp")
+        mlp_fine = tree_lib.unflatten(frozen_params, "mlp_fine")
+        se3 = torch.zeros((1, 6), device=dev, requires_grad=True)
+        opt_state = adam_init({"se3": se3})
+        loss = None
+        for it in range(test_iter):
+            ray_idx, uniforms = draws(it)
+            composed = pose_ops.compose([lie.se3_to_SE3(se3), pose[None]])
+            centers, dirs = get_center_and_ray(H, W, composed,
+                                               intr_inv[None],
+                                               ray_idx=ray_idx)
+            if trainer.ndc:
+                centers, dirs = convert_ndc(centers, dirs, intr[None])
+            rgb, rgb_f, _, _ = render_mlp_rays(
+                mlp, mlp_fine, trainer.mlp_cfg, centers.reshape(-1, 3),
+                dirs.reshape(-1, 3), trainer.near_far, trainer.n_samples,
+                trainer.depth_param, trainer.n_fine, trainer.setbg,
+                trainer.bgcolor, uniforms=uniforms)
+            loss = mse(rgb if rgb_f is None else rgb_f, image[ray_idx])
+            g, = torch.autograd.grad(loss, [se3])
+            with torch.no_grad():
+                new, opt_state = adam_update({"se3": g}, opt_state,
+                                             {"se3": se3}, lr, b2=0.999)
+                se3.copy_(new["se3"])
+            if on_step:
+                on_step(it, loss.detach())
+        with torch.no_grad():
+            refined = pose_ops.compose([lie.se3_to_SE3(se3), pose[None]])[0]
+        return refined, float(loss.detach())
+
+    return optimize

@@ -134,9 +134,11 @@ def sample_ray_axes(aabb, step_size, n_samples: int, centers, dirs,
 
 def _linspace(start, stop, num: int, device):
     """jnp.linspace in float32 as JAX computes it: start * (1 - i / (num -
-    1)) + stop * (i / (num - 1)), then ``stop`` itself."""
-    start = torch.tensor(start, dtype=torch.float32, device=device)
-    stop = torch.tensor(stop, dtype=torch.float32, device=device)
+    1)) + stop * (i / (num - 1)), then ``stop`` itself.  The ends are
+    filled on the device (torch.full), not copied from the host, which
+    would synchronise it."""
+    start = torch.full((), start, dtype=torch.float32, device=device)
+    stop = torch.full((), stop, dtype=torch.float32, device=device)
     t = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
     return torch.cat([start * (1 - t) + stop * t, stop[None]]), start, stop
 

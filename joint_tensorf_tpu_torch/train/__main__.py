@@ -1,5 +1,5 @@
 """Training CLI of the port (counterpart of the repository's train.py:35-184,
-for ``model: bat``, ``l2g_bat`` and ``tensorf``).
+for ``model: bat``, ``l2g_bat``, ``tensorf``, ``barf`` and ``nerf``).
 
     python -m joint_tensorf_tpu_torch.train --yaml=configs/bat_blender_VM.yaml \
         --data.dataset=synthetic [--key=value ...] [--device=cpu]
@@ -11,27 +11,30 @@ alpha-mask updates, bbox shrink) on the JAX trainer's default
 ``tpu:`` path (sample compaction, dense-grid density, two-stage
 appearance; ``--tpu.bbox_compact=false --tpu.blur_mask_compact=false
 --tpu.densify_density=false --tpu.app_k=null`` turn off all but the
-alpha mask's own compaction, which the JAX trainer always runs).
+alpha mask's own compaction, which the JAX trainer always runs), or
+BARF / MLP-NeRF (train/barf_trainer.py), whose checkpoints are the
+simple ones (train/checkpoint.save_simple_checkpoint).
 
 Writes into ``output_root/group/name/``:
 
 * ``options.json`` (the config drift against an existing one is printed
   first, one ``[options]`` line per key);
 * ``log.jsonl``: one row per log interval (freq.scalar) with the step's
-  metrics, with BAT the pose errors after sim(3) alignment (``rot_deg``,
-  ``trans``) every 4 x freq.scalar iterations, and ``val_psnr`` every
-  freq.val iterations (the validation poses aligned with BAT);
+  metrics, with BAT or BARF the pose errors after sim(3) alignment
+  (``rot_deg``, ``trans``) every 4 x freq.scalar iterations, and
+  ``val_psnr`` every freq.val iterations (the validation poses aligned
+  with BAT or BARF);
 * ``model_it{N}.ckpt.npz`` every freq.ckpt iterations and
   ``model.ckpt.npz`` at the end (train/checkpoint.py, the JAX layout);
 * ``quant.json`` after the final validation: ``wall_s``, ``iters``,
-  ``val_psnr``, and with BAT ``rot_deg``, ``trans``; also
+  ``val_psnr``, and with BAT or BARF ``rot_deg``, ``trans``; also
   ``summary.json``.
 
 ``--resume=true`` continues from ``model.ckpt.npz`` at its stored
 iteration.  The validation split is ``val``, or ``test`` with
 data.val_on_test; a scene without it on disk validates on the training
 views, as train.py does.  It also prints one line per phase transition with the
-compaction budgets.
+compaction budgets (the VM trainers).
 
 Two departures from train.py: a failed validation (mid-run or final)
 stops the run, where train.py catches it and carries on, because a failed
@@ -64,6 +67,7 @@ def main(argv):
     from ..data import load_dataset
     from ..utils.logging import MetricLogger
     from . import checkpoint as ckpt_lib
+    from .barf_trainer import BarfTrainer
     from .l2g_trainer import L2GTrainer
     from .trainer import Trainer
 
@@ -100,16 +104,26 @@ def main(argv):
     except FileNotFoundError as e:
         print(f"[data] no val split ({e}); validating on train views")
         val_data = data
-    trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
-        opt, data, val_data, device=device)
+    is_mlp = opt.model in ("barf", "nerf")
+    if is_mlp:
+        trainer = BarfTrainer(opt, data, val_data, device=device)
+        desc = f"mlp L_3D={trainer.mlp_cfg.L_3D}"
+        pose_optimizing = trainer.is_barf
+        save, restore = (ckpt_lib.save_simple_checkpoint,
+                         ckpt_lib.restore_simple_checkpoint)
+    else:
+        trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
+            opt, data, val_data, device=device)
+        desc = f"res={trainer.resolution}"
+        pose_optimizing = trainer.is_bat
+        save, restore = ckpt_lib.save_checkpoint, ckpt_lib.restore_checkpoint
     print(f"[train] {opt.model} | device={trainer.device} "
-          f"views={data.n_views} res={trainer.resolution} "
-          f"n_samples={trainer.n_samples} max_iter={trainer.max_iter}",
-          flush=True)
+          f"views={data.n_views} {desc} n_samples={trainer.n_samples} "
+          f"max_iter={trainer.max_iter}", flush=True)
 
     ckpt_file = os.path.join(out_dir, "model.ckpt.npz")
     if opt.get("resume") and os.path.exists(ckpt_file):
-        ckpt_lib.restore_checkpoint(ckpt_file, trainer)
+        restore(ckpt_file, trainer)
         print(f"[resume] restored it={trainer.it}", flush=True)
 
     logger = MetricLogger(out_dir, opt)
@@ -117,11 +131,11 @@ def main(argv):
     freq_scalar = int(opt.freq.get("scalar", 200))
     freq_val = int(opt.freq.get("val", 0) or 0)
     freq_ckpt = int(opt.freq.get("ckpt", 0) or 0)
-    phase = [trainer.resolution, trainer.n_samples, None]
+    phase = None if is_mlp else [trainer.resolution, trainer.n_samples, None]
 
     def on_log(tr, m):
         line = dict(m)
-        if tr.is_bat and tr.it % max(1, freq_scalar * 4) == 0:
+        if pose_optimizing and tr.it % max(1, freq_scalar * 4) == 0:
             line.update(tr.pose_error())
         if freq_val and tr.it > 0 and tr.it % freq_val == 0:
             line["val_psnr"] = tr.validate(val_data)["psnr"]
@@ -129,10 +143,12 @@ def main(argv):
                   flush=True)
         logger.log_scalars(line, tr.it)
         if freq_ckpt and tr.it > 0 and tr.it % freq_ckpt == 0:
-            ckpt_lib.save_checkpoint(ckpt_file, tr, snapshot_path=os.path.join(
+            save(ckpt_file, tr, snapshot_path=os.path.join(
                 out_dir, f"model_it{tr.it}.ckpt.npz"))
-        msg = (f"it {tr.it:6d} | loss {m['loss']:.5f} | psnr {m['psnr']:.2f} "
-               f"| lr {tr.lr_index:.2e} | {m['wall']:.1f}s")
+        msg = f"it {tr.it:6d} | loss {m['loss']:.5f} | psnr {m['psnr']:.2f} "
+        if not is_mlp:
+            msg += f"| lr {tr.lr_index:.2e} "
+        msg += f"| {m['wall']:.1f}s"
         if "rot_deg" in line:
             msg += f" | rot {line['rot_deg']:.3f}° trans {line['trans']:.4f}"
         print(msg, flush=True)
@@ -153,14 +169,17 @@ def main(argv):
                   f"app_k={tr.app_k_dyn or tr.opt.tpu.get('app_k')}",
                   flush=True)
 
-    trainer.run(log_every=freq_scalar, callback=on_log, on_step=on_step)
+    if is_mlp:
+        trainer.run(log_every=freq_scalar, callback=on_log)
+    else:
+        trainer.run(log_every=freq_scalar, callback=on_log, on_step=on_step)
 
     # the checkpoint before the final validation, as in train.py
-    ckpt_lib.save_checkpoint(ckpt_file, trainer)
+    save(ckpt_file, trainer)
     print(f"[ckpt] saved to {ckpt_file}", flush=True)
     result = {"wall_s": time.time() - t0, "iters": trainer.it,
               "val_psnr": trainer.validate(val_data)["psnr"]}
-    if trainer.is_bat:
+    if pose_optimizing:
         result.update(trainer.pose_error())
     with open(os.path.join(out_dir, "quant.json"), "w") as f:
         json.dump(result, f, indent=2)

@@ -25,6 +25,16 @@ One .npz holds:
 * ``torch_generator_state``: the port's torch.Generator state (its device
   type in meta_json), which JAX's restore ignores.
 
+The trainers without phases (BARF / MLP-NeRF, and the planar images)
+use the simple checkpoint (checkpoint.py:111-157 of the JAX package):
+``state/<path>`` of the tree {"params", "opt_state"} under JAX's path
+strings (``state/['params']/.mlp/['feat']/[0]/['w']``,
+``state/['params']/.se3_refine``, ``state/['opt_state']/.mu/.mlp/...``,
+``state/['opt_state']/.count``; ``.mlp_fine/...`` with fine sampling; the
+planar params are a dict, ``state/['params']/['image']/['rank1']``), the
+``key``, BARF's ``pose_noise``, ``meta_json`` (it, the numpy generator's
+state, the torch generator's device) and ``torch_generator_state``.
+
 Each side restores the other's files: restore rebuilds the field at the
 stored shapes and box, the Adam moments and counts, the pose table and
 pose_base, and the alpha mask, then re-probes compact_k and app_k_dyn from
@@ -48,6 +58,7 @@ import torch
 from .. import convert
 from ..geometry import poses as pose_ops
 from ..models.alpha_mask import AlphaMask
+from ..utils import tree as tree_lib
 from .l2g import L2GState
 
 _GROUPS = ("density_planes", "density_lines", "app_planes", "app_lines")
@@ -213,6 +224,21 @@ def save_checkpoint(path: str, trainer, snapshot_path: str | None = None):
         shutil.copyfile(path, snapshot_path)
 
 
+def _restore_generator(data, meta: dict, generator: torch.Generator):
+    """The port's torch generator state, when the file holds one for this
+    device type (JAX's files hold none)."""
+    if "torch_generator_state" not in data.files:
+        return
+    if meta.get("torch_generator_device") == generator.device.type:
+        generator.set_state(torch.as_tensor(data["torch_generator_state"]))
+    else:
+        # another device's generator: its draws differ whatever its
+        # state, so the seeded one stays
+        print(f"[ckpt] torch generator state is for "
+              f"{meta.get('torch_generator_device')}, not "
+              f"{generator.device.type}: left as seeded", flush=True)
+
+
 def restore_checkpoint(path: str, trainer) -> None:
     """Restore ``trainer`` in place from a checkpoint of either package."""
     data = np.load(path, allow_pickle=False)
@@ -239,17 +265,7 @@ def restore_checkpoint(path: str, trainer) -> None:
     trainer.tv_color_weight = float(meta["tv_color_weight"])
     trainer.n_samples = int(meta["n_samples"])
     trainer.rng_np.bit_generator.state = meta["rng_state"]
-    if "torch_generator_state" in data.files:
-        if meta.get("torch_generator_device") == trainer.generator.device.type:
-            trainer.generator.set_state(
-                torch.as_tensor(data["torch_generator_state"]))
-        else:
-            # another device's generator: its draws differ whatever its
-            # state, so the seeded one stays
-            print(f"[ckpt] torch generator state is for "
-                  f"{meta.get('torch_generator_device')}, not "
-                  f"{trainer.generator.device.type}: left as seeded",
-                  flush=True)
+    _restore_generator(data, meta, trainer.generator)
     if "pose_noise" in data.files:
         trainer.pose_noise = torch.as_tensor(data["pose_noise"], device=dev)
         trainer.pose_base = pose_ops.compose(
@@ -264,3 +280,86 @@ def restore_checkpoint(path: str, trainer) -> None:
         trainer.compact_k = trainer._probe_compact_k()
         trainer.app_k_dyn = trainer._probe_app_k()
     trainer.last_step_config = None
+
+
+# ------------------------------------------- BARF / planar (no phases)
+_PATH_PART = re.compile(r"\['(\w+)'\]|\.(\w+)|\[(\d+)\]")
+
+
+def _simple_paths(node, path: str, attrs: bool, out: dict) -> dict:
+    """Nested numpy state -> {JAX path string: array}: the keys of a
+    dataclass level (``attrs``, BarfParams and AdamState) as ``.name``,
+    of a dict as ``['name']``, list items as ``[i]``."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if v is not None:
+                _simple_paths(v, f"{path}/.{k}" if attrs else
+                              f"{path}/['{k}']", False, out)
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            _simple_paths(v, f"{path}/[{i}]", False, out)
+    else:
+        out[path] = node
+    return out
+
+
+def _simple_tree(arrays: dict) -> dict:
+    """{JAX path string: array} -> the nested state (lists where JAX has
+    sequences)."""
+    return tree_lib.unflatten({
+        ".".join(next(g for g in m.groups() if g is not None)
+                 for m in _PATH_PART.finditer(key)): a
+        for key, a in arrays.items()})
+
+
+def save_simple_checkpoint(path: str, trainer,
+                           snapshot_path: str | None = None):
+    """Write a BarfTrainer's or PlanarTrainer's checkpoint to ``path``
+    (and a copy to ``snapshot_path`` when given)."""
+    d = convert.simple_to_numpy(trainer.params, trainer.opt_state)
+    attrs = trainer.jax_params_dataclass
+    arrays = _simple_paths(d["params"], "['params']", attrs, {})
+    for m in ("mu", "nu"):
+        _simple_paths(d["opt_state"][m], f"['opt_state']/.{m}", attrs,
+                      arrays)
+    arrays["['opt_state']/.count"] = np.int32(d["opt_state"]["count"])
+    payload = {f"state/{k}": v for k, v in arrays.items()}
+    seed = int(trainer.opt.get("seed", 0))
+    payload["key"] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    payload["torch_generator_state"] = trainer.generator.get_state().numpy()
+    if getattr(trainer, "pose_noise", None) is not None:
+        payload["pose_noise"] = trainer.pose_noise.cpu().numpy()
+    meta = {"it": trainer.it, "rng_state": trainer.rng_np.bit_generator.state,
+            "torch_generator_device": trainer.generator.device.type}
+    payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+    if snapshot_path is not None:
+        shutil.copyfile(path, snapshot_path)
+
+
+def restore_simple_checkpoint(path: str, trainer) -> None:
+    """Restore a BarfTrainer or PlanarTrainer in place from a simple
+    checkpoint of either package."""
+    data = np.load(path, allow_pickle=False)
+    meta = json.loads(bytes(data["meta_json"]).decode())
+    st = _simple_tree({k[len("state/"):]: data[k] for k in data.files
+                       if k.startswith("state/")})
+    want = set(trainer.params)
+    params, opt_state = convert.simple_state_from_numpy(
+        {"params": st["params"], "opt_state": st["opt_state"]},
+        device=trainer.device)
+    if set(params) != want:
+        raise KeyError(f"checkpoint leaves {sorted(set(params) ^ want)} do "
+                       f"not match the trainer's")
+    trainer.params, trainer.opt_state = params, opt_state
+    trainer.it = int(meta["it"])
+    trainer.rng_np.bit_generator.state = meta["rng_state"]
+    _restore_generator(data, meta, trainer.generator)
+    if "pose_noise" in data.files:
+        trainer.pose_noise = torch.as_tensor(data["pose_noise"],
+                                             device=trainer.device)
+        trainer.pose_base = pose_ops.compose(
+            [trainer.pose_noise, trainer.gt_poses])

@@ -4,9 +4,10 @@
 Not torch.optim.Adam, because of the frozen-leaf rule: a leaf whose
 learning rate is 0 keeps its parameter AND its moments, so a non-finite
 gradient reaching a frozen leaf cannot poison it for when its rate becomes
-nonzero.  Moments and the update are float32.  Parameters and moments are
-plain dicts {name: tensor}; updates return new tensors and the caller
-copies them into the parameters.
+nonzero.  Moments and the update are float32; a complex leaf steps its
+real part only, as in JAX (_real32).  Parameters and moments are plain
+dicts {name: tensor}; updates return new tensors and the caller copies
+them into the parameters.
 """
 from __future__ import annotations
 
@@ -32,6 +33,16 @@ def adam_init(params: dict) -> AdamState:
         count=0)
 
 
+def _real32(x):
+    """float32 of a leaf or gradient; of a complex one its real part, as
+    JAX's astype(float32) drops the imaginary part.  So a complex leaf
+    (planar_fft's factors) steps its real part only and comes back with
+    a zero imaginary part.  torch's .grad of a real loss with respect to
+    a complex leaf is the conjugate of JAX's gradient: the real parts
+    agree, so taking .real is exact."""
+    return x.real if x.is_complex() else x.to(torch.float32)
+
+
 def adam_update(grads: dict, state: AdamState, params: dict, lrs,
                 b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8):
     """One bias-corrected Adam step.  ``lrs``: {name: lr} or one lr.
@@ -47,10 +58,10 @@ def adam_update(grads: dict, state: AdamState, params: dict, lrs,
         if lr == 0.0:
             mu[k], nu[k], new_params[k] = state.mu[k], state.nu[k], p
             continue
-        g = grads[k].to(torch.float32)
+        g = _real32(grads[k])
         mu[k] = b1 * state.mu[k] + (1 - b1) * g
         nu[k] = b2 * state.nu[k] + (1 - b2) * torch.square(g)
-        new_params[k] = (p.to(torch.float32)
+        new_params[k] = (_real32(p)
                          - lr * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
                          ).to(p.dtype)
     return new_params, AdamState(mu=mu, nu=nu, count=count)
