@@ -31,8 +31,9 @@
    with in-bbox compaction, the dense-grid density and app_k below the
    gated count under the blur, with an alpha mask, group compaction and
    app_k, as TensoRF's step (no pose optimisation: the pose gradient
-   exactly zero), with bfloat16 factors, and with the dense grid's rows
-   read in bfloat16; and renders 3 views of the solids scene on the card
+   exactly zero), with bfloat16 factors, with the dense grid's rows
+   read in bfloat16, and on the dense path with soft edge masks; and
+   renders 3 views of the solids scene on the card
    and on the CPU (within 1e-5);
 6. drives K4 and K5 through their own entry points (sample_plane_binned
    forward + backward, scatter_add_rows_tiled), counters zeroed just
@@ -86,7 +87,25 @@
    the evaluate entry point in-process on the checkpoint (quant_pose.txt,
    quant.txt, quant_eval.json); then a small state's render_views and
    test-time pose gradient on the card against the CPU (check_small_eval);
-11. trains TensoRF (configs/tensorf_blender_VM.yaml on the blob scene at
+11. viz/ on the same trained state (run_viz_phase): two model_it*
+   snapshots (two steps apart), then the evaluate entry point in-process
+   with both videos on (VIZ_FRAMES = 8 novel-view frames, cut from JAX's
+   60; VIZ_TEST_ITER test-time steps a view), every render_views chunk at
+   K1 = 1, K2-K5 = 0 (counters zeroed around each), ms a frame, and the
+   files the installed packages call for (imageio, imageio_ffmpeg,
+   matplotlib: the mp4, PNG frames or frames.npz; poses.png and the pose
+   frames, or JAX's skip and failure lines); visualize_pose_gradient on
+   view 0 at 400x400 in chunks of 256 rays (K1 = K2 = 1, K3 = 0 each,
+   seconds, finite [3, 400, 400] maps); the maps of a small state on the
+   card against the CPU (check_small_grad_viz, 1e-3 of each map's max);
+   BAT's first phase with --soft_edge_mask=true
+   --+sync_2d_3d_scales=true for VIZ_STEPS steps (run_option_steps: each
+   step's launches against expected_launches, finite losses, soft masks;
+   step 5 also holds a small soft-mask step card against CPU); the train
+   CLI with --profiling=true at a tiny size (a trace with device kernels,
+   back at iteration 8) and both CLIs through run_cli with --pdb
+   (run_cli_options);
+12. trains TensoRF (configs/tensorf_blender_VM.yaml on the blob scene at
    its widths: 400x400, 12 views, 4096 rays, 128^3 -> 300^3, S up to
    1000, ranks 16/48) and BAT on the solids scene
    (configs/bat_synthetic_convergence_20k.yaml: 128^2, 100 views, 48^3 ->
@@ -94,11 +113,11 @@
    schedules (TENSORF_ARGS, SOLIDS_ARGS), with run_all_phases' checks,
    launches and per-phase lines and the scene's render time, and K1-K3 at
    each one's last-phase shapes;
-12. the variants (run_variants) at BAT's widths on the 64M-voxel grid,
+13. the variants (run_variants) at BAT's widths on the 64M-voxel grid,
    blurred: float32, bfloat16 factors and lane's bfloat16 dense-grid
    reads, 6 steps each (peak memory, step median, launches, the first
    loss against float32's), and one reset_on_last_upsample transition;
-13. trains L2G-BAT at BAT's widths (configs/l2g_bat_blender_VM.yaml:
+14. trains L2G-BAT at BAT's widths (configs/l2g_bat_blender_VM.yaml:
    400x400, 12 views, error map 128^2, warp MLP 64-64-6, embedding 32)
    through every phase of PHASES_ARGS' schedule with run_all_phases'
    checks and lines (the in-bbox budget probed from the registered poses,
@@ -107,7 +126,7 @@
    under sync debug "error", then 5 steps of
    configs/l2g_synthetic_convergence.yaml; K1-K3 at its last phase's
    shapes;
-14. trains BAT on the NDC route at configs/bat_llff_VM_MLP.yaml's widths
+15. trains BAT on the NDC route at configs/bat_llff_VM_MLP.yaml's widths
    (ranks 16/20, app_dim 20, MLP_Fea_WeakView 32 hidden, relu, S up to
    1000, 50^3 -> 800^3) on the facing scene at 480x640 with 20 views
    through LLFF_ARGS' 40 iterations (warmup_pose, the pose reset, the
@@ -121,7 +140,7 @@
    published first phase's 20480 rays x 1000 samples does not fit there,
    its line factors' one-hot gradient alone asks for a [19.44M, 771]
    float32 buffer of 60 GB; 10240 runs) and K3 into the grid's 510M rows;
-15. compares one small step of BARF (fine sampling, density noise, NDC
+16. compares one small step of BARF (fine sampling, density noise, NDC
    rays; at progress 0) and of each planar image on the card with the CPU
    from the same parameters and draws (check_small_mlp_planar: loss rel
    1e-5, gradients 1e-3 of each leaf's max), and reports BARF's distance
@@ -141,7 +160,7 @@
    whether torch.linalg.matrix_exp synchronises the host; the counters
    zeroed before and read after each piece: K1-K5 launch 0 times there
    (none lies on these paths, as no Pallas kernel does in JAX);
-16. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+17. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -202,6 +221,27 @@ VARIANT_STEPS = 6
 # from BAT's 400 steps to 40
 EVAL_ARGS = ["--data.val_sub=4"]
 EVAL_TEST_ITER = 40
+# the viz phase on the same trained state: the novel-view video cut from
+# JAX's 60 frames to 8, the test-time optimisation (run in step 10 at 40
+# steps) cut to 4 steps a view; the pose-gradient maps in JAX's chunks of
+# 256 rays; BAT's first phase with the two options of the paper's edge
+# mask and blur schedule, VIZ_STEPS steps
+VIZ_FRAMES = 8
+VIZ_TEST_ITER = 4
+GRAD_CHUNK = 256
+VIZ_OPTIONS = ["--soft_edge_mask=true", "--+sync_2d_3d_scales=true"]
+VIZ_STEPS = 10
+# the CLIs' small runs (profiling, --pdb): BAT on a 32x32 scene
+TINY_CLI_ARGS = ["--data.dataset=synthetic", "--data.image_size=[32,32]",
+                 "--data.n_views=4", "--data.val_sub=2",
+                 "--train_schedule.n_voxel_init=4096",
+                 "--train_schedule.n_voxel_final=32768",
+                 "--train_schedule.n_rays_init=256", "--c2f_kernel_size=8",
+                 "--blur_2d_c2f_kernel_size=15", "--max_iter=12",
+                 "--train_schedule.upsample_iters=[4,8]",
+                 "--train_schedule.update_alphamask_iters=[6]",
+                 "--freq.scalar=2", "--freq.val=0", "--freq.ckpt=6",
+                 "--+tb_logging=false"]
 # L2G-BAT's solids convergence config: steps run
 L2G_CONV_STEPS = 5
 # BAT on the NDC route (configs/bat_llff_VM_MLP.yaml) on the facing scene at
@@ -731,7 +771,11 @@ def check_small_step():
     both); that compacted dense-grid step with bfloat16 factors (gradients
     within 2^-7 of each bf16 leaf's max: a bf16 gradient keeps 8 mantissa
     bits, and a float32 sum in another order can round it one ulp apart);
-    and with the dense grid's rows read in bfloat16 (lane's bf16 reads)."""
+    and with the dense grid's rows read in bfloat16 (lane's bf16 reads);
+    and the dense path under the blur with soft edge masks (soft_edge_mask:
+    each device computes the mask from the scene's images;
+    sync_2d_3d_scales changes only host-drawn scalars, which the CPU tests
+    hold against JAX's draws)."""
     import copy
     import dataclasses
 
@@ -741,6 +785,7 @@ def check_small_step():
     from joint_tensorf_tpu_torch.geometry import lie, poses
     from joint_tensorf_tpu_torch.models import vm as vm_lib
     from joint_tensorf_tpu_torch.models.alpha_mask import AlphaMask
+    from joint_tensorf_tpu_torch.ops import sobel
     from joint_tensorf_tpu_torch.render.renderer import BlurSpec
     from joint_tensorf_tpu_torch.train.step import (StepConfig, StepScalars,
                                                     init_train_state,
@@ -779,7 +824,8 @@ def check_small_step():
             compacted, blur=None, pose_opt=False), None, False),
         "bf16_factors": (compacted, None, True),
         "lane_bf16_reads": (dataclasses.replace(
-            compacted, densify_dtype="bfloat16"), None, False)}
+            compacted, densify_dtype="bfloat16"), None, False),
+        "soft_edge_mask": (base, None, False)}
     bf16_field = vm_lib._with_factors(
         field, lambda i, p: p.to(torch.bfloat16),
         lambda i, l: l.to(torch.bfloat16))
@@ -795,10 +841,12 @@ def check_small_step():
             st = init_train_state(f, V)
             se3 = st.se3_refine.detach().clone()
             mv = lambda t: t.to(dev)  # noqa: E731
+            e = (sobel.soft_edge_mask(mv(torch.as_tensor(scene.images)))
+                 if name == "soft_edge_mask" else mv(edges))
             metrics, grads = train_step(
                 st, scfg, cfg, mv(pose_base),
                 mv(torch.as_tensor(scene.intr_inv)), mv(images.contiguous()),
-                mv(edges), mv(view_sel), mv(ray_idx), s, jitter=mv(jitter),
+                e, mv(view_sel), mv(ray_idx), s, jitter=mv(jitter),
                 alpha_mask=None if am is None else AlphaMask(
                     grid=mv(am.grid), aabb=mv(am.aabb)), stats=True)
             out[dev] = (float(metrics["loss"]),
@@ -1739,6 +1787,387 @@ def check_small_eval():
         fail(f"small eval: card vs CPU render {render_err:.3g}, pose "
              f"gradient {g_err:.3g}, budgets {cfgs['cuda'].compact_k} / "
              f"{cfgs['cpu'].compact_k}")
+    return result
+
+
+# ---------------------------------------------------------------- viz
+def _imports(name: str) -> bool:
+    import importlib
+
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
+def _check_viz_files(run_dir, printed, snaps, n_views, have) -> list:
+    """The files evaluate wrote for the installed packages (``have``:
+    imageio, imageio_ffmpeg, matplotlib), or, where one is missing, the
+    lines the JAX package's evaluate prints in its place.  -> faults."""
+    import numpy as np
+
+    faults = []
+    files = set(os.listdir(run_dir))
+    frames = os.path.join(run_dir, "novel_views_frames")
+    if have["imageio"] and have["imageio_ffmpeg"]:
+        if "novel_views.mp4" not in files:
+            faults.append("no novel_views.mp4")
+    elif have["imageio"]:
+        if sorted(os.listdir(frames)) != [f"{i:04d}.png"
+                                          for i in range(VIZ_FRAMES)]:
+            faults.append(f"novel_views_frames: {os.listdir(frames)}")
+    else:
+        with np.load(os.path.join(frames, "frames.npz")) as z:
+            arrs = [z[k] for k in z.files]
+        if len(arrs) != VIZ_FRAMES or any(
+                a.shape != (400, 400, 3) or a.dtype != np.uint8
+                for a in arrs):
+            faults.append(f"frames.npz: {[(a.shape, a.dtype) for a in arrs]}")
+    if have["matplotlib"]:
+        pose_frames = sorted(os.listdir(os.path.join(run_dir, "poses")))
+        if "poses.png" not in files or \
+                pose_frames != sorted(f"{it}.png" for it in snaps):
+            faults.append(f"pose plot / frames: {sorted(files)}, "
+                          f"{pose_frames}")
+        video = ("poses.mp4" if have["imageio_ffmpeg"] else "poses_frames"
+                 if have["imageio"] else "poses")
+        if f"[video] wrote {os.path.join(run_dir, video)}" not in printed:
+            faults.append(f"the pose video is not {video}")
+    elif "[vis] pose plot skipped: " not in printed or \
+            "[video] pose video failed: " not in printed:
+        faults.append("no pose-plot skip / pose-video failure line")
+    if have["imageio"]:
+        dumped = sorted(os.listdir(os.path.join(run_dir, "test_renders")))
+        if dumped != [f"rgb_{i}.png" for i in range(min(n_views, 8))]:
+            faults.append(f"test_renders: {dumped}")
+    elif "[vis] skipped image dump: " not in printed:
+        faults.append("no image-dump skip line")
+    return faults
+
+
+def run_viz_phase(trainer, data):
+    """viz/ at BAT's full width on the default path's trained trainer
+    (after run_eval_phase):
+
+    1. two snapshots into a temporary run directory: model_it{it - 2} of
+       the trained state, then two more steps and model_it{it} (also
+       model.ckpt.npz);
+    2. the evaluate entry point in-process on that directory with both
+       videos on (the config's defaults), VIZ_FRAMES frames and
+       VIZ_TEST_ITER test-time steps a view; every render_views call is
+       observed with the counters zeroed around each 4096-ray chunk (K1 =
+       1, K2-K5 = 0) and timed (ms a novel-view frame); the files that the
+       installed packages call for (_check_viz_files);
+    3. visualize_pose_gradient on training view 0 at 400x400 in chunks of
+       GRAD_CHUNK rays, the counters zeroed around each (K1 = 1, K2 = 1,
+       K3-K5 = 0): seconds, finite [3, 400, 400] rotation and translation
+       maps.
+    Prints one [viz] line per part; returns {"viz": ...}."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from joint_tensorf_tpu_torch import evaluate
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.checkpoint import save_checkpoint
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    have = {m: _imports(m) for m in ("imageio", "imageio_ffmpeg",
+                                     "matplotlib")}
+    print(f"[viz] packages that import: {have}", flush=True)
+    expect_chunk = {k: 0 for k in cuda_build.LAUNCHES}
+    expect_chunk["composite_fwd"] = 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_viz_")
+    faults, out = [], {"packages": have}
+    try:
+        # ---------------- 1. two snapshots
+        run_dir = os.path.join(tmp, "default", "viz")
+        os.makedirs(run_dir)
+        ckpt = os.path.join(run_dir, "model.ckpt.npz")
+        trainer.it -= 2
+        snaps = [trainer.it, trainer.it + 2]
+        for it in snaps:
+            trainer.run(max_iter=it)
+            save_checkpoint(ckpt, trainer, snapshot_path=os.path.join(
+                run_dir, f"model_it{it}.ckpt.npz"))
+
+        # ---------------- 2. evaluate, every render_views call observed
+        calls = []
+        render_views = Trainer.render_views
+
+        def observed(self, pose, intr, intr_inv, chunk=4096, on_chunk=None):
+            chunks = []
+
+            def on(i):
+                chunks.append(dict(cuda_build.LAUNCHES))
+                cuda_build.reset_launches()
+
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            r = render_views(self, pose, intr, intr_inv, chunk, on)
+            torch.cuda.synchronize()
+            rcfg = self.last_eval_config
+            calls.append({"views": int(pose.shape[0]),
+                          "s": time.perf_counter() - t0, "chunks": chunks,
+                          "eval_compact_k": rcfg.compact_k,
+                          "dense_grid": rcfg.densify_density})
+            return r
+
+        buf = io.StringIO()
+        Trainer.render_views = observed
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                quant = evaluate.main([
+                    f"--yaml={os.path.join(HERE, 'configs', 'bat_blender_VM.yaml')}",
+                    *PHASES_ARGS, *EVAL_ARGS, f"--output_root={tmp}",
+                    "--name=viz", f"--optim.test_iter={VIZ_TEST_ITER}",
+                    f"--video_n_frames={VIZ_FRAMES}", "--+tb_logging=false"])
+        finally:
+            Trainer.render_views = render_views
+        eval_s = time.perf_counter() - t0
+        printed = buf.getvalue()
+        for line in printed.splitlines():
+            if line.startswith(("[video]", "[vis]")):
+                print(f"[viz] evaluate: {line}", flush=True)
+        with open(os.path.join(run_dir, "quant.txt")) as f:
+            n_test = sum(1 for _ in f)
+        bad = [c for call in calls for c in call["chunks"]
+               if c != expect_chunk]
+        if [c["views"] for c in calls] != [n_test, VIZ_FRAMES] or bad:
+            faults.append(f"evaluate: render_views calls "
+                          f"{[(c['views'], len(c['chunks'])) for c in calls]}"
+                          f", {len(bad)} chunks launched otherwise than "
+                          f"{expect_chunk}: {bad[:2]}")
+        faults += [f"evaluate: {f}" for f in _check_viz_files(
+            run_dir, printed, snaps, n_test, have)]
+        frame_ms = calls[-1]["s"] * 1e3 / VIZ_FRAMES if calls else None
+        out["evaluate"] = {
+            "s": eval_s, "snapshots": snaps, "frames": VIZ_FRAMES,
+            "test_iter": VIZ_TEST_ITER, "psnr": quant["psnr"],
+            "render_views_calls": [
+                dict(c, chunks=len(c["chunks"])) for c in calls],
+            "launches_per_chunk": expect_chunk, "ms_per_frame": frame_ms,
+            "files": sorted(os.listdir(run_dir))}
+        print(f"[viz] evaluate with both videos: {eval_s:.1f} s, "
+              f"{VIZ_FRAMES} novel-view frames at {frame_ms:.1f} ms a frame "
+              f"(eval budget {calls[-1]['eval_compact_k']}, dense grid "
+              f"{calls[-1]['dense_grid']}), "
+              f"{sum(len(c['chunks']) for c in calls)} chunks at K1 1 / "
+              f"K2-K5 0 each, wrote {sorted(os.listdir(run_dir))}",
+              flush=True)
+
+        # ---------------- 3. pose-gradient maps of view 0
+        expect_grad = dict(expect_chunk, composite_bwd=1)
+        chunks = []
+
+        def on_chunk(i):
+            chunks.append(dict(cuda_build.LAUNCHES))
+            cuda_build.reset_launches()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        maps = trainer.visualize_pose_gradient(view=0, n_rays_chunk=GRAD_CHUNK,
+                                               on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        bad = [c for c in chunks if c != expect_grad]
+        n_chunks = -(-trainer.H * trainer.W // GRAD_CHUNK)
+        if bad or len(chunks) != n_chunks:
+            faults.append(f"grad viz: {len(bad)} of {len(chunks)} chunks "
+                          f"launched otherwise than {expect_grad}: {bad[:2]}")
+        for name, m in zip(("rot", "trans"), maps):
+            if m.shape != (3, trainer.H, trainer.W) or \
+                    not np.isfinite(m).all() or not np.abs(m).max() > 0:
+                faults.append(f"grad viz: {name} map {m.shape}, finite "
+                              f"{np.isfinite(m).all()}")
+        out["grad_viz"] = {
+            "view": 0, "hw": [trainer.H, trainer.W], "chunk": GRAD_CHUNK,
+            "chunks": len(chunks), "n_samples": trainer.n_samples,
+            "launches_per_chunk": expect_grad, "s": grad_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "max_abs": [float(np.abs(m).max()) for m in maps]}
+        print(f"[viz] pose-gradient maps of view 0, {trainer.H}x{trainer.W} "
+              f"x S {trainer.n_samples}: {len(chunks)} chunks of "
+              f"{GRAD_CHUNK} rays at K1 1 / K2 1 / K3 0 each, {grad_s:.2f} s, "
+              f"peak {out['grad_viz']['peak_mem_gb']:.2f} GB", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {"viz": out}
+    if faults:
+        emit(result)
+        fail("viz: " + "; ".join(faults))
+    return result
+
+
+def check_small_grad_viz():
+    """Pose-gradient maps of a small state on the card (K1/K2) and on the
+    CPU (plain versions): the CPU trainer's warm-started state (random pose
+    refinement) restored into a card trainer; view 0 at 30x30 in chunks of
+    GRAD_CHUNK rays (900 pixels: the last chunk pads); each of the six maps
+    within 1e-3 of its largest entry."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                          save_checkpoint)
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
+                      ["--data.dataset=synthetic", "--data.image_size=[30,30]",
+                       "--data.n_views=4",
+                       "--train_schedule.n_voxel_init=262144"])
+    trainers = {dev: Trainer(opt, load_dataset(opt, "train", device=dev),
+                             device=dev) for dev in ("cpu", "cuda")}
+    cpu, card = trainers["cpu"], trainers["cuda"]
+    warm_start_density(cpu, int(opt.data.get("seed", 0)))
+    with torch.no_grad():
+        cpu.state.se3_refine.copy_(torch.randn(
+            cpu.state.se3_refine.shape,
+            generator=torch.Generator().manual_seed(3)) * 0.01)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.ckpt.npz")
+        save_checkpoint(path, cpu)
+        restore_checkpoint(path, card)
+    maps = {dev: t.visualize_pose_gradient(view=0, n_rays_chunk=GRAD_CHUNK)
+            for dev, t in trainers.items()}
+    worst = 0.0
+    for g, c in zip(maps["cuda"], maps["cpu"]):
+        for i in range(3):
+            scale = float(np.abs(c[i]).max())
+            worst = max(worst, float(np.abs(g[i] - c[i]).max()) / (
+                scale + 1e-30) if scale > 0 else float("inf"))
+    result = {"small_grad_viz": {"hw": [cpu.H, cpu.W],
+                                 "n_samples": cpu.n_samples,
+                                 "max_err_rel": worst}}
+    print(f"[viz] small state card vs CPU: pose-gradient maps within "
+          f"{worst:.3g} of each map's max", flush=True)
+    if not worst <= 1e-3:
+        emit(result)
+        fail(f"small grad viz: card vs CPU {worst:.3g} of a map's max")
+    return result
+
+
+def run_option_steps():
+    """BAT's first phase at full width (configs/bat_blender_VM.yaml on the
+    procedural scene) with VIZ_OPTIONS (soft edge masks, one random scale
+    for the 2D and 3D blurs) for VIZ_STEPS steps through Trainer.run, the
+    counters zeroed before each step and read after it: every step's
+    launches against expected_launches (K1 = K2 = 1, K3 = 4 with the dense
+    grid); finite losses; the edge masks soft (values strictly between 0
+    and 1, each view's largest 1).  Returns {"option_steps": ...}."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
+                      ["--data.dataset=synthetic", *VIZ_OPTIONS])
+    trainer = Trainer(opt, load_dataset(opt, "train", device="cuda"),
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses, faults, configs = [], [], [], set()
+
+    def on_step(tr, m):
+        if m is None:
+            cuda_build.reset_launches()
+            return
+        want = expected_launches(tr.last_step_config)
+        configs.add(step_config_summary(tr.last_step_config))
+        if dict(cuda_build.LAUNCHES) != want:
+            faults.append(f"it {tr.it}: launched {dict(cuda_build.LAUNCHES)},"
+                          f" expected {want}")
+
+    def on_log(tr, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    cuda_build.reset_launches()
+    stamps.append(time.perf_counter())
+    trainer.run(max_iter=VIZ_STEPS, log_every=1, callback=on_log,
+                on_step=on_step)
+    steps = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    if len(losses) != VIZ_STEPS or not all(map(math.isfinite, losses)):
+        faults.append(f"losses {losses}")
+    soft = [m for sc, m in trainer.edge_masks.items() if sc > 0]
+    if not soft or not all(bool(((m > 0) & (m < 1)).any()) and torch.allclose(
+            m.max(dim=1).values, torch.ones_like(m[:, 0])) for m in soft):
+        faults.append("the edge masks are not soft")
+    result = {"option_steps": {
+        "options": VIZ_OPTIONS, "steps": VIZ_STEPS, "loss": losses,
+        "step_configs": [dict(c) for c in configs],
+        "launches_per_step": expected_launches(trainer.last_step_config),
+        "step_ms_first": steps[0], "step_ms_median": statistics.median(
+            steps[1:]), "step_ms_all": steps,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
+    print(f"[viz] first phase with {' '.join(VIZ_OPTIONS)}: {VIZ_STEPS} steps"
+          f", median {result['option_steps']['step_ms_median']:.1f} ms "
+          f"(first {steps[0]:.1f}), launches as configured: {not faults}",
+          flush=True)
+    if faults:
+        emit(result)
+        fail("option steps: " + "; ".join(faults[:4]))
+    return result
+
+
+def run_cli_options():
+    """The train CLI with --profiling=true on TINY_CLI_ARGS (a trace file
+    with device kernels, the CLI back at iteration 8), then the train and
+    evaluate CLIs through run_cli with --pdb on a run that succeeds
+    (evaluate with its defaults: both videos from the train run's
+    snapshots).  Returns {"cli_options": ...}."""
+    import shutil
+    import tempfile
+
+    from joint_tensorf_tpu_torch import evaluate
+    from joint_tensorf_tpu_torch.train import __main__ as train_cli
+    from joint_tensorf_tpu_torch.utils import run_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    args = [f"--yaml={os.path.join(HERE, 'configs', 'bat_blender_VM.yaml')}",
+            *TINY_CLI_ARGS, f"--output_root={tmp}"]
+    try:
+        t0 = time.perf_counter()
+        prof = train_cli.main(args + ["--name=prof", "--profiling=true"])
+        prof_s = time.perf_counter() - t0
+        with open(prof["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        t0 = time.perf_counter()
+        run_cli(train_cli.main, args + ["--name=pdb", "--pdb"])
+        quant = run_cli(evaluate.main, args + ["--name=pdb", "--pdb",
+                                               "--optim.test_iter=2"])
+        pdb_s = time.perf_counter() - t0
+        written = sorted(os.listdir(os.path.join(tmp, "default", "pdb")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = {"cli_options": {
+        "profiling": {"iters": prof["iters"], "trace_events": len(events),
+                      "kernel_events": kernels, "s": prof_s},
+        "pdb": {"s": pdb_s, "psnr": quant["psnr"], "files": written}}}
+    print(f"[viz] train CLI --profiling=true: back at it {prof['iters']}, "
+          f"trace of {len(events)} events ({kernels} device kernels); both "
+          f"CLIs with --pdb: {pdb_s:.1f} s, wrote {written}", flush=True)
+    if prof["iters"] != 8 or kernels == 0 or not math.isfinite(
+            quant["psnr"]):
+        emit(result)
+        fail(f"CLI options: {result}")
     return result
 
 
@@ -2798,11 +3227,17 @@ def main(argv):
     print(f"[bat] host syncs per step (sync debug 'warn', last phase, "
           f"schedule updates included): {syncs}", flush=True)
     emit({"bat_host_syncs_per_step": syncs})
-    # evaluation on the default path's trained state, then its trainer goes
+    # evaluation and viz/ on the default path's trained state, then its
+    # trainer goes
     emit(run_eval_phase(*trained))
+    emit(run_viz_phase(*trained))
     del trained
     torch.cuda.empty_cache()
     emit(check_small_eval())
+    emit(check_small_grad_viz())
+    emit(run_option_steps())
+    torch.cuda.empty_cache()
+    emit(run_cli_options())
     # the alternatives off, at the same cut schedule: every slot of S =
     # 1000 composited, K3 on the fused planes' 4 x 64 channels
     n_rays, S, res, _, _, _ = run_all_phases("alternatives_off",

@@ -2,7 +2,9 @@
 (counterpart of joint_tensorf_tpu/data/base.py).
 
 Loaders produce a SceneData of host (numpy) arrays; the trainer uploads it
-once to its device.
+once to its device.  The colour augmentation (generate_augmentation,
+apply_color_jitter) is numpy on the host, drawn from the caller's
+generator.
 """
 from __future__ import annotations
 
@@ -85,6 +87,65 @@ def resize_images(images: np.ndarray, target_hw) -> np.ndarray:
     if W != w:
         out = torch.einsum("bchw,wx->bchx", out, _resize_weights(W, w))
     return out.numpy()
+
+
+def generate_augmentation(opt, rng: np.random.Generator) -> dict:
+    """One augmentation drawn from ``rng`` as the reference draws it
+    (data/base.py:74-90): brightness, contrast, saturation factors uniform
+    in 1 +- data.augment's value, hue uniform in +-hue, a horizontal flip
+    (with augment.hflip) and a rotation angle (with augment.rotate).  No
+    trainer calls it, in either package."""
+    aug_cfg = opt.data.get("augment") or {}
+
+    def _rng(lo, hi):
+        return float(rng.uniform(lo, hi))
+    b = float(aug_cfg.get("brightness") or 0.0)
+    c = float(aug_cfg.get("contrast") or 0.0)
+    s = float(aug_cfg.get("saturation") or 0.0)
+    h = float(aug_cfg.get("hue") or 0.0)
+    return {
+        "brightness": _rng(1 - b, 1 + b),
+        "contrast": _rng(1 - c, 1 + c),
+        "saturation": _rng(1 - s, 1 + s),
+        "hue": _rng(-h, h),
+        "flip": bool(rng.standard_normal() > 0) if aug_cfg.get("hflip")
+                else False,
+        "rot_angle": ((rng.random() * 2 - 1) * float(aug_cfg["rotate"])
+                      if aug_cfg.get("rotate") else 0.0),
+    }
+
+
+def apply_color_jitter(images: np.ndarray, aug: dict) -> np.ndarray:
+    """Brightness, contrast, saturation and hue of ``aug`` on [..., 3, H, W]
+    float images in [0, 1], then the flip: each step clipped to [0, 1],
+    the hue as a rotation in YIQ space (JAX's approximation of
+    torchvision's HSV shift)."""
+    img = images.astype(np.float32)
+    img = np.clip(img * aug["brightness"], 0, 1)
+    gray = (0.299 * img[..., 0, :, :] + 0.587 * img[..., 1, :, :]
+            + 0.114 * img[..., 2, :, :])
+    img = np.clip(aug["contrast"] * img
+                  + (1 - aug["contrast"]) * gray.mean(
+                      axis=(-2, -1), keepdims=True)[..., None, :, :], 0, 1)
+    img = np.clip(aug["saturation"] * img
+                  + (1 - aug["saturation"]) * gray[..., None, :, :], 0, 1)
+    if aug["hue"]:
+        theta = 2 * np.pi * aug["hue"]
+        u, w = np.cos(theta), np.sin(theta)
+        t = np.array([
+            [0.299 + 0.701 * u + 0.168 * w,
+             0.587 - 0.587 * u + 0.330 * w,
+             0.114 - 0.114 * u - 0.497 * w],
+            [0.299 - 0.299 * u - 0.328 * w,
+             0.587 + 0.413 * u + 0.035 * w,
+             0.114 - 0.114 * u + 0.292 * w],
+            [0.299 - 0.300 * u + 1.250 * w,
+             0.587 - 0.588 * u - 1.050 * w,
+             0.114 + 0.886 * u - 0.203 * w]], np.float32)
+        img = np.clip(np.einsum("ij,...jhw->...ihw", t, img), 0, 1)
+    if aug.get("flip"):
+        img = img[..., ::-1]
+    return np.ascontiguousarray(img)
 
 
 def load_dataset(opt, split: str = "train", subset: int | None = None,

@@ -4,7 +4,8 @@ evaluate.py:19-268, for ``model: bat``, ``l2g_bat``, ``tensorf``,
 
     python -m joint_tensorf_tpu_torch.evaluate --yaml=configs/bat_blender_VM.yaml \
         [--ckpt=output/<group>/<name>/model.ckpt.npz] [--device=cpu] \
-        --generate_video=false --generate_pose_video=false [--key=value ...]
+        [--generate_video=false] [--generate_pose_video=false] [--pdb] \
+        [--key=value ...]
 
 Restores the checkpoint (either package's).  With BAT (and L2G-BAT,
 whose training poses are its registered ones) it writes the training
@@ -22,14 +23,35 @@ a test split (LLFF-style captures name their held-out frames "val") is
 evaluated on its val split.  Then it measures the static caps' clip
 rates, renders the test views and writes per-view PSNR / SSIM
 (``quant.txt``) and their means with the clip rates and, with BAT, the
-pose errors (``quant_eval.json``, also ``summary.json``).  LPIPS is not computed (``lpips_note`` says so).
+pose errors (``quant_eval.json``, also ``summary.json``).  LPIPS is not
+computed (``lpips_note`` says so).
 
-Runs on ``cuda`` unless ``--device=cpu`` is given.  The novel-view and
-pose videos, the pose plot and the PNG dump of the renders belong to the
-viz/ slice, not ported: ``generate_video`` and, with BAT,
-``generate_pose_video`` (both on unless set false) raise
-NotImplementedError naming the key; the plot and the dump are no options,
-and one line says they are skipped.
+The visual outputs, in evaluate.py's order (viz/):
+
+* with pose optimisation (BAT, L2G-BAT, BARF), ``poses.png``: the
+  aligned training poses against GT, after quant_pose.txt;
+* with ``generate_video`` (on unless set false), after summary.json: an
+  orbit of ``video_n_frames`` views (60 unless set) around
+  data.scene_bbox at the first test view's intrinsics, rendered by
+  render_views, as ``novel_views.mp4`` at 15 frames a second;
+* with pose optimisation and ``generate_pose_video`` (on unless set
+  false), the pose plot of every ``model_it{N}.ckpt.npz`` snapshot as
+  ``poses/<N>.png``, assembled into ``poses.mp4``; the final checkpoint
+  is restored after it;
+* ``test_renders/rgb_{i}.png`` of the first 8 test views.
+
+Which files appear depends on the installed packages, as in the JAX
+package: a video is an mp4 when imageio has its ffmpeg backend
+(imageio_ffmpeg), else ``<stem>_frames/NNNN.png`` when imageio imports,
+else ``<stem>_frames/frames.npz``; the pose plot and the pose video's
+frames need matplotlib (without it, ``[vis] pose plot skipped: ...`` and
+``[video] pose video failed: ...`` are printed); the poses.mp4 frames are
+read back and the PNG dump written with imageio (without it, the frame
+directory stands for the video and ``[vis] skipped image dump: ...`` is
+printed).
+
+Runs on ``cuda`` unless ``--device=cpu`` is given.  ``--pdb`` opens a
+post-mortem debugger on an exception (utils/cli.py).
 """
 from __future__ import annotations
 
@@ -75,12 +97,6 @@ def main(argv) -> dict:
     opt = set_options(yaml_path, rest, allow_new_keys=("generate_pose_video",))
     is_mlp = opt.model in ("barf", "nerf")
     pose_optimizing = opt.model in ("bat", "l2g_bat", "barf")
-    for key in (("generate_video", "generate_pose_video") if pose_optimizing
-                else ("generate_video",)):
-        if opt.get(key, True):
-            raise NotImplementedError(
-                f"option {key}=true is not ported yet (viz/, a later slice "
-                f"of the PyTorch port); pass --{key}=false")
     out_dir = os.path.join(opt.get("output_root", "output"),
                            str(opt.get("group", "default")),
                            str(opt.get("name", "run")))
@@ -96,13 +112,13 @@ def main(argv) -> dict:
                                  device=device)
     if is_mlp:
         trainer = BarfTrainer(opt, train_data, device=device)
-        restore_simple_checkpoint(ckpt_path, trainer)
-        desc = ""
+        restore_fn = restore_simple_checkpoint
     else:
         trainer = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
             opt, train_data, device=device)
-        restore_checkpoint(ckpt_path, trainer)
-        desc = f" res={trainer.resolution}"
+        restore_fn = restore_checkpoint
+    restore_fn(ckpt_path, trainer)
+    desc = "" if is_mlp else f" res={trainer.resolution}"
     dev = trainer.device
     print(f"[ckpt] restored it={trainer.it}{desc}", flush=True)
 
@@ -124,11 +140,13 @@ def main(argv) -> dict:
             for i, (r, t) in enumerate(zip(r_err.cpu().numpy(),
                                            t_err.cpu().numpy())):
                 f.write(f"{i} {r} {t}\n")
-        print("[vis] the pose plot and the PNG dump of the renders are not "
-              "ported yet (viz/)", flush=True)
-    else:
-        print("[vis] the PNG dump of the renders is not ported yet (viz/)",
-              flush=True)
+        try:
+            from .viz.poses_plot import plot_poses_3d
+
+            plot_poses_3d(os.path.join(out_dir, "poses.png"), aligned,
+                          pose_GT, title=f"aligned vs GT (it={trainer.it})")
+        except Exception as e:   # noqa: BLE001 - optional, as in evaluate.py
+            print(f"[vis] pose plot skipped: {e}", flush=True)
 
     V, H, W = test_data.n_views, test_data.H, test_data.W
     images = torch.as_tensor(test_data.images, device=dev)
@@ -199,8 +217,55 @@ def main(argv) -> dict:
     logger.summary(results)
     logger.close()
     print("[done]", json.dumps(results), flush=True)
+
+    # ---- novel-view video: an orbit around the scene box
+    if opt.get("generate_video", True):
+        from .viz.novel_views import novel_view_around_bbox
+        from .viz.video import write_video
+
+        n_frames = int(opt.get("video_n_frames", 60))
+        novel = novel_view_around_bbox(opt.data.scene_bbox, n=n_frames,
+                                       device=dev)
+        rgb_nv, _, _ = trainer.render_views(
+            novel, intr[:1].expand(n_frames, 3, 3),
+            intr_inv[:1].expand(n_frames, 3, 3))
+        frames = rgb_nv.reshape(n_frames, H, W, 3).cpu().numpy()
+        vid_path = write_video(os.path.join(out_dir, "novel_views.mp4"),
+                               frames, fps=15)
+        print(f"[video] wrote {vid_path}", flush=True)
+
+    # ---- pose-trajectory video over the per-iteration snapshots
+    if pose_optimizing and opt.get("generate_pose_video", True):
+        from .viz.pose_video import generate_pose_video
+
+        try:
+            vid = generate_pose_video(out_dir, trainer, restore_fn)
+        except Exception as e:   # noqa: BLE001 - optional, as in evaluate.py
+            vid = None
+            print(f"[video] pose video failed: {e}", flush=True)
+        if vid:
+            print(f"[video] wrote {vid}", flush=True)
+            restore_fn(ckpt_path, trainer)      # back to the final state
+        else:
+            print("[video] no per-iter snapshots; pose video skipped "
+                  "(set freq.ckpt to record them)", flush=True)
+
+    # ---- the first renders as PNGs
+    vis_dir = os.path.join(out_dir, "test_renders")
+    os.makedirs(vis_dir, exist_ok=True)
+    try:
+        import imageio.v2 as imageio
+
+        for i in range(min(V, 8)):
+            img = rgb[i].reshape(H, W, 3).cpu().numpy()
+            imageio.imwrite(os.path.join(vis_dir, f"rgb_{i}.png"),
+                            (img * 255).astype(np.uint8))
+    except Exception as e:   # noqa: BLE001 - optional, as in evaluate.py
+        print(f"[vis] skipped image dump: {e}", flush=True)
     return results
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    from .utils import run_cli
+
+    run_cli(main, sys.argv[1:])

@@ -2,7 +2,8 @@
 (counterpart of joint_tensorf_tpu/ops/sobel.py).
 
 3x3 Sobel over replicate-padded RGB images, gradient summed across
-channels, magnitude thresholded at mean * thresh.  Written as nine shifted
+channels; the hard mask thresholds the magnitude at mean * thresh, the
+soft one divides it by each image's largest.  Written as nine shifted
 multiply-adds, like the reference, so no cuDNN convolution (and no TF32
 rounding) is involved.
 """
@@ -42,3 +43,11 @@ def hard_edge_mask(images, mean_thresh: float = 1.25):
     gg = edge_magnitude(images).reshape(B, -1)
     mean = gg.mean(dim=1, keepdim=True)
     return (gg > mean * mean_thresh).to(torch.uint8)
+
+
+def soft_edge_mask(images):
+    """[B,3,H,W] -> float mask [B, H*W]: the magnitude over each image's
+    largest."""
+    B = images.shape[0]
+    gg = edge_magnitude(images).reshape(B, -1)
+    return gg / gg.max(dim=1, keepdim=True).values

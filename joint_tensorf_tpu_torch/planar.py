@@ -2,7 +2,7 @@
 repository's planar.py:14-87, the reference's train_2d.py).
 
     python -m joint_tensorf_tpu_torch.planar --yaml=configs/planar_bat.yaml \
-        [--device=cpu] [--key=value ...]
+        [--device=cpu] [--key=value ...] [--pdb]
 
 Trains the SVD, FFT or MLP image (``model: planar_svd``, ``planar_fft``,
 ``planar``) with its per-patch warps (train/planar_trainer.py) and writes
@@ -80,4 +80,6 @@ def main(argv) -> dict:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    from .utils import run_cli
+
+    run_cli(main, sys.argv[1:])

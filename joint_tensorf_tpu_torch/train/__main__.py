@@ -2,7 +2,7 @@
 for ``model: bat``, ``l2g_bat``, ``tensorf``, ``barf`` and ``nerf``).
 
     python -m joint_tensorf_tpu_torch.train --yaml=configs/bat_blender_VM.yaml \
-        --data.dataset=synthetic [--key=value ...] [--device=cpu]
+        --data.dataset=synthetic [--key=value ...] [--device=cpu] [--pdb]
 
 Loads the config (dotted overrides as in train.py), renders the procedural
 scene on the device (or reads a Blender, LLFF, t2 or iPhone scene from
@@ -28,7 +28,8 @@ Writes into ``output_root/group/name/``:
   ``model.ckpt.npz`` at the end (train/checkpoint.py, the JAX layout);
 * ``quant.json`` after the final validation: ``wall_s``, ``iters``,
   ``val_psnr``, and with BAT or BARF ``rot_deg``, ``trans``; also
-  ``summary.json``.
+  ``summary.json``, and the first validation view as the image
+  ``val/val_rgb`` in TensorBoard (``tb/``) when it is on.
 
 ``--resume=true`` continues from ``model.ckpt.npz`` at its stored
 iteration.  The validation split is ``val``, or ``test`` with
@@ -36,10 +37,15 @@ data.val_on_test; a scene without it on disk validates on the training
 views, as train.py does.  It also prints one line per phase transition with the
 compaction budgets (the VM trainers).
 
-Two departures from train.py: a failed validation (mid-run or final)
+``--profiling=true`` trains 5 warm-up iterations, then 3 under
+torch.profiler, writes the trace to ``torch_trace/trace.json`` (utils/
+logging.profile_trace), prints one line naming it and returns without
+further training (no log, checkpoint or quant file), as train.py does.
+``--pdb`` opens a post-mortem debugger on an exception (utils/cli.py).
+
+One departure from train.py: a failed validation (mid-run or final)
 stops the run, where train.py catches it and carries on, because a failed
-render on the card is a fault to see; and ``profiling`` is not ported
-(it raises).
+render on the card is a fault to see.
 """
 from __future__ import annotations
 
@@ -49,7 +55,9 @@ import sys
 import time
 
 
-def main(argv):
+def main(argv) -> dict:
+    """Run the training; returns the quant.json dict (with profiling,
+    {"iters", "trace"})."""
     yaml_path, device, rest = None, None, []
     for a in argv:
         if a.startswith("--yaml="):
@@ -65,16 +73,13 @@ def main(argv):
     from ..config import set_options
     from ..config.options import diff_options
     from ..data import load_dataset
-    from ..utils.logging import MetricLogger
+    from ..utils.logging import MetricLogger, profile_trace
     from . import checkpoint as ckpt_lib
     from .barf_trainer import BarfTrainer
     from .l2g_trainer import L2GTrainer
     from .trainer import Trainer
 
     opt = set_options(yaml_path, rest)
-    if opt.get("profiling"):
-        raise NotImplementedError("option profiling=true is not ported yet "
-                                  "(a later slice of the PyTorch port)")
     out_dir = os.path.join(opt.get("output_root", "output"),
                            str(opt.get("group", "default")),
                            str(opt.get("name", "run")))
@@ -125,6 +130,15 @@ def main(argv):
     if opt.get("resume") and os.path.exists(ckpt_file):
         restore(ckpt_file, trainer)
         print(f"[resume] restored it={trainer.it}", flush=True)
+
+    if opt.get("profiling"):
+        trainer.run(max_iter=trainer.it + 5, log_every=1)      # warm-up
+        with profile_trace(out_dir) as trace:
+            trainer.run(max_iter=trainer.it + 3, log_every=1)
+        print(f"[profiling] trace written to {trace} at it {trainer.it} "
+              f"-- exiting (profiling mode does not continue training)",
+              flush=True)
+        return {"iters": trainer.it, "trace": trace}
 
     logger = MetricLogger(out_dir, opt)
     t0 = time.time()
@@ -177,8 +191,12 @@ def main(argv):
     # the checkpoint before the final validation, as in train.py
     save(ckpt_file, trainer)
     print(f"[ckpt] saved to {ckpt_file}", flush=True)
+    val = trainer.validate(val_data)
     result = {"wall_s": time.time() - t0, "iters": trainer.it,
-              "val_psnr": trainer.validate(val_data)["psnr"]}
+              "val_psnr": val["psnr"]}
+    H, W = val_data.images.shape[-2:]
+    logger.log_image("val_rgb", val["rgb"][0].reshape(H, W, 3), trainer.it,
+                     split="val")
     if pose_optimizing:
         result.update(trainer.pose_error())
     with open(os.path.join(out_dir, "quant.json"), "w") as f:
@@ -186,7 +204,10 @@ def main(argv):
     logger.summary(result)
     logger.close()
     print("[done]", json.dumps(result), flush=True)
+    return result
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    from ..utils import run_cli
+
+    run_cli(main, sys.argv[1:])

@@ -3,11 +3,12 @@
 
 Runs BAT's whole schedule (and TensoRF's: BAT's without the pose table,
 the blurs and the pose schedules; L2G-BAT's through train/l2g_trainer.py):
-the 2D supervision blur cache with its hard edge masks, the random 2D/3D
-blur scales, the ray strategies (the grid, and all-view or single-view
-random rays from their switch iterations), the learning-rate and pose-lr
-schedules (with warmup_pose), the pose resets, the TV weights' decay, the
-train step, and after the scheduled iterations the phase transitions of
+the 2D supervision blur cache with its hard (or soft) edge masks, the
+random 2D/3D blur scales (drawn apart, or one for both with
+sync_2d_3d_scales), the ray strategies (the grid, and all-view or
+single-view random rays from their switch iterations), the learning-rate
+and pose-lr schedules (with warmup_pose), the pose resets, the TV
+weights' decay, the train step, and after the scheduled iterations the phase transitions of
 the JAX trainer's _update_schedule / _update_alphamask: voxel upsample
 with a fresh optimiser and the lr reset, the alpha-mask build (at a
 capped resolution past tpu.mask_cap_voxels), the bbox shrink at the
@@ -31,14 +32,15 @@ trainer's order (the probes at a mask update included), so both trainers
 see the same ray indices and blur scales; device randomness (pose noise,
 field init, stratified jitter) comes from a torch.Generator.
 
-Evaluation (trainer.py:1131-1333 of the JAX package, without its viz/
-pose-gradient maps): render_views renders whole views in chunks on an
-eval budget probed on the rendered poses, eval_clip_stats measures how
-often the static caps clip, validate gives the PSNR of a split with the
-test poses sim(3)-aligned to the learned frame, pose_error the aligned
-rotation and translation errors.  None of them draws from the torch
-generator, and only eval_clip_stats draws from the numpy one (as JAX's
-does), so a run with mid-run validation trains as one without.
+Evaluation (trainer.py:1131-1333 of the JAX package): render_views
+renders whole views in chunks on an eval budget probed on the rendered
+poses, eval_clip_stats measures how often the static caps clip, validate
+gives the PSNR of a split with the test poses sim(3)-aligned to the
+learned frame, pose_error the aligned rotation and translation errors,
+visualize_pose_gradient one training view's pose-gradient maps.  None of
+them draws from the torch generator, and only eval_clip_stats draws from
+the numpy one (as JAX's does), so a run with mid-run validation trains
+as one without.
 """
 from __future__ import annotations
 
@@ -95,8 +97,6 @@ _PORTED_VALUES = (
                                     "single_view_rand_rays")),
     ("optim.sched_pose.type", (None, "ExponentialLR")),
     ("optim.sched_pose.lr_pose_schedule", None),
-    ("soft_edge_mask", False),
-    ("sync_2d_3d_scales", None),
 )
 
 # The tpu: keys.  Those in _PORTED_VALUES run only at the values named
@@ -340,7 +340,9 @@ class Trainer:
 
     def _c2f_params(self):
         """(c2f_density, c2f_color, scale_2d) for this iteration; draws the
-        2D scale, then the density scale, from rng_np."""
+        2D scale, then the density scale, from rng_np.  With
+        sync_2d_3d_scales the density scale is the 2D scale just drawn,
+        and rng_np draws no second time."""
         opt = self.opt
         if not self.is_bat or opt.get("c2f_mode", "None") in (None, "None"):
             return 0.0, 0.0, 0.0
@@ -350,8 +352,11 @@ class Trainer:
         if self.blur_2d and opt.get("c2f_alternate_2D_blur"):
             sc2d = float(self.rng_np.choice(self.scale_pool_2d))
         if opt.get("c2f_random_density_blur"):
-            d = d * float(self.rng_np.choice(
-                opt.c2f_random_density_scale_pool))
+            if opt.get("sync_2d_3d_scales"):
+                d = d * sc2d
+            else:
+                d = d * float(self.rng_np.choice(
+                    opt.c2f_random_density_scale_pool))
         return float(d), float(c), sc2d
 
     def _near_far(self):
@@ -412,8 +417,9 @@ class Trainer:
     # ------------------------------------------------------ 2D blur pipeline
     @torch.no_grad()
     def _refresh_blur_cache(self):
-        """Blur the GT images and build the hard edge masks for every scale
-        in the pool (runs every 500 iterations)."""
+        """Blur the GT images and build the edge masks (soft with
+        soft_edge_mask, else hard) for every scale in the pool (runs every
+        500 iterations)."""
         opt = self.opt
         V, H, W = self.n_views, self.H, self.W
         sched_val = schedules.interp_schedule(self.progress,
@@ -440,8 +446,10 @@ class Trainer:
                 imgs_flat = imgs_chw.reshape(V, 3, H * W).transpose(
                     1, 2).contiguous()
             self.blurred_images[sc] = imgs_flat
-            self.edge_masks[sc] = sobel.hard_edge_mask(
-                imgs_chw, thresh).to(torch.float32)
+            mask = (sobel.soft_edge_mask(imgs_chw)
+                    if opt.get("soft_edge_mask")
+                    else sobel.hard_edge_mask(imgs_chw, thresh))
+            self.edge_masks[sc] = mask.to(torch.float32)
 
     # -------------------------------------------------------- ray sampling
     def _sample_rays(self, strategy: str, n_rays: int):
@@ -843,7 +851,7 @@ class Trainer:
         """The largest world sigma of the density blur over the next
         ``lookahead_iters`` iterations: the piecewise-linear schedule at
         both ends and at every knot between, times the largest random
-        scale (trainer.py:260-281)."""
+        scale (trainer.py:260-281): the 2D pool's with sync_2d_3d_scales."""
         opt = self.opt
         p0 = self.progress
         p1 = min(1.0, (self.it + lookahead_iters) / self.max_iter)
@@ -852,7 +860,9 @@ class Trainer:
         pts = [p0, p1] + [float(k) for k in knots if p0 < k < p1]
         d = max(float(schedules.interp_schedule(p, sched)) for p in pts)
         if opt.get("c2f_random_density_blur"):
-            d *= max(float(s) for s in opt.c2f_random_density_scale_pool)
+            pool = (self.scale_pool_2d if opt.get("sync_2d_3d_scales")
+                    else opt.c2f_random_density_scale_pool)
+            d *= max(float(s) for s in pool)
         return d
 
     def _blur_dilate_radius(self, lookahead_iters: int, mask_res) -> int:
@@ -1066,6 +1076,48 @@ class Trainer:
         mse_per = torch.mean((rgb - target) ** 2, dim=(1, 2))
         return {"psnr": float(torch.mean(-10 * torch.log10(mse_per))),
                 "rgb": rgb, "depth": depth}
+
+    def visualize_pose_gradient(self, view: int = 0, n_rays_chunk: int = 256,
+                                on_chunk=None):
+        """Per-pixel pose-jacobian maps of training view ``view``
+        (trainer.py:1292-1323) -> numpy (rot [3, H, W], trans [3, H, W]),
+        by viz/grad_viz.pose_gradient_maps.  The rays are rendered as the
+        JAX trainer renders them there: unstratified, all S samples with
+        the factored density and the dense appearance, no alpha mask (its
+        RenderConfig leaves use_alpha_mask off), coordinate gradients on,
+        the config's NDC and background flags (the rays themselves stay
+        Euclidean, as in JAX).  The field is frozen, so a chunk launches
+        K1 and K2 once each and K3 not at all.  ``on_chunk(i)`` runs after
+        chunk i."""
+        from ..geometry.rays import camera_grid_3d
+        from ..pose.test_optim import frozen
+        from ..viz.grad_viz import delta_pose, pose_gradient_maps
+
+        pose_all, _ = self.get_all_training_poses()
+        pose = pose_all[view].detach()
+        grid = camera_grid_3d(self.H, self.W,
+                              self.intr_inv[view:view + 1])[0]  # [HW, 3]
+        image = self.images_sharp[view]                          # [HW, 3]
+        rcfg = RenderConfig(
+            n_samples=self.n_samples, is_train=False, ndc=self.ndc,
+            white_bg=bool(self.opt.nerf.get("setbg_opaque", True)),
+            stop_coord_grad=False)
+        near_far = self._near_far()
+        field = self.state.field
+
+        def render_mse(delta, ray_idx):
+            p = pose_ops.compose_pair(delta_pose(delta), pose[None])
+            R, t = p[..., :3], p[..., 3:]                  # one pose a ray
+            dirs = (grid[ray_idx][:, None, :] @ R)[:, 0]
+            centers = -(t.transpose(-2, -1) @ R)[:, 0]
+            rgb, _, _ = render_rays(field, self.vm_cfg, rcfg, centers, dirs,
+                                    near_far)
+            return (rgb - image[ray_idx]) ** 2
+
+        with frozen(field):
+            return pose_gradient_maps(render_mse, self.H, self.W,
+                                      n_rays_chunk, device=self.device,
+                                      on_chunk=on_chunk)
 
     @torch.no_grad()
     def pose_error(self) -> dict:

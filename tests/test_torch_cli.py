@@ -3,11 +3,16 @@
 * joint_tensorf_tpu_torch.train writes options.json, log.jsonl (rows with
   the pose errors every 4 x freq.scalar and val_psnr every freq.val),
   model_it{N}.ckpt.npz every freq.ckpt, model.ckpt.npz and quant.json;
-  --resume=true continues from the stored iteration; profiling raises.
+  --resume=true continues from the stored iteration; --profiling=true
+  writes a trace after 5 + 3 iterations and stops at iteration 8.
 * joint_tensorf_tpu_torch.evaluate on that checkpoint writes
   quant_pose.txt, quant.txt and quant_eval.json (finite psnr and ssim,
-  the clip stats, the lpips note); generate_video and generate_pose_video
-  raise while on, naming the key.
+  the clip stats, the lpips note); with the config's defaults also
+  poses.png, the novel-view video, the pose video's frames from the
+  snapshots and test_renders/rgb_{i}.png (as this environment's packages
+  allow: imageio without its ffmpeg backend, matplotlib); with both
+  video flags false neither video.
+* Both go through utils/cli.run_cli with --pdb.
 """
 import json
 import math
@@ -18,6 +23,7 @@ from test_torch_eval import one_torch_thread  # noqa: F401
 
 from joint_tensorf_tpu_torch import evaluate
 from joint_tensorf_tpu_torch.train import __main__ as train_cli
+from joint_tensorf_tpu_torch.utils import run_cli
 
 TINY = ["--yaml=configs/bat_blender_VM.yaml", "--device=cpu",
         "--data.dataset=synthetic", "--data.image_size=[16,16]",
@@ -101,17 +107,49 @@ def test_train_cli_resumes_from_its_checkpoint(trained, capsys):
         assert json.load(f)["iters"] == 16
 
 
-@pytest.mark.parametrize("args", [[], ["--generate_video=false"],
-                                  ["--generate_video=true",
-                                   "--generate_pose_video=false"]])
-def test_evaluate_cli_refuses_videos(tmp_path, args):
-    key = ("generate_video" if "--generate_video=false" not in args
-           else "generate_pose_video")
-    with pytest.raises(NotImplementedError, match=key):
-        evaluate.main(TINY + [f"--output_root={tmp_path}"] + args)
+def test_evaluate_cli_writes_the_visual_outputs(trained, capsys):
+    """The config's defaults: generate_video and generate_pose_video on,
+    60 frames; imageio here has no ffmpeg backend, so both videos are
+    written as frame directories (write_video's PNG outcome)."""
+    root, out = trained
+    run_cli(evaluate.main, TINY + [f"--output_root={root}",
+                                   "--optim.test_iter=2", "--pdb"])
+    printed = capsys.readouterr().out
+    assert os.path.exists(os.path.join(out, "poses.png"))
+    frames = os.path.join(out, "novel_views_frames")
+    assert f"[video] wrote {frames}" in printed
+    assert sorted(os.listdir(frames)) == [f"{i:04d}.png" for i in range(60)]
+    snaps = sorted(int(n[len("model_it"):-len(".ckpt.npz")])
+                   for n in os.listdir(out) if n.startswith("model_it"))
+    assert snaps and sorted(os.listdir(os.path.join(out, "poses"))) == \
+        sorted(f"{it}.png" for it in snaps)
+    assert f"[video] wrote {os.path.join(out, 'poses_frames')}" in printed
+    assert sorted(os.listdir(os.path.join(out, "test_renders"))) == [
+        f"rgb_{i}.png" for i in range(4)]
 
 
-def test_train_cli_refuses_profiling(tmp_path):
-    with pytest.raises(NotImplementedError, match="profiling"):
-        train_cli.main(TINY + [f"--output_root={tmp_path}",
-                               "--profiling=true"])
+def test_evaluate_cli_without_videos(trained, tmp_path, capsys):
+    root, out = trained
+    evaluate.main(TINY + [f"--output_root={tmp_path}",
+                          f"--ckpt={os.path.join(out, 'model.ckpt.npz')}",
+                          "--optim.test_iter=2", "--generate_video=false",
+                          "--generate_pose_video=false"])
+    assert "[video]" not in capsys.readouterr().out
+    written = os.listdir(os.path.join(tmp_path, "default", "cli"))
+    assert not [n for n in written if "novel_views" in n or
+                n.startswith("poses") and n != "poses.png"]
+    assert {"poses.png", "test_renders", "quant_eval.json"} <= set(written)
+
+
+def test_train_cli_profiling_writes_a_trace(tmp_path, capsys):
+    result = run_cli(train_cli.main, TINY + [f"--output_root={tmp_path}",
+                                             "--profiling=true", "--pdb"])
+    assert result["iters"] == 8
+    with open(result["trace"]) as f:
+        assert json.load(f)["traceEvents"]
+    assert f"[profiling] trace written to {result['trace']} at it 8" in \
+        capsys.readouterr().out
+    out = os.path.join(tmp_path, "default", "cli")
+    assert os.path.dirname(result["trace"]) == os.path.join(out,
+                                                            "torch_trace")
+    assert sorted(os.listdir(out)) == ["options.json", "torch_trace"]

@@ -21,8 +21,9 @@
   background coin, fed JAX's draws: the refined pose at atol 1e-5, the
   final loss at rtol 1e-4;
 * a WeakView / relu checkpoint both ways (every leaf, the TV weights);
-* check_ported accepts the L2G and LLFF configs and still refuses, by
-  name, the values the port does not run.
+* check_ported accepts the L2G and LLFF configs, soft_edge_mask and
+  sync_2d_3d_scales, and still refuses, by name, the values the port does
+  not run.
 """
 import dataclasses
 import os
@@ -347,9 +348,15 @@ def test_check_ported_accepts_l2g_and_llff_configs(cfg):
     "--arch.feature_to_density_activation=exp",
     "--nerf.ray_sampling_strategy=single_view_rand_grid",
     "--optim.sched_pose.type=LambdaLR",
-    "--+optim.sched_pose.lr_pose_schedule=[1.0,0.5]", "--soft_edge_mask=true",
+    "--+optim.sched_pose.lr_pose_schedule=[1.0,0.5]",
     "--nerf.sample_stratified=false", "--model=barf"])
 def test_check_ported_still_refuses_by_name(override):
     key = override.split("=")[0].lstrip("-+")
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_ported(set_options(CFG, SMALL + [override]))
+
+
+@pytest.mark.parametrize("override", ["--soft_edge_mask=true",
+                                      "--+sync_2d_3d_scales=true"])
+def test_check_ported_accepts_edge_and_scale_options(override):
+    check_ported(set_options(CFG, SMALL + [override]))
