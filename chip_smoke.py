@@ -117,6 +117,22 @@
    blurred: float32, bfloat16 factors and lane's bfloat16 dense-grid
    reads, 6 steps each (peak memory, step median, launches, the first
    loss against float32's), and one reset_on_last_upsample transition;
+   then the field zoo (run_field_zoo, [zoo] and [phase-steps cp] lines,
+   its wall time): the eight shading heads ZOO_HEADS (MLP_Fea4, the
+   density head with predict_density, MLP_PE with both detach flags off,
+   MLP, MLP_Albedo, GaRF, SH, RGB at app_dim 3) on BAT's first phase at
+   full width, ZOO_STEPS steps each; CP at the TensoRF paper's CP-384
+   widths (96 / 288 components) through every phase of PHASES_ARGS with
+   run_all_phases' checks (warm_start_density raises its lines); the six
+   VM variants, detach_viewdirs off, unstratified samples and a pose
+   lambda schedule (ZOO_VARIANTS) on the blurred 64M-voxel grid,
+   ZOO_STEPS steps each; every step's launches against expected_launches
+   of its step and field configurations (the dense grid only where the
+   field allows it, CP without planes, the density head's appearance
+   planes alone), finite losses, median step and peak memory; the small
+   card-vs-CPU step on each new branch (check_small_zoo); and K1/K2/K3
+   against their plain versions at CP's last-phase shapes (K3 on its
+   blurred dense grid) and at the density head's (K1 ungated);
 14. trains L2G-BAT at BAT's widths (configs/l2g_bat_blender_VM.yaml:
    400x400, 12 views, error map 128^2, warp MLP 64-64-6, embedding 32)
    through every phase of PHASES_ARGS' schedule with run_all_phases'
@@ -197,6 +213,7 @@ ALTERNATIVES_OFF = ["--tpu.bbox_compact=false", "--tpu.blur_mask_compact=false",
 # for Blender (K 256-640 of S = 1000), with far fewer live samples a ray
 WARM_DENSITY = 2.0
 WARM_RADII = 0.5
+WARM_CP = (3 * WARM_DENSITY ** 2) ** (1 / 3)
 # TensoRF (configs/tensorf_blender_VM.yaml) cut to 40 iterations in the
 # published schedule's order: upsamples after 2, 4, 6, 8, 10 (128^3 ->
 # 300^3), mask updates after 2 (uncapped at 151^3: the bbox shrink) and 6
@@ -216,6 +233,49 @@ VARIANT_ARGS = ["--data.dataset=synthetic",
                 "--train_schedule.upsample_iters=[1000000]",
                 "--train_schedule.update_alphamask_iters=[1000000]"]
 VARIANT_STEPS = 6
+# the field zoo (run_field_zoo): the eight shading heads beside MLP_Fea and
+# MLP_Fea_WeakView on BAT's first phase, each with the options it needs;
+# CP at the TensoRF paper's CP-384 widths (96 density and 288 appearance
+# components, Chen et al., "TensoRF", ECCV 2022) through PHASES_ARGS; the
+# six VM variants (ignore_negative_split where it acts, under
+# convolve_positive_only) and the last render and pose options on
+# VARIANT_ARGS
+ZOO_HEADS = {
+    "MLP_Fea4": [],
+    "MLP_Fea_WeakView_Density": ["--+arch.shading.predict_density=true"],
+    "MLP_PE": ["--arch.shading.detach_xyz=false",
+               "--arch.shading.detach_viewdirs=false"],
+    "MLP": [], "MLP_Albedo": [], "GaRF": [], "SH": [],
+    "RGB": ["--arch.shading.app_dim=3"]}
+ZOO_STEPS = 6
+CP_ARGS = ["--arch.tensorf.model=BAT_CP",
+           "--arch.tensorf.density_components=[96,96,96]",
+           "--arch.tensorf.color_components=[288,288,288]"]
+ZOO_VARIANTS = {
+    "abs_components": ["--arch.abs_components=true"],
+    "component_wise_feature2density": [
+        "--arch.component_wise_feature2density=true"],
+    "plane_feature2density": ["--arch.plane_feature2density=true"],
+    "convolve_plane_only": ["--arch.convolve_plane_only=true"],
+    "convolve_positive_only": ["--arch.convolve_positive_only=true"],
+    "ignore_negative_split": ["--arch.convolve_positive_only=true",
+                              "--arch.ignore_negative_split=true"],
+    "detach_viewdirs_false": ["--arch.shading.detach_viewdirs=false"],
+    "sample_stratified_false": ["--nerf.sample_stratified=false"],
+    "lr_pose_schedule": ["--optim.sched_pose.type=LambdaLR",
+                         "--+optim.sched_pose.lr_pose_schedule="
+                         "[0.001,0.0005,0.0001]"]}
+# the small card-vs-CPU steps' VM variants (check_small_zoo)
+ZOO_SMALL_VARIANTS = {
+    "abs_components": dict(abs_components=True),
+    "component_wise_feature2density": dict(
+        component_wise_feature2density=True, density_shift=-4.0),
+    "plane_feature2density": dict(plane_feature2density=True,
+                                  density_shift=-4.0),
+    "convolve_plane_only": dict(convolve_plane_only=True),
+    "convolve_positive_only": dict(convolve_positive_only=True),
+    "ignore_negative_split": dict(convolve_positive_only=True,
+                                  ignore_negative_split=True)}
 # evaluation on the trained default path: 4 val / test views (val_sub: 4,
 # the base config's; BAT's own config takes 10), test-time optimisation cut
 # from BAT's 400 steps to 40
@@ -477,19 +537,35 @@ def march_indices_3d(n_rays, S, X, Y, Z, gen):
     return ((pos[..., 0] * Y + pos[..., 1]) * Z + pos[..., 2]).reshape(-1)
 
 
-def expected_launches(cfg) -> dict:
-    """Launches of one training step with StepConfig ``cfg``: K1 and K2
-    once; K3 once per factor sample's backward (three fused planes, or
-    three density and three appearance planes with the two-stage
-    appearance) and once for the dense grid's row gather (then only the
-    three appearance planes are factor samples).  The same without pose
-    optimisation (TensoRF): detached coordinates drop the coordinate
-    derivatives, not the factors' scatters; bf16 factors and bf16 dense
-    reads scatter float32 gradients through the same calls."""
-    if cfg.densify_density:
-        k3 = 1 + 3
+def expected_launches(cfg, vm_cfg=None) -> dict:
+    """Launches of one training step with StepConfig ``cfg`` on a field of
+    VMConfig ``vm_cfg`` (the default VM field when None): K1 and K2 once;
+    K3 once per factor sample's backward of a group's three planes (three
+    fused planes, or three density and three appearance planes) and once
+    for the dense grid's row gather (then only the appearance is a factor
+    sample).  The field decides which paths run, as the renderer does
+    (renderer.py:455-459 of the JAX package): the dense grid only where
+    vm.can_densify and the fused sample only where vm.can_fuse_features,
+    neither with the head's density (predict_density: the appearance
+    planes alone); a CP field has no planes (its lines are plain gathers),
+    and convolve_positive_only under the blur samples the density by
+    plain gathers.  The same without pose optimisation (TensoRF):
+    detached coordinates drop the coordinate derivatives, not the
+    factors' scatters; bf16 factors and bf16 dense reads scatter float32
+    gradients through the same calls."""
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    vm_cfg = vm_cfg or vm_lib.VMConfig()
+    planes = 0 if vm_cfg.decomposition == "CP" else 3
+    predict = cfg.mlp_predict_density
+    if cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict:
+        k3 = 1 + planes
+    elif predict or (cfg.app_k is None
+                     and vm_lib.can_fuse_features(vm_cfg)):
+        k3 = planes
     else:
-        k3 = 6 if cfg.app_k is not None else 3
+        split = cfg.blur is not None and vm_cfg.convolve_positive_only
+        k3 = (0 if split else planes) + planes
     return {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": k3,
             "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
 
@@ -761,35 +837,18 @@ def run_entry_points(gen):
 
 
 # ------------------------------------------- small step: card vs the CPU
-def check_small_step():
-    """One train step of a tiny field on the card (kernels) and on the CPU
-    (plain versions) from the same state and rays, in six configurations:
-    the dense path under the blur; the blur with in-bbox compaction, the
-    dense-grid density and app_k below the gated count; an alpha mask with
-    group compaction and app_k; TensoRF's step (no pose optimisation: the
-    pose gradient must be exactly zero and the pose table unchanged on
-    both); that compacted dense-grid step with bfloat16 factors (gradients
-    within 2^-7 of each bf16 leaf's max: a bf16 gradient keeps 8 mantissa
-    bits, and a float32 sum in another order can round it one ulp apart);
-    and with the dense grid's rows read in bfloat16 (lane's bf16 reads);
-    and the dense path under the blur with soft edge masks (soft_edge_mask:
-    each device computes the mask from the scene's images;
-    sync_2d_3d_scales changes only host-drawn scalars, which the CPU tests
-    hold against JAX's draws)."""
-    import copy
-    import dataclasses
-
+def _small_setup():
+    """The tiny scene, field and draws of the card-vs-CPU steps: a 24^3
+    field (ranks 4/8, app_dim 9, density x 8), 3 views of 24 x 24, 64 rays
+    a view, a random mask, blur and jitter."""
     import torch
 
     from joint_tensorf_tpu_torch.data.synthetic import make_scene
     from joint_tensorf_tpu_torch.geometry import lie, poses
     from joint_tensorf_tpu_torch.models import vm as vm_lib
     from joint_tensorf_tpu_torch.models.alpha_mask import AlphaMask
-    from joint_tensorf_tpu_torch.ops import sobel
     from joint_tensorf_tpu_torch.render.renderer import BlurSpec
-    from joint_tensorf_tpu_torch.train.step import (StepConfig, StepScalars,
-                                                    init_train_state,
-                                                    train_step)
+    from joint_tensorf_tpu_torch.train.step import StepConfig, StepScalars
 
     cfg = vm_lib.VMConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8),
                           app_dim=9, hidden=16)
@@ -806,82 +865,133 @@ def check_small_step():
     images = torch.as_tensor(scene.images).reshape(V, 3, -1).transpose(1, 2)
     edges = (torch.rand((V, H * W), generator=gen) > 0.7).float()
     ray_idx = torch.randperm(H * W, generator=gen)[:R]
-    view_sel = torch.arange(V)
     mask = AlphaMask(grid=(torch.rand(res, generator=gen) > 0.4).float(),
                      aabb=field.aabb.clone())
-    blur = BlurSpec("uniform-gaussian", 8)
     base = StepConfig(H=H, W=W, n_views=V, rays_per_view=R, n_samples=41,
-                      blur=blur)
-    compacted = dataclasses.replace(base, n_samples=64, compact_k=48,
-                                    densify_density=True, app_k=4)
-    variants = {
-        "dense": (base, None, False),
-        "bbox_compaction_densify_app_k": (compacted, None, False),
-        "mask_compaction_app_k": (dataclasses.replace(
-            base, n_samples=64, blur=None, mask_stride=2, compact_k=32,
-            app_k=4), mask, False),
-        "tensorf_densify_app_k": (dataclasses.replace(
-            compacted, blur=None, pose_opt=False), None, False),
-        "bf16_factors": (compacted, None, True),
-        "lane_bf16_reads": (dataclasses.replace(
-            compacted, densify_dtype="bfloat16"), None, False),
-        "soft_edge_mask": (base, None, False)}
-    bf16_field = vm_lib._with_factors(
-        field, lambda i, p: p.to(torch.bfloat16),
-        lambda i, l: l.to(torch.bfloat16))
+                      blur=BlurSpec("uniform-gaussian", 8))
     s = StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3,
                     c2f_density=0.1, c2f_color=0.2, l1_weight=8e-5,
                     use_edge=1.0, edge_factor=1.5, non_edge_factor=0.5)
     jitter = torch.rand((V * R, 1), generator=gen)
-    result = {}
-    for name, (scfg, am, bf16) in variants.items():
-        out = {}
-        for dev in ("cpu", "cuda"):
-            f = copy.deepcopy(bf16_field if bf16 else field).to(dev)
-            st = init_train_state(f, V)
-            se3 = st.se3_refine.detach().clone()
-            mv = lambda t: t.to(dev)  # noqa: E731
-            e = (sobel.soft_edge_mask(mv(torch.as_tensor(scene.images)))
-                 if name == "soft_edge_mask" else mv(edges))
-            metrics, grads = train_step(
-                st, scfg, cfg, mv(pose_base),
-                mv(torch.as_tensor(scene.intr_inv)), mv(images.contiguous()),
-                e, mv(view_sel), mv(ray_idx), s, jitter=mv(jitter),
-                alpha_mask=None if am is None else AlphaMask(
-                    grid=mv(am.grid), aabb=mv(am.aabb)), stats=True)
-            out[dev] = (float(metrics["loss"]),
-                        {k: g.detach().cpu() for k, g in grads.items()},
-                        float(metrics["kept_frac"]))
-            if not scfg.pose_opt and (
-                    torch.count_nonzero(grads["se3_refine"]) > 0
-                    or not torch.equal(st.se3_refine.detach(), se3)):
-                fail(f"small step ({name}) on {dev}: the pose table got a "
-                     f"gradient or moved without pose optimisation")
-            if bf16 and f.density_planes[0].dtype != torch.bfloat16:
-                fail(f"small step ({name}): the factors left bfloat16")
-        loss_c, g_c, kept = out["cpu"]
-        loss_g, g_g, _ = out["cuda"]
-        if not math.isfinite(loss_g) or \
-                abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
-            fail(f"small step ({name}): card loss {loss_g} vs CPU {loss_c}")
-        worst = over = 0.0      # max |card - CPU| / leaf max; / tolerance
-        for k in g_c:
-            scale = float(g_c[k].abs().max()) + 1e-12
-            err = float((g_g[k].float() - g_c[k].float()).abs().max())
-            tol = 2.0 ** -7 if g_c[k].dtype == torch.bfloat16 else 1e-3
-            worst = max(worst, err / scale)
-            over = max(over, err / scale / tol)
-        if over > 1.0:
-            fail(f"small step ({name}): card gradients differ from the "
-                 f"CPU's by {worst:.3g} of their max")
-        result[name] = {"loss_cuda": loss_g, "loss_cpu": loss_c,
-                        "max_grad_err_rel": worst,
-                        "max_grad_err_over_tol": over,
-                        "kept_frac": kept, "bf16_factors": bf16,
-                        "step_config": {k: getattr(scfg, k) for k in (
-                            "n_samples", "compact_k", "densify_density",
-                            "densify_dtype", "app_k", "pose_opt")}}
-    return {"small_step": result}
+    return dict(cfg=cfg, res=res, V=V, scene=scene, field=field, gen=gen,
+                pose_base=pose_base, images=images, edges=edges,
+                ray_idx=ray_idx, mask=mask, base=base, s=s, jitter=jitter)
+
+
+def _small_pair(name, st_kw, field, cfg, scfg, am=None, soft=False):
+    """One train step of ``field`` (VMConfig ``cfg``, StepConfig ``scfg``,
+    alpha mask ``am``) on the card (kernels) and on the CPU (plain
+    versions) from the same state and draws of _small_setup's ``st_kw``;
+    fails unless the losses agree to 1e-5 relative and every gradient to
+    1e-3 of its leaf's max (2^-7 for a bf16 leaf).  Returns the row."""
+    import copy
+
+    import torch
+
+    from joint_tensorf_tpu_torch.models.alpha_mask import AlphaMask
+    from joint_tensorf_tpu_torch.ops import sobel
+    from joint_tensorf_tpu_torch.train.step import init_train_state, train_step
+
+    k = st_kw
+    bf16 = field.density_lines[0].dtype == torch.bfloat16
+    out = {}
+    for dev in ("cpu", "cuda"):
+        f = copy.deepcopy(field).to(dev)
+        st = init_train_state(f, k["V"])
+        se3 = st.se3_refine.detach().clone()
+        mv = lambda t: t.to(dev)  # noqa: E731
+        e = (sobel.soft_edge_mask(mv(torch.as_tensor(k["scene"].images)))
+             if soft else mv(k["edges"]))
+        metrics, grads = train_step(
+            st, scfg, cfg, mv(k["pose_base"]),
+            mv(torch.as_tensor(k["scene"].intr_inv)),
+            mv(k["images"].contiguous()), e, mv(torch.arange(k["V"])),
+            mv(k["ray_idx"]), k["s"], jitter=mv(k["jitter"]),
+            alpha_mask=None if am is None else AlphaMask(
+                grid=mv(am.grid), aabb=mv(am.aabb)), stats=True)
+        out[dev] = (float(metrics["loss"]),
+                    {n: g.detach().cpu() for n, g in grads.items()},
+                    float(metrics["kept_frac"]))
+        if not scfg.pose_opt and (
+                torch.count_nonzero(grads["se3_refine"]) > 0
+                or not torch.equal(st.se3_refine.detach(), se3)):
+            fail(f"small step ({name}) on {dev}: the pose table got a "
+                 f"gradient or moved without pose optimisation")
+        if bf16 and f.density_lines[0].dtype != torch.bfloat16:
+            fail(f"small step ({name}): the factors left bfloat16")
+    loss_c, g_c, kept = out["cpu"]
+    loss_g, g_g, _ = out["cuda"]
+    if not math.isfinite(loss_g) or \
+            abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        fail(f"small step ({name}): card loss {loss_g} vs CPU {loss_c}")
+    worst = over = 0.0      # max |card - CPU| / leaf max; / tolerance
+    worst_leaf = None
+    for n in g_c:
+        scale = float(g_c[n].abs().max()) + 1e-12
+        err = float((g_g[n].float() - g_c[n].float()).abs().max())
+        tol = 2.0 ** -7 if g_c[n].dtype == torch.bfloat16 else 1e-3
+        if err / scale / tol > over:
+            worst_leaf = (n, scale)
+        worst = max(worst, err / scale)
+        over = max(over, err / scale / tol)
+    if over > 1.0:
+        fail(f"small step ({name}): card gradients differ from the "
+             f"CPU's by {worst:.3g} of their max (leaf {worst_leaf[0]}, "
+             f"max {worst_leaf[1]:.3g})")
+    return {"loss_cuda": loss_g, "loss_cpu": loss_c,
+            "max_grad_err_rel": worst, "max_grad_err_over_tol": over,
+            "kept_frac": kept, "bf16_factors": bf16,
+            "step_config": {n: getattr(scfg, n) for n in (
+                "n_samples", "compact_k", "densify_density", "densify_dtype",
+                "app_k", "pose_opt", "mlp_predict_density", "stratified",
+                "detach_viewdirs", "detach_xyz")}}
+
+
+def check_small_step():
+    """One train step of a tiny field on the card (kernels) and on the CPU
+    (plain versions) from the same state and rays (_small_pair), in these
+    configurations:
+    the dense path under the blur; the blur with in-bbox compaction, the
+    dense-grid density and app_k below the gated count; an alpha mask with
+    group compaction and app_k; TensoRF's step (no pose optimisation: the
+    pose gradient must be exactly zero and the pose table unchanged on
+    both); that compacted dense-grid step with bfloat16 factors (gradients
+    within 2^-7 of each bf16 leaf's max: a bf16 gradient keeps 8 mantissa
+    bits, and a float32 sum in another order can round it one ulp apart);
+    and with the dense grid's rows read in bfloat16 (lane's bf16 reads);
+    and the dense path under the blur with soft edge masks (soft_edge_mask:
+    each device computes the mask from the scene's images;
+    sync_2d_3d_scales changes only host-drawn scalars, which the CPU tests
+    hold against JAX's draws)."""
+    import dataclasses
+
+    import torch
+
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    k = _small_setup()
+    base, field, mask = k["base"], k["field"], k["mask"]
+    compacted = dataclasses.replace(base, n_samples=64, compact_k=48,
+                                    densify_density=True, app_k=4)
+    bf16_field = vm_lib._with_factors(
+        field, lambda i, p: p.to(torch.bfloat16),
+        lambda i, l: l.to(torch.bfloat16))
+    variants = {
+        "dense": (base, None, field),
+        "bbox_compaction_densify_app_k": (compacted, None, field),
+        "mask_compaction_app_k": (dataclasses.replace(
+            base, n_samples=64, blur=None, mask_stride=2, compact_k=32,
+            app_k=4), mask, field),
+        "tensorf_densify_app_k": (dataclasses.replace(
+            compacted, blur=None, pose_opt=False), None, field),
+        "bf16_factors": (compacted, None, bf16_field),
+        "lane_bf16_reads": (dataclasses.replace(
+            compacted, densify_dtype="bfloat16"), None, field),
+        "soft_edge_mask": (base, None, field)}
+    return {"small_step": {
+        name: _small_pair(name, k, f, k["cfg"], scfg, am,
+                          soft=name == "soft_edge_mask")
+        for name, (scfg, am, f) in variants.items()}}
 
 
 # --------------------------------------------------------------- main path
@@ -978,7 +1088,11 @@ def warm_start_density(trainer, seed: int):
     its fresh value, so the first mask update has objects to keep, and rays
     cross empty space between them.  Its masked phases are sparser than a
     trained Blender field's, so the gaps between the paths hold for this
-    field only.  Returns the boxes."""
+    field only.  A CP field (no planes; its density is the sum over
+    components of the three lines' product) gets WARM_CP added to
+    component k of each line over the box's extent on that line's axis:
+    the feature inside is then about WARM_CP^3 = 3 WARM_DENSITY^2, the
+    VM warm start's three plane x line products.  Returns the boxes."""
     import numpy as np
     import torch
 
@@ -992,6 +1106,7 @@ def warm_start_density(trainer, seed: int):
         blobs = BlobField(seed=seed)
         objects = zip(blobs.centers, blobs.radii)
     field = trainer.state.field
+    cp = len(field.density_planes) == 0
     aabb = field.aabb.cpu().numpy()
     res = field.resolution()
     axes = [np.linspace(aabb[0, a], aabb[1, a], res[a]) for a in range(3)]
@@ -1005,6 +1120,10 @@ def warm_start_density(trainer, seed: int):
                       for a, x in enumerate(axes)]
             for i in range(3):
                 m0, m1 = MAT_MODE[i]
+                if cp:
+                    field.density_lines[i][:, k].add_(
+                        WARM_CP * inside[VEC_MODE[i]])
+                    continue
                 field.density_planes[i][..., k].add_(
                     WARM_DENSITY * inside[m1][:, None] * inside[m0][None, :])
                 field.density_lines[i][:, k].add_(
@@ -1015,7 +1134,7 @@ def warm_start_density(trainer, seed: int):
 
 def run_all_phases(label: str, extra_args=(), profile_dir=None,
                    yaml="bat_blender_VM.yaml", base_args=PHASES_ARGS,
-                   sparse=True):
+                   sparse=True, default_path=None):
     """A model at full width through every phase of a schedule cut to 40
     iterations (configs/<yaml> with base_args + extra_args: BAT by
     default, TensoRF and the solids scene with their own).  The scene's
@@ -1035,7 +1154,10 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
     last step's shape: (rays, samples per ray as composited, resolution,
     the step's configuration, and (samples per ray kept, resolution) of
     the last blurred dense-grid step at the last resolution, or None), and
-    (the trainer, its training data)."""
+    (the trainer, its training data).  ``default_path``: hold the run to
+    the default tpu: path's checks (masked compaction, the blurred dense
+    grid; by default when no extra_args are given), else to the
+    alternatives-off checks."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -1046,7 +1168,8 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
 
     args = list(base_args) + list(extra_args)
     opt = set_options(os.path.join(HERE, "configs", yaml), args)
-    default_path = not extra_args
+    if default_path is None:
+        default_path = not extra_args
     torch.cuda.synchronize()
     t_scene = time.perf_counter()
     data = load_dataset(opt, "train", device="cuda")
@@ -1099,7 +1222,7 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                 "budgets": budgets(tr),
                 "launches": {k: launches[k] - clock["launches"][k]
                              for k in launches},
-                "expected": expected_launches(cfg)})
+                "expected": expected_launches(cfg, tr.vm_cfg)})
         elif tr.it in ups or tr.it in masks:
             after = state()
             transitions.append({
@@ -1432,6 +1555,224 @@ def run_variants():
     if faults:
         fail("variants: " + "; ".join(faults))
     return rows
+
+
+# ------------------------------------------------------------ the field zoo
+def _zoo_steps(label, args, data, n_steps):
+    """A Trainer on configs/bat_blender_VM.yaml with ``args`` for n_steps
+    steps through Trainer.run on ``data``, the counters zeroed after each
+    schedule update and read after each step: every step's launches
+    against expected_launches of its step and field configurations.
+    Returns (the row, faults, the trainer)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    opt = set_options(os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
+                      args)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(opt, data, device="cuda")
+    torch.cuda.synchronize()
+    stamps, losses, faults, configs = [], [], [], set()
+
+    def on_step(tr, m):
+        if m is None:
+            cuda_build.reset_launches()
+            return
+        want = expected_launches(tr.last_step_config, tr.vm_cfg)
+        configs.add(step_config_summary(tr.last_step_config))
+        if dict(cuda_build.LAUNCHES) != want:
+            faults.append(f"{label} it {tr.it}: launched "
+                          f"{dict(cuda_build.LAUNCHES)}, expected {want}")
+
+    def on_log(tr, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(m["loss"])
+
+    cuda_build.reset_launches()
+    stamps.append(time.perf_counter())
+    trainer.run(max_iter=n_steps, log_every=1, callback=on_log,
+                on_step=on_step)
+    steps = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        faults.append(f"{label}: losses {losses}")
+    cfg = trainer.last_step_config
+    row = {"args": args, "resolution": trainer.resolution,
+           "n_samples": cfg.n_samples, "rays_per_step": trainer.rays_per_step,
+           "step_configs": [dict(c) for c in configs],
+           "launches_per_step": expected_launches(cfg, trainer.vm_cfg),
+           "loss": losses, "step_ms_first": steps[0],
+           "step_ms_median": statistics.median(steps[1:]),
+           "step_ms_all": steps,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[zoo] {label}: res {trainer.resolution} S {cfg.n_samples} "
+          f"{dict(step_config_summary(cfg))} K3 "
+          f"{row['launches_per_step']['scatter_add_rows']} a step: median "
+          f"{row['step_ms_median']:.1f} ms (first {steps[0]:.1f}), peak "
+          f"{row['peak_mem_gb']:.2f} GB, launches as configured: "
+          f"{not faults}", flush=True)
+    return row, faults, trainer
+
+
+def _signed(field, frac=0.3):
+    """The field with every factor minus ``frac`` x its mean magnitude, so
+    that some are negative (the variants act on signs)."""
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    def shift(_, t):
+        return t - frac * t.abs().mean()
+
+    return vm_lib._with_factors(field, shift, shift)
+
+
+def check_small_zoo():
+    """The card-vs-CPU small step (_small_pair, check_small_step's gates)
+    on each new branch: the eight heads (RGB at app_dim 3, SH at 27), CP,
+    each VM variant on signed factors (the activation variants at density
+    shift -4, which a fresh field's softplus(x - 10) per component would
+    leave empty), the density head with predict_density, MLP_Fea with
+    detach_viewdirs off, MLP_PE with detach_xyz and detach_viewdirs off,
+    and unstratified samples; under the blur on the dense path, and the
+    variants, CP and the density head also with in-bbox compaction, the
+    dense grid and the two-stage appearance asked for."""
+    import dataclasses
+
+    import torch
+
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    k = _small_setup()
+    base = k["base"]
+    # app_k at the kept count: a cap below the gated count picks among
+    # near-equal weights, which one rounding of the density reorders (on
+    # CP's dense grid it parted card and CPU past the gate)
+    compacted = dataclasses.replace(base, n_samples=64, compact_k=48,
+                                    densify_density=True, app_k=48)
+
+    def field_of(signed=False, **cfg_kw):
+        """VM density factors x 8 (check_small_step's); CP density lines
+        |l| x 2 + 1, a feature of ~6 (a CP field's signed products of
+        0.1 N(0, 1) lines would leave it empty, its gradients sums that
+        cancel to nothing)."""
+        cfg = dataclasses.replace(k["cfg"], **cfg_kw)
+        f = vm_lib.init_vm(cfg, k["res"], [-1.5] * 3 + [1.5] * 3,
+                           torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            for t in f.density_planes:
+                t.mul_(8.0)
+            for t in f.density_lines:
+                if cfg.decomposition == "CP":
+                    t.copy_(t.abs() * 2 + 1)
+                else:
+                    t.mul_(8.0)
+        return cfg, _signed(f) if signed else f
+
+    cases = {}
+    for head in ZOO_HEADS:
+        kw = dict(shading_mode=head)
+        kw.update(app_dim=3 if head == "RGB" else 27 if head == "SH" else 9)
+        flags = {}
+        if head == "MLP_Fea_WeakView_Density":
+            flags = dict(mlp_predict_density=True)
+        if head == "MLP_PE":
+            flags = dict(detach_xyz=False, detach_viewdirs=False)
+        cases[head] = (kw, False, [dataclasses.replace(base, **flags)])
+    cases["MLP_Fea_WeakView_Density"][2].append(dataclasses.replace(
+        compacted, mlp_predict_density=True))
+    cases["CP"] = (dict(decomposition="CP"), False, [base, compacted])
+    for name, kw in ZOO_SMALL_VARIANTS.items():
+        cases[name] = (kw, True, [base, compacted])
+    cases["detach_viewdirs_false"] = (
+        {}, False, [dataclasses.replace(base, detach_viewdirs=False)])
+    cases["stratified_false"] = ({}, False, [dataclasses.replace(
+        base, stratified=False)])
+    result = {}
+    for name, (kw, signed, scfgs) in cases.items():
+        cfg, field = field_of(signed, **kw)
+        for i, scfg in enumerate(scfgs):
+            label = name + ("" if i == 0 else "_densify_app_k")
+            result[label] = _small_pair(label, k, field, cfg, scfg)
+    worst = max(r["max_grad_err_rel"] for r in result.values())
+    print(f"[zoo] small steps card vs CPU: {len(result)} branches, worst "
+          f"gradient {worst:.3g} of the leaf max (gate 1e-3)", flush=True)
+    return {"small_step_zoo": result}
+
+
+def run_field_zoo(gen):
+    """The field zoo at BAT's widths (step 13 of the module docstring):
+    (a) each of ZOO_HEADS on BAT's first phase (configs/bat_blender_VM.yaml
+    on the procedural scene: 400x400, 12 views, 2028 rays x 221 samples,
+    ranks 16/48, hidden 64, PE 2/2/2), ZOO_STEPS steps; (b) CP at the
+    TensoRF paper's CP-384 widths (CP_ARGS) through every phase of
+    PHASES_ARGS with run_all_phases' checks on the default path; (c)
+    ZOO_VARIANTS on VARIANT_ARGS' blurred 64M-voxel grid, ZOO_STEPS steps
+    each; every step's launches against expected_launches; (d) the small
+    card-vs-CPU steps of check_small_zoo, then K1/K2/K3 against their plain
+    versions at CP's last-phase shapes (and its blurred dense grid) and at
+    the density head's.  Prints its wall time; returns its result."""
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.models.vm import MAT_MODE
+
+    t0 = time.perf_counter()
+    cfg_path = os.path.join(HERE, "configs", "bat_blender_VM.yaml")
+    data = load_dataset(set_options(cfg_path, ["--data.dataset=synthetic"]),
+                        "train", device="cuda")
+    faults, heads, variants, checks = [], {}, {}, []
+    for head, extra in ZOO_HEADS.items():
+        row, f, trainer = _zoo_steps(
+            head, ["--data.dataset=synthetic",
+                   f"--arch.shading.model={head}", *extra], data, ZOO_STEPS)
+        heads[head], faults = row, faults + f
+        if head == "MLP_Fea_WeakView_Density":
+            predict_shape = (trainer.rays_per_step, row["n_samples"],
+                             trainer.resolution)
+        del trainer
+    for name, extra in ZOO_VARIANTS.items():
+        row, f, trainer = _zoo_steps(name, VARIANT_ARGS + extra, data,
+                                     ZOO_STEPS)
+        variants[name], faults = row, faults + f
+        del trainer
+    if faults:
+        emit({"field_zoo": {"heads": heads, "variants": variants}})
+        fail("field zoo: " + "; ".join(faults[:4]))
+    torch.cuda.empty_cache()
+    n_rays, S, res, cfg, blurred, trained = run_all_phases(
+        "cp", CP_ARGS, default_path=True)
+    del trained
+    torch.cuda.empty_cache()
+    small = check_small_zoo()
+    # K1/K2 and K3 at CP's last phase (the compacted samples; no plane,
+    # so K3 only on the blurred phase's dense grid) and at the density
+    # head's first phase (ungated K1, the appearance planes' 4 x 48
+    # channels on every sample)
+    for r in check_composite(n_rays, S, 1e-6, gen, tol=1e-4):
+        checks.append(dict(r, path="cp"))
+    if blurred:
+        checks.append(dict(check_scatter(
+            n_rays, blurred[0], 0, 0, 8, gen, tol=1e-5,
+            grid3d=tuple(blurred[1])), path="cp"))
+    n_p, S_p, res_p = predict_shape
+    for r in check_composite(n_p, S_p, float("-inf"), gen, tol=1e-4):
+        checks.append(dict(r, path="predict_density"))
+    Hp, Wp = max(((res_p[m1], res_p[m0]) for m0, m1 in MAT_MODE),
+                 key=lambda hw: hw[0] * hw[1])
+    checks.append(dict(check_scatter(n_p, S_p, Hp, Wp, 192, gen, tol=1e-5),
+                       path="predict_density"))
+    for r in checks:
+        emit({"kernel_check": r})
+    wall = time.perf_counter() - t0
+    print(f"[zoo] field zoo phase: {wall:.1f} s", flush=True)
+    return {"field_zoo": {"heads": heads, "variants": variants,
+                          "cp_last_phase": {"rays": n_rays, "samples": S,
+                                            "resolution": res},
+                          "wall_s": wall, **small}}
 
 
 # ------------------------------------------- evaluation and checkpoints
@@ -3277,6 +3618,8 @@ def main(argv):
                 grid3d=tuple(blurred[1])), path=label)})
         torch.cuda.empty_cache()
     run_variants()
+    torch.cuda.empty_cache()
+    emit(run_field_zoo(gen))
     torch.cuda.empty_cache()
     # L2G-BAT through every phase, then K1-K3 at its last phase's shapes
     n_rays, S, res, cfg, _, trained = run_l2g()

@@ -7,10 +7,14 @@ Keys (factor layouts as in the JAX package: planes [H, W, R], lines
 [D, R], shading weights [fan_in, fan_out]):
 
     density_planes, density_lines, app_planes, app_lines   lists of 3 arrays
-    basis                                                  [sum(app comps), app_dim]
-    shading        {"layers": [{"w": [fan_in, fan_out], "b": [fan_out]}, ...]}
-                   (MLP_Fea), or {"layer1": {"w", "b"}, "layer2", "layer3"}
-                   (MLP_Fea_WeakView), as the JAX package keeps them
+                   (a CP field's plane lists are empty)
+    basis          [sum(app comps), app_dim] (CP: [app comps[0], app_dim])
+    shading        the head's tree as the JAX package keeps it, leaves
+                   {"w": [fan_in, fan_out], "b": [fan_out]}: {"layers":
+                   [...]} (MLP_Fea: 3, MLP_Fea4: 4), {"layer1", "layer2",
+                   "layer3"} (the WeakView, WeakView-Density, PE, MLP and
+                   Albedo heads), {"fea_gauss", "view_gauss", "layer1",
+                   "layer2", "layer3"} (GaRF), {} (SH, RGB)
     aabb           [2, 3]
   optional:
     se3_refine       [V, 6]
@@ -52,10 +56,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn as nn
 
 from .models import vm as vm_lib
-from .models.shading import MLPFeaWeakView
 from .train import l2g as l2g_lib
 from .train.optim import AdamState
 from .train.step import TrainState, init_train_state
@@ -77,30 +79,20 @@ def _t(x, device):
     return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
-def shading_layers(tree: dict) -> list:
-    """Either JAX form of a shading head's parameters -> its 3 layers."""
-    if "layers" in tree:
-        return list(tree["layers"])
-    return [tree[f"layer{i + 1}"] for i in range(3)]
-
-
-def shading_tree(layers: list, weakview: bool) -> dict:
-    """The inverse of shading_layers, in the head's JAX form."""
-    if weakview:
-        return {f"layer{i + 1}": layer for i, layer in enumerate(layers)}
-    return {"layers": list(layers)}
-
-
 def field_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None) -> vm_lib.VMField:
     shading = vm_lib.make_shading(cfg, device)
-    for i, layer in enumerate(shading_layers(d["shading"])):
-        for key, plist in (("w", shading.w), ("b", shading.b)):
-            t = _t(layer[key], device)
-            if t.shape != plist[i].shape:
-                raise ValueError(f"shading.layers[{i}].{key}: shape "
-                                 f"{tuple(t.shape)}, the config wants "
-                                 f"{tuple(plist[i].shape)}")
-            plist[i] = nn.Parameter(t)
+    leaves = {k: _t(a, device)
+              for k, a in tree_lib.flatten(d["shading"]).items()}
+    want = dict(shading.named_parameters())
+    for k, p in want.items():
+        if k not in leaves or leaves[k].shape != p.shape:
+            raise ValueError(
+                f"shading.{k}: {tuple(leaves[k].shape) if k in leaves else 'missing'}"
+                f", the config's {cfg.shading_mode} wants {tuple(p.shape)}")
+    if set(leaves) != set(want):
+        raise ValueError(f"shading leaves {sorted(set(leaves) - set(want))} "
+                         f"are not {cfg.shading_mode}'s")
+    shading.load_state_dict(leaves)
     return vm_lib.VMField(
         *[[_t(a, device) for a in d[g]] for g in _GROUPS],
         basis=_t(d["basis"], device), shading=shading,
@@ -116,9 +108,9 @@ def _moments_from_numpy(tree: dict, field: vm_lib.VMField, device) -> dict:
             out[name] = _t(tree[head][int(rest[0])], device)
         elif head == "basis":
             out[name] = _t(tree["basis"], device)
-        else:                                   # shading.{w,b}.i
-            out[name] = _t(shading_layers(tree["shading"])[int(rest[1])][
-                rest[0]], device)
+        else:                                   # shading.<JAX path>
+            out[name] = _t(tree_lib.flatten(tree["shading"])[".".join(rest)],
+                           device)
     return out
 
 
@@ -156,10 +148,10 @@ def _np(t):
     return t.numpy()
 
 
-def _field_tree(named: dict, weakview: bool) -> dict:
+def _field_tree(named: dict) -> dict:
     """{parameter name: tensor} -> the field-shaped dict of numpy arrays."""
     tree = {g: [] for g in _GROUPS}
-    layers: dict[int, dict] = {}
+    shading = {}
     for name, t in named.items():
         head, *rest = name.split(".")
         if head in _GROUPS:
@@ -167,19 +159,17 @@ def _field_tree(named: dict, weakview: bool) -> dict:
         elif head == "basis":
             tree["basis"] = _np(t)
         else:
-            layers.setdefault(int(rest[1]), {})[rest[0]] = _np(t)
-    tree["shading"] = shading_tree([layers[i] for i in sorted(layers)],
-                                   weakview)
+            shading[".".join(rest)] = _np(t)
+    tree["shading"] = tree_lib.unflatten(shading) or {}
     return tree
 
 
 def _field_numpy(state) -> dict:
     """The field keys, aabb and scene_opt of a TrainState or L2GState."""
-    weakview = isinstance(state.field.shading, MLPFeaWeakView)
-    d = _field_tree(dict(state.field.named_parameters()), weakview)
+    d = _field_tree(dict(state.field.named_parameters()))
     d["aabb"] = _np(state.field.aabb)
-    d["scene_opt"] = {"mu": _field_tree(state.scene_opt.mu, weakview),
-                      "nu": _field_tree(state.scene_opt.nu, weakview),
+    d["scene_opt"] = {"mu": _field_tree(state.scene_opt.mu),
+                      "nu": _field_tree(state.scene_opt.nu),
                       "count": state.scene_opt.count}
     return d
 

@@ -60,8 +60,10 @@ def dense_alpha(field: vm_lib.VMField, cfg: vm_lib.VMConfig, grid_size,
         pts = xyz[s:s + chunk]
         coords = tuple(vm_lib.normalize_coord(pts[:, a], aabb[:, a])
                        for a in range(3))
-        sigma = vm_lib.feature2density(
-            cfg, vm_lib.compute_density_feature(field, coords))
+        feat = vm_lib.compute_density_feature(field, cfg, coords)
+        # a component-wise activated feature is the density already
+        sigma = (feat if cfg.component_wise_feature2density
+                 else vm_lib.feature2density(cfg, feat))
         alpha[s:s + chunk] = 1.0 - torch.exp(-sigma * step_size)
     shape = [int(s) for s in grid_size]
     return alpha.reshape(shape), xyz.reshape(shape + [3])

@@ -1,11 +1,23 @@
-"""VM-decomposed (plane x line) tensorial radiance field
-(counterpart of joint_tensorf_tpu/models/vm.py, the fused VM path and the
-shape transitions).
+"""VM- or CP-decomposed tensorial radiance field
+(counterpart of joint_tensorf_tpu/models/vm.py: the factor samples, the
+dense grid, the regularisers and the shape transitions).
 
 The field is an nn.Module: channels-last factor grids ([H, W, R] planes,
-[D, R] lines), the appearance basis, the shading head (MLP_Fea or
-MLP_Fea_WeakView, VMConfig.shading_mode), and the scene box ``aabb`` as
-a buffer.  The density activation is softplus or relu
+[D, R] lines; CP, ``decomposition`` "CP", has lines only and its basis
+maps R, not 3R, components), the appearance basis, the shading head
+(VMConfig.shading_mode, models/shading.py), and the scene box ``aabb`` as
+a buffer.
+
+BAT's blur-path variants (the reference's bateRF.py:52-89) act on the
+density factors before their blur: component_wise_feature2density (the
+activation on planes and lines; the renderer then applies none after the
+sample), plane_feature2density (on the planes), abs_components (|.| on
+both); convolve_plane_only leaves the density lines unblurred;
+convolve_positive_only samples the blurred plane and line apart and, where
+the blurred line sample is negative, takes the sharp plane's sample (or,
+with ignore_negative_split, zero) instead.  The fused sample and the dense
+grid run only where they compute the same function (can_fuse_features,
+can_densify).  The density activation is softplus or relu
 (VMConfig.fea2dense); the TV terms of the LLFF configs are tv_loss_density
 and tv_loss_app.  The box gets no gradient: pose and plane
 gradients flow through the sampling coordinates, never into the box
@@ -36,8 +48,8 @@ import torch.nn as nn
 from ..ops import blur as blur_ops
 from ..ops import resample
 from ..ops.kernels import average_kernel, gaussian_kernel
-from ..ops.sampling import sample_planeline_prod
-from .shading import SHADING_HEADS
+from ..ops.sampling import sample_line, sample_plane, sample_planeline_prod
+from .shading import make_head
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
@@ -45,8 +57,7 @@ VEC_MODE = (2, 1, 0)
 
 @dataclasses.dataclass(frozen=True)
 class VMConfig:
-    """Static field configuration (the fused VM path's subset of the
-    reference's VMConfig)."""
+    """Static field configuration (the JAX package's VMConfig)."""
     density_n_comp: tuple[int, int, int] = (16, 16, 16)
     app_n_comp: tuple[int, int, int] = (48, 48, 48)
     app_dim: int = 27
@@ -58,8 +69,16 @@ class VMConfig:
     raymarch_weight_thres: float = 1e-6
     step_ratio: float = 0.5
     factor_dtype: str = "float32"            # factor storage: or "bfloat16"
-    shading_mode: str = "MLP_Fea"            # or "MLP_Fea_WeakView"
+    shading_mode: str = "MLP_Fea"            # models/shading.HEAD_NAMES
     fea2dense: str = "softplus"              # or "relu"
+    pos_pe: int = 2
+    decomposition: str = "VM"                # or "CP"
+    abs_components: bool = False
+    component_wise_feature2density: bool = False
+    plane_feature2density: bool = False
+    convolve_plane_only: bool = False
+    convolve_positive_only: bool = False
+    ignore_negative_split: bool = False
 
 
 class VMField(nn.Module):
@@ -79,9 +98,14 @@ class VMField(nn.Module):
         self.register_buffer("aabb", aabb.reshape(2, 3))
 
     def resolution(self) -> list[int]:
-        """[res_x, res_y, res_z] (W and H of plane 0, D of line 0)."""
-        return [self.density_planes[0].shape[1],
-                self.density_planes[0].shape[0],
+        """[res_x, res_y, res_z]: W and H of plane 0, D of line 0; a CP
+        field's from its lines (line i lies along axis VEC_MODE[i])."""
+        if len(self.density_planes):
+            return [self.density_planes[0].shape[1],
+                    self.density_planes[0].shape[0],
+                    self.density_lines[0].shape[0]]
+        return [self.density_lines[2].shape[0],
+                self.density_lines[1].shape[0],
                 self.density_lines[0].shape[0]]
 
     def is_factor(self, name: str) -> bool:
@@ -95,7 +119,8 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
             init_bias: float = 0.0, device=None, init_density: bool = True,
             init_app: bool = True, init_basis: bool = True,
             prev: VMField | None = None) -> VMField:
-    """Factors |bias + scale*N(0,1)| in cfg.factor_dtype, basis
+    """Factors |bias + scale*N(0,1)| in cfg.factor_dtype (CP lines
+    scale*N(0,1), no abs and no bias, and no planes), basis
     U(+-1/sqrt(fan_in)), shading with nn.Linear's default init, drawn from
     ``generator``.  With ``prev`` (the reference's reset_on_last_upsample,
     joint_tensorf_tpu/models/vm.py:106-151), the groups not re-initialised
@@ -106,19 +131,23 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
     def normal(shape):
         return torch.randn(shape, generator=generator, device=device)
 
+    cp = cfg.decomposition == "CP"
+
     def one_svd(n_comp):
         planes, lines = [], []
         for i in range(3):
             m0, m1 = MAT_MODE[i]
-            p = normal((res[m1], res[m0], n_comp[i]))
-            planes.append(torch.abs(init_bias + init_scale * p).to(fdt))
+            if not cp:
+                p = normal((res[m1], res[m0], n_comp[i]))
+                planes.append(torch.abs(init_bias + init_scale * p).to(fdt))
             l = normal((res[VEC_MODE[i]], n_comp[i]))
-            lines.append(torch.abs(init_bias + init_scale * l).to(fdt))
+            lines.append((init_scale * l if cp else
+                          torch.abs(init_bias + init_scale * l)).to(fdt))
         return planes, lines
 
     d_planes, d_lines = one_svd(cfg.density_n_comp)
     a_planes, a_lines = one_svd(cfg.app_n_comp)
-    basis_in = sum(cfg.app_n_comp)
+    basis_in = cfg.app_n_comp[0] if cp else sum(cfg.app_n_comp)
     bound = 1.0 / (basis_in ** 0.5)
     basis = (torch.rand((basis_in, cfg.app_dim), generator=generator,
                         device=device) * 2 - 1) * bound
@@ -142,9 +171,9 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
 def make_shading(cfg: VMConfig, device=None,
                  generator: torch.Generator | None = None) -> nn.Module:
     """The config's shading head, drawn from ``generator``."""
-    return SHADING_HEADS[cfg.shading_mode](
-        cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.hidden, device=device,
-        generator=generator)
+    return make_head(cfg.shading_mode, cfg.app_dim, cfg.view_pe, cfg.pos_pe,
+                     cfg.fea_pe, cfg.hidden, device=device,
+                     generator=generator)
 
 
 def normalize_coord(xyz, aabb):
@@ -175,22 +204,81 @@ def c2f_kernel(mode: str, parameter, kernel_size: int, grid_scale):
     raise ValueError(f"invalid c2f_mode {mode!r}")
 
 
+def can_fuse_features(cfg: VMConfig) -> bool:
+    """Whether density and appearance can share one fused factor sample:
+    VM factors with no per-component activation and no per-sample
+    blurred / sharp mix."""
+    return (cfg.decomposition == "VM"
+            and not cfg.component_wise_feature2density
+            and not cfg.plane_feature2density
+            and not cfg.abs_components
+            and not cfg.convolve_positive_only)
+
+
+def can_densify(cfg: VMConfig) -> bool:
+    """Whether the density can be read from the dense grid: every factor
+    transform (activation variants, blur) happens before interpolation and
+    commutes with the expansion; only convolve_positive_only mixes blurred
+    and sharp factors per sample."""
+    return not cfg.convolve_positive_only
+
+
+def _blurred(plane, line, mats, blur_line: bool = True):
+    """The factors as float32, blurred by ``mats`` when given (the line
+    only with ``blur_line``)."""
+    plane, line = plane.float(), line.float()
+    if mats is None:
+        return plane, line
+    plane = blur_ops.blur_plane(plane, mats[plane.shape[0]],
+                                mats[plane.shape[1]])
+    if blur_line:
+        line = blur_ops.blur_line(line, mats[line.shape[0]])
+    return plane, line
+
+
+def _density_variant(cfg: VMConfig, plane, line):
+    """The activation variant on a density plane and line, in their
+    storage dtype (as JAX applies it to the stored factors)."""
+    if cfg.component_wise_feature2density:
+        return feature2density(cfg, plane), feature2density(cfg, line)
+    if cfg.plane_feature2density:
+        return feature2density(cfg, plane), line
+    if cfg.abs_components:
+        return _abs(plane), _abs(line)
+    return plane, line
+
+
+def _density_factors(field: VMField, cfg: VMConfig, i: int, mats):
+    """Density plane and line of axis i as float32, varied and blurred
+    (the line not under convolve_plane_only), and the varied plane
+    unblurred."""
+    plane, line = _density_variant(cfg, field.density_planes[i],
+                                   field.density_lines[i])
+    sharp = plane.float()
+    plane, line = _blurred(plane, line, mats,
+                           blur_line=not cfg.convolve_plane_only)
+    return plane, line, sharp
+
+
 def compute_fused_features(field: VMField, cfg: VMConfig, coords,
                            d_mats=None, c_mats=None):
     """Density and appearance features from ONE fused factor sample per
     axis: density and appearance grids are concatenated channel-wise
-    ([H, W, Rd+Ra]) after their own blurs, sampled once, and split.
+    ([H, W, Rd+Ra]) after their own blurs, sampled once, and split (only
+    where can_fuse_features).
 
     coords: (cx, cy, cz) tuple of [N] tensors in [-1,1].
     Returns (sigma_feature [N], app_feature [N, app_dim]).
     """
+    if not can_fuse_features(cfg):
+        raise ValueError("compute_fused_features: the config's variants "
+                         "need the separate samples")
     Rd = cfg.density_n_comp
     sigma = torch.zeros_like(coords[0])
     app_parts = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
-        den_p, den_l = _blurred(field.density_planes[i],
-                                field.density_lines[i], d_mats)
+        den_p, den_l, _ = _density_factors(field, cfg, i, d_mats)
         app_p, app_l = _blurred(field.app_planes[i], field.app_lines[i],
                                 c_mats)
         plane = torch.cat([den_p, app_p], dim=-1)
@@ -202,36 +290,63 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
     return sigma, torch.cat(app_parts, dim=-1) @ field.basis
 
 
-def _blurred(plane, line, mats):
-    """The factors as float32, blurred by ``mats`` when given."""
-    plane, line = plane.float(), line.float()
-    if mats is None:
-        return plane, line
-    return (blur_ops.blur_plane(plane, mats[plane.shape[0]],
-                                mats[plane.shape[1]]),
-            blur_ops.blur_line(line, mats[line.shape[0]]))
+def _cp_feature(lines, cfg: VMConfig, coords, blur_mats, density: bool):
+    """CP: the product of the three (blurred) line samples [N, R], each
+    line activated first for a component-wise density.  The samples are
+    plain gathers under autograd, as JAX's are."""
+    prod = None
+    for i in range(3):
+        line = lines[i]
+        if density and cfg.component_wise_feature2density:
+            line = feature2density(cfg, line)
+        line = line.float()
+        if blur_mats is not None:
+            line = blur_ops.blur_line(line, blur_mats[line.shape[0]])
+        s = sample_line(line, coords[VEC_MODE[i]])
+        prod = s if prod is None else prod * s
+    return prod
 
 
-def compute_density_feature(field: VMField, coords, blur_mats=None):
+def compute_density_feature(field: VMField, cfg: VMConfig, coords,
+                            blur_mats=None):
     """Density feature [N] at normalized coords (cx, cy, cz) from the
-    density factors alone, blurred by ``blur_mats`` when given (the
-    alpha-mask build and the probes unblurred; the two-stage appearance
-    path's density)."""
+    density factors alone, varied and blurred by ``blur_mats`` when given
+    (the alpha-mask build and the probes unblurred).  Under the blur with
+    convolve_positive_only the plane and line are sampled apart by plain
+    gathers; otherwise one sample_planeline_prod (K3 in its backward) per
+    axis."""
+    if cfg.decomposition == "CP":
+        return torch.sum(_cp_feature(field.density_lines, cfg, coords,
+                                     blur_mats, density=True), dim=-1)
     sigma = torch.zeros_like(coords[0])
     for i in range(3):
         m0, m1 = MAT_MODE[i]
-        plane, line = _blurred(field.density_planes[i],
-                               field.density_lines[i], blur_mats)
-        prod = sample_planeline_prod(plane, line, coords[m0], coords[m1],
-                                     coords[VEC_MODE[i]])
+        u, v, w = coords[m0], coords[m1], coords[VEC_MODE[i]]
+        plane, line, sharp = _density_factors(field, cfg, i, blur_mats)
+        if blur_mats is not None and cfg.convolve_positive_only:
+            p = sample_plane(plane, u, v)
+            l = sample_line(line, w)
+            pos = l.detach() >= 0
+            if cfg.ignore_negative_split:
+                p = p * pos
+            else:
+                p = torch.where(pos, p, sample_plane(sharp, u, v))
+            prod = p * l
+        else:
+            prod = sample_planeline_prod(plane, line, u, v, w)
         sigma = sigma + torch.sum(prod, dim=-1)
     return sigma
 
 
-def compute_app_feature(field: VMField, coords, blur_mats=None):
+def compute_app_feature(field: VMField, cfg: VMConfig, coords,
+                        blur_mats=None):
     """Appearance features [N, app_dim] at normalized coords (cx, cy, cz)
-    from the appearance factors alone (blurred by ``blur_mats`` when given),
-    through one sample_planeline_prod (K3 in its backward) per axis."""
+    from the appearance factors alone (blurred by ``blur_mats`` when given,
+    planes and lines alike): one sample_planeline_prod (K3 in its
+    backward) per axis, or CP's line product."""
+    if cfg.decomposition == "CP":
+        return _cp_feature(field.app_lines, cfg, coords, blur_mats,
+                           density=False) @ field.basis
     feats = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -242,17 +357,28 @@ def compute_app_feature(field: VMField, coords, blur_mats=None):
     return torch.cat(feats, dim=-1) @ field.basis
 
 
-def compute_density_grid(field: VMField, blur_mats=None):
+def compute_density_grid(field: VMField, cfg: VMConfig, blur_mats=None):
     """Dense density-feature grid G [X, Y, Z]: the full rank expansion of
-    the (blurred) density factors, sampled by ops/densify.py.  Every
-    factor transform happens before interpolation, so G commutes with the
-    factored sample; the port's configs hold none of the per-sample
-    variants (convolve_positive_only) that would not."""
+    the (varied, blurred) density factors, sampled by ops/densify.py.
+    Every factor transform happens before interpolation, so G commutes
+    with the factored sample (not so under convolve_positive_only:
+    can_densify).  CP: the xr,yr,zr->xyz product of the three lines."""
+    if cfg.decomposition == "CP":
+        lines = []
+        for i in range(3):
+            line = field.density_lines[i]
+            if cfg.component_wise_feature2density:
+                line = feature2density(cfg, line)
+            line = line.float()
+            if blur_mats is not None:
+                line = blur_ops.blur_line(line, blur_mats[line.shape[0]])
+            lines.append(line)
+        # line i lies along axis VEC_MODE[i] = (z, y, x)
+        return torch.einsum("xr,yr,zr->xyz", lines[2], lines[1], lines[0])
     spec = ("yxr,zr->xyz", "zxr,yr->xyz", "zyr,xr->xyz")
     G = None
     for i in range(3):
-        plane, line = _blurred(field.density_planes[i],
-                               field.density_lines[i], blur_mats)
+        plane, line, _ = _density_factors(field, cfg, i, blur_mats)
         term = torch.einsum(spec[i], plane, line)
         G = term if G is None else G + term
     return G
@@ -265,13 +391,34 @@ def _abs(x):
 
 
 def density_L1(field: VMField):
-    """Mean-abs sparsity on the density factors (planes and lines)."""
+    """Mean-abs sparsity on the density factors (planes and lines; a CP
+    field's lines)."""
     total = 0.0
     for p in field.density_planes:
         total = total + torch.mean(_abs(p))
     for l in field.density_lines:
         total = total + torch.mean(_abs(l))
     return total
+
+
+def _vector_diffs(lines):
+    """Mean |off-diagonal| of the line factors' Gram matrices."""
+    total = 0.0
+    for l in lines:                       # [D, R]
+        l = l.float()
+        gram = l.T @ l
+        R = gram.shape[0]
+        off = gram * (1.0 - torch.eye(R, dtype=gram.dtype,
+                                      device=gram.device))
+        total = total + torch.sum(torch.abs(off)) / (R * (R - 1))
+    return total
+
+
+def vector_comp_diffs(field: VMField):
+    """The line components' orthogonality diagnostic (the reference's
+    tensoRF.py:198-210): density and appearance lines."""
+    return (_vector_diffs(field.density_lines)
+            + _vector_diffs(field.app_lines))
 
 
 def _tv_plane(p):
@@ -282,11 +429,21 @@ def _tv_plane(p):
     return 2.0 * (h_tv + w_tv)
 
 
+def _tv_line(l):
+    return 2.0 * torch.mean((l[1:, :] - l[:-1, :]) ** 2)
+
+
 def tv_loss_density(field: VMField):
+    """TV of the density planes x 1e-2 (a CP field's lines x 1e-3)."""
+    if not len(field.density_planes):
+        return sum(_tv_line(l) for l in field.density_lines) * 1e-3
     return sum(_tv_plane(p) for p in field.density_planes) * 1e-2
 
 
 def tv_loss_app(field: VMField):
+    """TV of the appearance planes x 1e-2 (a CP field's lines x 1e-3)."""
+    if not len(field.app_planes):
+        return sum(_tv_line(l) for l in field.app_lines) * 1e-3
     return sum(_tv_plane(p) for p in field.app_planes) * 1e-2
 
 

@@ -3,8 +3,10 @@
 the fused plane x line factor sample with its hand-written backward
 (:219-426).
 
-    sample_plane(plane [H,W,R], u, v [N]) -> [N,R]    autograd through gathers
-    sample_line(line [D,R], w [N]) -> [N,R]
+    sample_plane(plane [H,W,R], u, v [N]) -> [N,R]    one packed gather,
+        index_add_ backward (K4's plain version, convolve_positive_only)
+    sample_line(line [D,R], w [N]) -> [N,R]    one packed gather, one-hot
+        matmul backward (CP's lines, convolve_positive_only)
     sample_grid3d(grid [X,Y,Z], (x, y, z) [N]) -> [N]    trilinear (alpha mask)
     sample_planeline_prod(plane [H,W,R], line [D,R], u, v, w [N]) -> p(u,v) * l(w)  [N,R]
 
@@ -44,25 +46,56 @@ def _floor_frac(x, size: int):
     return x0.long(), x - x0
 
 
+class _GatherRows(torch.autograd.Function):
+    """table[idx] whose backward scatters the rows' cotangent with
+    ``scatter(idx, g, n_rows)``: torch's own gather backward (index_put_
+    with accumulate, which sorts the indices) serialises the many samples
+    that share a row."""
+
+    @staticmethod
+    def forward(ctx, table, idx, scatter):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.scatter = table.shape[0], scatter
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        idx, = ctx.saved_tensors
+        return ctx.scatter(idx, g.contiguous(), ctx.n_rows), None, None
+
+
+def _index_add_rows(idx, updates, n_rows: int):
+    return torch.zeros((n_rows, updates.shape[1]), dtype=updates.dtype,
+                       device=updates.device).index_add_(0, idx, updates)
+
+
 def sample_line(line, w):
-    """line [D, R]; w [N] normalized coord along the line axis -> [N, R]."""
-    D = line.shape[0]
+    """line [D, R]; w [N] normalized coord along the line axis -> [N, R]:
+    one packed row gather (the JAX package's sample_line_packed, the
+    same values as sampling both neighbours), its backward the one-hot
+    matmul of a short destination, autograd through the fraction."""
+    D, R = line.shape
     i0, fx = _floor_frac(_pix(w, D), D)
-    i1 = torch.clamp(i0 + 1, max=D - 1)
-    return line[i0] * (1.0 - fx)[:, None] + line[i1] * fx[:, None]
+    rows = _GatherRows.apply(pack_line(line), i0, _scatter_rows_matmul)
+    return rows[:, :R] * (1.0 - fx)[:, None] + rows[:, R:] * fx[:, None]
 
 
 def sample_plane(plane, u, v):
-    """plane [H, W, R]; u (->W axis), v (->H axis) [N] in [-1,1] -> [N, R]."""
+    """plane [H, W, R]; u (->W axis), v (->H axis) [N] in [-1,1] -> [N, R]:
+    one corner-packed row gather (the JAX package's sample_plane_packed,
+    the same values as gathering the four corners), its backward one
+    ``index_add_`` of the [N, 4R] rows (plain torch, not K3); autograd
+    through the fractions."""
     H, W, R = plane.shape
     x0, fx = _floor_frac(_pix(u, W), W)
     y0, fy = _floor_frac(_pix(v, H), H)
-    x1 = torch.clamp(x0 + 1, max=W - 1)
-    y1 = torch.clamp(y0 + 1, max=H - 1)
-    flat = plane.reshape(H * W, R)
+    rows = _GatherRows.apply(pack_plane(plane).reshape(H * W, 4 * R),
+                             y0 * W + x0, _index_add_rows)
     w00, w01, w10, w11 = _bilinear_weights(fx, fy)
-    return (flat[y0 * W + x0] * w00 + flat[y0 * W + x1] * w01
-            + flat[y1 * W + x0] * w10 + flat[y1 * W + x1] * w11)
+    return (rows[:, :R] * w00 + rows[:, R:2 * R] * w01
+            + rows[:, 2 * R:3 * R] * w10 + rows[:, 3 * R:] * w11)
 
 
 def sample_grid3d(grid, x, y, z):

@@ -136,15 +136,20 @@ def make_test_time_optimizer(vm_cfg: vm_lib.VMConfig, rcfg: RenderConfig,
 
 
 def render_config(trainer) -> RenderConfig:
-    """The render config of evaluate.py's test-time optimisation: stratified,
-    the alpha mask if any at the JAX RenderConfig's default stride 4 (not
-    tpu.mask_stride), no compaction, no dense grid, dense appearance; the
-    config's background and NDC choice, with the JAX RenderConfig's
-    defaults for the near plane (1) and the simulate flags (off)."""
+    """The render config of evaluate.py's test-time optimisation: stratified
+    (whatever nerf.sample_stratified says, as there), the alpha mask if any
+    at the JAX RenderConfig's default stride 4 (not tpu.mask_stride), no
+    compaction, no dense grid, dense appearance, the view directions and
+    points detached; the config's background and NDC choice, with the JAX
+    RenderConfig's defaults for the near plane (1) and the simulate flags
+    (off).  The head's density with arch.shading.predict_density: JAX's
+    config leaves mlp_predict_density off there, and its renderer then
+    fails on the head's (rgb, density) pair."""
     return RenderConfig(
         n_samples=trainer.n_samples, is_train=True, mask_stride=4,
         white_bg=bool(trainer.opt.nerf.get("setbg_opaque", True)),
-        ndc=trainer.ndc)
+        ndc=trainer.ndc, mlp_predict_density=bool(
+            trainer.opt.arch.shading.get("predict_density", False)))
 
 
 def blur_of_test_kernel(opt):

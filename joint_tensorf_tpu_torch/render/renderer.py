@@ -30,6 +30,14 @@ RenderConfig fields:
 * the two-stage appearance (``app_k``): only the app_k samples of largest
   weight among those past the weight gate are shaded.
 
+The field's own options choose the density path as JAX's renderer does
+(renderer.py:449-459): the dense grid only where vm.can_densify, the fused
+sample only where vm.can_fuse_features, neither (nor the two-stage
+appearance) when the head predicts the density (``mlp_predict_density``,
+MLP_Fea_WeakView_Density); a component-wise activated feature gets no
+activation after the sample.  Every head gets the sample points and view
+directions, detached unless ``detach_xyz`` / ``detach_viewdirs`` is off.
+
 ``ndc``: the rays are in NDC (geometry/ndc.py); samples sit at
 linspace(near, far, S) with a stratified offset per sample, distances
 are scaled by |d| and the view directions normalised
@@ -38,7 +46,10 @@ drawn from the generator) adds the white background to every ray or to
 none, at evaluation nothing is added.
 
 Compositing goes through ops/composite.py (kernels K1/K2 on CUDA) in every
-branch.  In the two-stage branch K1 gives weights, depth and opacity (its
+branch; JAX composites the predict-density and non-fused branches with its
+plain cumprod, the same function.  Under ``mlp_predict_density`` the
+colour is gated by the sample's validity: K1 gets the colours
+pre-multiplied by ``valid`` and no threshold (thres -inf).  In the two-stage branch K1 gives weights, depth and opacity (its
 rgb input is zero), the selected weights are gathered from its weights,
 and K2 receives their gradient as its g_weights: rgb = sum w_sel * rgb_sel
 * gate_sel, as in JAX.
@@ -59,14 +70,18 @@ from ..ops.composite import composite
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Detached view directions and points, as every config sets them;
-    samples are stratified in training only.  ``mask_stride``: samples per
-    alpha-mask probe (the JAX RenderConfig's fallback is 4;
-    configs/base.yaml sets tpu.mask_stride = 2).  The JAX RenderConfig's
-    densify_impl has no counterpart: its two layouts are one sampler here
-    (ops/densify.py)."""
+    """Samples are stratified in training when ``stratified``; the shading
+    head gets the view directions and the sample points detached unless
+    ``detach_viewdirs`` / ``detach_xyz`` is off; with
+    ``mlp_predict_density`` the head gives the density feature too (no
+    dense grid, fused sample or two-stage appearance then).
+    ``mask_stride``: samples per alpha-mask probe (the JAX RenderConfig's
+    fallback is 4; configs/base.yaml sets tpu.mask_stride = 2).  The JAX
+    RenderConfig's densify_impl has no counterpart: its two layouts are one
+    sampler here (ops/densify.py)."""
     n_samples: int
     is_train: bool = False
+    stratified: bool = True
     mask_stride: int = 4
     compact_k: Optional[int] = None
     densify_density: bool = False
@@ -78,6 +93,9 @@ class RenderConfig:
     ndc_near_plane: float = 1.0
     ndc_simulate_euclid_sample: bool = False
     ndc_simulate_euclid_depth: bool = False
+    detach_viewdirs: bool = True
+    detach_xyz: bool = True
+    mlp_predict_density: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,7 +240,7 @@ def render_rays(
     aabb_size = aabb[1] - aabb[0]
     res_t = torch.as_tensor(resolution, dtype=aabb.dtype, device=aabb.device)
     near, far = float(near_far[0]), float(near_far[1])
-    stratified = rcfg.is_train
+    stratified = rcfg.is_train and rcfg.stratified
 
     viewdirs = dirs
     if rcfg.ndc:
@@ -322,24 +340,49 @@ def render_rays(
                    for a, w in enumerate(axes_w))
     if rcfg.stop_coord_grad:
         coords = tuple(c.detach() for c in coords)
-    app_feat = None
-    if rcfg.densify_density:
-        G = vm_lib.compute_density_grid(field, blur_mats=d_mats)
+    head = field.shading
+
+    def head_inputs(axes, m):
+        """The head's points and view directions [n * m, 3], detached as
+        the config asks."""
+        pts = torch.stack(axes, dim=-1).reshape(-1, 3)
+        vd = viewdirs[:, None, :].expand(n, m, 3).reshape(-1, 3)
+        return (pts.detach() if rcfg.detach_xyz else pts,
+                vd.detach() if rcfg.detach_viewdirs else vd)
+
+    predict = rcfg.mlp_predict_density
+    use_densify = (rcfg.densify_density and vm_lib.can_densify(cfg)
+                   and not predict)
+    use_fused = (not use_densify and rcfg.app_k is None and not predict
+                 and vm_lib.can_fuse_features(cfg))
+    app_feat = rgb = None
+    if use_densify:
+        G = vm_lib.compute_density_grid(field, cfg, blur_mats=d_mats)
         sigma_feature = densify.sample_packed_grid(
             densify.pack_corners(G), coords, row_dtype=rcfg.densify_dtype)
-    elif rcfg.app_k is None:
+    elif predict:
+        # the head gives the density feature (the reference's
+        # batBase.py:106-109)
+        rgb, sigma_feature = head(
+            *head_inputs(axes_w, S), vm_lib.compute_app_feature(
+                field, cfg, coords, blur_mats=c_mats),
+            view_pe_progress, fea_pe_progress)
+    elif use_fused:
         sigma_feature, app_feat = vm_lib.compute_fused_features(
             field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
     else:
-        sigma_feature = vm_lib.compute_density_feature(field, coords,
+        sigma_feature = vm_lib.compute_density_feature(field, cfg, coords,
                                                        blur_mats=d_mats)
-    sigma = vm_lib.feature2density(cfg, sigma_feature.reshape(n, S))
+    sigma_feature = sigma_feature.reshape(n, S)
+    # a component-wise activated feature is the density already
+    sigma = (sigma_feature if cfg.component_wise_feature2density
+             else vm_lib.feature2density(cfg, sigma_feature))
     sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
     alpha = 1.0 - torch.exp(-sigma * dists * cfg.distance_scale)
     thres = cfg.raymarch_weight_thres
 
     # ------------------------------------------------ appearance
-    if rcfg.app_k is not None:
+    if rcfg.app_k is not None and not predict:
         K2 = min(rcfg.app_k, S)
         _, depth_map, acc_map, weight = composite(
             alpha, torch.zeros((n, S, 3), dtype=alpha.dtype,
@@ -359,20 +402,23 @@ def render_rays(
                            for a, w in enumerate(axes_sel))
         if rcfg.stop_coord_grad:
             coords_sel = tuple(c.detach() for c in coords_sel)
-        app_sel = vm_lib.compute_app_feature(field, coords_sel,
+        app_sel = vm_lib.compute_app_feature(field, cfg, coords_sel,
                                              blur_mats=c_mats)
-        vd_sel = viewdirs.detach()[:, None, :].expand(n, K2, 3)
-        rgb_sel = field.shading(vd_sel.reshape(-1, 3), app_sel,
-                                view_pe_progress, fea_pe_progress)
+        rgb_sel = head(*head_inputs(axes_sel, K2), app_sel,
+                       view_pe_progress, fea_pe_progress)
         rgb_sel = rgb_sel.reshape(n, K2, 3) * gate_sel[..., None]
         rgb_map = torch.sum(w_sel[..., None] * rgb_sel, dim=-2)
+    elif predict:
+        # the colour is gated by the sample's validity, not by its weight:
+        # K1 composites colours pre-multiplied by ``valid`` ungated
+        rgb = rgb.reshape(n, S, 3) * valid[..., None]
+        rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals)
     else:
         if app_feat is None:
-            app_feat = vm_lib.compute_app_feature(field, coords,
+            app_feat = vm_lib.compute_app_feature(field, cfg, coords,
                                                   blur_mats=c_mats)
-        mlp_viewdirs = viewdirs.detach()[:, None, :].expand(n, S, 3)
-        rgb = field.shading(mlp_viewdirs.reshape(-1, 3), app_feat,
-                            view_pe_progress, fea_pe_progress).reshape(n, S, 3)
+        rgb = head(*head_inputs(axes_w, S), app_feat, view_pe_progress,
+                   fea_pe_progress).reshape(n, S, 3)
         rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals, thres)
 
     if rcfg.white_bg:

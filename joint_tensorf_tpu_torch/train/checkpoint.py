@@ -6,7 +6,9 @@ One .npz holds:
 * ``state/<path>``: every array of the train state under the JAX pytree's
   path strings (``state/.params/.field/.density_planes/[0]``,
   ``state/.scene_opt/.mu/.shading/['layers']/[1]/['w']``, or
-  ``.../.shading/['layer2']/['w']`` for MLP_Fea_WeakView, ...); the
+  ``.../.shading/['layer2']/['w']`` for the three-layer heads,
+  ``.../.shading/['fea_gauss']/['w']`` for GaRF, no shading leaf for SH
+  and RGB; a CP field has no ``.density_planes`` / ``.app_planes``); the
   field's Adam moments carry an ``.aabb`` entry, zeros, as JAX's do.
   L2G-BAT's state holds ``.params/.warp_embedding``,
   ``.params/.warp_mlp/[i]/[j]`` (j = 0 the weight, 1 the bias), the pose
@@ -71,13 +73,7 @@ def _field_paths(prefix: str, tree: dict, aabb) -> dict:
         for i, a in enumerate(tree[g]):
             out[f"{prefix}/.{g}/[{i}]"] = a
     out[f"{prefix}/.basis"] = tree["basis"]
-    sh = tree["shading"]
-    named = ([(f"['layers']/[{i}]", layer)
-              for i, layer in enumerate(sh["layers"])] if "layers" in sh
-             else [(f"['{name}']", layer) for name, layer in sh.items()])
-    for path, layer in named:
-        for k in ("b", "w"):
-            out[f"{prefix}/.shading/{path}/['{k}']"] = layer[k]
+    _simple_paths(tree["shading"], f"{prefix}/.shading", False, out)
     out[f"{prefix}/.aabb"] = aabb
     return out
 
@@ -88,20 +84,11 @@ def _field_tree(prefix: str, arrays: dict) -> dict:
     for g in _GROUPS:
         while f"{prefix}/.{g}/[{len(tree[g])}]" in arrays:
             tree[g].append(arrays[f"{prefix}/.{g}/[{len(tree[g])}]"])
-    pat = re.compile(re.escape(prefix) + r"/\.shading/\['layers'\]/\[(\d+)\]"
-                     r"/\['(\w)'\]$")
-    weak = re.compile(re.escape(prefix) + r"/\.shading/\['layer(\d)'\]"
-                      r"/\['(\w)'\]$")
-    layers: dict[int, dict] = {}
-    weakview = False
-    for key, a in arrays.items():
-        m = pat.match(key) or weak.match(key)
-        if m:
-            weakview = m.re is weak
-            layers.setdefault(int(m.group(1)), {})[m.group(2)] = a
     tree["basis"] = arrays[f"{prefix}/.basis"]
-    tree["shading"] = convert.shading_tree([layers[i] for i in sorted(layers)],
-                                           weakview)
+    head = f"{prefix}/.shading/"
+    tree["shading"] = _simple_tree({k[len(head):]: a
+                                    for k, a in arrays.items()
+                                    if k.startswith(head)}) or {}
     return tree
 
 

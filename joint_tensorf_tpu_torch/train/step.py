@@ -64,7 +64,11 @@ class StepConfig:
     use_alpha_mask and mask_with_blur are the choice of the mask passed to
     train_step (Trainer._step_mask).  ``white_bg`` false: the random
     background coin in training; ``ndc``: NDC rays, with the near plane
-    and the simulate flags of the JAX StepConfig."""
+    and the simulate flags of the JAX StepConfig; ``stratified``,
+    ``detach_viewdirs``, ``detach_xyz`` and ``mlp_predict_density``: the
+    renderer's (RenderConfig).  Without ``stratified`` no jitter is drawn
+    (a given one is not read), as JAX pre-draws it only when
+    stratified."""
     H: int
     W: int
     n_views: int
@@ -86,10 +90,17 @@ class StepConfig:
     ndc_simulate_euclid_sample: bool = False
     ndc_simulate_euclid_depth: bool = False
     pin_first_pose: bool = False
+    stratified: bool = True
+    detach_viewdirs: bool = True
+    detach_xyz: bool = True
+    mlp_predict_density: bool = False
 
     def render_config(self) -> RenderConfig:
         return RenderConfig(
             n_samples=self.n_samples, is_train=True,
+            stratified=self.stratified,
+            detach_viewdirs=self.detach_viewdirs, detach_xyz=self.detach_xyz,
+            mlp_predict_density=self.mlp_predict_density,
             mask_stride=self.mask_stride, compact_k=self.compact_k,
             densify_density=self.densify_density,
             densify_dtype=self.densify_dtype, app_k=self.app_k,

@@ -57,6 +57,7 @@ from ..geometry import align as align_lib
 from ..geometry import lie, poses as pose_ops
 from ..models import alpha_mask as am_lib
 from ..models import vm as vm_lib
+from ..models.shading import HEAD_NAMES
 from ..ops import blur as blur_ops
 from ..ops import kernels as kernel_ops
 from ..ops import sobel
@@ -71,7 +72,11 @@ from .step import (StepConfig, StepScalars, compose_train_pose,
                    init_train_state, rebuild_opt_state, train_step)
 
 # (dotted key, the value or values the port runs); others raise.  None,
-# False and 0 all mean "off".
+# False and 0 all mean "off".  The six VM variant flags (arch.abs_components
+# ... arch.ignore_negative_split) run at either value and are read with
+# bool(), as JAX reads them; optim.sched_pose.type at any value, as JAX's
+# trainer runs it: ExponentialLR, else the lambda schedule
+# optim.sched_pose.lr_pose_schedule when given, else a constant pose lr.
 _PORTED_VALUES = (
     ("model", ("bat", "tensorf", "l2g_bat")),
     ("camera.ndc", (None, False, True)),
@@ -79,24 +84,18 @@ _PORTED_VALUES = (
     ("tpu.factor_dtype", ("float32", "bfloat16")),
     ("tpu.densify_impl", ("packed8", "lane")),
     ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
-    ("arch.tensorf.model", ("BAT_VMSplit", "TensorVMSplit")),
-    ("arch.shading.model", ("MLP_Fea", "MLP_Fea_WeakView")),
-    ("arch.shading.predict_density", False),
-    ("arch.shading.detach_viewdirs", True),
+    ("arch.tensorf.model", ("BAT_VMSplit", "TensorVMSplit", "BAT_CP",
+                            "TensorCP")),
+    ("arch.shading.model", HEAD_NAMES),
+    ("arch.shading.predict_density", (None, False, True)),
+    ("arch.shading.detach_viewdirs", (None, False, True)),
+    ("arch.shading.detach_xyz", (None, False, True)),
     ("arch.feature_to_density_activation", ("softplus", "relu")),
-    ("arch.abs_components", False),
-    ("arch.component_wise_feature2density", False),
-    ("arch.plane_feature2density", False),
-    ("arch.convolve_plane_only", False),
-    ("arch.convolve_positive_only", False),
-    ("arch.ignore_negative_split", False),
     ("nerf.setbg_opaque", (None, False, True)),
-    ("nerf.sample_stratified", True),
+    ("nerf.sample_stratified", (None, False, True)),
     ("nerf.ray_sampling_strategy", ("all_view_rand_grid",
                                     "all_view_rand_rays",
                                     "single_view_rand_rays")),
-    ("optim.sched_pose.type", (None, "ExponentialLR")),
-    ("optim.sched_pose.lr_pose_schedule", None),
 )
 
 # The tpu: keys.  Those in _PORTED_VALUES run only at the values named
@@ -128,19 +127,15 @@ def _off(v) -> bool:
     return v is None or v is False or (isinstance(v, (int, float)) and v == 0)
 
 
-# read only with pose optimisation (BAT, L2G-BAT): TensoRF's pose lr is 0.
-# Without a schedule type the pose lr is constant, as in JAX.
-_POSE_SCHEDULE_KEYS = ("optim.sched_pose.type",
-                       "optim.sched_pose.lr_pose_schedule")
 _POSE_MODELS = ("bat", "l2g_bat")
 
 
 def check_ported(opt: Options):
     """Raise NotImplementedError naming the first option whose value the
-    port does not run, or a tpu: key it does not know."""
+    port does not run, or a tpu: key it does not know; ValueError when
+    arch.shading.predict_density and the head disagree (the JAX renderer
+    unpacks a head's output by that flag, and fails on a mismatch)."""
     for key, want in _PORTED_VALUES:
-        if key in _POSE_SCHEDULE_KEYS and opt.model not in _POSE_MODELS:
-            continue
         got = opt.get_path(key)
         ok = (_off(got) if _off(want)
               else got in want if isinstance(want, tuple) else got == want)
@@ -151,6 +146,12 @@ def check_ported(opt: Options):
     if dtype not in _DENSIFY_DTYPES:
         raise _unported(f"option tpu.densify_dtype={dtype!r} under "
                         f"tpu.densify_impl={impl!r}")
+    head = str(opt.arch.shading.model)
+    predict = bool(opt.arch.shading.get("predict_density", False))
+    if predict != (head == "MLP_Fea_WeakView_Density"):
+        raise ValueError(f"arch.shading.predict_density={predict} with "
+                         f"arch.shading.model={head!r}: only "
+                         f"MLP_Fea_WeakView_Density predicts the density")
     checked = {k[4:] for k, _ in _PORTED_VALUES if k.startswith("tpu.")}
     checked.add("densify_dtype")
     for key in opt.get("tpu") or {}:
@@ -159,21 +160,36 @@ def check_ported(opt: Options):
 
 
 def build_vm_config(opt: Options) -> vm_lib.VMConfig:
+    """The JAX trainer's build_vm_config (trainer.py:44-69), quirks
+    included: it compares the arch.shading dict with "RGB", which never
+    holds, so the RGB head takes arch.shading.app_dim (and refuses any but
+    3); "CP" anywhere in arch.tensorf.model means the CP decomposition;
+    pos_pe is arch.shading.pose_pe."""
     arch = opt.arch
     return vm_lib.VMConfig(
         density_n_comp=tuple(int(c) for c in arch.tensorf.density_components),
         app_n_comp=tuple(int(c) for c in arch.tensorf.color_components),
-        app_dim=int(arch.shading.app_dim),
+        app_dim=3 if arch.shading == "RGB" else int(arch.shading.app_dim),
+        shading_mode=str(arch.shading.model),
         view_pe=int(arch.shading.view_pe),
+        pos_pe=int(arch.shading.pose_pe),
         fea_pe=int(arch.shading.fea_pe),
         hidden=int(arch.shading.mlp_hidden_dim),
+        fea2dense=str(arch.feature_to_density_activation),
         density_shift=float(arch.density_shift),
         distance_scale=float(arch.distance_scale),
         raymarch_weight_thres=float(arch.tensorf.rayMarch_weight_thres),
         step_ratio=float(opt.nerf.step_ratio),
+        decomposition="CP" if "CP" in arch.tensorf.model else "VM",
+        abs_components=bool(arch.get("abs_components", False)),
+        component_wise_feature2density=bool(
+            arch.get("component_wise_feature2density", False)),
+        plane_feature2density=bool(arch.get("plane_feature2density", False)),
+        convolve_plane_only=bool(arch.get("convolve_plane_only", False)),
+        convolve_positive_only=bool(arch.get("convolve_positive_only",
+                                             False)),
+        ignore_negative_split=bool(arch.get("ignore_negative_split", False)),
         factor_dtype=str(opt.tpu.get("factor_dtype") or "float32"),
-        shading_mode=str(arch.shading.model),
-        fea2dense=str(arch.feature_to_density_activation),
     )
 
 
@@ -237,11 +253,16 @@ class Trainer:
                                                       duration)
         self.lr_upsample_reset = bool(o.get("lr_upsample_reset", True))
         self.lr_pose0 = float(o.get("lr_pose", 0.0) or 0.0)
-        exponential = (o.get("sched_pose") or {}).get("type") == \
-            "ExponentialLR"
+        sched_pose = o.get("sched_pose") or {}
+        # ExponentialLR at lr_pose 0 falls back to the lambda schedule or
+        # the constant, as in JAX (trainer.py:147-158)
+        self.pose_exponential = (sched_pose.get("type") == "ExponentialLR"
+                                 and self.lr_pose0 > 0)
         self.pose_gamma = ((float(o.lr_pose_end) / self.lr_pose0) ** (
-            1.0 / self.max_iter) if self.lr_pose0 > 0 and exponential
-                           else 1.0)
+            1.0 / self.max_iter) if self.pose_exponential else 1.0)
+        self.pose_lambda_schedule = (
+            list(sched_pose.lr_pose_schedule)
+            if sched_pose.get("lr_pose_schedule") else None)
         self.warmup_pose = o.get("warmup_pose")
         # the TV weights decay with the learning rate
         lw = opt.loss_weight
@@ -380,9 +401,19 @@ class Trainer:
         return strat
 
     def _lr_pose(self) -> float:
+        """The pose lr (trainer.py:463-474): exponential decay, or the
+        lambda schedule (optim.sched_pose.lr_pose_schedule, interpolated
+        over the progress: the lr itself, as JAX reads it), or
+        constant; then the warm-up."""
         if not self.is_bat:
             return 0.0
-        lr = self.lr_pose0 * self.pose_gamma ** self.it
+        if self.pose_exponential:
+            lr = self.lr_pose0 * self.pose_gamma ** self.it
+        elif self.pose_lambda_schedule is not None:
+            lr = schedules.interp_schedule(self.progress,
+                                           self.pose_lambda_schedule)
+        else:
+            lr = self.lr_pose0
         if self.warmup_pose:
             lr *= min(1.0, self.it / float(self.warmup_pose))
         return float(lr)
@@ -616,13 +647,20 @@ class Trainer:
                            if lane else "float32"), app_k=app_k,
             pin_first_pose=bool(self.opt.train_schedule.get(
                 "pin_first_pose", False)),
+            stratified=bool(self.opt.nerf.get("sample_stratified", True)),
+            detach_viewdirs=bool(self.opt.arch.shading.get(
+                "detach_viewdirs", True)),
+            detach_xyz=bool(self.opt.arch.shading.get("detach_xyz", True)),
             **self._ray_options())
 
     def _ray_options(self) -> dict:
-        """The background and NDC choices of the config, as the JAX
-        trainer reads them."""
+        """The background, NDC and density-head choices of the config, as
+        the JAX trainer reads them for its training and evaluation
+        renders."""
         opt = self.opt
         return dict(
+            mlp_predict_density=bool(opt.arch.shading.get("predict_density",
+                                                          False)),
             white_bg=bool(opt.nerf.get("setbg_opaque", True)), ndc=self.ndc,
             ndc_near_plane=float(opt.arch.get("ndc_near_plane", 1.0)),
             ndc_simulate_euclid_sample=bool(
@@ -815,9 +853,11 @@ class Trainer:
                              .reshape(n, S) > 0)
         coords = tuple(vm_lib.normalize_coord(w, field.aabb[:, a])
                        for a, w in enumerate(flat))
+        # feature2density on the feature as JAX's probes apply it, also
+        # to a component-wise activated one
         sigma = vm_lib.feature2density(
-            self.vm_cfg, vm_lib.compute_density_feature(field, coords)
-        ).reshape(n, S)
+            self.vm_cfg, vm_lib.compute_density_feature(
+                field, self.vm_cfg, coords)).reshape(n, S)
         sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
         dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                            torch.zeros_like(z_vals[:, :1])], -1)
@@ -1037,9 +1077,11 @@ class Trainer:
                              .reshape(n, S) > 0)
         coords = tuple(vm_lib.normalize_coord(w, field.aabb[:, a])
                        for a, w in enumerate(flat))
+        # feature2density on the feature as JAX's probes apply it, also
+        # to a component-wise activated one
         sigma = vm_lib.feature2density(
-            self.vm_cfg, vm_lib.compute_density_feature(field, coords)
-        ).reshape(n, S)
+            self.vm_cfg, vm_lib.compute_density_feature(
+                field, self.vm_cfg, coords)).reshape(n, S)
         sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
         dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                            torch.zeros_like(z_vals[:, :1])], -1)
@@ -1086,7 +1128,9 @@ class Trainer:
         the factored density and the dense appearance, no alpha mask (its
         RenderConfig leaves use_alpha_mask off), coordinate gradients on,
         the config's NDC and background flags (the rays themselves stay
-        Euclidean, as in JAX).  The field is frozen, so a chunk launches
+        Euclidean, as in JAX), and the head's density under
+        arch.shading.predict_density (JAX's config leaves it off there and
+        fails on the head's pair).  The field is frozen, so a chunk launches
         K1 and K2 once each and K3 not at all.  ``on_chunk(i)`` runs after
         chunk i."""
         from ..geometry.rays import camera_grid_3d
@@ -1101,7 +1145,8 @@ class Trainer:
         rcfg = RenderConfig(
             n_samples=self.n_samples, is_train=False, ndc=self.ndc,
             white_bg=bool(self.opt.nerf.get("setbg_opaque", True)),
-            stop_coord_grad=False)
+            stop_coord_grad=False, mlp_predict_density=bool(
+                self.opt.arch.shading.get("predict_density", False)))
         near_far = self._near_far()
         field = self.state.field
 

@@ -49,7 +49,7 @@ def gated_counts(st):
     coords = tuple(vm.normalize_coord(w, aabb[:, a]).reshape(-1)
                    for a, w in enumerate(axes_w))
     sigma = vm.feature2density(
-        PCFG, vm.compute_density_feature(field, coords)).reshape(z.shape)
+        PCFG, vm.compute_density_feature(field, PCFG, coords)).reshape(z.shape)
     sigma = torch.where(inb, sigma, torch.zeros_like(sigma))
     dists = torch.cat([z[:, 1:] - z[:, :-1], torch.zeros_like(z[:, :1])], -1)
     _, _, w = transmittance(1.0 - torch.exp(-sigma * dists

@@ -20,6 +20,12 @@ layout).
   rebuilds the 2D blur cache at the restored iteration's progress, each
   of which would part a later resume from the uninterrupted run (ROADMAP
   Queue 3).
+* Every shading head's tree (MLP_Fea4's four "layers", the three-layer
+  heads' "layer1".."layer3" with the density head's hidden + 1 wide layer
+  2, GaRF's gaussians, SH's and RGB's empty tree) and a CP state (no
+  plane leaves), with random Adam moments and count: JAX's file restores
+  into the port leaf for leaf, and the port's file of that state into a
+  fresh JAX trainer, equal bit for bit.
 """
 import dataclasses
 
@@ -30,15 +36,20 @@ import pytest
 import torch
 from test_torch_eval import (CFG, SMALL, _box_field, _jscene,  # noqa: F401
                              one_torch_thread)
+from test_torch_tpu_trainer import SMALL as TPU_SMALL
+from torch_parity import flatten_train_state
 
 from joint_tensorf_tpu.config import set_options as jset_options
 from joint_tensorf_tpu.train import checkpoint as jckpt
 from joint_tensorf_tpu.train.trainer import Trainer as JTrainer
 from joint_tensorf_tpu_torch.config import set_options
+from joint_tensorf_tpu_torch.convert import to_numpy
 from joint_tensorf_tpu_torch.data import synthetic
+from joint_tensorf_tpu_torch.models.shading import HEAD_NAMES
 from joint_tensorf_tpu_torch.train import checkpoint as ckpt
 from joint_tensorf_tpu_torch.train.trainer import Trainer
 from joint_tensorf_tpu_torch.utils import setup_torch
+from joint_tensorf_tpu_torch.utils.tree import flatten
 
 setup_torch()
 
@@ -195,3 +206,67 @@ def test_port_resume_equals_uninterrupted_run(tiny_scene, tmp_path):
         full.rng_np.bit_generator.state
     for k in BUDGETS + ("compact_k_bbox", "resolution", "n_samples"):
         assert getattr(resumed, k) == getattr(full, k), k
+
+
+ZOO = {name: [f"--arch.shading.model={name}"] for name in HEAD_NAMES}
+ZOO["RGB"].append("--arch.shading.app_dim=3")
+ZOO["MLP_Fea_WeakView_Density"].append(
+    "--+arch.shading.predict_density=true")
+ZOO["BAT_CP"] = ["--arch.tensorf.model=BAT_CP"]
+
+
+def _randomised(jt, seed):
+    """JAX trainer state with random field values, moments and counts (the
+    moments' .aabb zeros, as JAX keeps them)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(a):
+        return jnp.asarray(rng.normal(size=a.shape).astype(np.float32))
+
+    st = jt.state
+    field = dataclasses.replace(jax.tree.map(rand, st.params.field),
+                                aabb=st.params.field.aabb)
+    mu, nu = (dataclasses.replace(jax.tree.map(f, st.scene_opt.mu),
+                                  aabb=jnp.zeros((2, 3)))
+              for f in (rand, lambda a: jnp.abs(rand(a))))
+    return dataclasses.replace(
+        st, params=dataclasses.replace(st.params, field=field,
+                                       se3_refine=rand(st.params.se3_refine)),
+        scene_opt=dataclasses.replace(st.scene_opt, mu=mu, nu=nu,
+                                      count=jnp.int32(3)),
+        pose_opt=dataclasses.replace(st.pose_opt, mu=rand(st.pose_opt.mu),
+                                     count=jnp.int32(5)))
+
+
+def _same_leaves(got: dict, want: dict):
+    g, w = flatten(got), flatten(want)
+    assert set(g) == set(w)
+    for k in w:
+        np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(ZOO))
+def test_zoo_checkpoint_both_ways(tiny_scene, tmp_path, name):
+    args = TPU_SMALL + ZOO[name]
+    jt = JTrainer(jset_options(CFG, args), _jscene(tiny_scene))
+    jt.state = _randomised(jt, 7)
+    want = flatten_train_state(jt.state)
+    if name == "BAT_CP":
+        assert want["density_planes"] == want["app_planes"] == []
+    jpath = str(tmp_path / "jax.ckpt.npz")
+    jckpt.save_checkpoint(jpath, jt)
+    pt = Trainer(set_options(CFG, args), tiny_scene, device="cpu")
+    ckpt.restore_checkpoint(jpath, pt)
+    got = to_numpy(pt.state)
+    got.pop("aabb"), want.pop("aabb")
+    for m in ("mu", "nu"):
+        got["scene_opt"][m].pop("aabb", None)
+        want["scene_opt"][m].pop("aabb")
+    _same_leaves(got, want)
+    ppath = str(tmp_path / "port.ckpt.npz")
+    ckpt.save_checkpoint(ppath, pt)
+    jt2 = JTrainer(jset_options(CFG, args), _jscene(tiny_scene))
+    jckpt.restore_checkpoint(ppath, jt2)
+    _same_leaves(flatten_train_state(jt2.state),
+                 flatten_train_state(jt.state))

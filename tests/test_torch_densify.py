@@ -58,7 +58,8 @@ def test_density_grid_matches_jax(blurred):
                                     blur_mats=_blur_mats(False) if blurred
                                     else None)
     field = field_from_numpy(flatten_field(st), PCFG)
-    got = vm.compute_density_grid(field, blur_mats=_blur_mats(True)
+    got = vm.compute_density_grid(field, PCFG,
+                                  blur_mats=_blur_mats(True)
                                   if blurred else None)
     assert got.shape == (RES[0], RES[1], RES[2])
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
@@ -97,7 +98,7 @@ def test_packed_sample_and_gradients_match_jax(layout, blurred):
 
     field = field_from_numpy(flatten_field(st), PCFG)
     tc = [torch.tensor(c, requires_grad=True) for c in coords]
-    G = vm.compute_density_grid(field, blur_mats=_blur_mats(True)
+    G = vm.compute_density_grid(field, PCFG, blur_mats=_blur_mats(True)
                                 if blurred else None)
     out = densify.sample_packed_grid(densify.pack_corners(G), tuple(tc))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
@@ -126,10 +127,10 @@ def test_packed_sample_equals_factored_density():
     coords = tuple(torch.as_tensor(c) for c in
                    rng.uniform(-1.05, 1.05, (3, 200)).astype(np.float32))
     dense = densify.sample_packed_grid(
-        densify.pack_corners(vm.compute_density_grid(field)), coords)
+        densify.pack_corners(vm.compute_density_grid(field, PCFG)), coords)
     np.testing.assert_allclose(
         dense.detach().numpy(),
-        vm.compute_density_feature(field, coords).detach().numpy(),
+        vm.compute_density_feature(field, PCFG, coords).detach().numpy(),
         rtol=2e-5, atol=2e-5)
 
 

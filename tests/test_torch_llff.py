@@ -343,13 +343,10 @@ def test_check_ported_accepts_l2g_and_llff_configs(cfg):
 
 
 @pytest.mark.parametrize("override", [
-    "--arch.shading.model=MLP_Fea_WeakView_Density",
-    "--arch.shading.predict_density=true",
     "--arch.feature_to_density_activation=exp",
     "--nerf.ray_sampling_strategy=single_view_rand_grid",
-    "--optim.sched_pose.type=LambdaLR",
-    "--+optim.sched_pose.lr_pose_schedule=[1.0,0.5]",
-    "--nerf.sample_stratified=false", "--model=barf"])
+    "--tpu.mesh_shape=[16]",
+    "--model=barf"])
 def test_check_ported_still_refuses_by_name(override):
     key = override.split("=")[0].lstrip("-+")
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):

@@ -181,7 +181,7 @@ def test_weakview_relu_tv_match_jax(fields):
     feat = rng.normal(size=(30, 5)).astype(np.float32)
     head = jcfg.shading_head()
     want = head.apply(st.shading, None, vd, feat, 0.7, 0.4)
-    got = field.shading(_t(vd), _t(feat), 0.7, 0.4)
+    got = field.shading(None, _t(vd), _t(feat), 0.7, 0.4)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-6)
     x = rng.normal(size=50).astype(np.float32)

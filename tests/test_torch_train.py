@@ -243,8 +243,8 @@ def test_cpu_smoke_run_crosses_the_upsample(small_scene):
 
 
 @pytest.mark.parametrize("override", ["--model=barf",
-                                      "--arch.shading.model=MLP_PE",
-                                      "--nerf.sample_stratified=false",
+                                      "--tpu.mesh_shape=[16]",
+                                      "--tpu.densify_impl=blocked",
                                       "--tpu.factor_dtype=float16"])
 def test_unported_options_raise(small_scene, override):
     with pytest.raises(NotImplementedError, match=override.split("=")[0][2:]):

@@ -3,6 +3,8 @@ flatten JAX state into the plain numpy dicts that
 joint_tensorf_tpu_torch.convert reads, and compare arrays."""
 import numpy as np
 
+from joint_tensorf_tpu_torch.utils.tree import flatten
+
 
 def _a(x):
     """float32, but bfloat16 (ml_dtypes) stays bfloat16."""
@@ -21,13 +23,15 @@ def as_f32(a):
     return a.astype(np.float32)
 
 
-def _shading(sh) -> dict:
-    """A JAX shading head's parameters (MLP_Fea's ["layers"] list or
-    MLP_Fea_WeakView's "layer1".."layer3") as numpy, in the same form."""
-    if "layers" in sh:
-        return {"layers": [{"w": _a(l["w"]), "b": _a(l["b"])}
-                           for l in sh["layers"]]}
-    return {k: {"w": _a(l["w"]), "b": _a(l["b"])} for k, l in sh.items()}
+def _shading(sh):
+    """A JAX shading head's parameter tree (any head's: MLP_Fea's
+    ["layers"] list, the "layer1".."layer3" heads, GaRF's, SH's and RGB's
+    {}) as numpy, in the same form."""
+    if isinstance(sh, dict):
+        return {k: _shading(v) for k, v in sh.items()}
+    if isinstance(sh, (list, tuple)):
+        return [_shading(v) for v in sh]
+    return _a(sh)
 
 
 def flatten_field(st) -> dict:
@@ -88,12 +92,8 @@ def field_leaves(d: dict) -> dict:
         for i, a in enumerate(d[g]):
             out[f"{g}.{i}"] = np.asarray(a)
     out["basis"] = np.asarray(d["basis"])
-    sh = d["shading"]
-    layers = sh["layers"] if "layers" in sh else [sh[f"layer{i + 1}"]
-                                                  for i in range(3)]
-    for i, layer in enumerate(layers):
-        out[f"shading.w.{i}"] = np.asarray(layer["w"])
-        out[f"shading.b.{i}"] = np.asarray(layer["b"])
+    for k, a in flatten(d["shading"], "shading").items():
+        out[k] = np.asarray(a)
     return out
 
 
