@@ -89,7 +89,7 @@
    test-time pose gradient on the card against the CPU (check_small_eval);
 11. viz/ on the same trained state (run_viz_phase): two model_it*
    snapshots (two steps apart), then the evaluate entry point in-process
-   with both videos on (VIZ_FRAMES = 8 novel-view frames, cut from JAX's
+   with both videos on (VIZ_FRAMES = 4 novel-view frames, cut from JAX's
    60; VIZ_TEST_ITER test-time steps a view), every render_views chunk at
    K1 = 1, K2-K5 = 0 (counters zeroed around each), ms a frame, and the
    files the installed packages call for (imageio, imageio_ffmpeg,
@@ -176,7 +176,20 @@
    whether torch.linalg.matrix_exp synchronises the host; the counters
    zeroed before and read after each piece: K1-K5 launch 0 times there
    (none lies on these paths, as no Pallas kernel does in JAX);
-17. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+17. the [parallel] phase (run_parallel; parallel/, the rays layout of
+   configs/bat_blender_VM_pod16.yaml on 16 views, whose 4096 rays make a
+   16 x 16 grid a view: 12 views' 19 x 19 does not divide by 2): one rank
+   in a process group of one over NCCL through every phase of
+   PHASES_ARGS' schedule ([parallel] (a) lines: ms a step by phase, K1-K3
+   against expected_launches, the bucket's bytes and one all-reduce's ms,
+   host syncs with and without the mesh), L2G-BAT's first two steps on it,
+   then 2 and 4 gloo ranks on this one card started from its snapshots
+   before the first step of each phase (and 2 ranks from L2G's second
+   step): loss within 1e-4 relative, gradients within 1e-3 of each leaf's
+   max, K1-K3 per rank as expected_launches, the ranks' state and budgets
+   equal bit for bit; their step times are contention of several ranks on
+   one card, not scaling;
+18. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -278,15 +291,16 @@ ZOO_SMALL_VARIANTS = {
                                   ignore_negative_split=True)}
 # evaluation on the trained default path: 4 val / test views (val_sub: 4,
 # the base config's; BAT's own config takes 10), test-time optimisation cut
-# from BAT's 400 steps to 40
+# from BAT's 400 steps to 20 (40 until the [parallel] phase came)
 EVAL_ARGS = ["--data.val_sub=4"]
-EVAL_TEST_ITER = 40
+EVAL_TEST_ITER = 20
 # the viz phase on the same trained state: the novel-view video cut from
-# JAX's 60 frames to 8, the test-time optimisation (run in step 10 at 40
-# steps) cut to 4 steps a view; the pose-gradient maps in JAX's chunks of
-# 256 rays; BAT's first phase with the two options of the paper's edge
-# mask and blur schedule, VIZ_STEPS steps
-VIZ_FRAMES = 8
+# JAX's 60 frames to 4 (8 until the [parallel] phase came), the test-time
+# optimisation (run in step 10 at 20 steps) cut to 4 steps a view; the
+# pose-gradient maps in JAX's chunks of 256 rays; BAT's first phase with
+# the two options of the paper's edge mask and blur schedule, VIZ_STEPS
+# steps
+VIZ_FRAMES = 4
 VIZ_TEST_ITER = 4
 GRAD_CHUNK = 256
 VIZ_OPTIONS = ["--soft_edge_mask=true", "--+sync_2d_3d_scales=true"]
@@ -3464,6 +3478,316 @@ def check_tiled_all(gen):
                    for case in ("one_row", "int32")]
 
 
+# the rays layout of configs/bat_blender_VM_pod16.yaml (4096 rays a step,
+# BAT's widths) through PHASES_ARGS' schedule.  16 views: the grid
+# strategy's 4096 // 12 rays a view on 12 views make a 19 x 19 grid (361,
+# odd), 16 views a 16 x 16 one (256 rays a view), which divides by 2 and 4
+PAR_VIEWS = 16
+PAR_ARGS = PHASES_ARGS + [f"--data.n_views={PAR_VIEWS}"]
+# the first step of every phase: 64^3 under the blur (it 0), 101^3 (3),
+# 160^3 (5), 252^3 (7), the uncapped mask and the shrunk box (8), 400^3
+# (9), the blur off and the mask's compaction (12), the capped mask (15)
+PAR_SNAPSHOT_ITS = (0, 3, 5, 7, 8, 9, 12, 15)
+PAR_RANKS = (2, 4)
+# L2G-BAT (configs/l2g_bat_blender_VM.yaml, error map 128^2) on the same
+# 16 views (2048 rays: 144 a view on the grid), its second step
+PAR_L2G_ARGS = ["--data.dataset=synthetic", f"--data.n_views={PAR_VIEWS}",
+                "--max_iter=40"]
+PAR_L2G_STEPS = 2
+
+
+def _keep_grads(trainer) -> dict:
+    """Wrap trainer._step so that the last step's loss and gradients are
+    kept (in the returned dict)."""
+    kept = {}
+    step = trainer._step
+
+    def capture(*a, **k):
+        metrics, grads = step(*a, **k)
+        kept.update(loss=float(metrics["loss"]), grads=grads)
+        return metrics, grads
+
+    trainer._step = capture
+    return kept
+
+
+def _par_steps(trainer, n_iter, snap_its, tmp, label, device):
+    """One-rank steps of ``trainer`` up to ``n_iter`` (timed, launches and
+    collectives counted); before each iteration of ``snap_its`` a snapshot
+    of the trainer, after it the step's loss and gradients: the files the
+    D-rank runs start from and are held against."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import cuda_build
+    from joint_tensorf_tpu_torch.parallel import launch
+
+    kept = _keep_grads(trainer)
+    rows, snaps, refs, faults = [], [], [], []
+    cuda = device != "cpu"
+    while trainer.it < n_iter:
+        it = trainer.it
+        if it in snap_its:
+            snaps.append(os.path.join(tmp, f"{label}_{it}.pt"))
+            launch.snapshot(trainer, snaps[-1])
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launches = dict(cuda_build.LAUNCHES)
+        counts = dict(trainer.mesh.counts)
+        m = trainer.train_iteration()
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cfg = trainer.last_step_config
+        got = {k: v - launches[k] for k, v in cuda_build.LAUNCHES.items()}
+        want = (expected_launches(cfg, trainer.vm_cfg) if cuda
+                else {k: 0 for k in got})
+        coll = {k: v - counts.get(k, 0) for k, v in trainer.mesh.counts.items()
+                if v - counts.get(k, 0)}
+        if got != want:
+            faults.append(f"{label} it {it}: launched {got}, expected {want}")
+        if coll.get("grads") != 1 or coll.get("nan_counts", 0) > 1:
+            faults.append(f"{label} it {it}: collectives {coll}")
+        if it in snap_its:
+            refs.append(snaps[-1] + ".ref")
+            torch.save({"loss": kept["loss"], "grads": kept["grads"]},
+                       refs[-1])
+        rows.append({"it": it, "ms": ms, "loss": float(m["loss"]),
+                     "resolution": list(trainer.resolution),
+                     "n_samples": trainer.n_samples,
+                     "mask": trainer.alpha_mask is not None,
+                     "blur": cfg.blur is not None,
+                     "compact_k": cfg.compact_k,
+                     "densify": cfg.densify_density, "app_k": cfg.app_k,
+                     "launches": got, "collectives": coll})
+        trainer._update_schedule()
+        trainer.it += 1
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        faults.append(f"{label}: losses {[r['loss'] for r in rows]}")
+    return rows, snaps, refs, kept, faults
+
+
+def _phase_rows(rows) -> list:
+    """Consecutive steps of one phase, with their median ms."""
+    out = []
+    for r in rows:
+        key = (r["resolution"], r["n_samples"], r["mask"], r["blur"],
+               r["compact_k"], r["densify"], r["app_k"])
+        if not out or out[-1]["key"] != key:
+            out.append({"key": key, "its": [], "ms": [],
+                        "launches": r["launches"]})
+        out[-1]["its"].append(r["it"])
+        out[-1]["ms"].append(r["ms"])
+    return [{"iterations": [p["its"][0], p["its"][-1]],
+             "resolution": p["key"][0], "n_samples": p["key"][1],
+             "mask": p["key"][2], "blur": p["key"][3],
+             "compact_k": p["key"][4], "densified": p["key"][5],
+             "app_k": p["key"][6], "launches_per_step": p["launches"],
+             "step_ms_median": statistics.median(p["ms"]),
+             "step_ms": p["ms"]} for p in out]
+
+
+def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
+                 l2g_args=PAR_L2G_ARGS, snap_its=PAR_SNAPSHOT_ITS,
+                 ranks=PAR_RANKS, l2g_steps=PAR_L2G_STEPS, smi=""):
+    """The [parallel] phase (parallel/: the rays layout of
+    configs/bat_blender_VM_pod16.yaml).
+
+    (a) one rank over NCCL (a process group of one, world size 1) at full
+    width through every phase of the cut schedule: ms a step by phase,
+    K1-K3 launches a step against expected_launches, one gradient
+    all-reduce (and one of the NaN counts) a step, the bucket's bytes and
+    one all-reduce of that size timed, the host syncs of 3 steps with the
+    mesh and of the same 3 steps without it (none may be added);
+    (c) L2G-BAT's first steps on the same rank;
+    (b) 2 and then 4 gloo ranks, all on this one card, each started from
+    (a)'s snapshot before the first step of every phase (and the 2 ranks
+    from (c)'s before L2G's second step): each step's loss within 1e-4
+    relative of (a)'s, every gradient within 1e-3 of its leaf's largest
+    entry, K1-K3 per rank as expected_launches of the rank's own step,
+    the replicas' state and budgets equal bit for bit at the end.  Times
+    of several ranks on one card are contention, not scaling.  Any
+    mismatch raises.  ``device``, ``backend`` and the arguments exist so
+    that the phase can be rehearsed at a tiny size on the CPU."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.data import load_dataset
+    from joint_tensorf_tpu_torch.parallel import launch, sharding
+    from joint_tensorf_tpu_torch.parallel.mesh import initialize_distributed
+    from joint_tensorf_tpu_torch.train.l2g_trainer import L2GTrainer
+    from joint_tensorf_tpu_torch.train.step import StepConfig
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    cuda = device != "cpu"
+    bat_yaml = os.path.join(HERE, "configs", "bat_blender_VM_pod16.yaml")
+    l2g_yaml = os.path.join(HERE, "configs", "l2g_bat_blender_VM.yaml")
+    faults, result = [], {"card": smi}
+    tmp = tempfile.TemporaryDirectory(dir=HERE, prefix=".parallel_")
+    try:
+        initialize_distributed(f"file://{tmp.name}/store", 1, 0,
+                               backend=backend, device=device)
+        # ---------------- (a) one rank, full width, every phase
+        opt = set_options(bat_yaml, bat_args + ["--tpu.mesh_shape=[1]"])
+        data = load_dataset(opt, "train", device=device)
+        tr = Trainer(opt, data, device=device)
+        if tr.mesh.backend != backend or tr.mesh.world_size != 1:
+            faults.append(f"(a) mesh {tr.mesh}")
+        warm_start_density(tr, int(opt.data.get("seed", 0)))
+        vm_cfg = tr.vm_cfg
+        t0 = time.perf_counter()
+        rows, snaps, refs, kept, f = _par_steps(
+            tr, int(opt.max_iter), snap_its, tmp.name, "bat", device)
+        faults += f
+        run_s = time.perf_counter() - t0
+        phases = _phase_rows(rows)
+        for p in phases:
+            print(f"[parallel] (a) {backend} 1 rank its {p['iterations']} res "
+                  f"{p['resolution']} S {p['n_samples']} mask {p['mask']} "
+                  f"blur {p['blur']} compact_k {p['compact_k']} densified "
+                  f"{p['densified']} app_k {p['app_k']} launches "
+                  f"{p['launches_per_step']} median "
+                  f"{p['step_ms_median']:.1f} ms ({smi})", flush=True)
+        grads = list(kept["grads"].values())
+        n_bytes = sharding.bucket_bytes(grads) + 8
+        buf = torch.zeros(n_bytes // 4, device=device)
+        for _ in range(3):
+            dist.all_reduce(buf)
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            dist.all_reduce(buf)
+        if cuda:
+            torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t1) * 1e3 / 20
+        del buf
+        print(f"[parallel] (a) bucket {n_bytes} bytes ({len(grads)} "
+              f"gradients + loss, MSE numerator), one all_reduce "
+              f"{ar_ms:.3f} ms over {backend} at world size 1 ({smi})",
+              flush=True)
+        syncs = None
+        if cuda:
+            mesh = tr.mesh
+            tr.it -= 3
+            with_mesh = count_host_syncs(tr, 3)
+            tr.mesh = None
+            tr.it -= 3
+            without = count_host_syncs(tr, 3)
+            tr.mesh = mesh
+            syncs = {"mesh": with_mesh, "no_mesh": without}
+            print(f"[parallel] (a) host syncs per step, last phase: with "
+                  f"the mesh {with_mesh}, without {without}", flush=True)
+            if any(a > b for a, b in zip(with_mesh, without)):
+                faults.append(f"(a) the mesh added host syncs: {syncs}")
+        result["a"] = {
+            "config": "configs/bat_blender_VM_pod16.yaml "
+                      + " ".join(bat_args) + " --tpu.mesh_shape=[1]",
+            "backend": backend, "world_size": 1,
+            "rays_per_step": tr.rays_per_step, "views": tr.n_views,
+            "run_s": run_s, "phases": phases,
+            "loss": [r["loss"] for r in rows],
+            "collectives_per_step": rows[-1]["collectives"],
+            "bucket_bytes": n_bytes, "all_reduce_ms": ar_ms,
+            "host_syncs": syncs}
+        del tr, data, kept, grads
+        # ---------------- (c) L2G, one rank
+        opt_l = set_options(l2g_yaml, l2g_args + ["--tpu.mesh_shape=[1]"])
+        data_l = load_dataset(opt_l, "train", device=device)
+        tl = L2GTrainer(opt_l, data_l, device=device)
+        l2g_rows, l2g_snaps, l2g_refs, kept, f = _par_steps(
+            tl, l2g_steps, (l2g_steps - 1,), tmp.name, "l2g", device)
+        faults += f
+        l2g_vm = tl.vm_cfg
+        result["c_one_rank"] = {"rays_per_step": tl.rays_per_step,
+                                "views": tl.n_views,
+                                "loss": [r["loss"] for r in l2g_rows],
+                                "step_ms": [r["ms"] for r in l2g_rows]}
+        del tl, data_l, kept
+        gc.collect()            # the kept-gradient hooks hold the trainers
+        if cuda:
+            torch.cuda.empty_cache()
+        # ---------------- (b) and (c): D gloo ranks on this card
+        for d in ranks:
+            jobs = [dict(kind="trainer", yaml=bat_yaml,
+                         args=bat_args + [f"--tpu.mesh_shape=[{d}]"],
+                         snapshots=snaps, refs=refs)]
+            if d == 2:
+                jobs.append(dict(kind="trainer", yaml=l2g_yaml,
+                                 args=l2g_args + ["--tpu.mesh_shape=[2]"],
+                                 snapshots=l2g_snaps, refs=l2g_refs))
+            t0 = time.perf_counter()
+            out = launch.spawn(launch.run_jobs, d, {"jobs": jobs},
+                               backend="gloo", device=f"{device}:0"
+                               if cuda else "cpu", timeout_s=900)
+            wall = time.perf_counter() - t0
+            for j, (label, vm) in enumerate([("bat", vm_cfg),
+                                             ("l2g", l2g_vm)][:len(jobs)]):
+                per_rank = [o[j] for o in out]
+                worst = {"loss_rel": 0.0, "grad_rel": 0.0}
+                for rank, o in enumerate(per_rank):
+                    for row in o["history"]:
+                        cfg = StepConfig(**row["config"])
+                        want = (expected_launches(cfg, vm) if cuda else
+                                {k: 0 for k in row["launches"]})
+                        if row["launches"] != want:
+                            faults.append(
+                                f"(b) {label} D={d} rank {rank} it "
+                                f"{row['it']}: launched {row['launches']}, "
+                                f"expected {want}")
+                        c = row["counts"]
+                        if c.get("grads") != 1 or c.get("nan_counts", 0) > 1:
+                            faults.append(f"(b) {label} D={d} rank {rank} "
+                                          f"it {row['it']}: collectives {c}")
+                        lr = abs(row["metrics"]["loss"] - row["loss_ref"]) \
+                            / abs(row["loss_ref"])
+                        gr = max(row["grad_err"].values())
+                        worst["loss_rel"] = max(worst["loss_rel"], lr)
+                        worst["grad_rel"] = max(worst["grad_rel"], gr)
+                        if lr > 1e-4 or gr > 1e-3:
+                            faults.append(
+                                f"(b) {label} D={d} rank {rank} it "
+                                f"{row['it']}: loss rel {lr:.3g}, worst "
+                                f"gradient {gr:.3g} of its leaf's max")
+                for o in per_rank[1:]:
+                    if o["checksums"] != per_rank[0]["checksums"] or \
+                            o["budgets"] != per_rank[0]["budgets"]:
+                        faults.append(f"(b) {label} D={d}: rank "
+                                      f"{o['rank']} differs from rank 0")
+                hist = per_rank[0]["history"]
+                ms = [row["ms"] for row in hist]
+                result[f"{label}_{d}_ranks"] = {
+                    "ranks": d, "backend": "gloo", "device": "one card",
+                    "its": [row["it"] for row in hist],
+                    "loss": [row["metrics"]["loss"] for row in hist],
+                    "loss_ref": [row["loss_ref"] for row in hist],
+                    "worst": worst, "bucket_bytes": hist[-1]["bucket_bytes"],
+                    "launches_rank0": [row["launches"] for row in hist],
+                    "contention_step_ms": ms, "spawn_wall_s": wall,
+                    "budgets_rank0": per_rank[0]["budgets"]}
+                print(f"[parallel] ({'b' if label == 'bat' else 'c'}) "
+                      f"{label} {d} gloo ranks on one card, its "
+                      f"{[row['it'] for row in hist]}: worst loss rel "
+                      f"{worst['loss_rel']:.3g}, worst gradient "
+                      f"{worst['grad_rel']:.3g} of the leaf's max, replicas "
+                      f"bit-identical; step ms (contention of {d} ranks on "
+                      f"one card, not scaling) "
+                      f"{[round(x, 1) for x in ms]}; spawn {wall:.1f} s "
+                      f"({smi})", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    emit({"parallel": result})
+    if faults:
+        fail("parallel: " + "; ".join(faults))
+    return result
+
+
 def main(argv):
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         fail(f"usage: python3 chip_smoke.py [--profile DIR], got {argv}")
@@ -3654,6 +3978,10 @@ def main(argv):
     run_mlp_nerf("barf_blender.yaml")
     run_mlp_nerf("nerf_blender_repr.yaml", ["--nerf.density_noise_reg=1"])
     run_planar()
+    torch.cuda.empty_cache()
+    # the rays layout of bat_blender_VM_pod16.yaml: one NCCL rank through
+    # every phase, then 2 and 4 gloo ranks on this card against it
+    run_parallel(smi=smi[0] if smi else "")
     torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []

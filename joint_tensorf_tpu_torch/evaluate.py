@@ -50,7 +50,9 @@ read back and the PNG dump written with imageio (without it, the frame
 directory stands for the video and ``[vis] skipped image dump: ...`` is
 printed).
 
-Runs on ``cuda`` unless ``--device=cpu`` is given.  ``--pdb`` opens a
+Runs on ``cuda`` unless ``--device=cpu`` is given, in one process: a
+config with ``tpu.mesh_shape`` (a data-parallel training run) is evaluated
+without its mesh, from the same checkpoint layout.  ``--pdb`` opens a
 post-mortem debugger on an exception (utils/cli.py).
 """
 from __future__ import annotations
@@ -95,6 +97,10 @@ def main(argv) -> dict:
     # generate_pose_video is read with a default in JAX's evaluate.py and
     # stands in no config file
     opt = set_options(yaml_path, rest, allow_new_keys=("generate_pose_video",))
+    if opt.get_path("tpu.mesh_shape"):
+        print(f"[eval] tpu.mesh_shape={opt.tpu.mesh_shape}: evaluating in "
+              f"one process, without the mesh", flush=True)
+        opt.tpu.mesh_shape = None
     is_mlp = opt.model in ("barf", "nerf")
     pose_optimizing = opt.model in ("bat", "l2g_bat", "barf")
     out_dir = os.path.join(opt.get("output_root", "output"),

@@ -43,12 +43,25 @@ logging.profile_trace), prints one line naming it and returns without
 further training (no log, checkpoint or quant file), as train.py does.
 ``--pdb`` opens a post-mortem debugger on an exception (utils/cli.py).
 
+A config with ``tpu.mesh_shape`` ([D] with a rays axis, as
+configs/bat_blender_VM_pod16.yaml) trains on D ranks started by a
+launcher, one process a rank (NCCL on the cards, one card a rank; gloo on
+the CPU with --device=cpu):
+
+    python -m torch.distributed.run --nproc_per_node=D \
+        -m joint_tensorf_tpu_torch.train --yaml=... [--tpu.mesh_shape=[D]]
+
+Without a launcher such a config raises (parallel/mesh.make_mesh), unless
+D is 1.  Every rank trains and validates; only rank 0 prints and writes
+the files above (checkpoints included; every rank waits for them).
+
 One departure from train.py: a failed validation (mid-run or final)
 stops the run, where train.py catches it and carries on, because a failed
 render on the card is a fault to see.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -80,12 +93,15 @@ def main(argv) -> dict:
     from .trainer import Trainer
 
     opt = set_options(yaml_path, rest)
+    # rank 0 of a launched mesh run (every process is rank 0 without one)
+    main_rank = os.environ.get("RANK", "0") == "0"
+    log = print if main_rank else (lambda *a, **k: None)
     out_dir = os.path.join(opt.get("output_root", "output"),
                            str(opt.get("group", "default")),
                            str(opt.get("name", "run")))
     os.makedirs(out_dir, exist_ok=True)
     opts_file = os.path.join(out_dir, "options.json")
-    if os.path.exists(opts_file):
+    if main_rank and os.path.exists(opts_file):
         with open(opts_file) as f:
             saved = json.load(f)
         drift = diff_options(saved, json.loads(
@@ -94,10 +110,11 @@ def main(argv) -> dict:
             print(f"[options] config drift vs saved {opts_file}:")
             for line in drift:
                 print(f"[options]   {line}")
-    with open(opts_file, "w") as f:
-        json.dump(opt.to_dict(), f, indent=2, default=str)
+    if main_rank:
+        with open(opts_file, "w") as f:
+            json.dump(opt.to_dict(), f, indent=2, default=str)
 
-    print(f"[data] rendering {opt.data.dataset} "
+    log(f"[data] rendering {opt.data.dataset} "
           f"{opt.data.image_size} x {opt.data.get('n_views', 12)} views",
           flush=True)
     data = load_dataset(opt, "train", subset=opt.data.get("train_sub"),
@@ -107,7 +124,7 @@ def main(argv) -> dict:
         val_data = load_dataset(opt, val_split,
                                 subset=opt.data.get("val_sub"), device=device)
     except FileNotFoundError as e:
-        print(f"[data] no val split ({e}); validating on train views")
+        log(f"[data] no val split ({e}); validating on train views")
         val_data = data
     is_mlp = opt.model in ("barf", "nerf")
     if is_mlp:
@@ -122,25 +139,26 @@ def main(argv) -> dict:
         desc = f"res={trainer.resolution}"
         pose_optimizing = trainer.is_bat
         save, restore = ckpt_lib.save_checkpoint, ckpt_lib.restore_checkpoint
-    print(f"[train] {opt.model} | device={trainer.device} "
+    log(f"[train] {opt.model} | device={trainer.device} "
           f"views={data.n_views} {desc} n_samples={trainer.n_samples} "
           f"max_iter={trainer.max_iter}", flush=True)
 
     ckpt_file = os.path.join(out_dir, "model.ckpt.npz")
     if opt.get("resume") and os.path.exists(ckpt_file):
         restore(ckpt_file, trainer)
-        print(f"[resume] restored it={trainer.it}", flush=True)
+        log(f"[resume] restored it={trainer.it}", flush=True)
 
     if opt.get("profiling"):
         trainer.run(max_iter=trainer.it + 5, log_every=1)      # warm-up
-        with profile_trace(out_dir) as trace:
+        with (profile_trace(out_dir) if main_rank
+              else contextlib.nullcontext()) as trace:
             trainer.run(max_iter=trainer.it + 3, log_every=1)
-        print(f"[profiling] trace written to {trace} at it {trainer.it} "
+        log(f"[profiling] trace written to {trace} at it {trainer.it} "
               f"-- exiting (profiling mode does not continue training)",
               flush=True)
         return {"iters": trainer.it, "trace": trace}
 
-    logger = MetricLogger(out_dir, opt)
+    logger = MetricLogger(out_dir, opt) if main_rank else None
     t0 = time.time()
     freq_scalar = int(opt.freq.get("scalar", 200))
     freq_val = int(opt.freq.get("val", 0) or 0)
@@ -153,9 +171,10 @@ def main(argv) -> dict:
             line.update(tr.pose_error())
         if freq_val and tr.it > 0 and tr.it % freq_val == 0:
             line["val_psnr"] = tr.validate(val_data)["psnr"]
-            print(f"it {tr.it:6d} | VAL psnr {line['val_psnr']:.2f}",
-                  flush=True)
-        logger.log_scalars(line, tr.it)
+            log(f"it {tr.it:6d} | VAL psnr {line['val_psnr']:.2f}",
+                flush=True)
+        if logger:
+            logger.log_scalars(line, tr.it)
         if freq_ckpt and tr.it > 0 and tr.it % freq_ckpt == 0:
             save(ckpt_file, tr, snapshot_path=os.path.join(
                 out_dir, f"model_it{tr.it}.ckpt.npz"))
@@ -165,7 +184,7 @@ def main(argv) -> dict:
         msg += f"| {m['wall']:.1f}s"
         if "rot_deg" in line:
             msg += f" | rot {line['rot_deg']:.3f}° trans {line['trans']:.4f}"
-        print(msg, flush=True)
+        log(msg, flush=True)
 
     def on_step(tr, m):
         if m is not None:       # after the step; report after the update
@@ -176,7 +195,7 @@ def main(argv) -> dict:
         if now != phase:
             phase[:] = now
             aabb = tr.state.field.aabb.cpu().numpy().round(4).tolist()
-            print(f"[phase] after it {tr.it}: res={tr.resolution} "
+            log(f"[phase] after it {tr.it}: res={tr.resolution} "
                   f"n_samples={tr.n_samples} mask_res={mask_res} "
                   f"aabb={aabb} compact_k(bbox/mask)="
                   f"{tr.compact_k_bbox}/{tr.compact_k} "
@@ -190,20 +209,21 @@ def main(argv) -> dict:
 
     # the checkpoint before the final validation, as in train.py
     save(ckpt_file, trainer)
-    print(f"[ckpt] saved to {ckpt_file}", flush=True)
+    log(f"[ckpt] saved to {ckpt_file}", flush=True)
     val = trainer.validate(val_data)
     result = {"wall_s": time.time() - t0, "iters": trainer.it,
               "val_psnr": val["psnr"]}
-    H, W = val_data.images.shape[-2:]
-    logger.log_image("val_rgb", val["rgb"][0].reshape(H, W, 3), trainer.it,
-                     split="val")
     if pose_optimizing:
         result.update(trainer.pose_error())
-    with open(os.path.join(out_dir, "quant.json"), "w") as f:
-        json.dump(result, f, indent=2)
-    logger.summary(result)
-    logger.close()
-    print("[done]", json.dumps(result), flush=True)
+    if logger:
+        H, W = val_data.images.shape[-2:]
+        logger.log_image("val_rgb", val["rgb"][0].reshape(H, W, 3),
+                         trainer.it, split="val")
+        with open(os.path.join(out_dir, "quant.json"), "w") as f:
+            json.dump(result, f, indent=2)
+        logger.summary(result)
+        logger.close()
+    log("[done]", json.dumps(result), flush=True)
     return result
 
 

@@ -37,6 +37,11 @@ planar params are a dict, ``state/['params']/['image']/['rank1']``), the
 ``key``, BARF's ``pose_noise``, ``meta_json`` (it, the numpy generator's
 state, the torch generator's device) and ``torch_generator_state``.
 
+Under a mesh (parallel/) rank 0 writes and every rank waits for the file;
+every rank restores the same file, then the replicas are checked bit for
+bit (a checksum all-reduce) and the budgets broadcast from rank 0.  The
+layout is the same with or without a mesh.
+
 Each side restores the other's files: restore rebuilds the field at the
 stored shapes and box, the Adam moments and counts, the pose table and
 pose_base, and the alpha mask, then re-probes compact_k and app_k_dyn from
@@ -60,6 +65,7 @@ import torch
 from .. import convert
 from ..geometry import poses as pose_ops
 from ..models.alpha_mask import AlphaMask
+from ..parallel import sharding
 from ..utils import tree as tree_lib
 from .l2g import L2GState
 
@@ -174,7 +180,17 @@ def _state_dict(arrays: dict, l2g: bool) -> dict:
 
 def save_checkpoint(path: str, trainer, snapshot_path: str | None = None):
     """Write the trainer's checkpoint to ``path`` (and a copy to
-    ``snapshot_path`` when given)."""
+    ``snapshot_path`` when given); under a mesh rank 0 writes and every
+    rank returns once the file is there."""
+    if trainer.mesh is not None:
+        if trainer.mesh.is_main:
+            _write_checkpoint(path, trainer, snapshot_path)
+        sharding.barrier(trainer.mesh)
+    else:
+        _write_checkpoint(path, trainer, snapshot_path)
+
+
+def _write_checkpoint(path: str, trainer, snapshot_path: str | None):
     meta = {
         "it": trainer.it,
         "n_voxel_list": [int(n) for n in trainer.n_voxel_list],
@@ -267,6 +283,8 @@ def restore_checkpoint(path: str, trainer) -> None:
         trainer.compact_k = trainer._probe_compact_k()
         trainer.app_k_dyn = trainer._probe_app_k()
     trainer.last_step_config = None
+    trainer._sync_budgets()
+    trainer._verify_replicas(f"restoring {path}")
 
 
 # ------------------------------------------- BARF / planar (no phases)

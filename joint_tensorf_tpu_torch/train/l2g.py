@@ -19,6 +19,16 @@ optimiser.  The random draws (the Gumbel and cell-jitter uniforms, the
 stratified jitter, the background coin) are taken pre-drawn or from a
 torch.Generator: JAX's threefry draws cannot be replayed by torch, so the
 parity tests pass JAX's own.
+
+Under a mesh (train/step.py's docstring) every rank draws the error-map
+rays of the whole step and renders its block of each view's rays.  The
+registration needs each view's whole set of correspondences: every rank
+warps every ray of the step (the warp MLP is small beside the render), so
+the registration's input is the unsharded one bit for bit, on every rank,
+and rank 0 adds the registration loss (the render loss reaches the warp
+through each rank's own block).  The error map needs every ray's error:
+the errors are gathered over the rays axis (one gather a step), and the
+registered poses and the error map are updated alike on every rank.
 """
 from __future__ import annotations
 
@@ -35,10 +45,12 @@ from ..geometry.align import rigid_points_registration
 from ..geometry.ndc import convert_ndc
 from ..geometry.rays import camera_grid_3d, pixel_grid
 from ..models import vm as vm_lib
+from ..parallel import sharding
 from ..render.renderer import render_rays
 from . import losses
 from .optim import AdamState, adam_init, adam_update, field_lr_tree, masked_update
-from .step import StepConfig, StepScalars
+from .step import (StepConfig, StepScalars, add_regularizers, predraw,
+                   reduce_step, render_loss_share)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,12 +210,13 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
                    images, edge_masks, view_sel, ray_idx, s: StepScalars,
                    generator: Optional[torch.Generator] = None, jitter=None,
                    bg_coin=None, error_draws=None, alpha_mask=None,
-                   stats: bool = False):
+                   stats: bool = False, mesh=None):
     """One L2G step, updating ``state`` in place; the call contract of
     step.train_step with ``error_draws`` = (gumbel_u, jitter_u) for the
     error-map draw (else drawn from ``generator``).  With an error map the
     given ray_idx is ignored and per-view indices are drawn.  Returns
-    (metrics {loss, mse, psnr, global_alignment}, grads)."""
+    (metrics {loss, mse, psnr, global_alignment}, grads).  Under ``mesh``
+    (module docstring) the draws given are the whole step's."""
     ems = l2g_cfg.error_map_size
     coarse = None
     if ems > 0:
@@ -214,6 +227,12 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
         ray_idx, coarse = sample_error_map_rays(
             state.error_map[view_sel], cfg.H, cfg.W, ems, cfg.rays_per_view,
             *error_draws)
+    if mesh is not None:
+        n_views, n_rays = len(view_sel), ray_idx.shape[-1]
+        jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
+                                  images.device, jitter, bg_coin)
+        if jitter is not None:
+            jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
     field = state.field
     rcfg = cfg.render_config()
     render_stats = {} if stats else None
@@ -221,6 +240,12 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
         state.warp_embedding, state.warp_mlp, pose_base[view_sel], view_sel,
         intr_inv[view_sel], ray_idx, cfg.H, cfg.W)
     world_centers = centers
+    if mesh is not None:
+        # every ray warped (the registration's points); this rank renders
+        # its block of them
+        blk = sharding.ray_block(mesh, n_rays)
+        centers, dirs, ray_idx = centers[:, blk], dirs[:, blk], \
+            ray_idx[..., blk]
     if cfg.ndc:
         centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
                                     near=cfg.ndc_near_plane)
@@ -241,10 +266,15 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
                               ray_idx[..., None].expand(B, R, 3))
         mask = torch.gather(edge_masks[view_sel], 1, ray_idx)
 
-    loss = losses.edge_weighted_render_loss(
-        rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
-    plain_mse = losses.mse(rgb, target)
+    if mesh is None:
+        loss = losses.edge_weighted_render_loss(
+            rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
+        plain_mse = losses.mse(rgb, target)
+    else:
+        loss, sq_sum, counts = render_loss_share(mesh, rgb, target, mask, s)
     per_ray_err = torch.mean((rgb - target) ** 2, dim=-1).detach()   # [B,R]
+    if mesh is not None and ems > 0:
+        per_ray_err = sharding.gather_rays(mesh, per_ray_err)
 
     # global alignment: one SE(3) a view from the warped ray points
     source = torch.cat([cam_grid, torch.zeros_like(cam_grid)], dim=1)
@@ -252,13 +282,10 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
     R_g, t_g = rigid_points_registration(target_pts, source)
     svd_poses = pose_ops.make(R_g, t_g)                          # [B,3,4]
     ga_loss = losses.mse(target_pts, pose_ops.cam2world(source, svd_poses))
-    loss = loss + l2g_cfg.global_alignment_weight * ga_loss
-    loss = loss + s.l1_weight * vm_lib.density_L1(field).float()
-    if s.tv_density_weight:
-        loss = loss + s.tv_density_weight * vm_lib.tv_loss_density(
-            field).float()
-    if s.tv_color_weight:
-        loss = loss + s.tv_color_weight * vm_lib.tv_loss_app(field).float()
+    # the registration term and the replicated terms on rank 0 of a mesh
+    if mesh is None or mesh.is_main:
+        loss = add_regularizers(
+            loss + l2g_cfg.global_alignment_weight * ga_loss, field, s)
 
     params = dict(field.named_parameters())
     names = list(params)
@@ -267,6 +294,9 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
     g = torch.autograd.grad(loss, [params[k] for k in names]
                             + [pparams[k] for k in pnames])
     grads = dict(zip(names + pnames, g))
+    if mesh is not None:
+        grads, metrics = reduce_step(mesh, grads, loss, sq_sum, counts[2],
+                                     render_stats)
 
     with torch.no_grad():
         lrs = field_lr_tree(field, s.lr_index, s.lr_basis)
@@ -301,11 +331,14 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
             error_map[view_sel] = rows.scatter(1, coarse, ema)
             state.error_map = error_map
 
-    metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
-               "psnr": losses.psnr_from_mse(plain_mse.detach()),
-               "global_alignment": ga_loss.detach()}
+    if mesh is None:
+        metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
+                   "psnr": losses.psnr_from_mse(plain_mse.detach())}
+        if stats:
+            metrics.update(render_stats)
+    metrics["global_alignment"] = ga_loss.detach()
     if stats:
-        metrics.update(render_stats, blur=float(cfg.blur is not None))
+        metrics["blur"] = float(cfg.blur is not None)
     return metrics, grads
 
 

@@ -14,6 +14,21 @@ the pose update (b2 = 0.999) applies the accumulated pose gradient on the
 accumulation cadence.  Without it (TensoRF) the rays come from the base
 poses, the sample coordinates are detached, and the pose table, its
 moments and its accumulator stay as they are.
+
+Under a mesh (parallel/, the ``rays`` layout) every rank holds the whole
+state, draws the step's whole jitter and background coin from the same
+generator state (predraw: the unsharded renderer's draws, in its order)
+and renders its block of every view's rays.  Its loss is its share: the
+render loss as its nansums over the global non-NaN counts (one small
+all-reduce before the backward), the replicated terms (density L1, the
+factors' TV) on rank 0 only, and the depth TV of the gathered depth on
+every rank (its gather's backward takes each rank's block; the renderer
+stops depth's gradient, as JAX's does, so the term moves only the loss).
+So the ranks' gradients sum to the unsharded gradient.  They are summed
+in one all-reduce of one flat bucket, with the loss and the plain MSE's
+numerator beside them, and every rank runs the same Adam update on the
+same bytes, so the replicas stay equal.  PSNR is recomputed from the
+reduced MSE, as JAX's sharded step does.
 """
 from __future__ import annotations
 
@@ -26,6 +41,7 @@ from ..geometry import lie, poses as pose_ops
 from ..geometry.ndc import convert_ndc
 from ..geometry.rays import get_center_and_ray
 from ..models import vm as vm_lib
+from ..parallel import sharding
 from ..render.renderer import BlurSpec, RenderConfig, render_rays
 from . import losses
 from .optim import AdamState, adam_init, adam_update, field_lr_tree, masked_update
@@ -147,11 +163,64 @@ def compose_train_pose(se3_refine, pose_base, view_sel,
     return pose_ops.compose([refine, pose_base[view_sel]])
 
 
+def predraw(cfg: StepConfig, n_rays: int, generator, device, jitter=None,
+           bg_coin=None):
+    """The step's stratified jitter ([n, 1], [n, S] under NDC) and
+    background coin as the renderer draws them when not given: the jitter
+    first, then the coin, each only where the step uses it."""
+    if cfg.stratified and jitter is None:
+        jitter = torch.rand((n_rays, cfg.n_samples if cfg.ndc else 1),
+                            generator=generator, device=device)
+    if not cfg.white_bg and bg_coin is None:
+        bg_coin = torch.rand((), generator=generator, device=device) < 0.5
+    return jitter, bg_coin
+
+
+def render_loss_share(mesh, rgb, target, mask, s: StepScalars):
+    """Under a mesh: (this rank's share of the edge-weighted render loss,
+    the plain squared error's nansum, the global non-NaN counts [3])."""
+    sums, counts = losses.edge_weighted_sum_count(rgb, target, mask)
+    counts = sharding.reduce_counts(mesh, counts)
+    share = losses.edge_weighted_from_sums(sums, counts, s.edge_factor,
+                                           s.non_edge_factor, s.use_edge)
+    return share, sums[2], counts
+
+
+def add_regularizers(loss, field, s: StepScalars):
+    """``loss`` plus density L1 and the factors' TV with their weights,
+    float32 like JAX's product with a traced weight (bf16 factors make
+    density_L1 bf16)."""
+    loss = loss + s.l1_weight * vm_lib.density_L1(field).float()
+    if s.tv_density_weight:
+        loss = loss + s.tv_density_weight * vm_lib.tv_loss_density(
+            field).float()
+    if s.tv_color_weight:
+        loss = loss + s.tv_color_weight * vm_lib.tv_loss_app(field).float()
+    return loss
+
+
+def reduce_step(mesh, grads: dict, loss_report, sq_sum, count, stats=None):
+    """The one all-reduce of a sharded step: the gradients, the loss, the
+    plain MSE's numerator and (``stats``) the render fractions / D, in one
+    bucket.  Returns (grads, metrics) with PSNR from the reduced MSE."""
+    keys = list(grads)
+    skeys = sorted(stats) if stats else []
+    extra = [loss_report.detach().float(), sq_sum.detach().float()] + [
+        torch.as_tensor(stats[k], dtype=torch.float32) / mesh.rays
+        for k in skeys]
+    red = sharding.reduce_bucket(mesh, [grads[k] for k in keys] + extra)
+    n = len(keys)
+    mse = red[n + 1] / count
+    metrics = {"loss": red[n], "mse": mse, "psnr": losses.psnr_from_mse(mse)}
+    metrics.update(zip(skeys, red[n + 2:]))
+    return dict(zip(keys, red[:n])), metrics
+
+
 def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                pose_base, intr_inv, images, edge_masks, view_sel, ray_idx,
                s: StepScalars, generator: Optional[torch.Generator] = None,
                jitter=None, alpha_mask=None, stats: bool = False, intr=None,
-               bg_coin=None):
+               bg_coin=None, mesh=None):
     """One step, updating ``state`` in place (parameters are overwritten
     with their Adam update; the parity tests read them back).
 
@@ -166,10 +235,21 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     of sample slots in the box, live after the mask and kept by the
     compaction ("inbbox_frac", "valid_frac", "kept_frac"; render_rays) and
     whether the factors were blurred ("blur", 0 or 1).
+
+    ``mesh`` (parallel/mesh.Mesh): render this rank's block of each view's
+    rays and return the reduced metrics and gradients (module docstring);
+    ``jitter`` and ``bg_coin`` are then the whole step's.
     """
     field = state.field
     rcfg = cfg.render_config()
     render_stats = {} if stats else None
+    if mesh is not None:
+        n_views, n_rays = view_sel.shape[0], ray_idx.shape[-1]
+        jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
+                                  images.device, jitter, bg_coin)
+        if jitter is not None:
+            jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
+        ray_idx = ray_idx[sharding.ray_block(mesh, n_rays)]
     pose = compose_train_pose(state.se3_refine, pose_base, view_sel,
                               cfg.pose_opt)
     centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose, intr_inv[view_sel],
@@ -190,21 +270,29 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     target = images[:, ray_idx][view_sel]                        # [B,R,3]
     mask = edge_masks[:, ray_idx][view_sel]                      # [B,R]
 
-    loss = losses.edge_weighted_render_loss(
-        rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
-    plain_mse = losses.mse(rgb, target)
-    # float32 like JAX's product with a traced weight (bf16 factors make
-    # density_L1 bf16)
-    loss = loss + s.l1_weight * vm_lib.density_L1(field).float()
-    if s.tv_density_weight:
-        loss = loss + s.tv_density_weight * vm_lib.tv_loss_density(
-            field).float()
-    if s.tv_color_weight:
-        loss = loss + s.tv_color_weight * vm_lib.tv_loss_app(field).float()
-    if cfg.grid_hw is not None:
-        gh, gw = cfg.grid_hw
-        loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
-            depth.reshape(B, R), gh, gw)
+    if mesh is None:
+        loss = losses.edge_weighted_render_loss(
+            rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
+        plain_mse = losses.mse(rgb, target)
+        loss = add_regularizers(loss, field, s)
+        if cfg.grid_hw is not None:
+            gh, gw = cfg.grid_hw
+            loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
+                depth.reshape(B, R), gh, gw)
+    else:
+        loss, sq_sum, counts = render_loss_share(mesh, rgb, target, mask, s)
+        if mesh.is_main:
+            loss = add_regularizers(loss, field, s)
+        report = loss
+        # the term enters every rank's loss (its gather's backward takes
+        # this rank's block) and the reported loss once; without weight
+        # no gather is made
+        if cfg.grid_hw is not None and s.tv_depth_weight:
+            gh, gw = cfg.grid_hw
+            tv = s.tv_depth_weight * losses.depth_tv_loss(
+                sharding.gather_rays(mesh, depth.reshape(B, R)), gh, gw)
+            loss = loss + tv
+            report = report + tv if mesh.is_main else report
 
     params = dict(field.named_parameters())
     names = list(params)
@@ -212,6 +300,9 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     if cfg.pose_opt:
         wrt.append(state.se3_refine)
     grads = dict(zip(names + ["se3_refine"], torch.autograd.grad(loss, wrt)))
+    if mesh is not None:
+        grads, metrics = reduce_step(mesh, grads, report, sq_sum, counts[2],
+                                     render_stats)
     if not cfg.pose_opt:
         grads["se3_refine"] = torch.zeros_like(state.se3_refine)
 
@@ -241,8 +332,11 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
             state.pose_grad_accum = (torch.zeros_like(accum) if do_step
                                      else accum)
 
-    metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
-               "psnr": losses.psnr_from_mse(plain_mse.detach())}
+    if mesh is None:
+        metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
+                   "psnr": losses.psnr_from_mse(plain_mse.detach())}
+        if stats:
+            metrics.update(render_stats)
     if stats:
-        metrics.update(render_stats, blur=float(cfg.blur is not None))
+        metrics["blur"] = float(cfg.blur is not None)
     return metrics, grads

@@ -32,6 +32,18 @@ trainer's order (the probes at a mask update included), so both trainers
 see the same ray indices and blur scales; device randomness (pose noise,
 field init, stratified jitter) comes from a torch.Generator.
 
+With ``tpu.mesh_shape`` (a ``rays`` axis; parallel/) the trainer is one
+rank of a data-parallel run: it builds the mesh (trainer.py:204-223 of the
+JAX package), every rank keeps the whole state and draws the whole
+schedule (rng_np, the generator's jitter and coin), the step renders this
+rank's block of the rays and reduces the gradients once
+(train/step.py), the dense-grid gate counts samples per rank
+(_samples_per_chip), the rays per view must divide by the rays axis, the
+budgets are broadcast from rank 0 after every probe, the replicas are
+checked bit for bit (a checksum all-reduce) after every phase
+transition, and evaluation renders each chunk's rays in blocks
+(render_views).  Only rank 0 prints.
+
 Evaluation (trainer.py:1131-1333 of the JAX package): render_views
 renders whole views in chunks on an eval budget probed on the rendered
 poses, eval_clip_stats measures how often the static caps clip, validate
@@ -58,6 +70,8 @@ from ..geometry import lie, poses as pose_ops
 from ..models import alpha_mask as am_lib
 from ..models import vm as vm_lib
 from ..models.shading import HEAD_NAMES
+from ..parallel import sharding
+from ..parallel.mesh import mesh_from_options
 from ..ops import blur as blur_ops
 from ..ops import kernels as kernel_ops
 from ..ops import sobel
@@ -80,7 +94,6 @@ from .step import (StepConfig, StepScalars, compose_train_pose,
 _PORTED_VALUES = (
     ("model", ("bat", "tensorf", "l2g_bat")),
     ("camera.ndc", (None, False, True)),
-    ("tpu.mesh_shape", None),
     ("tpu.factor_dtype", ("float32", "bfloat16")),
     ("tpu.densify_impl", ("packed8", "lane")),
     ("tpu.plane_scatter", ("xla", "segsum", "runsum")),
@@ -105,8 +118,10 @@ _PORTED_VALUES = (
 # one function, which K3 computes.  tpu.densify_dtype runs at float32 and
 # bfloat16 (_DENSIFY_DTYPES, named with the layout when refused): the JAX
 # renderer reads it only under densify_impl lane (the bf16 row reads) and
-# computes float32 under packed8 whatever it says, as the port does.  The
-# others run at any value: tpu.mesh_axes matters only with a mesh,
+# computes float32 under packed8 whatever it says, as the port does.
+# tpu.mesh_shape runs with a rays axis (a comp axis of size 1 allowed;
+# _check_mesh).  The others run at any value: tpu.mesh_axes matters only
+# with a mesh,
 # tpu.donate_state is an XLA buffer choice with no counterpart.  A tpu:
 # key in none of these raises.
 _DENSIFY_DTYPES = ("float32", "bfloat16")
@@ -128,6 +143,24 @@ def _off(v) -> bool:
 
 
 _POSE_MODELS = ("bat", "l2g_bat")
+
+
+def _check_mesh(opt: Options):
+    """tpu.mesh_shape runs in the rays layout: every axis but ``rays`` of
+    size 1.  The comp layout (the factor components split over ranks,
+    joint_tensorf_tpu/parallel/sharding.py:33-49) needs collectives inside
+    the field's forward and is refused by name."""
+    shape = opt.get_path("tpu.mesh_shape")
+    if not shape:
+        return
+    axes = list(opt.get_path("tpu.mesh_axes") or ["rays"])
+    split = {a: int(n) for a, n in zip(axes, shape)
+             if a != "rays" and int(n) > 1}
+    if split:
+        names = ", ".join(f"{a} axis of size {n}" for a, n in split.items())
+        raise _unported(f"option tpu.mesh_shape={list(shape)} with "
+                        f"tpu.mesh_axes={axes}: the {names} (only the rays "
+                        f"layout is ported)")
 
 
 def check_ported(opt: Options):
@@ -152,8 +185,9 @@ def check_ported(opt: Options):
         raise ValueError(f"arch.shading.predict_density={predict} with "
                          f"arch.shading.model={head!r}: only "
                          f"MLP_Fea_WeakView_Density predicts the density")
+    _check_mesh(opt)
     checked = {k[4:] for k, _ in _PORTED_VALUES if k.startswith("tpu.")}
-    checked.add("densify_dtype")
+    checked.update(("densify_dtype", "mesh_shape"))
     for key in opt.get("tpu") or {}:
         if key not in checked and key not in _TPU_ANY_VALUE:
             raise _unported(f"option tpu.{key}")
@@ -205,7 +239,10 @@ class Trainer:
         setup_torch()
         self.opt = opt
         self.val_data = val_data
-        self.device = dev = resolve_device(device)
+        # the rank's mesh (None without tpu.mesh_shape) and its device
+        self.mesh = mesh_from_options(opt, resolve_device(device))
+        self.device = dev = (self.mesh.device if self.mesh is not None
+                             else resolve_device(device))
         self.it = 0
         self.max_iter = int(opt.max_iter)
         seed = int(opt.get("seed", 0))
@@ -317,6 +354,7 @@ class Trainer:
         self._blur_mask_built_at: Optional[int] = None
         self.last_step_config: Optional[StepConfig] = None
         self.last_eval_config: Optional[RenderConfig] = None
+        self._verify_replicas("initialisation")
         self._refresh_bbox_k()
 
     def _init_state(self, field: vm_lib.VMField):
@@ -329,6 +367,59 @@ class Trainer:
             with torch.no_grad():
                 state.se3_refine.copy_(lie.SE3_to_se3(self.gt_poses))
         return state
+
+    # ------------------------------------------------------------- the mesh
+    @property
+    def is_main(self) -> bool:
+        """The rank that prints and writes files (every rank without a
+        mesh)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _replica_tensors(self) -> dict:
+        """Every tensor the replicas must hold equal: the state (field,
+        pose table or warp, moments, accumulators, registered poses, error
+        map), the alpha masks and the torch generator's state."""
+        st = self.state
+        out = {f"field.{k}": v for k, v in st.field.state_dict().items()}
+        if hasattr(st, "warp_mlp"):
+            out.update({f"warp_mlp.{k}": v
+                        for k, v in st.warp_mlp.state_dict().items()})
+        for name in ("se3_refine", "warp_embedding", "optimised_poses",
+                     "error_map", "pose_grad_accum"):
+            v = getattr(st, name, None)
+            if isinstance(v, dict):
+                out.update({f"{name}.{k}": t for k, t in v.items()})
+            elif v is not None:
+                out[name] = v
+        for name in ("scene_opt", "pose_opt"):
+            for m in ("mu", "nu"):
+                out.update({f"{name}.{m}.{k}": t for k, t in
+                            getattr(getattr(st, name), m).items()})
+        for name in ("alpha_mask", "alpha_mask_blur"):
+            mask = getattr(self, name, None)
+            if mask is not None:
+                out[f"{name}.grid"], out[f"{name}.aabb"] = mask.grid, mask.aabb
+        out["generator"] = self.generator.get_state()
+        return out
+
+    def _verify_replicas(self, what: str):
+        """Under a mesh: raise unless every rank holds the same bits."""
+        if self.mesh is not None:
+            sharding.verify_replicas(self.mesh, self._replica_tensors(), what)
+
+    def _sync_budgets(self):
+        """Under a mesh: rank 0's compaction budgets on every rank, so that
+        no rank can compile another shape (the probes run on every rank)."""
+        if self.mesh is None:
+            return
+        blur = self.compact_k_blur
+        (self.compact_k_bbox, self.compact_k_blur, self.compact_k,
+         self.app_k_dyn) = sharding.broadcast_ints(
+            self.mesh, [self.compact_k_bbox, self.compact_k_blur,
+                        self.compact_k, self.app_k_dyn])
+        if (blur is None) != (self.compact_k_blur is None):
+            raise RuntimeError(f"rank {self.mesh.rank} built the blur mask "
+                               f"budget {blur}, rank 0 {self.compact_k_blur}")
 
     # ------------------------------------------------------------- schedules
     @property
@@ -588,7 +679,7 @@ class Trainer:
             torch.as_tensor(ray_idx, device=self.device), scalars,
             generator=self.generator, jitter=jitter, bg_coin=bg_coin,
             alpha_mask=self._step_mask(blur_spec is not None), stats=stats,
-            **draws)
+            mesh=self.mesh, **draws)
         return metrics
 
     def _step(self, cfg: StepConfig, view_sel, ray_idx, scalars, **kw):
@@ -607,10 +698,13 @@ class Trainer:
         mask once built."""
         return self.alpha_mask_blur if blur_active else self.alpha_mask
 
-    def _samples_per_step(self, rays_per_view: int) -> int:
-        """Density samples per step: the dense-grid gate's measure (the
-        JAX trainer's _samples_per_chip on one chip)."""
-        return rays_per_view * self.n_views * self.n_samples
+    def _samples_per_chip(self, rays_per_view: int) -> int:
+        """Density samples each rank evaluates per step: the dense-grid
+        gate's measure (trainer.py:560-574).  The O(XYZ) dense-grid build
+        is replicated on every rank while the sample work divides by the
+        rays axis, so the gate keys on samples per rank."""
+        return (rays_per_view * self.n_views * self.n_samples
+                // (self.mesh.rays if self.mesh is not None else 1))
 
     def _step_config(self, rays_per_view: int, blur: Optional[BlurSpec],
                      grid_hw) -> StepConfig:
@@ -619,8 +713,12 @@ class Trainer:
         one, else on the in-bbox budget; without the blur, on the alpha
         mask's budget once a mask is built.  The dense grid runs while the
         blur is on or no mask is built, and only past
-        tpu.densify_min_samples_per_chip samples per step."""
+        tpu.densify_min_samples_per_chip samples per rank.  Under a mesh
+        the rays per view must divide by the rays axis
+        (trainer.py:660-664)."""
         tpu = self.opt.tpu
+        if self.mesh is not None:
+            sharding.ray_block(self.mesh, rays_per_view)
         blur_active = blur is not None
         app_k = (self.app_k_dyn if self.app_k_dyn is not None
                  else (int(tpu.app_k) if tpu.get("app_k") else None))
@@ -635,7 +733,7 @@ class Trainer:
             compact_k = self.compact_k
         densify = (bool(tpu.get("densify_density", True))
                    and (blur_active or self.compact_k is None)
-                   and self._samples_per_step(rays_per_view) >= int(
+                   and self._samples_per_chip(rays_per_view) >= int(
                        tpu.get("densify_min_samples_per_chip", 100000)))
         lane = str(tpu.get("densify_impl", "packed8")) == "lane"
         return StepConfig(
@@ -713,6 +811,8 @@ class Trainer:
             self.lr_basis *= self.decay_factor
         if it in self.update_alphamask_iters:
             self._update_alphamask(it)
+        if it in self.upsample_iters or it in self.update_alphamask_iters:
+            self._verify_replicas(f"the transition after it {it}")
         if self.tv_density_weight > 0:
             self.tv_density_weight *= self.decay_factor
         if self.tv_color_weight > 0:
@@ -751,6 +851,7 @@ class Trainer:
         # both probes draw their rays from the training generator
         self.compact_k = self._probe_compact_k()
         self.app_k_dyn = self._probe_app_k()
+        self._sync_budgets()
         if not capped and it == self.update_alphamask_iters[0] and \
                 opt.train_schedule.get("shrink_bbox_with_alphamask", True):
             self._replace_field(lambda f: vm_lib.shrink(f, new_aabb))
@@ -871,7 +972,7 @@ class Trainer:
                 int(tpu.get("app_k_max", 256)))
         if (k > base and clip == 0.0) or S <= base:
             k = base
-        if k != base:
+        if k != base and self.is_main:
             print(f"[app_k] gate quantile({quantile})={k_q} clips "
                   f"{clip:.1%} of rays at app_k={base} -> raising to {k}",
                   flush=True)
@@ -886,6 +987,7 @@ class Trainer:
         self.compact_k_bbox = (
             self._probe_compact_k(bbox_only=True, pad=1.0)
             if bool(self.opt.tpu.get("bbox_compact", True)) else None)
+        self._sync_budgets()
 
     def _blur_sigma_max(self, lookahead_iters: int) -> float:
         """The largest world sigma of the density blur over the next
@@ -957,7 +1059,8 @@ class Trainer:
         self._blur_mask_built_at = self.it
         self.alpha_mask_blur = None if k is None else mask
         self.compact_k_blur = k
-        if k is not None:
+        self._sync_budgets()
+        if k is not None and self.is_main:
             print(f"[blur_mask] it {self.it}: dilation r={radius} cells -> "
                   f"compact_k_blur={k} of S={self.n_samples} "
                   f"(bbox budget {self.compact_k_bbox})", flush=True)
@@ -1011,11 +1114,15 @@ class Trainer:
         the appearance is dense unless tpu.eval_app_k sets a cap.  Samples
         are not stratified; the training mask stride and the alpha mask,
         no blur, no background coin.  ``intr`` converts the rays under
-        NDC.  ``on_chunk(i)`` runs after chunk i."""
+        NDC.  ``on_chunk(i)`` runs after chunk i.  Under a mesh each rank
+        renders its block of every chunk (the budget broadcast from rank
+        0) and the blocks are gathered (sharding.render_sharded)."""
         pose = torch.as_tensor(pose, device=self.device)
         intr_inv = torch.as_tensor(intr_inv, device=self.device)
         tpu = self.opt.tpu
         eval_k = self._probe_compact_k(poses=pose, intr_inv=intr_inv, pad=1.5)
+        if self.mesh is not None:
+            eval_k, = sharding.broadcast_ints(self.mesh, [eval_k])
         rcfg = RenderConfig(
             n_samples=self.n_samples, is_train=False,
             mask_stride=self.mask_stride, compact_k=eval_k,
@@ -1031,12 +1138,17 @@ class Trainer:
                 centers, dirs, torch.as_tensor(intr, device=self.device),
                 near=rcfg.ndc_near_plane)
         centers, dirs = centers.reshape(-1, 3), dirs.reshape(-1, 3)
+        near_far = self._near_far()
+
+        def render(c, d):
+            return render_rays(self.state.field, self.vm_cfg, rcfg, c, d,
+                               near_far, alpha_mask=self.alpha_mask)
+
         outs = []
         for i, s in enumerate(range(0, centers.shape[0], chunk)):
-            outs.append(render_rays(
-                self.state.field, self.vm_cfg, rcfg, centers[s:s + chunk],
-                dirs[s:s + chunk], self._near_far(),
-                alpha_mask=self.alpha_mask))
+            c, d = centers[s:s + chunk], dirs[s:s + chunk]
+            outs.append(render(c, d) if self.mesh is None else
+                        sharding.render_sharded(self.mesh, render, c, d))
             if on_chunk:
                 on_chunk(i)
         rgb, depth, opacity = (torch.cat(o) for o in zip(*outs))

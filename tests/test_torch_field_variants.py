@@ -23,8 +23,8 @@ their tolerances).
 * one CPU step's row-scatter calls (K3 on the card) for each variant, the
   density head, CP (plain and component-wise) and SH, with and without
   the dense grid, app_k and the blur, equal chip_smoke.expected_launches;
-* check_ported accepts every value it refused before and still refuses
-  tpu.mesh_shape; predict_density without the density head (or the head
+* check_ported accepts every value it refused before and a mesh of the
+  rays layout, and refuses a comp axis larger than 1; predict_density without the density head (or the head
   without it) is a ValueError;
 * render_views and three test-time steps (JAX's draws) on the density
   head, CP, SH and MLP_PE with an alpha mask: renders at atol 1e-4, the
@@ -281,8 +281,12 @@ def test_check_ported_accepts_predict_density_and_refuses_the_mesh():
     check_ported(set_options(CFG, SMALL + [
         "--arch.shading.model=MLP_Fea_WeakView_Density",
         "--+arch.shading.predict_density=true"]))
-    with pytest.raises(NotImplementedError, match=r"tpu\.mesh_shape"):
-        check_ported(set_options(CFG, SMALL + ["--tpu.mesh_shape=[16]"]))
+    # the rays layout of a mesh runs (tests/test_torch_parallel.py); a comp
+    # axis larger than 1 is refused
+    check_ported(set_options(CFG, SMALL + ["--tpu.mesh_shape=[16]"]))
+    with pytest.raises(NotImplementedError, match=r"tpu\.mesh_shape.*comp"):
+        check_ported(set_options(CFG, SMALL + [
+            "--tpu.mesh_shape=[8,2]", "--tpu.mesh_axes=[rays,comp]"]))
     for bad in (["--arch.shading.model=MLP_Fea_WeakView_Density"],
                 ["--+arch.shading.predict_density=true"]):
         with pytest.raises(ValueError, match="predict_density"):

@@ -541,3 +541,75 @@ def test_wrappers_reject_bad_inputs():
         C.composite_fwd_cuda(a, torch.zeros((4, 6, 3), device="cuda").
                              transpose(0, 1).contiguous().transpose(0, 1),
                              a, 0.0)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_rank():
+    """One sharded BAT step on 2 gloo ranks sharing cuda:0
+    (parallel.launch.spawn) against the unsharded step on the card from
+    the same state and draws: loss at rtol 1e-4, gradients within 1e-3 of
+    each leaf's max (the card-vs-CPU gate), the two ranks' states equal
+    bit for bit, one gradient all-reduce and K1-K3 launched on each."""
+    _need_card()
+    import numpy as np
+
+    from joint_tensorf_tpu_torch import convert
+    from joint_tensorf_tpu_torch.data.synthetic import sphere_poses
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.parallel.launch import run_jobs, spawn
+    from joint_tensorf_tpu_torch.render.renderer import BlurSpec
+    from joint_tensorf_tpu_torch.train import step as pstep
+
+    V, H, W, R = 3, 32, 32, 64
+    vm = dict(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8), app_dim=12,
+              hidden=16)
+    cfg = vm_lib.VMConfig(**vm)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    field = vm_lib.init_vm(cfg, (24, 24, 24), np.array(
+        [[-1.5] * 3, [1.5] * 3], np.float32), gen, device="cuda")
+    state = convert.to_numpy(pstep.init_train_state(field, V))
+    rng = np.random.default_rng(0)
+    focal = 1.1 * W
+    intr = np.broadcast_to(np.array(
+        [[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float32),
+        (V, 3, 3)).copy()
+    x = dict(pose_base=sphere_poses(V).astype(np.float32), intr=intr,
+             intr_inv=np.linalg.inv(intr).astype(np.float32),
+             images=rng.random((V, H * W, 3)).astype(np.float32),
+             edges=(rng.random((V, H * W)) > 0.7).astype(np.float32),
+             view_sel=np.arange(V), ray_idx=rng.permutation(H * W)[:R],
+             jitter=rng.random((V * R, 1)).astype(np.float32))
+    state["pose_base"] = x["pose_base"]
+    step_cfg = dict(H=H, W=W, n_views=V, rays_per_view=R, n_samples=64,
+                    blur=BlurSpec("uniform-gaussian", 8))
+    sc = dict(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3, c2f_density=0.1,
+              c2f_color=0.25, l1_weight=8e-5, use_edge=1.0, edge_factor=1.5,
+              non_edge_factor=0.5)
+    st, pose_base = convert.train_state_from_numpy(state, cfg, device="cuda")
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in x.items()}
+    m1, g1 = pstep.train_step(
+        st, pstep.StepConfig(**step_cfg), cfg, pose_base, t["intr_inv"],
+        t["images"], t["edges"], t["view_sel"], t["ray_idx"],
+        pstep.StepScalars(**sc), jitter=t["jitter"])
+    out = spawn(run_jobs, 2, {"mesh_shape": [2], "jobs": [dict(
+        kind="step", vm_cfg=vm, step_cfg=step_cfg, scalars=sc,
+        state=state, inputs=x)]}, backend="gloo", device="cuda:0",
+        timeout_s=300)
+    res = out[0][0]
+    torch.testing.assert_close(res["metrics"]["loss"], float(m1["loss"]),
+                               rtol=1e-4, atol=0)
+    for k, g in g1.items():
+        g = g.cpu().numpy()
+        err = np.abs(res["grads"][k] - g).max() / max(np.abs(g).max(), 1e-30)
+        assert err <= 1e-3, (k, err)
+    from joint_tensorf_tpu_torch.utils.tree import flatten
+
+    a, b = flatten(out[0][0]["state"]), flatten(out[1][0]["state"])
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for r in out:
+        assert r[0]["counts"] == {"grads": 1, "nan_counts": 1}
+        launched = r[0]["launches"]
+        assert launched["composite_fwd"] == launched["composite_bwd"] == 1
+        assert launched["scatter_add_rows"] > 0
