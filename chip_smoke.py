@@ -188,7 +188,15 @@
    step): loss within 1e-4 relative, gradients within 1e-3 of each leaf's
    max, K1-K3 per rank as expected_launches, the ranks' state and budgets
    equal bit for bit; their step times are contention of several ranks on
-   one card, not scaling;
+   one card, not scaling; then ([parallel] (d) lines) the comp layout
+   (the factor components split over ranks, no shipped config sets it):
+   tpu.mesh_shape [1,2] and [2,2] over [rays,comp], gloo ranks on this
+   card from the same snapshots, BAT one step a phase at both shapes,
+   L2G's two steps and CP (96 / 288 components, from a one-rank CP run to
+   the last snapshot's phase) one step a phase at [1,2], held as above,
+   the replicas bit-identical by group; the collectives a step by purpose
+   and their bytes, the peak GB per rank and the ms a step (contention);
+   K3 against index_add_ at every channel count those steps gave it;
 18. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
@@ -3494,6 +3502,11 @@ PAR_RANKS = (2, 4)
 PAR_L2G_ARGS = ["--data.dataset=synthetic", f"--data.n_views={PAR_VIEWS}",
                 "--max_iter=40"]
 PAR_L2G_STEPS = 2
+# the comp layout (no shipped config sets it): [R, C] over [rays, comp],
+# BAT from (a)'s snapshots at both shapes, L2G's two steps and CP (the
+# zoo's 96 / 288 components, one NCCL rank to the last snapshot's phase)
+# at the first
+PAR_COMP_SHAPES = ((1, 2), (2, 2))
 
 
 def _keep_grads(trainer) -> dict:
@@ -3567,6 +3580,80 @@ def _par_steps(trainer, n_iter, snap_its, tmp, label, device):
     return rows, snaps, refs, kept, faults
 
 
+def k3_widths(cfg, vm_cfg, comp: int = 1) -> set:
+    """K3's channel counts in one step with StepConfig ``cfg`` on a field of
+    VMConfig ``vm_cfg`` whose components are split over ``comp`` ranks
+    (the paths of expected_launches): 4 packed corners x the components a
+    rank holds of each sampled plane (the fused planes' density and
+    appearance together), 8 for the dense grid's corner rows."""
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    rd = {4 * n // comp for n in vm_cfg.density_n_comp}
+    ra = {4 * n // comp for n in vm_cfg.app_n_comp}
+    if vm_cfg.decomposition == "CP":
+        rd = ra = set()
+    predict = cfg.mlp_predict_density
+    if cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict:
+        return {8} | ra
+    if predict:
+        return ra
+    if cfg.app_k is None and vm_lib.can_fuse_features(vm_cfg):
+        return {4 * (d + a) // comp for d, a in zip(vm_cfg.density_n_comp,
+                                                     vm_cfg.app_n_comp)}
+    split = cfg.blur is not None and vm_cfg.convolve_positive_only
+    return (set() if split else rd) | ra
+
+
+def _held_against(per_rank, tag, vm, cuda, faults, comp=None) -> dict:
+    """The checks of a spawned run's ranks against the one-rank run they
+    started from: each step's loss within 1e-4 relative, every gradient
+    within 1e-3 of its leaf's max, K1-K3 per rank as expected_launches,
+    one gradient bucket a step (under the comp layout the comp group's
+    basis bucket, and the rays group's over a rays axis of more than one
+    rank), the budgets equal and the replicas bit-identical by group:
+    every replicated tensor over the world, the factor blocks over the
+    ranks of one comp index.  Returns the worst loss and gradient
+    errors."""
+    from joint_tensorf_tpu_torch.train.step import StepConfig
+
+    worst = {"loss_rel": 0.0, "grad_rel": 0.0}
+    for rank, o in enumerate(per_rank):
+        for row in o["history"]:
+            cfg = StepConfig(**row["config"])
+            want = (expected_launches(cfg, vm) if cuda else
+                    {k: 0 for k in row["launches"]})
+            if row["launches"] != want:
+                faults.append(f"{tag} rank {rank} it {row['it']}: launched "
+                              f"{row['launches']}, expected {want}")
+            c = row["counts"]
+            rays_axis = comp is None or comp[0] > 1
+            if (c.get("grads", 0) != int(rays_axis)
+                    or c.get("nan_counts", 0) > 1
+                    or (comp is not None and c.get("comp_grads") != 1)):
+                faults.append(f"{tag} rank {rank} it {row['it']}: "
+                              f"collectives {c}")
+            lr = abs(row["metrics"]["loss"] - row["loss_ref"]) \
+                / abs(row["loss_ref"])
+            gr = max(row["grad_err"].values())
+            worst["loss_rel"] = max(worst["loss_rel"], lr)
+            worst["grad_rel"] = max(worst["grad_rel"], gr)
+            if lr > 1e-4 or gr > 1e-3:
+                faults.append(f"{tag} rank {rank} it {row['it']}: loss rel "
+                              f"{lr:.3g}, worst gradient {gr:.3g} of its "
+                              f"leaf's max")
+    first = per_rank[0]
+    for o in per_rank[1:]:
+        if o["budgets"] != first["budgets"] or \
+                o["checksums"]["world"] != first["checksums"]["world"]:
+            faults.append(f"{tag}: rank {o['rank']} differs from rank 0")
+        if comp is not None:
+            same = [p for p in per_rank if p["coords"][1] == o["coords"][1]]
+            if o["checksums"]["rays"] != same[0]["checksums"]["rays"]:
+                faults.append(f"{tag}: rank {o['rank']}'s factor blocks "
+                              f"differ from rank {same[0]['rank']}'s")
+    return worst
+
+
 def _phase_rows(rows) -> list:
     """Consecutive steps of one phase, with their median ms."""
     out = []
@@ -3589,8 +3676,10 @@ def _phase_rows(rows) -> list:
 
 def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                  l2g_args=PAR_L2G_ARGS, snap_its=PAR_SNAPSHOT_ITS,
-                 ranks=PAR_RANKS, l2g_steps=PAR_L2G_STEPS, smi=""):
-    """The [parallel] phase (parallel/: the rays layout of
+                 ranks=PAR_RANKS, l2g_steps=PAR_L2G_STEPS,
+                 comp_shapes=PAR_COMP_SHAPES, cp_args=CP_ARGS, smi="",
+                 gen=None):
+    """The [parallel] phase (parallel/: the rays and comp layouts of
     configs/bat_blender_VM_pod16.yaml).
 
     (a) one rank over NCCL (a process group of one, world size 1) at full
@@ -3606,7 +3695,16 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
     relative of (a)'s, every gradient within 1e-3 of its leaf's largest
     entry, K1-K3 per rank as expected_launches of the rank's own step,
     the replicas' state and budgets equal bit for bit at the end.  Times
-    of several ranks on one card are contention, not scaling.  Any
+    of several ranks on one card are contention, not scaling;
+    (d) the comp layout, ``comp_shapes`` [R, C] over [rays, comp], gloo
+    ranks on this card: BAT from (a)'s snapshots at each shape, L2G's two
+    steps from (c)'s and CP (``cp_args``, one NCCL rank to the last
+    snapshot's phase first) at the first, held as (b) is, the replicas
+    bit-identical by group (the factor blocks over a rays group, the
+    rest over the world); the collectives a step by purpose with their
+    bytes, the peak GB per rank and the ms a step (contention); then K3
+    against its plain version (index_add_) at every channel count those
+    steps gave it (the components of a rank: k3_widths) on ``gen``.  Any
     mismatch raises.  ``device``, ``backend`` and the arguments exist so
     that the phase can be rehearsed at a tiny size on the CPU."""
     import gc
@@ -3684,6 +3782,7 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                   f"the mesh {with_mesh}, without {without}", flush=True)
             if any(a > b for a, b in zip(with_mesh, without)):
                 faults.append(f"(a) the mesh added host syncs: {syncs}")
+        bat_rays = tr.rays_per_step
         result["a"] = {
             "config": "configs/bat_blender_VM_pod16.yaml "
                       + " ".join(bat_args) + " --tpu.mesh_shape=[1]",
@@ -3700,9 +3799,9 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
         data_l = load_dataset(opt_l, "train", device=device)
         tl = L2GTrainer(opt_l, data_l, device=device)
         l2g_rows, l2g_snaps, l2g_refs, kept, f = _par_steps(
-            tl, l2g_steps, (l2g_steps - 1,), tmp.name, "l2g", device)
+            tl, l2g_steps, tuple(range(l2g_steps)), tmp.name, "l2g", device)
         faults += f
-        l2g_vm = tl.vm_cfg
+        l2g_vm, l2g_rays = tl.vm_cfg, tl.rays_per_step
         result["c_one_rank"] = {"rays_per_step": tl.rays_per_step,
                                 "views": tl.n_views,
                                 "loss": [r["loss"] for r in l2g_rows],
@@ -3711,6 +3810,24 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
         gc.collect()            # the kept-gradient hooks hold the trainers
         if cuda:
             torch.cuda.empty_cache()
+        # ---------------- (d) CP, one rank, to the last snapshot's phase
+        opt_cp = set_options(bat_yaml, bat_args + cp_args
+                             + ["--tpu.mesh_shape=[1]"])
+        data_cp = load_dataset(opt_cp, "train", device=device)
+        tc = Trainer(opt_cp, data_cp, device=device)
+        warm_start_density(tc, int(opt_cp.data.get("seed", 0)))
+        cp_rows, cp_snaps, cp_refs, kept, f = _par_steps(
+            tc, max(snap_its) + 1, snap_its, tmp.name, "cp", device)
+        faults += f
+        cp_vm = tc.vm_cfg
+        result["d_cp_one_rank"] = {"its": [r["it"] for r in cp_rows],
+                                   "loss": [r["loss"] for r in cp_rows],
+                                   "step_ms": [r["ms"] for r in cp_rows]}
+        del tc, data_cp, kept
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        rank_dev = f"{device}:0" if cuda else "cpu"
         # ---------------- (b) and (c): D gloo ranks on this card
         for d in ranks:
             jobs = [dict(kind="trainer", yaml=bat_yaml,
@@ -3722,42 +3839,14 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                                  snapshots=l2g_snaps, refs=l2g_refs))
             t0 = time.perf_counter()
             out = launch.spawn(launch.run_jobs, d, {"jobs": jobs},
-                               backend="gloo", device=f"{device}:0"
-                               if cuda else "cpu", timeout_s=900)
+                               backend="gloo", device=rank_dev,
+                               timeout_s=900)
             wall = time.perf_counter() - t0
             for j, (label, vm) in enumerate([("bat", vm_cfg),
                                              ("l2g", l2g_vm)][:len(jobs)]):
                 per_rank = [o[j] for o in out]
-                worst = {"loss_rel": 0.0, "grad_rel": 0.0}
-                for rank, o in enumerate(per_rank):
-                    for row in o["history"]:
-                        cfg = StepConfig(**row["config"])
-                        want = (expected_launches(cfg, vm) if cuda else
-                                {k: 0 for k in row["launches"]})
-                        if row["launches"] != want:
-                            faults.append(
-                                f"(b) {label} D={d} rank {rank} it "
-                                f"{row['it']}: launched {row['launches']}, "
-                                f"expected {want}")
-                        c = row["counts"]
-                        if c.get("grads") != 1 or c.get("nan_counts", 0) > 1:
-                            faults.append(f"(b) {label} D={d} rank {rank} "
-                                          f"it {row['it']}: collectives {c}")
-                        lr = abs(row["metrics"]["loss"] - row["loss_ref"]) \
-                            / abs(row["loss_ref"])
-                        gr = max(row["grad_err"].values())
-                        worst["loss_rel"] = max(worst["loss_rel"], lr)
-                        worst["grad_rel"] = max(worst["grad_rel"], gr)
-                        if lr > 1e-4 or gr > 1e-3:
-                            faults.append(
-                                f"(b) {label} D={d} rank {rank} it "
-                                f"{row['it']}: loss rel {lr:.3g}, worst "
-                                f"gradient {gr:.3g} of its leaf's max")
-                for o in per_rank[1:]:
-                    if o["checksums"] != per_rank[0]["checksums"] or \
-                            o["budgets"] != per_rank[0]["budgets"]:
-                        faults.append(f"(b) {label} D={d}: rank "
-                                      f"{o['rank']} differs from rank 0")
+                worst = _held_against(per_rank, f"(b) {label} D={d}", vm,
+                                      cuda, faults)
                 hist = per_rank[0]["history"]
                 ms = [row["ms"] for row in hist]
                 result[f"{label}_{d}_ranks"] = {
@@ -3778,6 +3867,98 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                       f"one card, not scaling) "
                       f"{[round(x, 1) for x in ms]}; spawn {wall:.1f} s "
                       f"({smi})", flush=True)
+        # ---------------- (d) the comp layout: R x C gloo ranks
+        widths = {}
+        for n, (R_, C_) in enumerate(comp_shapes):
+            mesh_args = [f"--tpu.mesh_shape=[{R_},{C_}]",
+                         "--tpu.mesh_axes=[rays,comp]"]
+            jobs = [("bat", vm_cfg, dict(kind="trainer", yaml=bat_yaml,
+                                         args=bat_args + mesh_args,
+                                         snapshots=snaps, refs=refs))]
+            if n == 0:
+                jobs += [("l2g", l2g_vm, dict(
+                             kind="trainer", yaml=l2g_yaml,
+                             args=l2g_args + mesh_args,
+                             snapshots=l2g_snaps, refs=l2g_refs)),
+                         ("cp", cp_vm, dict(
+                             kind="trainer", yaml=bat_yaml,
+                             args=bat_args + cp_args + mesh_args,
+                             snapshots=cp_snaps, refs=cp_refs))]
+            t0 = time.perf_counter()
+            out = launch.spawn(launch.run_jobs, R_ * C_,
+                               {"jobs": [j for _, _, j in jobs]},
+                               backend="gloo", device=rank_dev,
+                               timeout_s=900)
+            wall = time.perf_counter() - t0
+            for j, (label, vm, _) in enumerate(jobs):
+                per_rank = [o[j] for o in out]
+                tag = f"(d) {label} [{R_},{C_}]"
+                worst = _held_against(per_rank, tag, vm, cuda, faults,
+                                      comp=(R_, C_))
+                hist = per_rank[0]["history"]
+                rays_per_rank = (l2g_rays if label == "l2g"
+                                 else bat_rays) // R_
+                app_w = {4 * a // C_ for a in vm.app_n_comp}
+                for row in hist:
+                    # the most rows one call scattered at each width: the
+                    # kept samples a ray, app_k of them on the appearance
+                    cfg = StepConfig(**row["config"])
+                    S_kept = min(cfg.compact_k or cfg.n_samples,
+                                 cfg.n_samples)
+                    for w in k3_widths(cfg, vm, C_):
+                        S_w = (min(cfg.app_k, S_kept)
+                               if cfg.app_k and w in app_w else S_kept)
+                        if rays_per_rank * S_w > widths.get(w, (0,))[0]:
+                            widths[w] = (rays_per_rank * S_w, rays_per_rank,
+                                         S_w, label, row["it"])
+                ms = [row["ms"] for row in hist]
+                last = hist[-1]
+                peak = [max(row.get("peak_gb", 0.0) for row in o["history"])
+                        for o in per_rank]
+                result[f"comp_{label}_{R_}x{C_}"] = {
+                    "mesh_shape": [R_, C_], "mesh_axes": ["rays", "comp"],
+                    "backend": "gloo", "device": "one card",
+                    "its": [row["it"] for row in hist],
+                    "loss": [row["metrics"]["loss"] for row in hist],
+                    "loss_ref": [row["loss_ref"] for row in hist],
+                    "worst": worst,
+                    "launches_rank0": [row["launches"] for row in hist],
+                    "collectives_last_step": last["counts"],
+                    "collective_bytes_last_step": last["bytes"],
+                    "peak_gb_per_rank": peak,
+                    "contention_step_ms": ms, "spawn_wall_s": wall}
+                print(f"[parallel] {tag} over [rays,comp], {R_ * C_} gloo "
+                      f"ranks on one card, its {[row['it'] for row in hist]}"
+                      f": worst loss rel {worst['loss_rel']:.3g}, worst "
+                      f"gradient {worst['grad_rel']:.3g} of the leaf's max, "
+                      f"replicas bit-identical by group; collectives of the "
+                      f"last step {last['counts']} bytes {last['bytes']}; "
+                      f"peak GB per rank {[round(x, 2) for x in peak]}; "
+                      f"step ms (contention of {R_ * C_} ranks on one card, "
+                      f"not scaling) {[round(x, 1) for x in ms]}; spawn "
+                      f"{wall:.1f} s ({smi})", flush=True)
+        # K3 against index_add_ at each channel count the comp steps gave
+        # it, at the most rows one call scattered (into a 400 x 400 plane,
+        # or the grid of 8-wide rows at 400^3)
+        checks = []
+        for w, (_, n_rays, S_w, label, it) in sorted(widths.items()):
+            if not cuda:
+                continue
+            grid = (400, 400, 400) if w == 8 else None
+            r = check_scatter(n_rays, S_w, 400, 400, w, gen, tol=1e-5,
+                              grid3d=grid)
+            r.update(path=f"comp {label} it {it}")
+            checks.append(r)
+            emit({"kernel_check": r})
+            print(f"[parallel] (d) K3 at {w} channels ({n_rays} rays x "
+                  f"{S_w} rows, {label} it {it}): {r['ms']:.3f} ms, device "
+                  f"{r['device_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']}), index_add_ {r['library_ms']:.3f} ms, "
+                  f"err {r['max_abs_err']:.3g} ({smi})", flush=True)
+        result["d_k3"] = [{k: r[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "shape", "path")} for r in checks]
+        result["d_k3_widths"] = sorted(widths)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3979,9 +4160,10 @@ def main(argv):
     run_mlp_nerf("nerf_blender_repr.yaml", ["--nerf.density_noise_reg=1"])
     run_planar()
     torch.cuda.empty_cache()
-    # the rays layout of bat_blender_VM_pod16.yaml: one NCCL rank through
-    # every phase, then 2 and 4 gloo ranks on this card against it
-    run_parallel(smi=smi[0] if smi else "")
+    # the rays and comp layouts of bat_blender_VM_pod16.yaml: one NCCL
+    # rank through every phase, then 2 and 4 gloo ranks on this card
+    # against it, then [1,2] and [2,2] over [rays,comp]
+    run_parallel(smi=smi[0] if smi else "", gen=gen)
     torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []

@@ -47,6 +47,12 @@ simple_state_from_numpy carry them as
     opt_state  {"mu": like params, "nu": like params, "count": int}
                (moments float32, also for complex leaves)
 
+Under the comp layout (parallel/) the dicts stay the unsharded ones: the
+*_from_numpy functions take the rank's mesh as ``comp`` and keep its block
+of every factor's components (their Adam moments too); to_numpy and
+l2g_to_numpy gather the blocks of every comp rank (a collective: every
+rank of the comp group calls them together).
+
 Arrays are float32, but for bfloat16 factors (tpu.factor_dtype), which
 stay bfloat16 both ways.  numpy has no bfloat16: the JAX package's arrays
 are ml_dtypes.bfloat16, which np.savez writes and np.load reads back as
@@ -58,6 +64,7 @@ import numpy as np
 import torch
 
 from .models import vm as vm_lib
+from .parallel import sharding
 from .train import l2g as l2g_lib
 from .train.optim import AdamState
 from .train.step import TrainState, init_train_state
@@ -79,7 +86,17 @@ def _t(x, device):
     return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
-def field_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None) -> vm_lib.VMField:
+def _block(a, group: str, i: int, comp):
+    """This rank's component block of factor ``group[i]`` (the whole
+    array without ``comp``)."""
+    if comp is None:
+        return a
+    a = np.asarray(a)
+    return a[..., vm_lib.factor_block(comp, group, i, a.shape[-1])]
+
+
+def field_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None,
+                     comp=None) -> vm_lib.VMField:
     shading = vm_lib.make_shading(cfg, device)
     leaves = {k: _t(a, device)
               for k, a in tree_lib.flatten(d["shading"]).items()}
@@ -94,9 +111,10 @@ def field_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None) -> vm_lib.VMFie
                          f"are not {cfg.shading_mode}'s")
     shading.load_state_dict(leaves)
     return vm_lib.VMField(
-        *[[_t(a, device) for a in d[g]] for g in _GROUPS],
+        *[[_t(_block(a, g, i, comp), device) for i, a in enumerate(d[g])]
+          for g in _GROUPS],
         basis=_t(d["basis"], device), shading=shading,
-        aabb=_t(d["aabb"], device))
+        aabb=_t(d["aabb"], device), comp=comp)
 
 
 def _moments_from_numpy(tree: dict, field: vm_lib.VMField, device) -> dict:
@@ -105,7 +123,8 @@ def _moments_from_numpy(tree: dict, field: vm_lib.VMField, device) -> dict:
     for name, _ in field.named_parameters():
         head, *rest = name.split(".")
         if head in _GROUPS:
-            out[name] = _t(tree[head][int(rest[0])], device)
+            i = int(rest[0])
+            out[name] = _t(_block(tree[head][i], head, i, field.comp), device)
         elif head == "basis":
             out[name] = _t(tree["basis"], device)
         else:                                   # shading.<JAX path>
@@ -120,9 +139,11 @@ def _scene_opt_from_numpy(so: dict, field, device) -> AdamState:
                      count=int(so["count"]))
 
 
-def train_state_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None):
-    """-> (TrainState, pose_base tensor or None)."""
-    field = field_from_numpy(d, cfg, device)
+def train_state_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None,
+                           comp=None):
+    """-> (TrainState, pose_base tensor or None); ``comp``: the rank's
+    mesh under the comp layout (its component blocks kept)."""
+    field = field_from_numpy(d, cfg, device, comp)
     se3 = np.asarray(d.get("se3_refine", np.zeros((1, 6))), np.float32)
     state = init_train_state(field, se3.shape[0])
     with torch.no_grad():
@@ -164,12 +185,23 @@ def _field_tree(named: dict) -> dict:
     return tree
 
 
+def gathered(field, named: dict) -> dict:
+    """{parameter name: tensor} with every factor's components gathered
+    under ``field.comp``."""
+    if field.comp is None:
+        return named
+    return {k: sharding.gather_comp(field.comp, t) if field.is_factor(k)
+            else t for k, t in named.items()}
+
+
 def _field_numpy(state) -> dict:
-    """The field keys, aabb and scene_opt of a TrainState or L2GState."""
-    d = _field_tree(dict(state.field.named_parameters()))
-    d["aabb"] = _np(state.field.aabb)
-    d["scene_opt"] = {"mu": _field_tree(state.scene_opt.mu),
-                      "nu": _field_tree(state.scene_opt.nu),
+    """The field keys, aabb and scene_opt of a TrainState or L2GState (the
+    components gathered under the comp layout)."""
+    f = state.field
+    d = _field_tree(gathered(f, dict(f.named_parameters())))
+    d["aabb"] = _np(f.aabb)
+    d["scene_opt"] = {"mu": _field_tree(gathered(f, state.scene_opt.mu)),
+                      "nu": _field_tree(gathered(f, state.scene_opt.nu)),
                       "count": state.scene_opt.count}
     return d
 
@@ -206,9 +238,10 @@ def _pose_flat(tree: dict, device) -> dict:
 
 
 def l2g_state_from_numpy(d: dict, cfg: vm_lib.VMConfig,
-                         l2g_cfg: "l2g_lib.L2GConfig", device=None):
-    """-> L2GState."""
-    field = field_from_numpy(d, cfg, device)
+                         l2g_cfg: "l2g_lib.L2GConfig", device=None,
+                         comp=None):
+    """-> L2GState (``comp`` as train_state_from_numpy's)."""
+    field = field_from_numpy(d, cfg, device, comp)
     state = l2g_lib.init_l2g_state(
         field, l2g_cfg, int(np.shape(d["warp_embedding"])[0]),
         _t(d["optimised_poses"], device), device=device)

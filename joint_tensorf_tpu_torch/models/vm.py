@@ -30,6 +30,22 @@ A shape transition (upsample, shrink) builds a new VMField around new
 factor tensors and keeps the basis and shading head; nothing is replaced
 in place under autograd.
 
+Under the comp layout (parallel/, ``tpu.mesh_axes`` with a ``comp`` axis
+of size C) the field's ``comp`` is the rank's mesh: it holds the
+contiguous block of 1/C of every factor's components (init_vm draws the
+whole factor and keeps the block, so a sharded run starts from the
+unsharded run's numbers), and the feature functions reduce inside.  Each
+computes its partial sum on its components, the appearance's local
+components times the matching rows of the replicated basis, and the sum
+meets in one all-reduce over the comp group; the sample coordinates enter
+through copy_to_comp, whose backward sums the coordinate gradient's
+parts (parallel/sharding.py).  So every caller (the renderer, the alpha
+mask, the budget probes, evaluation, the test-time steps) gets the whole
+feature and changes nowhere else.  The regularisers become local sums
+over the global element counts (their comp ranks' terms add up to the
+unsharded term); upsample and shrink act per component and stay local.
+``comp`` is None when the field is not sharded.
+
 Factors are stored in ``VMConfig.factor_dtype`` (float32, or bfloat16 as
 the JAX package's tpu.factor_dtype offers); every computation reads them
 as float32 (_blurred), so a bf16 factor's gradient is the float32 one
@@ -46,9 +62,10 @@ import torch
 import torch.nn as nn
 
 from ..ops import blur as blur_ops
-from ..ops import resample
+from ..ops import densify, resample
 from ..ops.kernels import average_kernel, gaussian_kernel
 from ..ops.sampling import sample_line, sample_plane, sample_planeline_prod
+from ..parallel import sharding
 from .shading import make_head
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
@@ -82,12 +99,14 @@ class VMConfig:
 
 
 class VMField(nn.Module):
-    """Learnable field state: factor grids, basis, shading head, and the
+    """Learnable field state: factor grids (this rank's component block
+    under ``comp``, the rank's mesh), basis, shading head, and the
     ``aabb`` buffer."""
 
     def __init__(self, density_planes, density_lines, app_planes, app_lines,
-                 basis, shading: nn.Module, aabb):
+                 basis, shading: nn.Module, aabb, comp=None):
         super().__init__()
+        self.comp = comp
         P = nn.ParameterList
         self.density_planes = P([nn.Parameter(t) for t in density_planes])
         self.density_lines = P([nn.Parameter(t) for t in density_lines])
@@ -114,39 +133,56 @@ class VMField(nn.Module):
                                       "app_planes", "app_lines")
 
 
+def factor_block(comp, group: str, i: int, n: int) -> slice:
+    """This rank's contiguous block of the ``n`` components of axis ``i``
+    of a factor group ("density_*" or "app_*"): all of them without
+    ``comp``; a count that does not divide by the comp axis raises
+    ValueError naming its config key."""
+    if comp is None:
+        return slice(None)
+    key = ("density_components" if group.startswith("density")
+           else "color_components")
+    return sharding.comp_block(n, comp, f"arch.tensorf.{key}[{i}]")
+
+
 def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
             generator: torch.Generator, init_scale: float = 0.1,
             init_bias: float = 0.0, device=None, init_density: bool = True,
             init_app: bool = True, init_basis: bool = True,
-            prev: VMField | None = None) -> VMField:
+            prev: VMField | None = None, comp=None) -> VMField:
     """Factors |bias + scale*N(0,1)| in cfg.factor_dtype (CP lines
     scale*N(0,1), no abs and no bias, and no planes), basis
     U(+-1/sqrt(fan_in)), shading with nn.Linear's default init, drawn from
     ``generator``.  With ``prev`` (the reference's reset_on_last_upsample,
     joint_tensorf_tpu/models/vm.py:106-151), the groups not re-initialised
-    are carried over from it unchanged, and so is the shading head."""
+    are carried over from it unchanged, and so is the shading head (and
+    its ``comp``).  Under ``comp`` (the rank's mesh) each factor is drawn
+    whole and this rank's component block kept."""
     res = list(resolution)
     fdt = getattr(torch, cfg.factor_dtype)
+    comp = prev.comp if prev is not None and comp is None else comp
 
     def normal(shape):
         return torch.randn(shape, generator=generator, device=device)
 
     cp = cfg.decomposition == "CP"
 
-    def one_svd(n_comp):
+    def one_svd(n_comp, group):
         planes, lines = [], []
         for i in range(3):
             m0, m1 = MAT_MODE[i]
+            blk = factor_block(comp, group, i, n_comp[i])
             if not cp:
                 p = normal((res[m1], res[m0], n_comp[i]))
-                planes.append(torch.abs(init_bias + init_scale * p).to(fdt))
+                planes.append(torch.abs(init_bias + init_scale * p)[
+                    ..., blk].to(fdt).contiguous())
             l = normal((res[VEC_MODE[i]], n_comp[i]))
-            lines.append((init_scale * l if cp else
-                          torch.abs(init_bias + init_scale * l)).to(fdt))
+            lines.append((init_scale * l if cp else torch.abs(
+                init_bias + init_scale * l))[..., blk].to(fdt).contiguous())
         return planes, lines
 
-    d_planes, d_lines = one_svd(cfg.density_n_comp)
-    a_planes, a_lines = one_svd(cfg.app_n_comp)
+    d_planes, d_lines = one_svd(cfg.density_n_comp, "density")
+    a_planes, a_lines = one_svd(cfg.app_n_comp, "app")
     basis_in = cfg.app_n_comp[0] if cp else sum(cfg.app_n_comp)
     bound = 1.0 / (basis_in ** 0.5)
     basis = (torch.rand((basis_in, cfg.app_dim), generator=generator,
@@ -165,7 +201,8 @@ def init_vm(cfg: VMConfig, resolution: Sequence[int], aabb,
             basis = prev.basis.detach()
         shading = prev.shading
     aabb = torch.as_tensor(aabb, dtype=torch.float32, device=device)
-    return VMField(d_planes, d_lines, a_planes, a_lines, basis, shading, aabb)
+    return VMField(d_planes, d_lines, a_planes, a_lines, basis, shading, aabb,
+                   comp=comp)
 
 
 def make_shading(cfg: VMConfig, device=None,
@@ -260,6 +297,36 @@ def _density_factors(field: VMField, cfg: VMConfig, i: int, mats):
     return plane, line, sharp
 
 
+def _comp_coords(field: VMField, coords):
+    """The coordinates as the factors read them: under ``comp`` through
+    copy_to_comp, whose backward sums the comp ranks' parts."""
+    if field.comp is None:
+        return coords
+    return sharding.copy_to_comp(field.comp, tuple(coords))
+
+
+def _comp_sum(field: VMField, x):
+    """The whole feature from this rank's partial ``x`` (reduce_comp under
+    ``comp``)."""
+    return x if field.comp is None else sharding.reduce_comp(field.comp, x)
+
+
+def basis_rows(field: VMField, cfg: VMConfig):
+    """The basis rows of this rank's appearance components: the whole
+    basis unless ``comp``; else each axis's block of its rows (CP: of the
+    one group's)."""
+    if field.comp is None:
+        return field.basis
+    counts = cfg.app_n_comp[:1] if cfg.decomposition == "CP" \
+        else cfg.app_n_comp
+    rows, at = [], 0
+    for i, n in enumerate(counts):
+        blk = factor_block(field.comp, "app", i, n)
+        rows.append(field.basis[at + blk.start:at + blk.stop])
+        at += n
+    return torch.cat(rows) if len(rows) > 1 else rows[0]
+
+
 def compute_fused_features(field: VMField, cfg: VMConfig, coords,
                            d_mats=None, c_mats=None):
     """Density and appearance features from ONE fused factor sample per
@@ -273,7 +340,7 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
     if not can_fuse_features(cfg):
         raise ValueError("compute_fused_features: the config's variants "
                          "need the separate samples")
-    Rd = cfg.density_n_comp
+    coords = _comp_coords(field, coords)
     sigma = torch.zeros_like(coords[0])
     app_parts = []
     for i in range(3):
@@ -285,9 +352,14 @@ def compute_fused_features(field: VMField, cfg: VMConfig, coords,
         line = torch.cat([den_l, app_l], dim=-1)
         prod = sample_planeline_prod(plane, line, coords[m0], coords[m1],
                                      coords[VEC_MODE[i]])
-        sigma = sigma + torch.sum(prod[:, :Rd[i]], dim=-1)
-        app_parts.append(prod[:, Rd[i]:])
-    return sigma, torch.cat(app_parts, dim=-1) @ field.basis
+        rd = den_p.shape[-1]
+        sigma = sigma + torch.sum(prod[:, :rd], dim=-1)
+        app_parts.append(prod[:, rd:])
+    app = torch.cat(app_parts, dim=-1) @ basis_rows(field, cfg)
+    if field.comp is None:
+        return sigma, app
+    both = _comp_sum(field, torch.cat([sigma[:, None], app], dim=-1))
+    return both[:, 0], both[:, 1:]
 
 
 def _cp_feature(lines, cfg: VMConfig, coords, blur_mats, density: bool):
@@ -315,9 +387,11 @@ def compute_density_feature(field: VMField, cfg: VMConfig, coords,
     convolve_positive_only the plane and line are sampled apart by plain
     gathers; otherwise one sample_planeline_prod (K3 in its backward) per
     axis."""
+    coords = _comp_coords(field, coords)
     if cfg.decomposition == "CP":
-        return torch.sum(_cp_feature(field.density_lines, cfg, coords,
-                                     blur_mats, density=True), dim=-1)
+        return _comp_sum(field, torch.sum(_cp_feature(
+            field.density_lines, cfg, coords, blur_mats, density=True),
+            dim=-1))
     sigma = torch.zeros_like(coords[0])
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -335,7 +409,7 @@ def compute_density_feature(field: VMField, cfg: VMConfig, coords,
         else:
             prod = sample_planeline_prod(plane, line, u, v, w)
         sigma = sigma + torch.sum(prod, dim=-1)
-    return sigma
+    return _comp_sum(field, sigma)
 
 
 def compute_app_feature(field: VMField, cfg: VMConfig, coords,
@@ -344,9 +418,11 @@ def compute_app_feature(field: VMField, cfg: VMConfig, coords,
     from the appearance factors alone (blurred by ``blur_mats`` when given,
     planes and lines alike): one sample_planeline_prod (K3 in its
     backward) per axis, or CP's line product."""
+    coords = _comp_coords(field, coords)
     if cfg.decomposition == "CP":
-        return _cp_feature(field.app_lines, cfg, coords, blur_mats,
-                           density=False) @ field.basis
+        return _comp_sum(field, _cp_feature(
+            field.app_lines, cfg, coords, blur_mats, density=False)
+            @ basis_rows(field, cfg))
     feats = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -354,7 +430,7 @@ def compute_app_feature(field: VMField, cfg: VMConfig, coords,
                                blur_mats)
         feats.append(sample_planeline_prod(plane, line, coords[m0],
                                            coords[m1], coords[VEC_MODE[i]]))
-    return torch.cat(feats, dim=-1) @ field.basis
+    return _comp_sum(field, torch.cat(feats, dim=-1) @ basis_rows(field, cfg))
 
 
 def compute_density_grid(field: VMField, cfg: VMConfig, blur_mats=None):
@@ -362,7 +438,9 @@ def compute_density_grid(field: VMField, cfg: VMConfig, blur_mats=None):
     the (varied, blurred) density factors, sampled by ops/densify.py.
     Every factor transform happens before interpolation, so G commutes
     with the factored sample (not so under convolve_positive_only:
-    can_densify).  CP: the xr,yr,zr->xyz product of the three lines."""
+    can_densify).  CP: the xr,yr,zr->xyz product of the three lines.
+    Under ``comp`` the grid of this rank's components: a partial grid
+    (sample_density_grid sums its samples)."""
     if cfg.decomposition == "CP":
         lines = []
         for i in range(3):
@@ -384,28 +462,51 @@ def compute_density_grid(field: VMField, cfg: VMConfig, blur_mats=None):
     return G
 
 
+def sample_density_grid(field: VMField, cfg: VMConfig, coords,
+                        blur_mats=None, row_dtype: str = "float32"):
+    """Density feature [N] read from the dense grid (ops/densify.py) at
+    coords (cx, cy, cz) in [-1, 1], its corner rows in ``row_dtype``.
+    Under ``comp`` every rank builds the partial grid of its components
+    and samples it, and the [N] samples are reduced: the grid is linear in
+    the components, so this is the unsharded function (with bf16 rows each
+    partial row is rounded before the sum), and one all-reduce moves N
+    floats instead of the X*Y*Z grid."""
+    coords = _comp_coords(field, coords)
+    G = compute_density_grid(field, cfg, blur_mats=blur_mats)
+    return _comp_sum(field, densify.sample_packed_grid(
+        densify.pack_corners(G), coords, row_dtype=row_dtype))
+
+
 def _abs(x):
     """|x| with JAX's derivative at 0, +1 (torch.abs's is 0): factors that
     are exactly zero still get the L1 term's push."""
     return torch.where(x >= 0, x, -x)
 
 
+def _comp_share(field: VMField, total):
+    """A mean over this rank's components as its share of the mean over
+    all of them (the blocks are equal): / C under ``comp``."""
+    return total if field.comp is None else total / field.comp.comp
+
+
 def density_L1(field: VMField):
     """Mean-abs sparsity on the density factors (planes and lines; a CP
-    field's lines)."""
+    field's lines); under ``comp`` this rank's share."""
     total = 0.0
     for p in field.density_planes:
         total = total + torch.mean(_abs(p))
     for l in field.density_lines:
         total = total + torch.mean(_abs(l))
-    return total
+    return _comp_share(field, total)
 
 
-def _vector_diffs(lines):
-    """Mean |off-diagonal| of the line factors' Gram matrices."""
+def _vector_diffs(lines, comp=None):
+    """Mean |off-diagonal| of the line factors' Gram matrices (the whole
+    lines, gathered under ``comp``)."""
     total = 0.0
     for l in lines:                       # [D, R]
-        l = l.float()
+        l = l.float() if comp is None else sharding.gather_comp(
+            comp, l).float()
         gram = l.T @ l
         R = gram.shape[0]
         off = gram * (1.0 - torch.eye(R, dtype=gram.dtype,
@@ -417,8 +518,8 @@ def _vector_diffs(lines):
 def vector_comp_diffs(field: VMField):
     """The line components' orthogonality diagnostic (the reference's
     tensoRF.py:198-210): density and appearance lines."""
-    return (_vector_diffs(field.density_lines)
-            + _vector_diffs(field.app_lines))
+    return (_vector_diffs(field.density_lines, field.comp)
+            + _vector_diffs(field.app_lines, field.comp))
 
 
 def _tv_plane(p):
@@ -434,17 +535,23 @@ def _tv_line(l):
 
 
 def tv_loss_density(field: VMField):
-    """TV of the density planes x 1e-2 (a CP field's lines x 1e-3)."""
+    """TV of the density planes x 1e-2 (a CP field's lines x 1e-3); under
+    ``comp`` this rank's share."""
     if not len(field.density_planes):
-        return sum(_tv_line(l) for l in field.density_lines) * 1e-3
-    return sum(_tv_plane(p) for p in field.density_planes) * 1e-2
+        return _comp_share(field, sum(_tv_line(l) for l in
+                                      field.density_lines) * 1e-3)
+    return _comp_share(field, sum(_tv_plane(p) for p in
+                                  field.density_planes) * 1e-2)
 
 
 def tv_loss_app(field: VMField):
-    """TV of the appearance planes x 1e-2 (a CP field's lines x 1e-3)."""
+    """TV of the appearance planes x 1e-2 (a CP field's lines x 1e-3);
+    under ``comp`` this rank's share."""
     if not len(field.app_planes):
-        return sum(_tv_line(l) for l in field.app_lines) * 1e-3
-    return sum(_tv_plane(p) for p in field.app_planes) * 1e-2
+        return _comp_share(field, sum(_tv_line(l) for l in
+                                      field.app_lines) * 1e-3)
+    return _comp_share(field, sum(_tv_plane(p) for p in
+                                  field.app_planes) * 1e-2)
 
 
 # --------------------------------------------------------- shape transitions
@@ -460,7 +567,7 @@ def _with_factors(field: VMField, planes_fn, lines_fn, aabb=None) -> VMField:
     return VMField(planes(field.density_planes), lines(field.density_lines),
                    planes(field.app_planes), lines(field.app_lines),
                    field.basis.detach(), field.shading,
-                   field.aabb if aabb is None else aabb)
+                   field.aabb if aabb is None else aabb, comp=field.comp)
 
 
 @torch.no_grad()

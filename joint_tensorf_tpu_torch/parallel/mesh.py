@@ -1,12 +1,24 @@
 """The process mesh of a data-parallel run
 (counterpart of joint_tensorf_tpu/parallel/mesh.py).
 
-The port runs the ``rays`` layout of the JAX package's mesh: one process
-(rank) per mesh position, each holding the whole field and the whole pose
-table and rendering its block of the step's rays.  The gradients meet in
-one all-reduce a step (parallel/sharding.py).  A ``comp`` axis larger than
-1 (the factor components split over ranks) is not ported, and
-train/trainer.check_ported refuses it by name.
+One process (rank) per mesh position.  The ranks are laid out row-major
+over ``shape`` in the order of ``axes``, as JAX lays its devices out
+(np.reshape of the device list): under ``[rays, comp]`` of shape [R, C]
+rank r * C + c holds rays index r and comp index c, under ``[comp, rays]``
+rank c * R + r does.  Two axes are run:
+
+* ``rays``: every rank renders its block of the step's rays; the
+  gradients meet in one all-reduce a step over the ranks that share a comp
+  index (the rays group);
+* ``comp``: every rank holds a contiguous block of 1/C of every factor's
+  components (and of their Adam moments); the features are summed over
+  the ranks that share a rays index (the comp group) inside the field's
+  forward (parallel/sharding.py, models/vm.py).
+
+Each axis has its process group: the default group when the axis spans
+the world, a group of its own otherwise (every rank creates every group,
+in the same order, as torch.distributed.new_group requires).  A
+collective over an axis of one rank in a larger world is skipped.
 
 The process group is torch.distributed's: NCCL for CUDA tensors, gloo for
 CPU ones.  A caller may name gloo for CUDA tensors too; that is how several
@@ -23,6 +35,7 @@ import os
 import tempfile
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -30,26 +43,59 @@ _LAUNCH = ("python -m torch.distributed.run --nproc_per_node={n} "
            "-m joint_tensorf_tpu_torch.train --yaml=<config> [--k=v ...]")
 
 
+# the group of an axis of one rank in a larger world: no collective runs
+ALONE = "alone"
+AXES = ("rays", "comp")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A rank's view of the mesh: the axis sizes, its rank and the world
-    size, the process group (None: the default group), its device and the
-    backend.  ``counts`` counts the collectives by purpose (sharding.py
-    adds to it), so a caller can read how many a step made."""
+    """A rank's view of the mesh: the axis sizes, its rank, its index on
+    each axis and the world size, each axis's process group (None: the
+    default group; ALONE: the axis has one rank), its device and the
+    backend.  ``counts`` counts the collectives by purpose and
+    ``nbytes`` the bytes their buffers hold (sharding.py adds to both), so
+    a caller can read how many a step made and how much they moved."""
     axes: tuple
     shape: tuple
     rank: int
     world_size: int
     device: torch.device
     backend: str
-    group: Optional[object] = None
+    coords: tuple = ()
+    groups: dict = dataclasses.field(default_factory=dict, compare=False)
     counts: dict = dataclasses.field(default_factory=dict, compare=False)
+    nbytes: dict = dataclasses.field(default_factory=dict, compare=False)
+
+    def size(self, axis: str) -> int:
+        """The number of ranks along ``axis`` (1 for an axis the mesh
+        lacks)."""
+        return dict(zip(self.axes, self.shape)).get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 for an axis the mesh
+        lacks)."""
+        return dict(zip(self.axes, self.coords)).get(axis, 0)
 
     @property
     def rays(self) -> int:
         """The size of the rays axis: the number of ray blocks a step's
         rays are split into."""
-        return dict(zip(self.axes, self.shape)).get("rays", 1)
+        return self.size("rays")
+
+    @property
+    def comp(self) -> int:
+        """The size of the comp axis: the number of component blocks every
+        factor is split into."""
+        return self.size("comp")
+
+    @property
+    def rays_index(self) -> int:
+        return self.index("rays")
+
+    @property
+    def comp_index(self) -> int:
+        return self.index("comp")
 
     @property
     def is_main(self) -> bool:
@@ -144,9 +190,34 @@ def make_mesh(shape, axes=("rays",), device="cpu") -> Mesh:
     dev = rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(axes=axes, shape=shape, rank=dist.get_rank(),
-                world_size=world, device=dev,
-                backend=str(dist.get_backend()))
+    rank = dist.get_rank()
+    coords = tuple(int(i) for i in np.unravel_index(rank, shape))
+    return Mesh(axes=axes, shape=shape, rank=rank, world_size=world,
+                device=dev, backend=str(dist.get_backend()), coords=coords,
+                groups={a: _axis_group(axes, shape, coords, a, world)
+                        for a in AXES})
+
+
+def _axis_group(axes, shape, coords, axis: str, world: int):
+    """The process group of this rank's line along ``axis``: None (the
+    default group) when the axis spans the world, ALONE when it has one
+    rank, else the group of the ranks that share every other index.  Every
+    rank creates every line's group, in the same order."""
+    size = dict(zip(axes, shape)).get(axis, 1)
+    if size == world:
+        return None
+    if size == 1:
+        return ALONE
+    a = axes.index(axis)
+    mine = None
+    for fixed in np.ndindex(*[1 if i == a else n
+                              for i, n in enumerate(shape)]):
+        line = [int(np.ravel_multi_index(fixed[:a] + (j,) + fixed[a + 1:],
+                                         shape)) for j in range(size)]
+        group = dist.new_group(line)
+        if fixed[:a] + fixed[a + 1:] == coords[:a] + coords[a + 1:]:
+            mine = group
+    return mine
 
 
 def mesh_from_options(opt, device) -> Optional[Mesh]:

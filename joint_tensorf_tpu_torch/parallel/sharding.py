@@ -1,12 +1,13 @@
-"""The ray split and the collectives of a data-parallel step
-(counterpart of joint_tensorf_tpu/parallel/sharding.py, rays layout).
+"""The ray split, the component split and the collectives of a sharded
+step (counterpart of joint_tensorf_tpu/parallel/sharding.py).
 
-JAX slices the step's rays with ``P("rays")`` and the pre-drawn jitter
-with ``P(None, "rays")`` inside a shard_map, and pmeans loss, metrics and
-gradients (sharding.py:84-135 of the JAX package).  Here every rank keeps
-all of ``view_sel`` and a contiguous block of the per-view rays
-(ray_block), renders it, and the gradients meet in one flat bucket reduced
-by one ``all_reduce(SUM)`` (reduce_bucket).  Besides it:
+The rays layout.  JAX slices the step's rays with ``P("rays")`` and the
+pre-drawn jitter with ``P(None, "rays")`` inside a shard_map, and pmeans
+loss, metrics and gradients (sharding.py:84-135 of the JAX package).  Here
+every rank keeps all of ``view_sel`` and a contiguous block of the
+per-view rays (ray_block, by its rays index), renders it, and the
+gradients meet in one flat bucket reduced by one ``all_reduce(SUM)`` over
+the rays group (reduce_bucket).  Besides it:
 
 * gather_rays, an autograd-aware gather over the rays axis (depth TV, the
   L2G error map, evaluation chunks), written as a zero-padded all_reduce
@@ -18,11 +19,31 @@ by one ``all_reduce(SUM)`` (reduce_bucket).  Besides it:
   sum/count loss needs before the backward (train/losses.py);
 * broadcast_ints, rank 0's integers (the compaction budgets) to every rank;
 * verify_replicas, a checksum of the bits of every given tensor on every
-  rank: raises when the replicas differ;
+  rank of a group: raises when the replicas differ;
 * render_sharded, the counterpart of shard_render_chunk: each rank renders
   its block of an evaluation chunk and the blocks are gathered.
 
-Every collective adds one to ``mesh.counts[purpose]``.
+The comp layout.  JAX shards every plane with ``P(None, None, "comp")``
+and every line with ``P(None, "comp")`` (sharding.py:33-70 of the JAX
+package) and lets GSPMD insert the partial sums.  Here every rank holds
+the contiguous block comp_block of each factor's components, and the
+field's feature functions (models/vm.py) compute their partial sums on it
+and meet in Megatron's conjugate pair (Shoeybi et al., 2019):
+
+* copy_to_comp, identity forward and an all-reduce of the gradient over
+  the comp group backward, on the sample coordinates that enter the
+  factors: each rank's coordinate gradient holds its components' part;
+* reduce_comp, an all-reduce over the comp group forward and identity
+  backward, on the partial features: every rank then holds the whole
+  feature, and everything after it (compositing, the head, the loss) is
+  computed identically on every rank of a comp group;
+* gather_comp, the components of every rank in their order (checkpoints,
+  snapshots, comparisons), a zero-padded all_reduce of the bits.
+
+Each collective names its axis (None: the world) and adds one to
+``mesh.counts[purpose]`` (an all_reduce also its buffer's bytes to
+``mesh.nbytes[purpose]``); over an axis of one rank in a larger world none
+runs and none is counted.
 """
 from __future__ import annotations
 
@@ -31,16 +52,24 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh
+from .mesh import ALONE, Mesh
 
 
 def _count(mesh: Mesh, purpose: str):
     mesh.counts[purpose] = mesh.counts.get(purpose, 0) + 1
 
 
-def _all_reduce(mesh: Mesh, t, purpose: str, op=dist.ReduceOp.SUM):
+def _all_reduce(mesh: Mesh, t, purpose: str, op=dist.ReduceOp.SUM,
+                axis: Optional[str] = None):
+    """All-reduce ``t`` in place over ``axis``'s group (None: the
+    world)."""
+    group = mesh.groups.get(axis) if axis else None
+    if group is ALONE:
+        return t
     _count(mesh, purpose)
-    dist.all_reduce(t, op=op, group=mesh.group)
+    mesh.nbytes[purpose] = (mesh.nbytes.get(purpose, 0)
+                            + t.numel() * t.element_size())
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -53,7 +82,7 @@ def ray_block(mesh: Mesh, n: int) -> slice:
                          f"rays axis ({d}) -- adjust nerf.n_rays / "
                          f"train_schedule.n_rays_*")
     b = n // d
-    r = mesh.rank % d
+    r = mesh.rays_index
     return slice(r * b, (r + 1) * b)
 
 
@@ -71,16 +100,16 @@ class _GatherRays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        d, r = mesh.rays, mesh.rank % mesh.rays
+        d, r = mesh.rays, mesh.rays_index
         buf = x.new_zeros((x.shape[0], d) + tuple(x.shape[1:]))
         buf[:, r] = x
-        _all_reduce(mesh, buf, "gather")
+        _all_reduce(mesh, buf, "gather", axis="rays")
         return buf.reshape(x.shape[0], d * x.shape[1], *x.shape[2:])
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
-        d, r = mesh.rays, mesh.rank % mesh.rays
+        d, r = mesh.rays, mesh.rays_index
         g = g.reshape(g.shape[0], d, g.shape[1] // d, *g.shape[2:])
         return g[:, r], None
 
@@ -95,15 +124,16 @@ def gather_rays(mesh: Mesh, x):
 def reduce_counts(mesh: Mesh, counts):
     """The global non-NaN counts of a sum/count loss (a small integer
     tensor), reduced once before the backward."""
-    return _all_reduce(mesh, counts.clone(), "nan_counts")
+    return _all_reduce(mesh, counts.clone(), "nan_counts", axis="rays")
 
 
-def reduce_bucket(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> list:
-    """Sum ``tensors`` (gradients, then scalar numerators) over the ranks
-    in ONE all_reduce of one flat float32 buffer; returns them in their
-    own shapes and dtypes."""
+def reduce_bucket(mesh: Mesh, tensors: Sequence[torch.Tensor],
+                  axis: str = "rays", purpose: str = "grads") -> list:
+    """Sum ``tensors`` (gradients, then scalar numerators) over ``axis``'s
+    group in ONE all_reduce of one flat float32 buffer; returns them in
+    their own shapes and dtypes."""
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    _all_reduce(mesh, flat, "grads")
+    _all_reduce(mesh, flat, purpose, axis=axis)
     out, at = [], 0
     for t in tensors:
         n = t.numel()
@@ -121,7 +151,7 @@ def broadcast_ints(mesh: Mesh, values: Sequence[Optional[int]]) -> list:
     t = torch.tensor([-1 if v is None else int(v) for v in values],
                      dtype=torch.int64, device=mesh.device)
     _count(mesh, "broadcast")
-    dist.broadcast(t, src=0, group=mesh.group)
+    dist.broadcast(t, src=0)
     return [None if v < 0 else v for v in t.tolist()]
 
 
@@ -133,25 +163,28 @@ def bits_sum(t) -> torch.Tensor:
     return t.view(view).to(torch.int64).sum()
 
 
-def verify_replicas(mesh: Mesh, tensors: dict, what: str):
-    """Raise when the named tensors differ in a bit between ranks: one
-    all_reduce of the per-tensor checksums and their negatives under MAX
-    (max == -max(-x) on every tensor iff all ranks agree)."""
+def verify_replicas(mesh: Mesh, tensors: dict, what: str,
+                    axis: Optional[str] = None):
+    """Raise when the named tensors differ in a bit between the ranks of
+    ``axis``'s group (None: the world): one all_reduce of the per-tensor
+    checksums and their negatives under MAX (max == -max(-x) on every
+    tensor iff all ranks agree)."""
     names = sorted(tensors)
     sums = torch.stack([bits_sum(tensors[k]).to(mesh.device)
                         for k in names])
     both = torch.cat([sums, -sums])
-    _all_reduce(mesh, both, "checksum", op=dist.ReduceOp.MAX)
+    _all_reduce(mesh, both, "checksum", op=dist.ReduceOp.MAX, axis=axis)
     n = len(names)
     bad = [k for k, hi, lo in zip(names, both[:n].tolist(),
                                   both[n:].tolist()) if hi != -lo]
     if bad:
-        raise RuntimeError(f"replicas differ after {what}: {bad}")
+        where = f" of the {axis} group" if axis else ""
+        raise RuntimeError(f"replicas{where} differ after {what}: {bad}")
 
 
 def barrier(mesh: Mesh):
     _count(mesh, "barrier")
-    dist.barrier(group=mesh.group)
+    dist.barrier()
 
 
 def render_sharded(mesh: Mesh, render, centers, dirs):
@@ -170,3 +203,81 @@ def render_sharded(mesh: Mesh, render, centers, dirs):
     out = torch.cat([rgb, depth[:, None], opacity[:, None]], dim=1)
     out = gather_rays(mesh, out[None])[0][:n]
     return out[:, :3], out[:, 3], out[:, 4]
+
+
+# ------------------------------------------------------------ comp layout
+def comp_block(n: int, mesh: Mesh, what: str = "components") -> slice:
+    """This rank's contiguous block of ``n`` components (JAX's
+    ``P(..., "comp")``); ``n`` must divide by the comp axis, as JAX's
+    device_put requires."""
+    c = mesh.comp
+    if n % c:
+        raise ValueError(f"{what}: {n} components do not divide by the mesh "
+                         f"comp axis ({c}) -- adjust "
+                         f"arch.tensorf.density_components / "
+                         f"color_components or tpu.mesh_shape")
+    b = n // c
+    return slice(mesh.comp_index * b, (mesh.comp_index + 1) * b)
+
+
+class _ReduceComp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = torch.clone(x, memory_format=torch.contiguous_format)
+        return _all_reduce(mesh, out, "comp_forward", axis="comp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_comp(mesh: Mesh, x):
+    """The sum of every comp rank's partial ``x``; the backward hands each
+    rank the whole cotangent (module docstring)."""
+    return _ReduceComp.apply(x, mesh)
+
+
+class _CopyToComp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        live = [g for g in gs if g is not None]
+        flat = torch.cat([g.reshape(-1) for g in live])
+        _all_reduce(ctx.mesh, flat, "comp_backward", axis="comp")
+        out, at = [], 0
+        for g in gs:
+            if g is None:
+                out.append(None)
+                continue
+            out.append(flat[at:at + g.numel()].reshape(g.shape))
+            at += g.numel()
+        return (None, *out)
+
+
+def copy_to_comp(mesh: Mesh, xs: tuple) -> tuple:
+    """``xs`` unchanged; their gradients summed over the comp group in one
+    all_reduce (module docstring)."""
+    return _CopyToComp.apply(mesh, *xs)
+
+
+def gather_comp(mesh: Mesh, t, dim: int = -1):
+    """Every comp rank's block of ``t`` along ``dim``, in comp order, on
+    every rank: one all_reduce of the bits as int32, each rank's block in
+    its place and zeros elsewhere, so the result is bit-exact (float32,
+    bf16 and -0.0 included)."""
+    if mesh.groups.get("comp") is ALONE:
+        return t
+    dim = dim % t.dim()
+    n = t.shape[dim]
+    t = t.detach().contiguous()
+    bits = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    shape = list(t.shape)
+    shape[dim] = n * mesh.comp
+    buf = torch.zeros(shape, dtype=torch.int32, device=t.device)
+    buf.narrow(dim, mesh.comp_index * n, n).copy_(t.view(bits))
+    _all_reduce(mesh, buf, "comp_gather", axis="comp")
+    return buf.to(bits).view(t.dtype)

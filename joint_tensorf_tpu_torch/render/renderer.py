@@ -30,6 +30,14 @@ RenderConfig fields:
 * the two-stage appearance (``app_k``): only the app_k samples of largest
   weight among those past the weight gate are shaded.
 
+Under the comp layout (models/vm.py) the field's feature functions reduce
+inside, and the dense grid is read by vm.sample_density_grid: each rank
+samples the partial grid of its components and the samples are summed,
+which moves N floats a step where summing the grid would move X*Y*Z
+(64M at 400^3).  Everything after the features is computed identically on
+every rank of a comp group; with ``stats`` the two-stage selection is
+checked equal over the comp group (one checksum all-reduce).
+
 The field's own options choose the density path as JAX's renderer does
 (renderer.py:449-459): the dense grid only where vm.can_densify, the fused
 sample only where vm.can_fuse_features, neither (nor the two-stage
@@ -64,8 +72,8 @@ import torch
 from ..geometry.ndc import grad_rescale
 from ..models import vm as vm_lib
 from ..models.alpha_mask import AlphaMask, sample_alpha
-from ..ops import densify
 from ..ops.composite import composite
+from ..parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,9 +365,9 @@ def render_rays(
                  and vm_lib.can_fuse_features(cfg))
     app_feat = rgb = None
     if use_densify:
-        G = vm_lib.compute_density_grid(field, cfg, blur_mats=d_mats)
-        sigma_feature = densify.sample_packed_grid(
-            densify.pack_corners(G), coords, row_dtype=rcfg.densify_dtype)
+        sigma_feature = vm_lib.sample_density_grid(
+            field, cfg, coords, blur_mats=d_mats,
+            row_dtype=rcfg.densify_dtype)
     elif predict:
         # the head gives the density feature (the reference's
         # batBase.py:106-109)
@@ -390,6 +398,11 @@ def render_rays(
         gate = (weight > thres) & valid
         score = torch.where(gate, weight, torch.zeros_like(weight)).detach()
         sel = torch.topk(score, K2, dim=-1).indices.sort(dim=-1).values
+        if stats is not None and field.comp is not None:
+            # every comp rank reads the same reduced weights, so every
+            # rank must keep the same samples
+            sharding.verify_replicas(field.comp, {"app_k_selection": sel},
+                                     "the two-stage selection", axis="comp")
         w_sel = torch.gather(weight, 1, sel)
         gate_sel = torch.gather(gate.to(weight.dtype), 1, sel)
         if rcfg.ndc:

@@ -44,9 +44,10 @@ further training (no log, checkpoint or quant file), as train.py does.
 ``--pdb`` opens a post-mortem debugger on an exception (utils/cli.py).
 
 A config with ``tpu.mesh_shape`` ([D] with a rays axis, as
-configs/bat_blender_VM_pod16.yaml) trains on D ranks started by a
-launcher, one process a rank (NCCL on the cards, one card a rank; gloo on
-the CPU with --device=cpu):
+configs/bat_blender_VM_pod16.yaml, or [R, C] with ``tpu.mesh_axes``
+[rays, comp]: the factor components split over C ranks too) trains on D
+(R x C) ranks started by a launcher, one process a rank (NCCL on the
+cards, one card a rank; gloo on the CPU with --device=cpu):
 
     python -m torch.distributed.run --nproc_per_node=D \
         -m joint_tensorf_tpu_torch.train --yaml=... [--tpu.mesh_shape=[D]]

@@ -39,8 +39,10 @@ state, the torch generator's device) and ``torch_generator_state``.
 
 Under a mesh (parallel/) rank 0 writes and every rank waits for the file;
 every rank restores the same file, then the replicas are checked bit for
-bit (a checksum all-reduce) and the budgets broadcast from rank 0.  The
-layout is the same with or without a mesh.
+bit (checksum all-reduces) and the budgets broadcast from rank 0.  The
+layout is the same with or without a mesh: under the comp layout every
+rank gathers the factor blocks (and their moments) before rank 0 writes
+the unsharded arrays, and a restore keeps each rank's block.
 
 Each side restores the other's files: restore rebuilds the field at the
 stored shapes and box, the Adam moments and counts, the pose table and
@@ -180,17 +182,20 @@ def _state_dict(arrays: dict, l2g: bool) -> dict:
 
 def save_checkpoint(path: str, trainer, snapshot_path: str | None = None):
     """Write the trainer's checkpoint to ``path`` (and a copy to
-    ``snapshot_path`` when given); under a mesh rank 0 writes and every
-    rank returns once the file is there."""
+    ``snapshot_path`` when given); under a mesh every rank gathers the
+    state (the comp layout's blocks), rank 0 writes and every rank returns
+    once the file is there."""
+    arrays = _state_arrays(trainer)
     if trainer.mesh is not None:
         if trainer.mesh.is_main:
-            _write_checkpoint(path, trainer, snapshot_path)
+            _write_checkpoint(path, trainer, arrays, snapshot_path)
         sharding.barrier(trainer.mesh)
     else:
-        _write_checkpoint(path, trainer, snapshot_path)
+        _write_checkpoint(path, trainer, arrays, snapshot_path)
 
 
-def _write_checkpoint(path: str, trainer, snapshot_path: str | None):
+def _write_checkpoint(path: str, trainer, arrays: dict,
+                      snapshot_path: str | None):
     meta = {
         "it": trainer.it,
         "n_voxel_list": [int(n) for n in trainer.n_voxel_list],
@@ -207,7 +212,7 @@ def _write_checkpoint(path: str, trainer, snapshot_path: str | None):
         "rng_state": trainer.rng_np.bit_generator.state,
         "torch_generator_device": trainer.generator.device.type,
     }
-    payload = {f"state/{k}": v for k, v in _state_arrays(trainer).items()}
+    payload = {f"state/{k}": v for k, v in arrays.items()}
     seed = int(trainer.opt.get("seed", 0))
     payload["key"] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
     payload["torch_generator_state"] = trainer.generator.get_state().numpy()
@@ -252,10 +257,11 @@ def restore_checkpoint(path: str, trainer) -> None:
     if isinstance(trainer.state, L2GState):
         trainer.state = convert.l2g_state_from_numpy(
             _state_dict(arrays, True), trainer.vm_cfg, trainer.l2g_cfg,
-            device=dev)
+            device=dev, comp=trainer.comp)
     else:
         trainer.state, _ = convert.train_state_from_numpy(
-            _state_dict(arrays, False), trainer.vm_cfg, device=dev)
+            _state_dict(arrays, False), trainer.vm_cfg, device=dev,
+            comp=trainer.comp)
 
     trainer.it = int(meta["it"])
     trainer.n_voxel_list = list(meta["n_voxel_list"])

@@ -25,8 +25,10 @@ rays of the whole step and renders its block of each view's rays.  The
 registration needs each view's whole set of correspondences: every rank
 warps every ray of the step (the warp MLP is small beside the render), so
 the registration's input is the unsharded one bit for bit, on every rank,
-and rank 0 adds the registration loss (the render loss reaches the warp
-through each rank's own block).  The error map needs every ray's error:
+and the ranks of rays index 0 add the registration loss (the render loss
+reaches the warp through each rank's own block; under the comp layout
+the warp's gradient is whole on every comp rank, as the pose table's
+is).  The error map needs every ray's error:
 the errors are gathered over the rays axis (one gather a step), and the
 registered poses and the error map are updated alike on every rank.
 """
@@ -50,7 +52,7 @@ from ..render.renderer import render_rays
 from . import losses
 from .optim import AdamState, adam_init, adam_update, field_lr_tree, masked_update
 from .step import (StepConfig, StepScalars, add_regularizers, predraw,
-                   reduce_step, render_loss_share)
+                   rank_terms, reduce_step, render_loss_share)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,10 +284,13 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
     R_g, t_g = rigid_points_registration(target_pts, source)
     svd_poses = pose_ops.make(R_g, t_g)                          # [B,3,4]
     ga_loss = losses.mse(target_pts, pose_ops.cam2world(source, svd_poses))
-    # the registration term and the replicated terms on rank 0 of a mesh
-    if mesh is None or mesh.is_main:
+    # the registration term and the replicated terms once a rays group
+    if mesh is None:
         loss = add_regularizers(
             loss + l2g_cfg.global_alignment_weight * ga_loss, field, s)
+    else:
+        loss, report, partial = rank_terms(
+            mesh, field, s, loss, l2g_cfg.global_alignment_weight * ga_loss)
 
     params = dict(field.named_parameters())
     names = list(params)
@@ -295,8 +300,8 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
                             + [pparams[k] for k in pnames])
     grads = dict(zip(names + pnames, g))
     if mesh is not None:
-        grads, metrics = reduce_step(mesh, grads, loss, sq_sum, counts[2],
-                                     render_stats)
+        grads, metrics = reduce_step(mesh, grads, report, sq_sum, counts[2],
+                                     render_stats, partial)
 
     with torch.no_grad():
         lrs = field_lr_tree(field, s.lr_index, s.lr_basis)

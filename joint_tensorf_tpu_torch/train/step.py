@@ -21,14 +21,31 @@ generator state (predraw: the unsharded renderer's draws, in its order)
 and renders its block of every view's rays.  Its loss is its share: the
 render loss as its nansums over the global non-NaN counts (one small
 all-reduce before the backward), the replicated terms (density L1, the
-factors' TV) on rank 0 only, and the depth TV of the gathered depth on
-every rank (its gather's backward takes each rank's block; the renderer
-stops depth's gradient, as JAX's does, so the term moves only the loss).
-So the ranks' gradients sum to the unsharded gradient.  They are summed
-in one all-reduce of one flat bucket, with the loss and the plain MSE's
-numerator beside them, and every rank runs the same Adam update on the
-same bytes, so the replicas stay equal.  PSNR is recomputed from the
-reduced MSE, as JAX's sharded step does.
+factors' TV) on the ranks of rays index 0 only, and the depth TV of the
+gathered depth on every rank (its gather's backward takes each rank's
+block; the renderer stops depth's gradient, as JAX's does, so the term
+moves only the loss).  So the ranks' gradients sum to the unsharded
+gradient.  They are summed in one all-reduce of one flat bucket over the
+rays group, with the loss and the plain MSE's numerator beside them, and
+every rank runs the same Adam update on the same bytes, so the replicas
+stay equal.  PSNR is recomputed from the reduced MSE, as JAX's sharded
+step does.
+
+Under the comp layout (a ``comp`` axis of size C; the field holds its
+rank's component blocks, models/vm.py) the field's features are summed
+over the comp group inside the forward and the sample coordinates' parts
+inside the backward (Megatron's conjugate pair, parallel/sharding.py), so
+every rank of a comp group computes the same render loss, head and pose
+gradients.  The gradients then keep four invariants: a factor block's is
+this rank's, summed over the rays group only; the basis rows of this
+rank's components get theirs here alone, so the basis gradient is summed
+over the comp group first (one small all-reduce, with the regularisers'
+shares beside it: the regularisers are sums over components, each rank's
+share of them a local sum over the global element count); the head's and
+the pose table's are whole on every comp rank and summed over the rays
+group only.  A step makes per comp rank one forward all-reduce per
+feature call, one backward all-reduce per call whose coordinates carry a
+gradient, the comp-group bucket and the rays-group bucket.
 """
 from __future__ import annotations
 
@@ -199,10 +216,47 @@ def add_regularizers(loss, field, s: StepScalars):
     return loss
 
 
-def reduce_step(mesh, grads: dict, loss_report, sq_sum, count, stats=None):
-    """The one all-reduce of a sharded step: the gradients, the loss, the
-    plain MSE's numerator and (``stats``) the render fractions / D, in one
-    bucket.  Returns (grads, metrics) with PSNR from the reduced MSE."""
+def regularizers(field, s: StepScalars):
+    """Density L1 and the factors' TV with their weights, as a float32
+    0-d tensor (this rank's share of them under the comp layout)."""
+    return add_regularizers(torch.zeros((), device=field.aabb.device),
+                            field, s)
+
+
+def rank_terms(mesh, field, s: StepScalars, loss, extra=None):
+    """Under a mesh, ``loss`` (this rank's render share) plus, on the
+    ranks of rays index 0, ``extra`` (a term computed identically on every
+    rank) and the regularisers.  Returns (the loss to differentiate, its
+    reported value, the comp group's partial): without the comp layout the
+    report holds everything and the partial is None; with it the
+    regularisers' share is the partial (zero off rays index 0), summed
+    over the comp group by reduce_step."""
+    report, partial = loss, None
+    if mesh.rays_index == 0:
+        if extra is not None:
+            loss = loss + extra
+        reg = regularizers(field, s)
+        report = loss if field.comp is not None else loss + reg
+        partial = reg if field.comp is not None else None
+        loss = loss + reg
+    elif field.comp is not None:
+        partial = torch.zeros((), device=loss.device)
+    return loss, report, partial
+
+
+def reduce_step(mesh, grads: dict, loss_report, sq_sum, count, stats=None,
+                partial=None):
+    """The reductions of a sharded step.  Under the comp layout
+    (``partial`` given) first the basis gradient and ``partial`` over the
+    comp group; then the gradients, the loss, the plain MSE's numerator
+    and (``stats``) the render fractions / R, in one bucket over the rays
+    group.  Returns (grads, metrics) with PSNR from the reduced MSE."""
+    if partial is not None:
+        basis, partial = sharding.reduce_bucket(
+            mesh, [grads["basis"], partial.detach().float()], axis="comp",
+            purpose="comp_grads")
+        grads = dict(grads, basis=basis)
+        loss_report = loss_report.detach().float() + partial
     keys = list(grads)
     skeys = sorted(stats) if stats else []
     extra = [loss_report.detach().float(), sq_sum.detach().float()] + [
@@ -281,18 +335,16 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                 depth.reshape(B, R), gh, gw)
     else:
         loss, sq_sum, counts = render_loss_share(mesh, rgb, target, mask, s)
-        if mesh.is_main:
-            loss = add_regularizers(loss, field, s)
-        report = loss
+        loss, report, partial = rank_terms(mesh, field, s, loss)
         # the term enters every rank's loss (its gather's backward takes
-        # this rank's block) and the reported loss once; without weight
-        # no gather is made
+        # this rank's block) and the reported loss once a rays group;
+        # without weight no gather is made
         if cfg.grid_hw is not None and s.tv_depth_weight:
             gh, gw = cfg.grid_hw
             tv = s.tv_depth_weight * losses.depth_tv_loss(
                 sharding.gather_rays(mesh, depth.reshape(B, R)), gh, gw)
             loss = loss + tv
-            report = report + tv if mesh.is_main else report
+            report = report + tv if mesh.rays_index == 0 else report
 
     params = dict(field.named_parameters())
     names = list(params)
@@ -302,7 +354,7 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     grads = dict(zip(names + ["se3_refine"], torch.autograd.grad(loss, wrt)))
     if mesh is not None:
         grads, metrics = reduce_step(mesh, grads, report, sq_sum, counts[2],
-                                     render_stats)
+                                     render_stats, partial)
     if not cfg.pose_opt:
         grads["se3_refine"] = torch.zeros_like(state.se3_refine)
 

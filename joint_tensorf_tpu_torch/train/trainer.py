@@ -32,17 +32,21 @@ trainer's order (the probes at a mask update included), so both trainers
 see the same ray indices and blur scales; device randomness (pose noise,
 field init, stratified jitter) comes from a torch.Generator.
 
-With ``tpu.mesh_shape`` (a ``rays`` axis; parallel/) the trainer is one
-rank of a data-parallel run: it builds the mesh (trainer.py:204-223 of the
-JAX package), every rank keeps the whole state and draws the whole
+With ``tpu.mesh_shape`` (a ``rays`` axis and a ``comp`` axis, in either
+order; parallel/) the trainer is one rank of a sharded run: it builds the
+mesh (trainer.py:204-223 of the JAX package), every rank draws the whole
 schedule (rng_np, the generator's jitter and coin), the step renders this
-rank's block of the rays and reduces the gradients once
-(train/step.py), the dense-grid gate counts samples per rank
+rank's block of the rays and reduces the gradients (train/step.py), the
+dense-grid gate counts samples per rank of the rays axis
 (_samples_per_chip), the rays per view must divide by the rays axis, the
 budgets are broadcast from rank 0 after every probe, the replicas are
-checked bit for bit (a checksum all-reduce) after every phase
-transition, and evaluation renders each chunk's rays in blocks
-(render_views).  Only rank 0 prints.
+checked bit for bit (checksum all-reduces) after every phase transition,
+and evaluation renders each chunk's rays in blocks (render_views).  Under
+a comp axis of size C > 1 every rank holds the field's component blocks
+of its comp index (models/vm.py): the factors, drawn whole and cut, and
+their moments are checked equal over the rays group, everything else
+(basis, head, poses, warp, masks, generator) over the world.  Only rank 0
+prints.
 
 Evaluation (trainer.py:1131-1333 of the JAX package): render_views
 renders whole views in chunks on an eval budget probed on the rendered
@@ -119,9 +123,8 @@ _PORTED_VALUES = (
 # bfloat16 (_DENSIFY_DTYPES, named with the layout when refused): the JAX
 # renderer reads it only under densify_impl lane (the bf16 row reads) and
 # computes float32 under packed8 whatever it says, as the port does.
-# tpu.mesh_shape runs with a rays axis (a comp axis of size 1 allowed;
-# _check_mesh).  The others run at any value: tpu.mesh_axes matters only
-# with a mesh,
+# tpu.mesh_shape runs over a rays and a comp axis (_check_mesh).  The
+# others run at any value: tpu.mesh_axes matters only with a mesh,
 # tpu.donate_state is an XLA buffer choice with no counterpart.  A tpu:
 # key in none of these raises.
 _DENSIFY_DTYPES = ("float32", "bfloat16")
@@ -146,21 +149,29 @@ _POSE_MODELS = ("bat", "l2g_bat")
 
 
 def _check_mesh(opt: Options):
-    """tpu.mesh_shape runs in the rays layout: every axis but ``rays`` of
-    size 1.  The comp layout (the factor components split over ranks,
-    joint_tensorf_tpu/parallel/sharding.py:33-49) needs collectives inside
-    the field's forward and is refused by name."""
+    """tpu.mesh_shape runs over the ``rays`` and ``comp`` axes (any other
+    axis of size 1).  Under a comp axis of size C every component count
+    must divide by C (ValueError naming the count, as JAX's device_put of
+    a ``P(..., "comp")`` sharding refuses it)."""
     shape = opt.get_path("tpu.mesh_shape")
     if not shape:
         return
     axes = list(opt.get_path("tpu.mesh_axes") or ["rays"])
     split = {a: int(n) for a, n in zip(axes, shape)
-             if a != "rays" and int(n) > 1}
+             if a not in ("rays", "comp") and int(n) > 1}
     if split:
         names = ", ".join(f"{a} axis of size {n}" for a, n in split.items())
         raise _unported(f"option tpu.mesh_shape={list(shape)} with "
-                        f"tpu.mesh_axes={axes}: the {names} (only the rays "
-                        f"layout is ported)")
+                        f"tpu.mesh_axes={axes}: the {names} (the rays and "
+                        f"comp axes are ported)")
+    c = dict(zip(axes, (int(n) for n in shape))).get("comp", 1)
+    for key in ("density_components", "color_components"):
+        for i, n in enumerate(opt.arch.tensorf.get(key) or ()):
+            if int(n) % c:
+                raise ValueError(
+                    f"arch.tensorf.{key}[{i}]={int(n)} does not divide by "
+                    f"the comp axis ({c}) of tpu.mesh_shape={list(shape)} "
+                    f"with tpu.mesh_axes={axes}")
 
 
 def check_ported(opt: Options):
@@ -337,11 +348,14 @@ class Trainer:
         self._blur_cache_at = None
 
         # ---------------- field + optimizer
+        # the comp layout's handle: the mesh when it splits the components
+        self.comp = (self.mesh if self.mesh is not None and self.mesh.comp > 1
+                     else None)
         field = vm_lib.init_vm(
             self.vm_cfg, self.resolution, self.bbox, self.generator,
             init_scale=float(opt.arch.tensorf.get("volume_init_scale", 0.1)),
             init_bias=float(opt.arch.tensorf.get("volume_init_bias", 0.0)),
-            device=dev)
+            device=dev, comp=self.comp)
         self.state = self._init_state(field)
         self.metrics_history: list[dict] = []
 
@@ -378,7 +392,9 @@ class Trainer:
     def _replica_tensors(self) -> dict:
         """Every tensor the replicas must hold equal: the state (field,
         pose table or warp, moments, accumulators, registered poses, error
-        map), the alpha masks and the torch generator's state."""
+        map), the alpha masks and the torch generator's state (under the
+        comp layout the factor blocks and their moments only within a
+        rays group: _replica_groups)."""
         st = self.state
         out = {f"field.{k}": v for k, v in st.field.state_dict().items()}
         if hasattr(st, "warp_mlp"):
@@ -402,10 +418,27 @@ class Trainer:
         out["generator"] = self.generator.get_state()
         return out
 
+    def _replica_groups(self) -> dict:
+        """_replica_tensors by the group that holds them equal: {None (the
+        world): ..., "rays": the factor blocks and their moments} under
+        the comp layout, everything over the world otherwise."""
+        tensors = self._replica_tensors()
+        if self.comp is None:
+            return {None: tensors}
+        field = self.state.field
+        # field.<name> and scene_opt.<mu|nu>.<name>
+        blocks = {k for k in tensors if k.startswith("field.")
+                  and field.is_factor(k[6:]) or k.startswith("scene_opt.")
+                  and field.is_factor(k.split(".", 2)[2])}
+        return {None: {k: v for k, v in tensors.items() if k not in blocks},
+                "rays": {k: tensors[k] for k in blocks}}
+
     def _verify_replicas(self, what: str):
-        """Under a mesh: raise unless every rank holds the same bits."""
+        """Under a mesh: raise unless every rank holds the same bits (the
+        factor blocks: every rank of its rays group)."""
         if self.mesh is not None:
-            sharding.verify_replicas(self.mesh, self._replica_tensors(), what)
+            for axis, tensors in self._replica_groups().items():
+                sharding.verify_replicas(self.mesh, tensors, what, axis=axis)
 
     def _sync_budgets(self):
         """Under a mesh: rank 0's compaction budgets on every rank, so that

@@ -24,8 +24,10 @@ their tolerances).
   density head, CP (plain and component-wise) and SH, with and without
   the dense grid, app_k and the blur, equal chip_smoke.expected_launches;
 * check_ported accepts every value it refused before and a mesh of the
-  rays layout, and refuses a comp axis larger than 1; predict_density without the density head (or the head
-  without it) is a ValueError;
+  rays or the comp layout, refuses a component count that does not
+  divide by the comp axis (ValueError) and an axis of another name;
+  predict_density without the density head (or the head without it) is
+  a ValueError;
 * render_views and three test-time steps (JAX's draws) on the density
   head, CP, SH and MLP_PE with an alpha mask: renders at atol 1e-4, the
   refined pose at 1e-5, the loss at rtol 1e-4; JAX's evaluate.py
@@ -281,12 +283,21 @@ def test_check_ported_accepts_predict_density_and_refuses_the_mesh():
     check_ported(set_options(CFG, SMALL + [
         "--arch.shading.model=MLP_Fea_WeakView_Density",
         "--+arch.shading.predict_density=true"]))
-    # the rays layout of a mesh runs (tests/test_torch_parallel.py); a comp
-    # axis larger than 1 is refused
+    # the rays and comp layouts of a mesh run (tests/test_torch_parallel.py,
+    # tests/test_torch_parallel_comp.py); a component count that does not
+    # divide by the comp axis, and an axis other than rays and comp, are
+    # refused
     check_ported(set_options(CFG, SMALL + ["--tpu.mesh_shape=[16]"]))
-    with pytest.raises(NotImplementedError, match=r"tpu\.mesh_shape.*comp"):
+    comp = ["--tpu.mesh_shape=[8,2]", "--tpu.mesh_axes=[rays,comp]"]
+    check_ported(set_options(CFG, SMALL + comp + [
+        "--arch.tensorf.density_components=[4,4,4]"]))
+    with pytest.raises(ValueError, match=r"density_components\[0\]=3 does "
+                       r"not divide by the comp axis \(2\) of "
+                       r"tpu\.mesh_shape"):
+        check_ported(set_options(CFG, SMALL + comp))
+    with pytest.raises(NotImplementedError, match=r"tpu\.mesh_shape.*heads"):
         check_ported(set_options(CFG, SMALL + [
-            "--tpu.mesh_shape=[8,2]", "--tpu.mesh_axes=[rays,comp]"]))
+            "--tpu.mesh_shape=[8,2]", "--tpu.mesh_axes=[rays,heads]"]))
     for bad in (["--arch.shading.model=MLP_Fea_WeakView_Density"],
                 ["--+arch.shading.predict_density=true"]):
         with pytest.raises(ValueError, match="predict_density"):

@@ -258,6 +258,23 @@ def test_scatter_kernel_matches_plain(case, n, rows, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 8, 12, 16, 24, 32, 48, 64, 96, 128])
+def test_scatter_kernel_at_the_comp_widths(c):
+    """K3 at the channel counts the comp layout gives it (4 packed corners
+    x a rank's share of a plane's components: BAT's 16 / 48 / 64 fused
+    and LLFF's 4 / 12 / 16 / 48 components at C = 2 and 4) on a rank's
+    march-order rows into a 400 x 400 plane, against index_add_."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    n, rows = 2048 * 64, 400 * 400
+    idx, upd = _scatter_case("sorted", n, rows, c, gen)
+    got = segment_scatter.scatter_add_rows(idx, upd, rows)
+    want = segment_scatter.scatter_add_rows_plain(idx, upd, rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,w,r,n,spread", [
     (300, 300, 64, 524288, 1.0), (37, 53, 16, 1000, 1.2), (11, 9, 4, 130, 1.2),
     (101, 101, 32, 4096, 0.02), (2, 1, 8, 50, 1.2),
@@ -550,6 +567,22 @@ def test_two_gloo_ranks_on_the_card_match_one_rank():
     the same state and draws: loss at rtol 1e-4, gradients within 1e-3 of
     each leaf's max (the card-vs-CPU gate), the two ranks' states equal
     bit for bit, one gradient all-reduce and K1-K3 launched on each."""
+    _ranks_on_the_card_match_one_rank([2], ["rays"],
+                                      {"grads": 1, "nan_counts": 1})
+
+
+@pytest.mark.cuda
+def test_comp_gloo_ranks_on_the_card_match_one_rank():
+    """The same step in the comp layout, [1, 2] over [rays, comp]: each
+    rank holds half of every factor's components; the gathered states
+    equal bit for bit; the comp group's forward, backward and basis
+    reductions once each."""
+    _ranks_on_the_card_match_one_rank(
+        [1, 2], ["rays", "comp"],
+        {"comp_forward": 1, "comp_backward": 1, "comp_grads": 1})
+
+
+def _ranks_on_the_card_match_one_rank(mesh_shape, mesh_axes, counts):
     _need_card()
     import numpy as np
 
@@ -591,10 +624,11 @@ def test_two_gloo_ranks_on_the_card_match_one_rank():
         st, pstep.StepConfig(**step_cfg), cfg, pose_base, t["intr_inv"],
         t["images"], t["edges"], t["view_sel"], t["ray_idx"],
         pstep.StepScalars(**sc), jitter=t["jitter"])
-    out = spawn(run_jobs, 2, {"mesh_shape": [2], "jobs": [dict(
-        kind="step", vm_cfg=vm, step_cfg=step_cfg, scalars=sc,
-        state=state, inputs=x)]}, backend="gloo", device="cuda:0",
-        timeout_s=300)
+    out = spawn(run_jobs, 2, {"mesh_shape": mesh_shape,
+                              "mesh_axes": mesh_axes, "jobs": [dict(
+                                  kind="step", vm_cfg=vm, step_cfg=step_cfg,
+                                  scalars=sc, state=state, inputs=x)]},
+                backend="gloo", device="cuda:0", timeout_s=300)
     res = out[0][0]
     torch.testing.assert_close(res["metrics"]["loss"], float(m1["loss"]),
                                rtol=1e-4, atol=0)
@@ -609,7 +643,7 @@ def test_two_gloo_ranks_on_the_card_match_one_rank():
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     for r in out:
-        assert r[0]["counts"] == {"grads": 1, "nan_counts": 1}
+        assert r[0]["counts"] == counts
         launched = r[0]["launches"]
         assert launched["composite_fwd"] == launched["composite_bwd"] == 1
         assert launched["scatter_add_rows"] > 0

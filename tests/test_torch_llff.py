@@ -349,9 +349,10 @@ def test_check_ported_accepts_l2g_and_llff_configs(cfg):
     "--model=barf"])
 def test_check_ported_still_refuses_by_name(override):
     key = override.split("=")[0].lstrip("-+")
-    # a mesh of the rays layout runs (tests/test_torch_parallel.py): the
-    # comp layout is what stays refused
-    extra = ["--tpu.mesh_axes=[comp]"] if key == "tpu.mesh_shape" else []
+    # the rays and comp layouts of a mesh run (tests/test_torch_parallel.py,
+    # tests/test_torch_parallel_comp.py): an axis of another name is what
+    # stays refused
+    extra = ["--tpu.mesh_axes=[heads]"] if key == "tpu.mesh_shape" else []
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_ported(set_options(CFG, SMALL + [override] + extra))
 

@@ -25,7 +25,8 @@ to each other bit for bit.
   (rank 0 writes) restored on both ranks, into an unsharded trainer and
   into the JAX package;
 * the densify gate keyed on samples per rank: on at one rank, off at [4];
-* check_ported refusing a comp axis, make_mesh refusing too few ranks,
+* check_ported taking a comp axis and refusing a component count that
+  does not divide by it, make_mesh refusing too few ranks,
   NCCL refusing more ranks than cards, the train CLI refusing a mesh
   config without a launcher.
 """
@@ -533,9 +534,16 @@ def test_densify_gate_flips_on_rays_per_rank(runs):
 
 # ------------------------------------------------------------ refusals
 def test_check_ported_refuses_the_comp_axis():
+    """The comp axis is ported: [4,2] runs with counts that divide by 2;
+    TRAIN's 3 density components a plane do not, and are refused by name
+    (tests/test_torch_parallel_comp.py runs the layout)."""
     check_ported(set_options(BAT, TRAIN + ["--tpu.mesh_shape=[4,1]",
                                            "--tpu.mesh_axes=[rays,comp]"]))
-    with pytest.raises(NotImplementedError, match="comp axis of size 2"):
+    check_ported(set_options(BAT, TRAIN + [
+        "--tpu.mesh_shape=[4,2]", "--tpu.mesh_axes=[rays,comp]",
+        "--arch.tensorf.density_components=[4,4,4]"]))
+    with pytest.raises(ValueError, match=r"arch\.tensorf\.density_components"
+                       r"\[0\]=3 does not divide by the comp axis \(2\)"):
         check_ported(set_options(BAT, TRAIN + [
             "--tpu.mesh_shape=[4,2]", "--tpu.mesh_axes=[rays,comp]"]))
 

@@ -247,9 +247,10 @@ def test_cpu_smoke_run_crosses_the_upsample(small_scene):
                                       "--tpu.densify_impl=blocked",
                                       "--tpu.factor_dtype=float16"])
 def test_unported_options_raise(small_scene, override):
-    # a mesh of the rays layout runs (tests/test_torch_parallel.py): the
-    # comp layout is what stays refused
-    extra = ["--tpu.mesh_axes=[comp]"] if "mesh_shape" in override else []
+    # the rays and comp layouts of a mesh run (tests/test_torch_parallel.py,
+    # tests/test_torch_parallel_comp.py): an axis of another name is what
+    # stays refused
+    extra = ["--tpu.mesh_axes=[heads]"] if "mesh_shape" in override else []
     with pytest.raises(NotImplementedError, match=override.split("=")[0][2:]):
         Trainer(set_options(CFG, SMALL + [override] + extra), small_scene,
                 device="cpu")
