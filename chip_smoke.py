@@ -197,7 +197,24 @@
    the replicas bit-identical by group; the collectives a step by purpose
    and their bytes, the peak GB per rank and the ms a step (contention);
    K3 against index_add_ at every channel count those steps gave it;
-18. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+18. the [rest] phase (run_rest_phase, after the viz phase on the same
+   trained state): the JAX package's functions on no entry point at
+   BAT's widths: (a) the lane-packed dense grid (ops/lane_grid.py) of the
+   trained field's 423x359x420 grid against packed8, values and every
+   gradient with float32 and bf16 rows, 2028 x 1000 samples in march
+   order, K3 once a backward at 128 channels, ms forward + backward of
+   each against the function's byte bound; (b) the direct VM lane build
+   against the pack of the dense grid (values, factor gradients, ms);
+   (c) the hybrid plane / line samples against the plain samplers on
+   the largest appearance plane and its line (2028 x app_k samples) and
+   the longest density line (2028 x 1000), and K3's line scatter against
+   the one-hot matmul and index_add_ at each line shape (march order and
+   every sample in one row); (d) the trained state saved queued
+   (async_write) and synchronously: the ms the caller is blocked, the
+   files equal, the queued one restored equal leaf for leaf; (e) the
+   small helpers once on the card and once on the CPU, within 1e-6;
+   K3's entry in the kernels line lists the new shapes;
+19. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -3969,6 +3986,487 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
     return result
 
 
+# ---------------------------------------------- [rest]: the last functions
+REST_REPS = 5           # timed calls of each [rest] function (heavy ones)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want| (at least 1e-30)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def march_coords(n_rays, S, shape, gen, device="cuda"):
+    """Normalised coordinates (cx, cy, cz) [n_rays * S] along rays in march
+    order, each step at most half a cell per axis, folded back at the
+    box's faces so that every ray stays inside; the first 6 samples lie
+    exactly on faces (+-1), where jnp.clip gives half the gradient."""
+    import torch
+
+    size = torch.tensor([float(s - 1) for s in shape], device=device)
+    start = torch.rand((n_rays, 3), generator=gen, device=device) * 2 - 1
+    step = (torch.rand((n_rays, 3), generator=gen, device=device) - 0.5) \
+        * 2 / size
+    t = torch.arange(S, device=device, dtype=torch.float32)[None, :, None]
+    p = torch.remainder(start[:, None] + 1 + t * step[:, None], 4.0)
+    c = (torch.where(p > 2, 4 - p, p) - 1).reshape(-1, 3)
+    c[:6] = torch.tensor([[-1, 1, -1], [1, -1, 1], [1, 1, 1],
+                          [-1, -1, -1], [0.5, -1, 1], [1, 0.25, -1]],
+                         device=device, dtype=torch.float32)
+    return c.unbind(-1)
+
+
+def _fwd_bwd(fn, inputs, cot):
+    """fn(*inputs) and the gradients of <fn(*inputs), cot> w.r.t. inputs
+    (fresh leaves): (value, [grads])."""
+    import torch
+
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, cot)
+    return out.detach(), list(grads)
+
+
+def _held(name, got, want, tol, faults) -> float:
+    """The worst relative error of the (value, grads) pair ``got`` against
+    ``want``; a fault past ``tol`` or a non-finite value."""
+    import torch
+
+    errs = [_rel(got[0], want[0])] + [_rel(a, b) for a, b in
+                                      zip(got[1], want[1], strict=True)]
+    finite = all(torch.isfinite(t).all() for t in [got[0]] + got[1])
+    if not finite or max(errs) > tol:
+        faults.append(f"{name}: errors {['%.3g' % e for e in errs]} > {tol}"
+                      f" (finite {finite})")
+    return max(errs)
+
+
+def _launches_of(fn) -> dict:
+    """The counted kernel launches of one call of fn, counters zeroed
+    just before it."""
+    from joint_tensorf_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launches()
+    fn()
+    return {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+
+
+def rest_lane(G, coords, gen, faults, device="cuda"):
+    """(a) sample_lane_grid(pack_lane_grid(G)) against
+    sample_packed_grid(pack_corners(G)): values, G's gradient and the
+    coordinates', float32 and bf16 rows; K3 launches once a backward at
+    128 channels; ms forward + backward of each (one call: the pack, the
+    sample and their backwards) against the function's byte bound.
+    Returns (out, the K3 row at 128 channels into X*Y*Zb rows)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import densify, lane_grid, sampling
+
+    X, Y, Z = G.shape
+    N = coords[0].shape[0]
+    cot = torch.randn((N,), generator=gen, device=device)
+
+    def lane(dt):
+        return lambda g, cx, cy, cz: lane_grid.sample_lane_grid(
+            lane_grid.pack_lane_grid(g), (cx, cy, cz), Z, dt)
+
+    def packed8(dt):
+        return lambda g, cx, cy, cz: densify.sample_packed_grid(
+            densify.pack_corners(g), (cx, cy, cz), dt)
+
+    inputs = (G,) + tuple(coords)
+    out = {"grid": [X, Y, Z], "samples": N}
+    for dt in ("float32", "bfloat16"):
+        got = _fwd_bwd(lane(dt), inputs, cot)
+        want = _fwd_bwd(packed8(dt), inputs, cot)
+        out[f"err_{dt}"] = _held(f"[rest] (a) lane vs packed8 ({dt})", got,
+                                 want, 1e-5, faults)
+        del got, want
+    launches = _launches_of(lambda: _fwd_bwd(lane("float32"), inputs, cot))
+    if launches != {"scatter_add_rows": 1} and device == "cuda":
+        faults.append(f"[rest] (a) lane fwd+bwd launches {launches}, want "
+                      f"one K3")
+    out["launches"] = launches
+    # the function's bytes: G and the coordinates and cotangent read, the
+    # samples, G's gradient and the coordinates' written
+    out["bound_ms"], out["bound_by"] = bound(
+        2 * X * Y * Z * 4 + N * 4 * (3 + 1 + 1 + 3), 0)
+    out["rows_bytes"] = {"lane": 2 * N * 128 * 4, "packed8": 2 * N * 8 * 4}
+    if device == "cuda":
+        for name, fn in (("lane", lane("float32")),
+                         ("packed8", packed8("float32")),
+                         ("lane_bf16", lane("bfloat16")),
+                         ("packed8_bf16", packed8("bfloat16"))):
+            out[f"{name}_ms"] = time_ms(lambda: _fwd_bwd(fn, inputs, cot),
+                                        reps=REST_REPS, warmup=1)
+    # K3 alone at the lane backward's shape: 128 channels into X*Y*Zb rows
+    Zb = lane_grid.n_blocks(Z)
+    x0, y0, z0 = (sampling._floor_frac(sampling._pix(c, n), n)[0]
+                  for c, n in zip(coords, (X, Y, Z)))
+    idx = ((x0 * Y + y0) * Zb + z0 // lane_grid.ZRUN).contiguous()
+    del x0, y0, z0
+    return out, rest_k3(idx, lane_grid.LANES, X * Y * Zb, gen, faults,
+                        device)
+
+
+def rest_vm_build(field, cfg, gen, faults, device="cuda") -> dict:
+    """(b) compute_lane_density_grid (the direct build) against
+    pack_lane_grid(compute_density_grid): values and the density factors'
+    gradients; ms forward + backward of each."""
+    import torch
+
+    from joint_tensorf_tpu_torch.models import vm
+    from joint_tensorf_tpu_torch.ops import lane_grid
+
+    params = list(field.density_planes) + list(field.density_lines)
+
+    def run(direct):
+        G = (vm.compute_lane_density_grid(field, cfg) if direct else
+             lane_grid.pack_lane_grid(vm.compute_density_grid(field, cfg)))
+        return G.detach(), list(torch.autograd.grad(G, params, cot))
+
+    X, Y, Z = field.resolution()
+    cot = torch.randn((X, Y, lane_grid.n_blocks(Z), lane_grid.LANES),
+                      generator=gen, device=device)
+    out = {"grid": [X, Y, Z], "err": _held(
+        "[rest] (b) direct lane build vs pack of the dense grid",
+        run(True), run(False), 1e-5, faults)}
+    if device == "cuda":
+        out["direct_ms"] = time_ms(lambda: run(True), reps=REST_REPS,
+                                   warmup=1)
+        out["pack_ms"] = time_ms(lambda: run(False), reps=REST_REPS,
+                                 warmup=1)
+    del cot
+    return out
+
+
+def rest_hybrid(field, n_rays, S, app_k, gen, faults, device="cuda"):
+    """(c) the hybrids against the plain samplers on the trained field's
+    largest appearance plane and its line (n_rays x app_k samples, 4R and
+    2R channels) and its longest density line (n_rays x S samples):
+    values and every gradient, K3 once a backward; then K3's line scatter
+    against the one-hot matmul the trainer's lines use
+    (sampling._scatter_rows_matmul) and index_add_ at each line shape.
+    Returns (out, K3 rows for the kernels line)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.models.vm import MAT_MODE, VEC_MODE
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    res = field.resolution()
+    i = max(range(3), key=lambda a: res[MAT_MODE[a][0]] * res[MAT_MODE[a][1]])
+    j = max(range(3), key=lambda a: res[VEC_MODE[a]])
+    cases = {"app_plane": (field.app_planes[i], app_k),
+             "app_line": (field.app_lines[i], app_k),
+             "density_line": (field.density_lines[j], S)}
+    out, k3_rows = {}, []
+    for name, (table, per_ray) in cases.items():
+        table = table.detach().float()
+        is_plane = table.dim() == 3
+        if is_plane:
+            H, W, R = table.shape
+            coords = march_coords(n_rays, per_ray, (W, H, 2), gen,
+                                  device)[:2]
+            hybrid, plain = sampling.sample_plane_hybrid, sampling.sample_plane
+        else:
+            D, R = table.shape
+            coords = march_coords(n_rays, per_ray, (2, 2, D), gen,
+                                  device)[2:]
+            hybrid, plain = sampling.sample_line_hybrid, sampling.sample_line
+        n = n_rays * per_ray
+        cot = torch.randn((n, R), generator=gen, device=device)
+        inputs = (table,) + tuple(coords)
+        row = {"table": list(table.shape), "samples": n,
+               "channels": (4 if is_plane else 2) * R,
+               "err": _held(f"[rest] (c) {name} hybrid vs plain",
+                            _fwd_bwd(hybrid, inputs, cot),
+                            _fwd_bwd(plain, inputs, cot), 1e-5, faults),
+               "launches": _launches_of(
+                   lambda: _fwd_bwd(hybrid, inputs, cot))}
+        if device == "cuda":
+            if row["launches"] != {"scatter_add_rows": 1}:
+                faults.append(f"[rest] (c) {name} hybrid launches "
+                              f"{row['launches']}, want one K3")
+            row["hybrid_ms"] = time_ms(lambda: _fwd_bwd(hybrid, inputs, cot),
+                                       reps=REST_REPS, warmup=1)
+            row["plain_ms"] = time_ms(lambda: _fwd_bwd(plain, inputs, cot),
+                                      reps=REST_REPS, warmup=1)
+        if not is_plane:
+            idx = sampling._floor_frac(sampling._pix(coords[0], D), D)[0]
+            row["scatter"] = rest_k3(idx.contiguous(), 2 * R, D, gen,
+                                     faults, device)
+            k3_rows.append(row["scatter"])
+        out[name] = row
+        del cot
+    return out, k3_rows
+
+
+def rest_k3(idx, C, n_rows, gen, faults, device="cuda") -> dict:
+    """K3 at a new shape: the samples' rows ``idx`` in march order, C
+    channels into n_rows rows, against index_add_ (its plain version and
+    the library call) and, for a short destination (the lines), the
+    one-hot matmul the trainer's lines use; the same with every sample in
+    one row, exactly.  Atomics sum in a run-dependent order: march order is
+    held at 1e-5 of the output's largest magnitude."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import sampling
+    from joint_tensorf_tpu_torch.ops import segment_scatter as K
+
+    n = idx.shape[0]
+    short = n_rows <= 4096
+    upd = torch.randn((n, C), generator=gen, device=device)
+    # every sample in one row: integer updates, whose sums are exact in
+    # any order (|sum| <= 4n < 2^24), so all three agree exactly
+    ints = torch.randint(-4, 5, (n, C), generator=gen, device=device).float()
+    out = {"name": "scatter_add_rows", "N": n, "C": C, "n_rows": n_rows}
+    for case, ix, u, tol in (
+            ("march", idx, upd, 1e-5),
+            ("one_row", torch.full_like(idx, n_rows // 2), ints, 0.0)):
+        want = K.scatter_add_rows_plain(ix, u, n_rows)
+        got = K.scatter_add_rows(ix, u, n_rows)
+        err = _rel(got, want)
+        if short:
+            err = max(err, _rel(sampling._scatter_rows_matmul(ix, u, n_rows),
+                                want))
+        if not torch.isfinite(got).all() or err > tol:
+            faults.append(f"[rest] K3 at {n} x {C} into {n_rows} rows "
+                          f"({case}): {err:.3g} > {tol}")
+        out[f"max_rel_err_{case}"] = err
+        out.setdefault("max_abs_err", float((got - want).abs().max()))
+        del want, got
+    del ints
+    out["bound_ms"], out["bound_by"] = bound(
+        n * 8 + n * C * 4 + n_rows * C * 4, n * C)
+    if device == "cuda":
+        out["ms"] = time_ms(lambda: K.scatter_add_rows_cuda(idx, upd, n_rows))
+        out["plain_ms"] = time_ms(
+            lambda: K.scatter_add_rows_plain(idx, upd, n_rows))
+        out["library_ms"] = out["plain_ms"]       # index_add_ is both
+        if short:
+            out["onehot_ms"] = time_ms(
+                lambda: sampling._scatter_rows_matmul(idx, upd, n_rows))
+    return out
+
+
+def rest_checkpoint(trainer, data, faults) -> dict:
+    """(d) BAT's last-phase state saved with async_write and without: the
+    ms the caller is blocked in each, the drain, and the queued file
+    restored into a fresh trainer equal leaf for leaf, and equal to the
+    synchronous file array for array."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from joint_tensorf_tpu_torch.config import set_options
+    from joint_tensorf_tpu_torch.train import checkpoint as ckpt
+    from joint_tensorf_tpu_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    try:
+        paths = {k: os.path.join(tmp, f"{k}.ckpt.npz")
+                 for k in ("queued", "sync")}
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(paths["queued"], trainer, async_write=True)
+        t1 = time.perf_counter()
+        ckpt.wait_for_pending()
+        t2 = time.perf_counter()
+        ckpt.save_checkpoint(paths["sync"], trainer)
+        t3 = time.perf_counter()
+        a, b = (np.load(paths[k]) for k in ("queued", "sync"))
+        diff = [k for k in b.files if k not in a.files
+                or (a[k].dtype, a[k].shape, a[k].tobytes())
+                != (b[k].dtype, b[k].shape, b[k].tobytes())]
+        if diff or set(a.files) != set(b.files):
+            faults.append(f"[rest] (d) the queued file differs from the "
+                          f"synchronous one: {diff[:8]}")
+        fresh = Trainer(set_options(
+            os.path.join(HERE, "configs", "bat_blender_VM.yaml"),
+            PHASES_ARGS), data, device=trainer.device)
+        ckpt.restore_checkpoint(paths["queued"], fresh)
+        bad = _differing_leaves(trainer, fresh)
+        if bad:
+            faults.append(f"[rest] (d) restored leaves differ: {bad[:8]}")
+        del fresh
+        return {"bytes": os.path.getsize(paths["queued"]),
+                "queued_blocked_ms": (t1 - t0) * 1e3,
+                "drain_ms": (t2 - t1) * 1e3,
+                "sync_blocked_ms": (t3 - t2) * 1e3,
+                "restored_equal": not bad, "files_equal": not diff}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rest_helpers(faults, device="cuda") -> dict:
+    """(e) each small helper once on the card and once on the CPU from the
+    same inputs (a seeded CPU generator): within 1e-6 of the larger of 1
+    and the CPU result's largest magnitude, NaNs in the same places, the
+    uint8 mask and the booleans equal."""
+    import torch
+
+    from joint_tensorf_tpu_torch.geometry import lie, rays
+    from joint_tensorf_tpu_torch.models import alpha_mask, vm
+    from joint_tensorf_tpu_torch.ops import composite, kernels
+    from joint_tensorf_tpu_torch.render import renderer
+    from joint_tensorf_tpu_torch.train import losses
+
+    g = torch.Generator().manual_seed(5)
+
+    def r(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=g) * (hi - lo) + lo
+
+    alpha = r(32, 48)
+    alpha[0, 7] = 1.0
+    target = r(32, 10, 3)
+    target[0, 3] = float("nan")
+    x = {"sigma": r(32, 48, hi=30), "dists": r(32, 48, hi=0.05),
+         "one_minus": 1.0 - alpha + 1e-10, "dT": torch.randn(
+             (32, 48), generator=g), "w": r(32, 48, hi=0.02),
+         "rgb": r(32, 48, 3), "z": r(32, 48, lo=2, hi=6),
+         "last": r(32, lo=-1, hi=1), "sigmas": r(5, hi=6),
+         "x": r(33, lo=-2, hi=2), "so3": torch.cat([torch.zeros(1, 3),
+                                                      r(4, 3, lo=-1)]),
+         "dR": torch.randn((5, 3, 3), generator=g),
+         "pix": r(2, 30, 3, hi=50),
+         "intr_inv": torch.linalg.inv(r(2, 3, 3, lo=.5, hi=2)),
+         "mask": (r(30, 20, 25) > 0.6).float(),
+         "aabb": torch.tensor([[-1.5, -1.2, -1.0], [1.5, 1.3, 1.1]]),
+         "centers": r(200, 3, lo=-4, hi=4), "dirs": r(200, 3, lo=-1),
+         "jitter": r(200, 1), "coords": r(50, 3, lo=-1),
+         "pred": r(32, 10, 3), "target": target, "edge": r(32, 10)}
+    calls = {
+        "raw2alpha": lambda d, t: composite.raw2alpha(t["sigma"],
+                                                      t["dists"]),
+        "exclusive_cumprod": lambda d, t: _fwd_bwd(
+            composite.exclusive_cumprod, (t["one_minus"],), t["dT"]),
+        "composite_weights": lambda d, t: composite.composite_weights(
+            t["w"], t["rgb"], t["z"], t["last"]),
+        "batch_gaussian_kernel": lambda d, t: (
+            kernels.batch_gaussian_kernel(t["sigmas"], 15, device=d),),
+        "discrete_gaussian_kernel": lambda d, t: (
+            kernels.discrete_gaussian_kernel(3.5, 15, device=d),),
+        "taylor_C": lambda d, t: (lie.taylor_C(t["x"]),),
+        "so3_to_SO3": lambda d, t: _fwd_bwd(lie.so3_to_SO3, (t["so3"],),
+                                            t["dR"]),
+        "img2cam": lambda d, t: (rays.img2cam(t["pix"], t["intr_inv"]),),
+        "pack_neighborhoods": lambda d, t: (
+            alpha_mask.pack_neighborhoods(t["mask"]),),
+        "sample_ray": lambda d, t: renderer.sample_ray(
+            t["aabb"], 0.05, 64, t["centers"], t["dirs"], 2.0, 6.0, True,
+            jitter=t["jitter"]),
+        "coord_axes": lambda d, t: vm.coord_axes(t["coords"]),
+        "soft_edge_render_loss": lambda d, t: (losses.soft_edge_render_loss(
+            t["pred"], t["target"], t["edge"], 2.0, 0.5),),
+    }
+
+    def flat(outs):
+        return [y.cpu() for o in outs for y in (o if isinstance(o, list)
+                                                else [o])]
+
+    card = {k: v.to(device) for k, v in x.items()}
+    out = {}
+    for name, fn in calls.items():
+        err = 0.0
+        for a, b in zip(flat(fn(device, card)), flat(fn("cpu", x)),
+                        strict=True):
+            if b.dtype in (torch.uint8, torch.bool):
+                err = max(err, float((a != b).sum()))
+                continue
+            if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                err = max(err, 1.0)
+            scale = max(1.0, float(b.nan_to_num().abs().max()))
+            err = max(err, float((a - b).nan_to_num().abs().max()) / scale)
+        out[name] = err
+        if err > 1e-6:
+            faults.append(f"[rest] (e) {name}: card vs CPU {err:.3g} > 1e-6")
+    return out
+
+
+def run_rest_phase(trainer, data, n_rays, cfg, gen):
+    """[rest] the JAX package's last functions at BAT's widths on the
+    default path's trained trainer (its last phase: the 423x359x420 grid,
+    density R 16, appearance R 48, S and app_k of its last step):
+    (a) the lane grid against packed8 on the trained field's dense grid
+    with n_rays x S samples in march order; (b) the direct VM lane build
+    against the pack of the dense grid; (c) the hybrids against the plain
+    samplers and K3's line scatter against the one-hot matmul and
+    index_add_; (d) queued and synchronous checkpoints; (e) the small
+    helpers card vs CPU; K3 against index_add_ at each new shape (128
+    channels into the lane grid's rows, 2R into a line).  Prints one
+    [rest] line per part; returns ({"rest": ...}, K3's rows at the new
+    shapes)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.models import vm
+
+    t0 = time.perf_counter()
+    faults = []
+    field, vm_cfg = trainer.state.field, trainer.vm_cfg
+    S, app_k = cfg.n_samples, cfg.app_k or cfg.n_samples
+    with torch.no_grad():
+        G = vm.compute_density_grid(field, vm_cfg).contiguous()
+    coords = march_coords(n_rays, S, G.shape, gen)
+    a, k3_lane = rest_lane(G, coords, gen, faults)
+    del G, coords
+    torch.cuda.empty_cache()
+    print(f"[rest] (a) lane vs packed8 at {a['grid']} x {a['samples']} "
+          f"samples: err {a['err_float32']:.3g} (bf16 rows "
+          f"{a['err_bfloat16']:.3g}), launches {a['launches']}, fwd+bwd "
+          f"lane {a['lane_ms']:.3f} / packed8 {a['packed8_ms']:.3f} ms "
+          f"(bf16 {a['lane_bf16_ms']:.3f} / {a['packed8_bf16_ms']:.3f}), "
+          f"bound {a['bound_ms']:.3f} ms ({a['bound_by']})", flush=True)
+    b = rest_vm_build(field, vm_cfg, gen, faults)
+    torch.cuda.empty_cache()
+    print(f"[rest] (b) direct lane build vs pack of the dense grid at "
+          f"{b['grid']}: err {b['err']:.3g}, fwd+bwd direct "
+          f"{b['direct_ms']:.3f} / pack {b['pack_ms']:.3f} ms", flush=True)
+    c, k3_lines = rest_hybrid(field, n_rays, S, app_k, gen, faults)
+    torch.cuda.empty_cache()
+    for name, row in c.items():
+        line = (f"[rest] (c) {name} {row['table']} x {row['samples']} "
+                f"samples ({row['channels']} channels): hybrid vs plain err "
+                f"{row['err']:.3g}, launches {row['launches']}, fwd+bwd "
+                f"hybrid {row['hybrid_ms']:.3f} / plain "
+                f"{row['plain_ms']:.3f} ms")
+        if "scatter" in row:
+            s = row["scatter"]
+            line += (f"; line scatter K3 {s['ms']:.4f} / one-hot "
+                     f"{s['onehot_ms']:.4f} / index_add_ "
+                     f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} "
+                     f"({s['bound_by']})")
+        print(line, flush=True)
+    d = rest_checkpoint(trainer, data, faults)
+    torch.cuda.empty_cache()
+    print(f"[rest] (d) checkpoint {d['bytes'] / 1e6:.1f} MB: caller blocked "
+          f"{d['queued_blocked_ms']:.1f} ms queued (drain "
+          f"{d['drain_ms']:.1f} ms) vs {d['sync_blocked_ms']:.1f} ms "
+          f"synchronous; files equal {d['files_equal']}, restored equal "
+          f"{d['restored_equal']}", flush=True)
+    e = rest_helpers(faults)
+    print(f"[rest] (e) helpers card vs CPU: worst {max(e.values()):.3g} "
+          f"({len(e)} functions)", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"[rest] phase: {wall:.1f} s", flush=True)
+    k3_rows = [k3_lane] + k3_lines
+    for k in k3_rows:
+        print(f"[rest] K3 at {k['N']} x {k['C']} into {k['n_rows']} rows: "
+              f"{k['ms']:.4f} ms, index_add_ {k['library_ms']:.4f}, bound "
+              f"{k['bound_ms']:.4f} ({k['bound_by']}), err march "
+              f"{k['max_rel_err_march']:.3g} / one row "
+              f"{k['max_rel_err_one_row']:.3g}", flush=True)
+    result = {"rest": {"lane": a, "vm_build": b, "hybrid": c,
+                       "checkpoint": d, "helpers": e, "k3": k3_rows,
+                       "wall_s": wall}}
+    emit(result)
+    if faults:
+        fail("[rest]: " + "; ".join(faults))
+    return result, k3_rows
+
+
 def main(argv):
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         fail(f"usage: python3 chip_smoke.py [--profile DIR], got {argv}")
@@ -4077,6 +4575,11 @@ def main(argv):
     # trainer goes
     emit(run_eval_phase(*trained))
     emit(run_viz_phase(*trained))
+    torch.cuda.empty_cache()
+    # [rest]: the lane grid, the hybrids, queued checkpoints and the small
+    # helpers at the last phase's shapes, K3 at its new ones
+    _, rest_k3_rows = run_rest_phase(trained[0], trained[1], n_rays, cfg,
+                                     gen)
     del trained
     torch.cuda.empty_cache()
     emit(check_small_eval())
@@ -4175,6 +4678,13 @@ def main(argv):
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         k["launches"] = launches[r["name"]]
+        if r["name"] == "scatter_add_rows":
+            # K3 at the shapes of the lane grid's and the hybrid lines'
+            # backwards ([rest])
+            keys = ("N", "C", "n_rows", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "onehot_ms")
+            k["new_shapes"] = [{key: row[key] for key in keys if key in row}
+                               for row in rest_k3_rows]
         kernels.append(k)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

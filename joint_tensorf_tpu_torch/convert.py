@@ -163,7 +163,10 @@ def train_state_from_numpy(d: dict, cfg: vm_lib.VMConfig, device=None,
 
 
 def _np(t):
-    t = t.detach().cpu()
+    """``t`` as a numpy array of its own memory: a CPU tensor is copied,
+    so the array outlives in-place changes to the tensor (a queued
+    checkpoint write reads it after the next optimiser step)."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()

@@ -32,6 +32,16 @@ def taylor_B(x, nth: int = 10):
     return ans
 
 
+def taylor_C(x, nth: int = 10):
+    """(x-sin(x))/x^3."""
+    ans = torch.zeros_like(x)
+    denom = 1.0
+    for i in range(nth + 1):
+        denom *= (2 * i + 2) * (2 * i + 3)
+        ans = ans + (-1) ** i * (x ** (2 * i) / denom)
+    return ans
+
+
 def _taylor_A_sq(x2, nth: int = 10):
     """sin(x)/x from x^2."""
     ans = torch.zeros_like(x2)
@@ -75,6 +85,15 @@ def skew(w):
         ],
         dim=-2,
     )
+
+
+def so3_to_SO3(w):
+    """Exponential map so(3) -> SO(3). [...,3] -> [...,3,3]; the series in
+    theta^2 keeps the map and its gradient smooth at w = 0."""
+    wx = skew(w)
+    th2 = torch.sum(w * w, dim=-1)[..., None, None]
+    I = torch.eye(3, dtype=w.dtype, device=w.device)
+    return I + _taylor_A_sq(th2) * wx + _taylor_B_sq(th2) * (wx @ wx)
 
 
 def se3_to_SE3(wu, nth: int = 8):

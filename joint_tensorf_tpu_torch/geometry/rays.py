@@ -18,13 +18,18 @@ def pixel_grid(H: int, W: int, dtype=torch.float32, device=None):
     return torch.stack([X, Y], dim=-1).reshape(-1, 2)
 
 
+def img2cam(X, intr_inv):
+    """Homogeneous pixel coordinates [..., 3] -> camera space."""
+    return X @ intr_inv.transpose(-1, -2)
+
+
 def camera_grid_3d(H: int, W: int, intr_inv, ray_idx=None):
     """Back-projected pixel grid [B, N, 3] (N = H*W or len(ray_idx))."""
     grid = pixel_grid(H, W, dtype=intr_inv.dtype, device=intr_inv.device)
     if ray_idx is not None:
         grid = grid[ray_idx]
     grid_h = torch.cat([grid, torch.ones_like(grid[..., :1])], dim=-1)
-    return (grid_h[None] @ intr_inv.transpose(-1, -2)).detach()
+    return img2cam(grid_h[None], intr_inv).detach()
 
 
 def get_center_and_ray(H: int, W: int, pose, intr_inv, ray_idx=None):

@@ -4,7 +4,8 @@
 The mask is a {0, 1} float grid stored [X, Y, Z] with its own box, sampled
 trilinearly; the renderer keeps a sample where the sampled value is > 0.
 The JAX package looks the mask up through a uint8 2x2x2-neighbourhood
-layout chosen for the TPU's row gathers; the port uses the plain trilinear
+layout chosen for the TPU's row gathers (pack_neighborhoods, which the
+port has as a function of its own); the port samples the plain trilinear
 form (ops/sampling.sample_grid3d), whose gate ``a > 0`` is the same: every
 term of both sums is a non-negative product of the same clamped weights.
 
@@ -27,6 +28,18 @@ from . import vm as vm_lib
 class AlphaMask:
     grid: torch.Tensor       # [X, Y, Z] float 0/1
     aabb: torch.Tensor       # [2, 3]
+
+
+def pack_neighborhoods(grid):
+    """[X, Y, Z] -> [8, X*Y*Z] uint8: channel dx*4 + dy*2 + dz holds the
+    edge-clamped neighbour grid[x+dx, y+dy, z+dz] (channel-major)."""
+    X, Y, Z = grid.shape
+    g = grid
+    for dim in range(3):
+        g = torch.cat([g, g.narrow(dim, g.shape[dim] - 1, 1)], dim=dim)
+    return torch.stack([g[dx:X + dx, dy:Y + dy, dz:Z + dz].reshape(-1)
+                        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+                       ).to(torch.uint8)
 
 
 def sample_alpha(mask: AlphaMask, xyz):

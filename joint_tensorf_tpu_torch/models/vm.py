@@ -62,7 +62,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import blur as blur_ops
-from ..ops import densify, resample
+from ..ops import densify, lane_grid, resample
 from ..ops.kernels import average_kernel, gaussian_kernel
 from ..ops.sampling import sample_line, sample_plane, sample_planeline_prod
 from ..parallel import sharding
@@ -216,6 +216,14 @@ def make_shading(cfg: VMConfig, device=None,
 def normalize_coord(xyz, aabb):
     """World -> [-1,1]; aabb [2, 3] for [..., 3] points or [2] for one axis."""
     return (xyz - aabb[0]) * (2.0 / (aabb[1] - aabb[0])) - 1.0
+
+
+def coord_axes(coords):
+    """(cx, cy, cz) from a tuple of [N] tensors or an [N, 3] tensor (the
+    feature functions take the tuple)."""
+    if isinstance(coords, (tuple, list)):
+        return coords[0], coords[1], coords[2]
+    return coords[:, 0], coords[:, 1], coords[:, 2]
 
 
 def feature2density(cfg: VMConfig, feat):
@@ -475,6 +483,26 @@ def sample_density_grid(field: VMField, cfg: VMConfig, coords,
     G = compute_density_grid(field, cfg, blur_mats=blur_mats)
     return _comp_sum(field, densify.sample_packed_grid(
         densify.pack_corners(G), coords, row_dtype=row_dtype))
+
+
+def compute_lane_density_grid(field: VMField, cfg: VMConfig, blur_mats=None):
+    """The density grid lane-packed, [X, Y, Zb, 128] (ops/lane_grid.py):
+    VM straight from the (varied, blurred) density factors through
+    build_lane_grid_vm; CP as pack_lane_grid(compute_density_grid).  No
+    entry point calls it, in either package.  A field holding a block of
+    the components (the comp layout) raises ValueError: its grid would be
+    a partial one, and no caller sums such grids."""
+    if field.comp is not None:
+        raise ValueError("compute_lane_density_grid: the field holds "
+                         f"1/{field.comp.comp} of the components (comp "
+                         f"layout); the lane grid needs all of them")
+    if cfg.decomposition == "CP":
+        return lane_grid.pack_lane_grid(
+            compute_density_grid(field, cfg, blur_mats=blur_mats))
+    factors = [_density_factors(field, cfg, i, blur_mats)[:2]
+               for i in range(3)]
+    return lane_grid.build_lane_grid_vm([p for p, _ in factors],
+                                        [line for _, line in factors])
 
 
 def _abs(x):

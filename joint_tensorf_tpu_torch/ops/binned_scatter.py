@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_build
-from .sampling import _floor_frac, _pix, sample_plane
+from .sampling import _coord_vjp, _floor_frac, _pix, sample_plane
 from .tile_scatter import Bucketing, empty_bucketing
 
 TS = 10          # tile side in cells (csrc/binned_scatter.cu: kTS)
@@ -222,11 +222,7 @@ class SamplePlaneBinned(torch.autograd.Function):
                 plane.dtype)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             # coordinate grads through the gather-only sample, plane constant
-            with torch.enable_grad():
-                uu = u.detach().requires_grad_(True)
-                vv = v.detach().requires_grad_(True)
-                out = sample_plane(plane.detach(), uu, vv)
-                d_u, d_v = torch.autograd.grad(out, (uu, vv), g)
+            d_u, d_v = _coord_vjp(sample_plane, plane, (u, v), g)
         return d_plane, d_u, d_v
 
 

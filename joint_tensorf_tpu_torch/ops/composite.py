@@ -18,10 +18,21 @@ forward's weights (as B2 takes ``weights_ref``): its gate is the forward's
 On CUDA tensors the autograd function launches the kernels of
 csrc/composite.cu; on CPU tensors it runs the plain versions below, which
 compute the same recurrence in torch ops.  There is no other path.
+
+JAX's plain-jnp quadrature functions (ops/composite.py:14-112), which no
+Pallas kernel computes, are plain PyTorch here:
+
+    raw2alpha(sigma, dists) -> (alpha, weights, bg_weight [N,1])
+    exclusive_cumprod(one_minus) -> T_excl    (the division-free backward)
+    composite_weights(weights, rgb, z_vals, acc_last_dir) -> (rgb, depth, acc)
+
+composite_weights is JAX's ``composite`` (from weights, not alpha); the
+name ``composite`` here is K1's wrapper.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -90,6 +101,58 @@ def composite_bwd_plain(alpha, rgb, z, weights, thres: float, g_rgb,
     d_rgb = g_rgb[:, None, :] * (w * gate)[..., None]
     d_z = g_depth[:, None] * w
     return d_alpha, d_rgb, d_z
+
+
+class _ExclusiveCumprod(torch.autograd.Function):
+    """T_excl[i] = prod_{j<i} u[j] along the last axis with JAX's
+    division-free backward: d_u_j = T_excl_j B_j with B_j = dT_{j+1} +
+    u_{j+1} B_{j+1}, finite where u_j == 1e-10 (alpha == 1.0)."""
+
+    @staticmethod
+    def forward(ctx, one_minus):
+        T_incl = torch.cumprod(one_minus, dim=-1)
+        T = torch.cat([torch.ones_like(T_incl[:, :1]), T_incl[:, :-1]],
+                      dim=-1)
+        ctx.save_for_backward(one_minus, T)
+        return T
+
+    @staticmethod
+    def backward(ctx, dT):
+        one_minus, T = ctx.saved_tensors
+        c = torch.cat([dT[:, 1:], torch.zeros_like(dT[:, :1])], dim=-1)
+        a = torch.cat([one_minus[:, 1:], torch.ones_like(one_minus[:, :1])],
+                      dim=-1)
+        return T * _suffix_recurrence(c, a)
+
+
+def exclusive_cumprod(one_minus):
+    """T_excl[i] = prod_{j<i} one_minus[j] ([N, S]); the analytic backward,
+    or autograd's cumprod under JTF_CUMPROD_AUTODIFF=1 (as in JAX)."""
+    if os.environ.get("JTF_CUMPROD_AUTODIFF", "0") == "1":
+        T_incl = torch.cumprod(one_minus, dim=-1)
+        return torch.cat([torch.ones_like(T_incl[:, :1]), T_incl[:, :-1]],
+                         dim=-1)
+    return _ExclusiveCumprod.apply(one_minus)
+
+
+def raw2alpha(sigma, dists):
+    """sigma, dists [N, S] -> (alpha, weights, bg_weight [N, 1])."""
+    alpha = 1.0 - torch.exp(-sigma * dists)
+    T_incl = torch.cumprod(1.0 - alpha + EPS, dim=-1)
+    T = torch.cat([torch.ones_like(T_incl[:, :1]), T_incl[:, :-1]], dim=-1)
+    return alpha, alpha * T, T_incl[:, -1:]
+
+
+def composite_weights(weights, rgb, z_vals, acc_last_dir=None):
+    """weights, z_vals [N,S]; rgb [N,S,3] -> (rgb_map [N,3], depth [N],
+    acc [N]); depth gains (1 - acc) * acc_last_dir ([N], the ray's z
+    direction) when given."""
+    acc = torch.sum(weights, dim=-1)
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth = torch.sum(weights * z_vals, dim=-1)
+    if acc_last_dir is not None:
+        depth = depth + (1.0 - acc) * acc_last_dir
+    return rgb_map, depth, acc
 
 
 # ------------------------------------------------------------- CUDA kernels

@@ -10,10 +10,13 @@ plane x line sample there.  The renderer builds G once per step
     sample_packed_grid(G8, (cx, cy, cz) [N]) -> [N]
 
 The JAX package has two layouts of the same function: ``packed8`` (this
-module's) and ``lane`` (joint_tensorf_tpu/ops/lane_grid.py, z-runs packed
-into 128-lane rows for the TPU's vector unit; tests/test_lane_grid.py pins
-the two equal).  The port maps both ``tpu.densify_impl`` values to this one
-sampler and does not copy the lane packing.
+module's) and ``lane`` (z-runs packed into 128-lane rows for the TPU's
+vector unit; tests/test_lane_grid.py pins the two equal).  The port has
+both (ops/lane_grid.py is the lane layout's counterpart, an entry point
+of its own), and its trainer samples packed8 under either
+``tpu.densify_impl`` value: the lane layout moves 16 times the bytes a
+sample on the card.  A coordinate exactly on a face gets half the
+gradient there (sampling._pix), as JAX's autodiff of the sampler gives.
 
 The row gather's backward is a row scatter-add of the [N, 8] weighted
 cotangents into [X*Y*Z, 8]: ops/segment_scatter.scatter_add_rows, kernel K3
@@ -25,17 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from .sampling import _floor_frac
+from .sampling import _floor_frac, _pix
 from .segment_scatter import scatter_add_rows
-
-
-def _pix(coord, size: int):
-    """Normalized [-1,1] -> continuous index [0, size-1], clamped as
-    jnp.clip clamps (maximum, then minimum): a coordinate exactly on a
-    face gets half the gradient, as JAX's autodiff of the sampler gives."""
-    x = (coord + 1.0) * 0.5 * (size - 1)
-    return torch.minimum(torch.maximum(x, x.new_zeros(())),
-                         x.new_full((), size - 1.0))
 
 
 def _shift(a, axis: int):

@@ -2,7 +2,10 @@
 (counterpart of joint_tensorf_tpu/ops/kernels.py).
 
 A requested ``kernel_size`` of K yields K//2*2+1 taps (65 for K=64, 201 for
-K=201).  ``t`` may be a Python float or a 0-d tensor.
+K=201).  ``t`` may be a Python float or a 0-d tensor.  The per-component
+and the exact discrete Gaussians (no entry point calls them, in either
+package) are here too; the discrete one is computed on the host with
+scipy, as JAX computes it.
 """
 from __future__ import annotations
 
@@ -48,3 +51,30 @@ def average_kernel(t, kernel_size: int, device=None):
     k1 = (ns <= t1) / (t1 * 2 + 1)
     frac = torch.remainder(t, 1.0)
     return frac * k1 + (1 - frac) * k0
+
+
+def batch_gaussian_kernel(sigmas, kernel_size: int, device=None):
+    """Per-component kernels: sigmas [C] -> [C, num_taps] (each sampled as
+    gaussian_kernel)."""
+    sig = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
+    sig = torch.clamp(sig, min=1e-4)[:, None]
+    ns = torch.arange(-(kernel_size // 2), kernel_size // 2 + 1,
+                      dtype=torch.float32, device=sig.device)[None, :]
+    kernel = 1.0 / (sig * math.sqrt(2 * math.pi)) * torch.exp(
+        -0.5 * (ns / sig) ** 2)
+    return torch.clamp(kernel, max=1.0)
+
+
+def discrete_gaussian_kernel(t, kernel_size: int, device=None):
+    """The exact discrete Gaussian T(n, t) = exp(-t) I_n(t) on the host
+    (scipy's exponentially scaled ive, so a large t does not overflow);
+    an impulse at t = 0.  ``kernel_size`` must be odd."""
+    if kernel_size <= 0 or kernel_size % 2 != 1:
+        raise ValueError(f"discrete_gaussian_kernel needs odd kernel_size, "
+                         f"got {kernel_size}")
+    import numpy as np
+    from scipy import special
+
+    ns = np.arange(-(kernel_size // 2), kernel_size // 2 + 1)
+    return torch.as_tensor(special.ive(ns, float(t)), dtype=torch.float32,
+                           device=device)

@@ -1,26 +1,35 @@
 """Factor-grid sampling: the plain plane / line / 3D-grid samples
-(counterpart of joint_tensorf_tpu/ops/sampling.py:33-64 and :466-504) and
-the fused plane x line factor sample with its hand-written backward
-(:219-426).
+(counterpart of joint_tensorf_tpu/ops/sampling.py:33-113 and :466-504),
+the hybrid samples (:116-194) and the fused plane x line factor sample
+with its hand-written backward (:219-426).
 
     sample_plane(plane [H,W,R], u, v [N]) -> [N,R]    one packed gather,
-        index_add_ backward (K4's plain version, convolve_positive_only)
+        index_add_ backward (K4's plain version, convolve_positive_only);
+        JAX's sample_plane_packed, the same values bit for bit
     sample_line(line [D,R], w [N]) -> [N,R]    one packed gather, one-hot
-        matmul backward (CP's lines, convolve_positive_only)
+        matmul backward (CP's lines, convolve_positive_only); JAX's
+        sample_line_packed
+    sample_plane_hybrid(plane, u, v) / sample_line_hybrid(line, w)
+        the 4-corner or 2-point gather forward; the backward ONE row
+        scatter of [N, 4R] or [N, 2R] (K3 on a CUDA tensor), folded
     sample_grid3d(grid [X,Y,Z], (x, y, z) [N]) -> [N]    trilinear (alpha mask)
     sample_planeline_prod(plane [H,W,R], line [D,R], u, v, w [N]) -> p(u,v) * l(w)  [N,R]
 
 Bilinear plane / linear line sampling with align_corners semantics,
-channels-last, clamped to the border.  The backward returns those of the
-five gradients that autograd asks for (ctx.needs_input_grad): the factor
-gradients (one corner-packed row scatter per plane, folded densely; a
-one-hot matmul for the short line) and the coordinate gradients d_u, d_v,
-d_w, with the border masks of the reference, which are the path pose
-gradients take.
+channels-last, clamped to the border as jnp.clip clamps (_pix), so a
+coordinate exactly on the border gets half the gradient there.  The
+backwards return those of their gradients that autograd asks for
+(ctx.needs_input_grad): the factor gradients (one corner-packed row
+scatter per plane, folded densely; a one-hot matmul for the short line in
+the fused sample, K3 in the hybrid line) and the coordinate gradients,
+which are the path pose gradients take: the fused sample's with the
+border masks of its reference VJP, the hybrids' and the binned sample's
+those of autograd through the plain gather with the factor held constant,
+as JAX's jax.vjp of the plain gather gives them.
 
-Forward and backward are plain PyTorch, except the packed-plane scatter,
-which goes through ops/segment_scatter.scatter_add_rows: kernel K3 on a
-CUDA tensor, ``index_add_`` on a CPU tensor.
+Forward and backward are plain PyTorch, except the row scatters that go
+through ops/segment_scatter.scatter_add_rows: kernel K3 on a CUDA tensor,
+``index_add_`` on a CPU tensor.
 
 The planar pipeline's image sample (:428-463) is here too:
 
@@ -37,8 +46,13 @@ from .segment_scatter import scatter_add_rows
 
 
 def _pix(coord, size: int):
-    """Normalized [-1,1] -> continuous pixel index [0, size-1] (align corners)."""
-    return torch.clamp((coord + 1.0) * 0.5 * (size - 1), 0.0, size - 1.0)
+    """Normalized [-1,1] -> continuous pixel index [0, size-1] (align
+    corners), clamped as jnp.clip clamps (maximum, then minimum): a
+    coordinate exactly on a face gets half the gradient, as JAX's autodiff
+    of the samplers gives (torch.clamp would give all of it)."""
+    x = (coord + 1.0) * 0.5 * (size - 1)
+    return torch.minimum(torch.maximum(x, x.new_zeros(())),
+                         x.new_full((), size - 1.0))
 
 
 def _floor_frac(x, size: int):
@@ -64,6 +78,14 @@ class _GatherRows(torch.autograd.Function):
             return None, None, None
         idx, = ctx.saved_tensors
         return ctx.scatter(idx, g.contiguous(), ctx.n_rows), None, None
+
+
+def _coord_vjp(sample, table, coords, g):
+    """The coordinates' cotangents of ``sample(table, *coords)`` with the
+    table held constant (JAX's jax.vjp of the gather-only closure)."""
+    with torch.enable_grad():
+        cs = [c.detach().requires_grad_(True) for c in coords]
+        return torch.autograd.grad(sample(table.detach(), *cs), cs, g)
 
 
 def _index_add_rows(idx, updates, n_rows: int):
@@ -96,6 +118,95 @@ def sample_plane(plane, u, v):
     w00, w01, w10, w11 = _bilinear_weights(fx, fy)
     return (rows[:, :R] * w00 + rows[:, R:2 * R] * w01
             + rows[:, 2 * R:3 * R] * w10 + rows[:, 3 * R:] * w11)
+
+
+sample_line_packed = sample_line
+sample_plane_packed = sample_plane
+
+
+def _corner_sample(plane, u, v):
+    """sample_plane as four corner gathers (the forward reads each corner
+    once, not the 4x-wide packed rows)."""
+    H, W, R = plane.shape
+    x0, fx = _floor_frac(_pix(u, W), W)
+    y0, fy = _floor_frac(_pix(v, H), H)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    flat = plane.reshape(H * W, R)
+    w00, w01, w10, w11 = _bilinear_weights(fx, fy)
+    return (flat[y0 * W + x0] * w00 + flat[y0 * W + x1] * w01
+            + flat[y1 * W + x0] * w10 + flat[y1 * W + x1] * w11)
+
+
+def _point_sample(line, w):
+    """sample_line as two point gathers."""
+    D = line.shape[0]
+    i0, fx = _floor_frac(_pix(w, D), D)
+    i1 = torch.clamp(i0 + 1, max=D - 1)
+    return line[i0] * (1.0 - fx)[:, None] + line[i1] * fx[:, None]
+
+
+class SamplePlaneHybrid(torch.autograd.Function):
+    """4-corner gather forward; the plane's gradient ONE [N, 4R] row
+    scatter (K3 on the card) into the packed layout, folded densely."""
+
+    @staticmethod
+    def forward(ctx, plane, u, v):
+        ctx.save_for_backward(plane, u, v)
+        return _corner_sample(plane, u, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        plane, u, v = ctx.saved_tensors
+        H, W, R = plane.shape
+        g = g.contiguous()
+        d_plane = d_u = d_v = None
+        if ctx.needs_input_grad[0]:
+            x0, fx = _floor_frac(_pix(u.detach(), W), W)
+            y0, fy = _floor_frac(_pix(v.detach(), H), H)
+            g4 = torch.cat([g * w for w in _bilinear_weights(fx, fy)], -1)
+            d_plane = _plane_fold(scatter_add_rows(y0 * W + x0, g4, H * W),
+                                  H, W, R).to(plane.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d_u, d_v = _coord_vjp(_corner_sample, plane, (u, v), g)
+        return d_plane, d_u, d_v
+
+
+class SampleLineHybrid(torch.autograd.Function):
+    """2-point gather forward; the line's gradient ONE [N, 2R] row scatter
+    (K3 on the card) into the packed layout, folded."""
+
+    @staticmethod
+    def forward(ctx, line, w):
+        ctx.save_for_backward(line, w)
+        return _point_sample(line, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        line, w = ctx.saved_tensors
+        D, R = line.shape
+        g = g.contiguous()
+        d_line = d_w = None
+        if ctx.needs_input_grad[0]:
+            i0, fx = _floor_frac(_pix(w.detach(), D), D)
+            g2 = torch.cat([g * (1.0 - fx)[:, None], g * fx[:, None]], -1)
+            d_line = _line_fold(scatter_add_rows(i0, g2, D), D, R).to(
+                line.dtype)
+        if ctx.needs_input_grad[1]:
+            d_w, = _coord_vjp(_point_sample, line, (w,), g)
+        return d_line, d_w
+
+
+def sample_plane_hybrid(plane, u, v):
+    """sample_plane's function: plane [H,W,R], u (->W), v (->H) [N] ->
+    [N,R], with the hybrid backward."""
+    return SamplePlaneHybrid.apply(plane, u, v)
+
+
+def sample_line_hybrid(line, w):
+    """sample_line's function: line [D,R], w [N] -> [N,R], with the
+    hybrid backward."""
+    return SampleLineHybrid.apply(line, w)
 
 
 def sample_grid3d(grid, x, y, z):

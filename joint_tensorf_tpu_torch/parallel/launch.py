@@ -29,8 +29,10 @@ each, what the caller compares:
   the state, budgets and replica checksums (by the group that holds
   them equal) at the end; optionally a checkpoint restored before the
   first step (``restore``), the first view rendered by render_views at
-  the end (``render``: the chunk), and a checkpoint saved by rank 0 and
-  restored on every rank (``save``).
+  the end (``render``: the chunk), and a checkpoint queued by rank 0
+  (an asynchronous write, which no rank waits for) and restored on every
+  rank (``save``: the restore drains rank 0's queue and meets at a
+  barrier before any rank reads the file).
 
 snapshot / load_snapshot carry a trainer's whole step-relevant state
 (model state in the converter's unsharded form, masks, budgets, blur
@@ -316,7 +318,7 @@ def _trainer_job(job, device):
             tr.pose_base[:1], tr.intr[:1], tr.intr_inv[:1],
             chunk=int(job["render"]))]
     if job.get("save"):
-        ckpt_lib.save_checkpoint(job["save"], tr)
+        ckpt_lib.save_checkpoint(job["save"], tr, async_write=True)
         resumed = make(opt, data, device=device)
         ckpt_lib.restore_checkpoint(job["save"], resumed)
         out["resumed_state"] = to_numpy(resumed.state)

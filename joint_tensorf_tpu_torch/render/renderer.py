@@ -125,6 +125,17 @@ def step_size(aabb, resolution, step_ratio: float):
     return _mean3((aabb[1] - aabb[0]) / (res_t - 1)) * step_ratio
 
 
+def sample_ray(aabb, step_size, n_samples: int, centers, dirs, near: float,
+               far: float, stratified: bool, jitter=None,
+               generator: Optional[torch.Generator] = None):
+    """Euclidean ray sampling with the points stacked: (pts [N,S,3],
+    z_vals [N,S], in_bbox [N,S]); sample_ray_axes' arguments."""
+    axes_w, z_vals, in_bbox, _ = sample_ray_axes(
+        aabb, step_size, n_samples, centers, dirs, near, far, stratified,
+        jitter=jitter, generator=generator)
+    return torch.stack(axes_w, dim=-1), z_vals, in_bbox
+
+
 def sample_ray_axes(aabb, step_size, n_samples: int, centers, dirs,
                     near: float, far: float, stratified: bool, jitter=None,
                     generator: Optional[torch.Generator] = None):

@@ -24,8 +24,10 @@ Writes into ``output_root/group/name/``:
   (``rot_deg``, ``trans``) every 4 x freq.scalar iterations, and
   ``val_psnr`` every freq.val iterations (the validation poses aligned
   with BAT or BARF);
-* ``model_it{N}.ckpt.npz`` every freq.ckpt iterations and
-  ``model.ckpt.npz`` at the end (train/checkpoint.py, the JAX layout);
+* ``model_it{N}.ckpt.npz`` every freq.ckpt iterations (with
+  ``model.ckpt.npz``), written on the checkpoint writer thread, and
+  ``model.ckpt.npz`` at the end, written once that thread's queue is
+  drained (train/checkpoint.py, the JAX layout);
 * ``quant.json`` after the final validation: ``wall_s``, ``iters``,
   ``val_psnr``, and with BAT or BARF ``rot_deg``, ``trans``; also
   ``summary.json``, and the first validation view as the image
@@ -54,7 +56,8 @@ cards, one card a rank; gloo on the CPU with --device=cpu):
 
 Without a launcher such a config raises (parallel/mesh.make_mesh), unless
 D is 1.  Every rank trains and validates; only rank 0 prints and writes
-the files above (checkpoints included; every rank waits for them).
+the files above (checkpoints included; every rank waits for the final one,
+and a restore drains rank 0's queue first).
 
 One departure from train.py: a failed validation (mid-run or final)
 stops the run, where train.py catches it and carries on, because a failed
@@ -177,7 +180,9 @@ def main(argv) -> dict:
         if logger:
             logger.log_scalars(line, tr.it)
         if freq_ckpt and tr.it > 0 and tr.it % freq_ckpt == 0:
-            save(ckpt_file, tr, snapshot_path=os.path.join(
+            # per-iteration snapshots are queued (one writer thread), so
+            # the loop does not wait for the disk
+            save(ckpt_file, tr, async_write=True, snapshot_path=os.path.join(
                 out_dir, f"model_it{tr.it}.ckpt.npz"))
         msg = f"it {tr.it:6d} | loss {m['loss']:.5f} | psnr {m['psnr']:.2f} "
         if not is_mlp:
@@ -208,7 +213,9 @@ def main(argv) -> dict:
     else:
         trainer.run(log_every=freq_scalar, callback=on_log, on_step=on_step)
 
-    # the checkpoint before the final validation, as in train.py
+    # the checkpoint before the final validation, as in train.py: the
+    # queued snapshots first, so that none lands after the final file
+    ckpt_lib.wait_for_pending()
     save(ckpt_file, trainer)
     log(f"[ckpt] saved to {ckpt_file}", flush=True)
     val = trainer.validate(val_data)

@@ -37,29 +37,42 @@ planar params are a dict, ``state/['params']/['image']/['rank1']``), the
 ``key``, BARF's ``pose_noise``, ``meta_json`` (it, the numpy generator's
 state, the torch generator's device) and ``torch_generator_state``.
 
-Under a mesh (parallel/) rank 0 writes and every rank waits for the file;
-every rank restores the same file, then the replicas are checked bit for
-bit (checksum all-reduces) and the budgets broadcast from rank 0.  The
-layout is the same with or without a mesh: under the comp layout every
-rank gathers the factor blocks (and their moments) before rank 0 writes
-the unsharded arrays, and a restore keeps each rank's block.
+Under a mesh (parallel/) rank 0 writes and, for a synchronous write,
+every rank waits for the file; every rank restores the same file, then
+the replicas are checked bit for bit (checksum all-reduces) and the
+budgets broadcast from rank 0.  The layout is the same with or without a
+mesh: under the comp layout every rank gathers the factor blocks (and
+their moments) before rank 0 writes the unsharded arrays, and a restore
+keeps each rank's block.
 
 Each side restores the other's files: restore rebuilds the field at the
 stored shapes and box, the Adam moments and counts, the pose table and
 pose_base, and the alpha mask, then re-probes compact_k and app_k_dyn from
 the restored numpy generator, as JAX does.  The budgets JAX leaves as they
 are on restore (compact_k_bbox, the blur mask) stay as they are here too.
-Writes are synchronous and atomic (a temporary file, then a rename) and
-not compressed: JAX compresses (np.savez_compressed), which saves little
-on float32 factors and moments at many times the write time; np.load
-reads either.
+Writes are atomic (a temporary file, then a rename, then the snapshot
+copy) and not compressed: JAX compresses (np.savez_compressed), which
+saves little on float32 factors and moments at many times the write time;
+np.load reads either.  Every array of a payload is copied on the calling
+thread, device-to-host, or out of a CPU tensor (convert._np: the next
+optimiser step changes the parameters in place), together with the comp
+layout's gathers; ``async_write=True`` (JAX's checkpoint.py:13-65) then
+queues the disk work on one ordered writer thread, so the train loop
+does not wait for the disk; under a mesh rank 0 queues it and no rank
+waits.  wait_for_pending() drains the queue and re-raises the first
+exception a write hit; both restores call it first and, under a mesh,
+meet at a barrier after it, so no rank reads a file still being
+written.  The train CLI writes its per-iteration snapshots so and
+drains the queue before its final synchronous save.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
 import shutil
+import threading
 
 import numpy as np
 import torch
@@ -72,6 +85,51 @@ from ..utils import tree as tree_lib
 from .l2g import L2GState
 
 _GROUPS = ("density_planes", "density_lines", "app_planes", "app_lines")
+
+# the writer thread (started at the first queued write) and the futures
+# of the writes not yet drained
+_writer: concurrent.futures.ThreadPoolExecutor | None = None
+_pending: list = []
+_writer_lock = threading.Lock()
+
+
+def _write_npz(path: str, payload: dict, snapshot_path: str | None):
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
+    if snapshot_path is not None:
+        shutil.copyfile(path, snapshot_path)
+
+
+def _write(path: str, payload: dict, snapshot_path: str | None,
+           async_write: bool):
+    """Write now, or queue the write (the payload's arrays hold their own
+    memory: _payload, convert._np)."""
+    if not async_write:
+        _write_npz(path, payload, snapshot_path)
+        return
+    global _writer
+    with _writer_lock:
+        if _writer is None:
+            _writer = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-writer")
+        # drained futures go; a failed one stays until wait_for_pending
+        # raises its exception
+        _pending[:] = [f for f in _pending
+                       if not f.done() or f.exception() is not None]
+        _pending.append(_writer.submit(_write_npz, path, payload,
+                                       snapshot_path))
+
+
+def wait_for_pending():
+    """Block until every queued write is on disk; re-raise the first
+    exception a write hit."""
+    with _writer_lock:
+        pending = list(_pending)
+        _pending.clear()
+    errors = [e for e in (f.exception() for f in pending) if e is not None]
+    if errors:
+        raise errors[0]
 
 
 def _field_paths(prefix: str, tree: dict, aabb) -> dict:
@@ -180,22 +238,24 @@ def _state_dict(arrays: dict, l2g: bool) -> dict:
     return d
 
 
-def save_checkpoint(path: str, trainer, snapshot_path: str | None = None):
+def save_checkpoint(path: str, trainer, async_write: bool = False,
+                    snapshot_path: str | None = None):
     """Write the trainer's checkpoint to ``path`` (and a copy to
-    ``snapshot_path`` when given); under a mesh every rank gathers the
-    state (the comp layout's blocks), rank 0 writes and every rank returns
-    once the file is there."""
+    ``snapshot_path`` when given), now or queued (``async_write``); under
+    a mesh every rank gathers the state (the comp layout's blocks), rank 0
+    writes, and after a synchronous write every rank returns once the file
+    is there."""
     arrays = _state_arrays(trainer)
-    if trainer.mesh is not None:
-        if trainer.mesh.is_main:
-            _write_checkpoint(path, trainer, arrays, snapshot_path)
-        sharding.barrier(trainer.mesh)
-    else:
-        _write_checkpoint(path, trainer, arrays, snapshot_path)
+    mesh = trainer.mesh
+    if mesh is None or mesh.is_main:
+        _write(path, _payload(trainer, arrays), snapshot_path, async_write)
+    if mesh is not None and not async_write:
+        sharding.barrier(mesh)
 
 
-def _write_checkpoint(path: str, trainer, arrays: dict,
-                      snapshot_path: str | None):
+def _payload(trainer, arrays: dict) -> dict:
+    """The file's arrays, each of its own memory (none shares a live
+    tensor's, so a queued write sees the state of the save)."""
     meta = {
         "it": trainer.it,
         "n_voxel_list": [int(n) for n in trainer.n_voxel_list],
@@ -217,19 +277,16 @@ def _write_checkpoint(path: str, trainer, arrays: dict,
     payload["key"] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
     payload["torch_generator_state"] = trainer.generator.get_state().numpy()
     if trainer.pose_noise is not None:
-        payload["pose_noise"] = trainer.pose_noise.cpu().numpy()
+        payload["pose_noise"] = trainer.pose_noise.cpu().numpy().copy()
     if trainer.alpha_mask is not None:
         grid = trainer.alpha_mask.grid.cpu().numpy() > 0.5
         payload["alpha_mask/packed"] = np.packbits(grid.reshape(-1))
         payload["alpha_mask/shape"] = np.asarray(grid.shape)
-        payload["alpha_mask/aabb"] = trainer.alpha_mask.aabb.cpu().numpy()
+        payload["alpha_mask/aabb"] = \
+            trainer.alpha_mask.aabb.cpu().numpy().copy()
     payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
                                          dtype=np.uint8)
-    tmp = path + ".tmp.npz"
-    np.savez(tmp, **payload)
-    os.replace(tmp, path)
-    if snapshot_path is not None:
-        shutil.copyfile(path, snapshot_path)
+    return payload
 
 
 def _restore_generator(data, meta: dict, generator: torch.Generator):
@@ -248,7 +305,11 @@ def _restore_generator(data, meta: dict, generator: torch.Generator):
 
 
 def restore_checkpoint(path: str, trainer) -> None:
-    """Restore ``trainer`` in place from a checkpoint of either package."""
+    """Restore ``trainer`` in place from a checkpoint of either package
+    (after the queued writes)."""
+    wait_for_pending()
+    if trainer.mesh is not None:
+        sharding.barrier(trainer.mesh)
     data = np.load(path, allow_pickle=False)
     meta = json.loads(bytes(data["meta_json"]).decode())
     dev = trainer.device
@@ -323,10 +384,11 @@ def _simple_tree(arrays: dict) -> dict:
         for key, a in arrays.items()})
 
 
-def save_simple_checkpoint(path: str, trainer,
+def save_simple_checkpoint(path: str, trainer, async_write: bool = False,
                            snapshot_path: str | None = None):
     """Write a BarfTrainer's or PlanarTrainer's checkpoint to ``path``
-    (and a copy to ``snapshot_path`` when given)."""
+    (and a copy to ``snapshot_path`` when given), now or queued
+    (``async_write``)."""
     d = convert.simple_to_numpy(trainer.params, trainer.opt_state)
     attrs = trainer.jax_params_dataclass
     arrays = _simple_paths(d["params"], "['params']", attrs, {})
@@ -339,21 +401,18 @@ def save_simple_checkpoint(path: str, trainer,
     payload["key"] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
     payload["torch_generator_state"] = trainer.generator.get_state().numpy()
     if getattr(trainer, "pose_noise", None) is not None:
-        payload["pose_noise"] = trainer.pose_noise.cpu().numpy()
+        payload["pose_noise"] = trainer.pose_noise.cpu().numpy().copy()
     meta = {"it": trainer.it, "rng_state": trainer.rng_np.bit_generator.state,
             "torch_generator_device": trainer.generator.device.type}
     payload["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
                                          dtype=np.uint8)
-    tmp = path + ".tmp.npz"
-    np.savez(tmp, **payload)
-    os.replace(tmp, path)
-    if snapshot_path is not None:
-        shutil.copyfile(path, snapshot_path)
+    _write(path, payload, snapshot_path, async_write)
 
 
 def restore_simple_checkpoint(path: str, trainer) -> None:
     """Restore a BarfTrainer or PlanarTrainer in place from a simple
-    checkpoint of either package."""
+    checkpoint of either package (after the queued writes)."""
+    wait_for_pending()
     data = np.load(path, allow_pickle=False)
     meta = json.loads(bytes(data["meta_json"]).decode())
     st = _simple_tree({k[len("state/"):]: data[k] for k in data.files

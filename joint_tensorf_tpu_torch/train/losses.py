@@ -46,6 +46,14 @@ def edge_weighted_render_loss(rgb, target, edge_mask, edge_factor,
     return use_edge * edge_loss + (1.0 - use_edge) * plain
 
 
+def soft_edge_render_loss(rgb, target, edge_mask, edge_factor,
+                          non_edge_factor):
+    """The soft-mask variant: MSE of rgb and target both weighted by
+    edge_mask * edge_factor + non_edge_factor."""
+    m = edge_mask[..., None].to(rgb.dtype) * edge_factor + non_edge_factor
+    return mse(rgb * m, target * m)
+
+
 def edge_weighted_sum_count(rgb, target, edge_mask):
     """The three nanmeans of edge_weighted_render_loss as sums [3] and
     non-NaN counts [3]: (edge part, non-edge part, plain)."""

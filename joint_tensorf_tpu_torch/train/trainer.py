@@ -116,9 +116,10 @@ _PORTED_VALUES = (
 )
 
 # The tpu: keys.  Those in _PORTED_VALUES run only at the values named
-# there: tpu.densify_impl packed8 and lane are one sampler here
-# (ops/densify.py; lane's 128-lane row layout is a TPU tiling with no
-# function of its own); tpu.plane_scatter's xla / segsum / runsum compute
+# there: tpu.densify_impl packed8 and lane are one function, and the
+# trainer samples packed8 under both (ops/densify.py; the lane layout,
+# ops/lane_grid.py, is an entry point of its own that moves 16 times the
+# bytes a sample); tpu.plane_scatter's xla / segsum / runsum compute
 # one function, which K3 computes.  tpu.densify_dtype runs at float32 and
 # bfloat16 (_DENSIFY_DTYPES, named with the layout when refused): the JAX
 # renderer reads it only under densify_impl lane (the bf16 row reads) and

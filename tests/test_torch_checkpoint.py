@@ -20,6 +20,17 @@ layout).
   rebuilds the 2D blur cache at the restored iteration's progress, each
   of which would part a later resume from the uninterrupted run (ROADMAP
   Queue 3).
+* Asynchronous writes (async_write=True, one ordered writer thread): a
+  queued write of that state restores into JAX's trainer as the
+  synchronous one does (read only after wait_for_pending); two queued
+  writes to one path leave the later one there and each snapshot its
+  own; a write that fails re-raises from wait_for_pending, which then
+  has nothing left to raise; and the payload is copied when the write is
+  queued: optimiser steps taken while the writer is held back change
+  nothing in the file.  The train CLI queues its per-iteration snapshots
+  and drains the queue before its final synchronous write; the snapshots
+  and the final file restore into both packages, leaf for leaf.  Threads
+  queueing writes at once under a short switch interval lose none.
 * Every shading head's tree (MLP_Fea4's four "layers", the three-layer
   heads' "layer1".."layer3" with the density head's hidden + 1 wide layer
   2, GaRF's gaussians, SH's and RGB's empty tree) and a CP state (no
@@ -28,6 +39,8 @@ layout).
   fresh JAX trainer, equal bit for bit.
 """
 import dataclasses
+import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +59,7 @@ from joint_tensorf_tpu_torch.config import set_options
 from joint_tensorf_tpu_torch.convert import to_numpy
 from joint_tensorf_tpu_torch.data import synthetic
 from joint_tensorf_tpu_torch.models.shading import HEAD_NAMES
+from joint_tensorf_tpu_torch.train import __main__ as train_cli
 from joint_tensorf_tpu_torch.train import checkpoint as ckpt
 from joint_tensorf_tpu_torch.train.trainer import Trainer
 from joint_tensorf_tpu_torch.utils import setup_torch
@@ -270,3 +284,155 @@ def test_zoo_checkpoint_both_ways(tiny_scene, tmp_path, name):
     jckpt.restore_checkpoint(ppath, jt2)
     _same_leaves(flatten_train_state(jt2.state),
                  flatten_train_state(jt.state))
+
+
+# ------------------------------------------------------- asynchronous writes
+def test_queued_write_restores_into_jax(jax_ckpt, scenes, tmp_path):
+    _, pt = _restore_both(jax_ckpt, scenes)
+    path = str(tmp_path / "queued.ckpt.npz")
+    ckpt.save_checkpoint(path, pt, async_write=True)
+    ckpt.wait_for_pending()
+    jt, pt = _restore_both(path, scenes)
+    _check_pair(jt, pt, scenes[1])
+
+
+def test_later_queued_write_wins(tiny_scene, tmp_path):
+    a = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    a.run(max_iter=2, log_every=2)
+    path = str(tmp_path / "model.ckpt.npz")
+    first = _leaves(a)
+    ckpt.save_checkpoint(path, a, async_write=True,
+                         snapshot_path=str(tmp_path / "model_it2.ckpt.npz"))
+    a.run(max_iter=4, log_every=2)
+    ckpt.save_checkpoint(path, a, async_write=True,
+                         snapshot_path=str(tmp_path / "model_it4.ckpt.npz"))
+    ckpt.wait_for_pending()
+    for name, it, want in (("model.ckpt.npz", 4, _leaves(a)),
+                           ("model_it4.ckpt.npz", 4, _leaves(a)),
+                           ("model_it2.ckpt.npz", 2, first)):
+        b = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+        ckpt.restore_checkpoint(str(tmp_path / name), b)
+        assert b.it == it, name
+        got = _leaves(b)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+    assert not list(tmp_path.glob("*.tmp.npz"))
+
+
+def test_failed_write_raises_from_wait_for_pending(tiny_scene, tmp_path):
+    a = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    ckpt.save_checkpoint(str(tmp_path / "missing" / "model.ckpt.npz"), a,
+                         async_write=True)
+    ckpt.save_checkpoint(str(tmp_path / "model.ckpt.npz"), a,
+                         async_write=True)
+    with pytest.raises(FileNotFoundError):
+        ckpt.wait_for_pending()
+    ckpt.wait_for_pending()                 # drained: nothing left
+    assert (tmp_path / "model.ckpt.npz").exists()
+
+
+def test_queued_payload_is_a_copy(tiny_scene, tmp_path, monkeypatch):
+    """The CPU trainer's parameters share memory with tensor.numpy(): the
+    queued payload must not, or the steps below would reach the file."""
+    gate = threading.Event()
+    write = ckpt._write_npz
+
+    def held(*args):
+        assert gate.wait(60), "the writer was never released"
+        write(*args)
+
+    monkeypatch.setattr(ckpt, "_write_npz", held)
+    a = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    a.run(max_iter=3, log_every=3)
+    saved, it = _leaves(a), a.it
+    path = str(tmp_path / "model.ckpt.npz")
+    ckpt.save_checkpoint(path, a, async_write=True)
+    a.run(max_iter=5, log_every=5)          # Adam steps in place
+    assert not torch.equal(_leaves(a)["density_planes.0"],
+                           saved["density_planes.0"])
+    gate.set()
+    ckpt.wait_for_pending()
+    b = Trainer(set_options(CFG, TINY), tiny_scene, device="cpu")
+    ckpt.restore_checkpoint(path, b)
+    assert b.it == it
+    got = _leaves(b)
+    for k in saved:
+        assert torch.equal(got[k], saved[k]), k
+
+
+CLI = ["--yaml=" + CFG, "--device=cpu"] + TINY[:8] + [
+    "--max_iter=7", "--train_schedule.upsample_iters=[2]",
+    "--train_schedule.update_alphamask_iters=[4]", "--freq.scalar=2",
+    "--freq.val=0", "--freq.ckpt=2", "--+tb_logging=false", "--name=async"]
+
+
+def test_train_cli_queues_its_snapshots(tiny_scene, tmp_path, monkeypatch):
+    events = []
+    write, drain = ckpt._write, ckpt.wait_for_pending
+
+    def spy_write(path, payload, snapshot_path, async_write):
+        events.append(("write", os.path.basename(snapshot_path or path),
+                       async_write))
+        write(path, payload, snapshot_path, async_write)
+
+    def spy_drain():
+        events.append(("drain",))
+        drain()
+
+    monkeypatch.setattr(ckpt, "_write", spy_write)
+    monkeypatch.setattr(ckpt, "wait_for_pending", spy_drain)
+    train_cli.main(CLI + [f"--output_root={tmp_path}"])
+    assert events == [("write", f"model_it{i}.ckpt.npz", True)
+                      for i in (2, 4, 6)] + [
+        ("drain",), ("write", "model.ckpt.npz", False)]
+    out = tmp_path / "default" / "async"
+    args = [a for a in CLI if not a.startswith(("--yaml", "--device"))]
+    for name, it in (("model_it2.ckpt.npz", 2), ("model_it6.ckpt.npz", 6),
+                     ("model.ckpt.npz", 7)):
+        pt = Trainer(set_options(CFG, args), tiny_scene, device="cpu")
+        ckpt.restore_checkpoint(str(out / name), pt)
+        jt = JTrainer(jset_options(CFG, args), _jscene(tiny_scene))
+        jckpt.restore_checkpoint(str(out / name), jt)
+        assert pt.it == jt.it == it, name
+        got, want = to_numpy(pt.state), flatten_train_state(jt.state)
+        got.pop("aabb"), want.pop("aabb")
+        for m in ("mu", "nu"):
+            got["scene_opt"][m].pop("aabb", None)
+            want["scene_opt"][m].pop("aabb")
+        _same_leaves(got, want)
+
+
+def test_concurrent_queued_writes_all_land(tmp_path):
+    """Threads queueing writes at once (more threads than cores, a short
+    switch interval): every write lands, with its own payload, and one
+    that fails is the exception wait_for_pending raises."""
+    import sys
+
+    n_threads, per_thread = 2 * (os.cpu_count() or 4), 5
+
+    def queue(t):
+        for i in range(per_thread):
+            ckpt._write(str(tmp_path / f"w{t}_{i}.npz"),
+                        {"a": np.full(64, t * 100 + i, np.int32)}, None,
+                        True)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=queue, args=(t,))
+                   for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        ckpt._write(str(tmp_path / "missing" / "x.npz"), {"a": np.zeros(1)},
+                    None, True)
+        for th in threads:
+            th.join(timeout=60)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    with pytest.raises(FileNotFoundError):
+        ckpt.wait_for_pending()
+    for t in range(n_threads):
+        for i in range(per_thread):
+            a = np.load(tmp_path / f"w{t}_{i}.npz")["a"]
+            assert np.all(a == t * 100 + i)

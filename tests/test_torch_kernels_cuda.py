@@ -15,7 +15,10 @@ exact); the row scatter K3 at rtol 1e-5 / atol 1e-4 (through the dense
 grid's sample, card against CPU, at rtol / atol 1e-5), the
 binned plane scatter K4 and the block-local row scatter K5 at 1e-5 of the
 output's largest magnitude (atomics sum in an order that varies from run
-to run), and exactly where every partial sum is exact (integer updates).
+to run), and exactly where every partial sum is exact (integer updates);
+the lane grid's samples card against CPU (through K3) at rtol / atol
+1e-5, the hybrids' at rtol 1e-5 and 1e-5 of each output's largest
+magnitude (the coordinates' gradients scale with the grid's size).
 """
 import pytest
 import torch
@@ -272,6 +275,96 @@ def test_scatter_kernel_at_the_comp_widths(c):
     want = segment_scatter.scatter_add_rows_plain(idx, upd, rows)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,rows,c", [
+    ("sorted", 2028 * 64, 64 * 48 * 4, 128),    # the lane grid's rows
+    ("sorted", 20000, 9 * 7 * 2, 128),
+    ("one_row", 50000, 300, 128),
+    ("sorted", 2028 * 128, 420, 96),            # an appearance line
+    ("sorted", 2028 * 200, 420, 32),            # a density line
+    ("one_row", 2028 * 128, 420, 96), ("one_row", 2028 * 200, 420, 32)])
+def test_scatter_kernel_at_the_rest_shapes(case, n, rows, c):
+    """K3 at the lane grid's 128 channels into X*Y*Zb rows and at a
+    line's 2R channels into 420 rows (the hybrid line's backward), in
+    march order and with every sample in one row, against index_add_."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + c + rows)
+    idx, upd = _scatter_case(case, n, rows, c, gen)
+    got = segment_scatter.scatter_add_rows(idx, upd, rows)
+    want = segment_scatter.scatter_add_rows_plain(idx, upd, rows)
+    torch.cuda.synchronize()
+    if case == "one_row":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _card_and_cpu(fn, inputs, cot):
+    """fn's value and its gradients w.r.t. every input on the CPU and on
+    the card, and the K3 launches of the card's call."""
+    from joint_tensorf_tpu_torch.ops import cuda_build
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xs = [x.to(dev).requires_grad_(True) for x in inputs]
+        cuda_build.reset_launches()
+        val = fn(*xs)
+        grads = torch.autograd.grad((val * cot.to(dev)).sum(), xs)
+        out[dev] = [t.detach().cpu() for t in (val,) + grads]
+        if dev == "cuda":
+            out["launches"] = cuda_build.LAUNCHES["scatter_add_rows"]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_dtype", ["float32", "bfloat16"])
+def test_lane_grid_sample_takes_k3(row_dtype):
+    """sample_lane_grid(pack_lane_grid(G))'s backward goes through K3 once
+    at 128 channels and equals the CPU's index_add_ route."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import lane_grid
+
+    gen = torch.Generator().manual_seed(4)
+    G = torch.randn((23, 19, 70), generator=gen)
+    coords = [torch.rand((6000,), generator=gen) * 2.2 - 1.1
+              for _ in range(3)]
+    coords[0][:3] = torch.tensor([-1.0, 1.0, 1.0])
+    out = _card_and_cpu(
+        lambda g, x, y, z: lane_grid.sample_lane_grid(
+            lane_grid.pack_lane_grid(g), (x, y, z), 70, row_dtype),
+        [G] + coords, torch.randn((6000,), generator=gen))
+    assert out["launches"] == 1
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plane", "line"])
+def test_hybrid_samples_take_k3(kind):
+    """The hybrid plane's and line's backwards go through K3 once (4R or
+    2R channels) and equal the CPU's index_add_ route, coordinates'
+    gradients included (1e-5 of each output's largest magnitude)."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    gen = torch.Generator().manual_seed(5)
+    n = 8000
+    table = torch.randn((33, 17, 48) if kind == "plane" else (420, 16),
+                        generator=gen)
+    coords = [torch.rand((n,), generator=gen) * 2.2 - 1.1
+              for _ in range(2 if kind == "plane" else 1)]
+    fn = (sampling.sample_plane_hybrid if kind == "plane"
+          else sampling.sample_line_hybrid)
+    out = _card_and_cpu(fn, [table] + coords,
+                        torch.randn((n, table.shape[-1]), generator=gen))
+    assert out["launches"] == 1
+    # the coordinates' gradients carry the cell size's factor 0.5 (D - 1):
+    # held at 1e-5 of each output's largest magnitude
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ to each other bit for bit.
   bbox shrink and the masked compacted steps, each step from the JAX
   trainer's state with its jitter: losses and budgets against JAX's
   trainer and the 1-rank port, the replicas bit-identical; its checkpoint
-  (rank 0 writes) restored on both ranks, into an unsharded trainer and
+  (rank 0 queues the write) restored on both ranks, into an unsharded trainer and
   into the JAX package;
 * the densify gate keyed on samples per rank: on at one rank, off at [4];
 * check_ported taking a comp axis and refusing a component count that
@@ -493,8 +493,9 @@ def test_sharded_trainer_matches_jax_and_one_rank(runs):
 
 
 def test_sharded_checkpoint_restores_everywhere(runs):
-    """Rank 0 wrote the checkpoint; both ranks restored it; it restores
-    into an unsharded trainer and into the JAX package."""
+    """Rank 0 queued the checkpoint (an asynchronous write no rank waited
+    for); both ranks restored it after draining rank 0's queue; it
+    restores into an unsharded trainer and into the JAX package."""
     refs, out, path, _ = runs
     sc = refs["trainer"][0]
     per_rank = out[2]["trainer"]

@@ -24,7 +24,7 @@ gradients are gathered over the comp ranks before the comparison.
   trainer's state with its jitter: losses, budgets, the pose table and
   render_views against JAX's trainer; the replicas bit-identical by group
   (the factor blocks within a rays group, everything else over the
-  world); its checkpoint (rank 0 writes the gathered arrays) restored on
+  world); its checkpoint (rank 0 queues the gathered arrays) restored on
   every rank, into an unsharded trainer and into the JAX package; JAX's
   checkpoint restored into a comp-sharded trainer;
 * without ranks: init_vm's blocks of the whole draw (and of the
@@ -564,9 +564,10 @@ def test_comp_replicas_are_equal_by_group(runs):
 
 
 def test_comp_checkpoint_restores_everywhere(runs):
-    """Rank 0 wrote the gathered checkpoint; every rank restored its block
-    of it; it restores into an unsharded trainer and into the JAX
-    package."""
+    """Rank 0 queued the gathered checkpoint (an asynchronous write no
+    rank waited for); every rank restored its block of it after draining
+    rank 0's queue; it restores into an unsharded trainer and into the
+    JAX package."""
     refs, out, path, _ = runs
     sc = refs["trainer"][0]
     per_rank = out[(2, 2)]["trainer"]
