@@ -44,9 +44,11 @@
    tpu: path (the dense-grid density, two-stage appearance, the in-bbox
    budget), with the launch counters zeroed just before and read just
    after: every step must launch what its configuration calls for
-   (expected_launches: K1 = 1, K2 = 1, K3 = 4 with the dense grid); then
+   (expected_launches: K1 = 1, K2 = 1, K3 = 7 with the dense grid and
+   app_k: the grid's row gather, and a plane and a line scatter for each
+   axis's appearance sample); then
    K3 at that path's own shapes (the dense grid's rows, the appearance
-   planes);
+   planes and the longest appearance line);
 8. trains BAT at full width through every phase, with the schedule cut to
    40 iterations (PHASES_ARGS: upsamples after iterations 2, 4, 6, 8,
    mask updates after 7 and 14): 64^3 -> 101^3 -> 160^3 -> 252^3, the
@@ -152,10 +154,11 @@
    phase: no budget under NDC); 10 test-time steps on 2 views with the
    test-kernel blur rising (K1 = K2 = 1, K3 = 0 each); K1/K2 and K3 at its
    last phase's shapes; then 3 steps at the 800^3 grid from the start at
-   the largest ray count of LLFF_FINAL_RAYS that fits (a cut: the
-   published first phase's 20480 rays x 1000 samples does not fit there,
-   its line factors' one-hot gradient alone asks for a [19.44M, 771]
-   float32 buffer of 60 GB; 10240 runs) and K3 into the grid's 510M rows;
+   the largest ray count of LLFF_FINAL_RAYS that fits (the published first
+   phase's 20480 rays, 19440 a step over 20 views, x 1000 samples: the
+   fused sample's backward in chunks, its line gradients through K3, keeps
+   the step's memory bounded; the smaller counts stay as fallbacks) and K3
+   into the grid's 510M rows;
 16. compares one small step of BARF (fine sampling, density noise, NDC
    rays; at progress 0) and of each planar image on the card with the CPU
    from the same parameters and draws (check_small_mlp_planar: loss rel
@@ -196,7 +199,10 @@
    the last snapshot's phase) one step a phase at [1,2], held as above,
    the replicas bit-identical by group; the collectives a step by purpose
    and their bytes, the peak GB per rank and the ms a step (contention);
-   K3 against index_add_ at every channel count those steps gave it;
+   K3 against index_add_ at the shapes those steps launched it at
+   (cuda_build.SCATTER_SHAPES, noted by the ranks step by step): for
+   each channel count the launch of the most rows, and the launches into
+   the fewest and into the most destination rows;
 18. the [rest] phase (run_rest_phase, after the viz phase on the same
    trained state): the JAX package's functions on no entry point at
    BAT's widths: (a) the lane-packed dense grid (ops/lane_grid.py) of the
@@ -214,7 +220,25 @@
    files equal, the queued one restored equal leaf for leaf; (e) the
    small helpers once on the card and once on the CPU, within 1e-6;
    K3's entry in the kernels line lists the new shapes;
-19. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+19. the [f1] phase (run_f1_phase, on the same trained state): the fused
+   factor sample's backward in chunks of at most _PROD_BWD_CHUNK samples,
+   its plane and line gradients through K3: the density and appearance
+   factors of the largest plane at 2028 x 1000 samples (two chunks),
+   values and every gradient on the K3 route against the plain route
+   (scatter_add_rows_plain) and against the unchunked call, K3 launches
+   a call against 2 x the chunks; sample_line at CP-384's widths (K3 once
+   a backward); the peak memory one backward adds and its ms at the LLFF
+   appearance line (4420 x 1000 samples into 771 rows, where the one-hot
+   took 13.6 GB); K3 against the one-hot matmul and index_add_ (and its
+   device time) at every line shape the trainers now give it, listed
+   under K3's entry of the kernels line;
+20. the [entry] phase (run_entry_phase, after [parallel]): the port's
+   graft_entry.entry() on the card against entry(device="cpu") within
+   1e-5 of the largest output, its K1 launch; dryrun_multichip(2) and (4)
+   as gloo ranks on cuda:0 (seconds each); run_experiments' scheduler
+   over two slots running two tiny train CLIs on this card (return codes,
+   seconds);
+21. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -230,6 +254,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -576,53 +601,110 @@ def march_indices_3d(n_rays, S, X, Y, Z, gen):
     return ((pos[..., 0] * Y + pos[..., 1]) * Z + pos[..., 2]).reshape(-1)
 
 
-def expected_launches(cfg, vm_cfg=None) -> dict:
+def step_samples(cfg, rays: int = 1) -> tuple:
+    """(N, N_app): the samples one rank's factor samples see in a step with
+    StepConfig ``cfg`` when the step's rays are split over ``rays`` ranks
+    (the mesh's rays axis): its rays x the kept samples a ray (compact_k
+    below S, else S), and x app_k of those on a two-stage appearance."""
+    n = cfg.n_views * cfg.rays_per_view // rays
+    S = cfg.n_samples
+    if cfg.compact_k is not None and cfg.compact_k < S:
+        S = cfg.compact_k
+    return n * S, n * (min(cfg.app_k, S) if cfg.app_k is not None else S)
+
+
+def _fused_k3(n_samples: int) -> int:
+    """K3 launches of one fused factor sample's backward on n_samples:
+    a plane and a line scatter per chunk of at most _PROD_BWD_CHUNK."""
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    return 2 * -(-n_samples // sampling._PROD_BWD_CHUNK)
+
+
+def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
     """Launches of one training step with StepConfig ``cfg`` on a field of
-    VMConfig ``vm_cfg`` (the default VM field when None): K1 and K2 once;
-    K3 once per factor sample's backward of a group's three planes (three
-    fused planes, or three density and three appearance planes) and once
-    for the dense grid's row gather (then only the appearance is a factor
-    sample).  The field decides which paths run, as the renderer does
-    (renderer.py:455-459 of the JAX package): the dense grid only where
-    vm.can_densify and the fused sample only where vm.can_fuse_features,
-    neither with the head's density (predict_density: the appearance
-    planes alone); a CP field has no planes (its lines are plain gathers),
-    and convolve_positive_only under the blur samples the density by
-    plain gathers.  The same without pose optimisation (TensoRF):
-    detached coordinates drop the coordinate derivatives, not the
-    factors' scatters; bf16 factors and bf16 dense reads scatter float32
-    gradients through the same calls."""
+    VMConfig ``vm_cfg`` (the default VM field when None), on one rank of a
+    mesh whose rays axis has ``rays`` ranks: K1 and K2 once; K3 once for
+    the dense grid's row gather, and for each axis's fused factor sample
+    (sampling.sample_planeline_prod) two a chunk of at most
+    _PROD_BWD_CHUNK samples (the plane's and the line's row scatters), for
+    each sample_line (CP's lines, convolve_positive_only's density lines
+    under the blur) one.  The samples are the rank's (step_samples): all
+    kept samples for the density and the fused sample, app_k of them a
+    ray for the two-stage appearance.  The field decides which paths run,
+    as the renderer does: the dense grid only where vm.can_densify and the
+    fused sample only where vm.can_fuse_features, neither with the head's
+    density (predict_density: the appearance alone, on every sample); a
+    CP field has no planes, its six lines are sample_line's.  The same
+    without pose optimisation (TensoRF): detached coordinates drop the
+    coordinate derivatives, not the factors' scatters; bf16 factors and
+    bf16 dense reads scatter float32 gradients through the same calls."""
     from joint_tensorf_tpu_torch.models import vm as vm_lib
 
     vm_cfg = vm_cfg or vm_lib.VMConfig()
-    planes = 0 if vm_cfg.decomposition == "CP" else 3
+    cp = vm_cfg.decomposition == "CP"
+    N, N_app = step_samples(cfg, rays)
+    # the renderer's choice (renderer.py:455-459 of the JAX package)
     predict = cfg.mlp_predict_density
-    if cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict:
-        k3 = 1 + planes
-    elif predict or (cfg.app_k is None
-                     and vm_lib.can_fuse_features(vm_cfg)):
-        k3 = planes
+    grid = cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict
+    fused = (not grid and cfg.app_k is None and not predict
+             and vm_lib.can_fuse_features(vm_cfg))
+    split = cfg.blur is not None and vm_cfg.convolve_positive_only
+
+    def app(n):
+        return 3 if cp else 3 * _fused_k3(n)
+
+    if grid:
+        k3 = 1 + app(N_app)
+    elif predict:
+        k3 = app(N)
+    elif fused:
+        k3 = 3 * _fused_k3(N)
     else:
-        split = cfg.blur is not None and vm_cfg.convolve_positive_only
-        k3 = (0 if split else planes) + planes
+        k3 = (3 if cp or split else 3 * _fused_k3(N)) + app(N_app)
     return {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": k3,
             "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
 
 
-def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None):
+def march_indices_1d(n_rays, S, D, gen):
+    """Row indices of a D-long line along rays in march order (a line
+    factor's rows, as sample_line and the fused sample gather them): each
+    ray starts at a random row and steps by at most half a row, folded
+    back at the ends.  In float64, so that D may be as long as the dense
+    grid's 64M rows (float32 positions there round past the last row)."""
+    import torch
+
+    dev, f64 = "cuda", torch.float64
+    end = float(D - 1)
+    start = torch.rand((n_rays, 1), generator=gen, device=dev, dtype=f64)
+    step = torch.rand((n_rays, 1), generator=gen, device=dev, dtype=f64)
+    t = torch.arange(S, device=dev, dtype=f64)
+    p = torch.remainder(start * end + t * (step - 0.5), 2 * end)
+    p = torch.where(p > end, 2 * end - p, p)
+    return p.floor().long().clamp_(0, D - 1).reshape(-1).contiguous()
+
+
+def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None, line=None,
+                  n=None):
     """K3 on n_rays x S rows of C channels into an H x W plane in march
-    order, or, with grid3d = (X, Y, Z), into the dense grid's X*Y*Z rows;
+    order, with grid3d = (X, Y, Z) into the dense grid's X*Y*Z rows, or
+    with ``line`` into a line of that many rows; with ``n`` on the first n
+    of those rows;
     times the wrapper back to back and, from torch.profiler, its memset
     and its kernel apart (device_ms_by_kernel; device_ms is the kernel's)."""
     import torch
 
     from joint_tensorf_tpu_torch.ops import segment_scatter as K
 
-    if grid3d is None:
+    if line is not None:
+        idx = march_indices_1d(n_rays, S, line, gen)
+        H, W = 1, line
+    elif grid3d is None:
         idx = march_indices(n_rays, S, H, W, gen)
     else:
         idx = march_indices_3d(n_rays, S, *grid3d, gen)
         H, W = grid3d[0] * grid3d[1], grid3d[2]
+    idx = idx[:n].contiguous()
     upd = torch.randn((idx.shape[0], C), generator=gen, device="cuda")
     n_rows = H * W
     got = K.scatter_add_rows_cuda(idx, upd, n_rows)
@@ -663,7 +745,8 @@ def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library,
             "shape": {"N": N, "C": C, "n_rows": n_rows,
-                      "rows": "dense grid" if grid3d else "plane"}}
+                      "rows": ("line" if line is not None else
+                               "dense grid" if grid3d else "plane")}}
 
 
 def check_binned(H, W, R, N, gen, tol, samples="uniform"):
@@ -2445,8 +2528,8 @@ def run_option_steps():
     procedural scene) with VIZ_OPTIONS (soft edge masks, one random scale
     for the 2D and 3D blurs) for VIZ_STEPS steps through Trainer.run, the
     counters zeroed before each step and read after it: every step's
-    launches against expected_launches (K1 = K2 = 1, K3 = 4 with the dense
-    grid); finite losses; the edge masks soft (values strictly between 0
+    launches against expected_launches (K1 = K2 = 1, K3 = 7 with the dense
+    grid and app_k); finite losses; the edge masks soft (values strictly between 0
     and 1, each view's largest 1).  Returns {"option_steps": ...}."""
     import torch
 
@@ -2997,12 +3080,13 @@ def run_llff_final_grid():
     """3 steps at the LLFF config's final grid (800^3 voxels: 771 x 859 x
     771, S = 1000) from the start, as VARIANT_ARGS does for 64M voxels,
     at the first ray count of LLFF_FINAL_RAYS that fits in the card's
-    memory: the published first phase's 20480 rays never meets this grid
-    (the n_rays switch to 4096 comes with the first upsample), and a step
-    of 20480 rays x 1000 samples there needs more than the card holds
-    (the appearance lines' one-hot gradient, [rays x S, 771] float32, is
-    60 GB of it; the failed allocation is printed).  Returns (rays, S,
-    resolution) of the steps that ran."""
+    memory (a count that does not fit prints its failed allocation and
+    the next is tried): the published first phase's 20480 rays never
+    meets this grid (the n_rays switch to 4096 comes with the first
+    upsample), so this is the largest step the config could ask of it,
+    19.44M samples, whose fused factor samples' backwards run 19 chunks
+    each (K3 1 + 3 x 2 x 19 a step).  Returns (rays, S, resolution) of the
+    steps that ran."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -3570,7 +3654,8 @@ def _par_steps(trainer, n_iter, snap_its, tmp, label, device):
         ms = (time.perf_counter() - t0) * 1e3
         cfg = trainer.last_step_config
         got = {k: v - launches[k] for k, v in cuda_build.LAUNCHES.items()}
-        want = (expected_launches(cfg, trainer.vm_cfg) if cuda
+        want = (expected_launches(cfg, trainer.vm_cfg, trainer.mesh.rays)
+                if cuda
                 else {k: 0 for k in got})
         coll = {k: v - counts.get(k, 0) for k, v in trainer.mesh.counts.items()
                 if v - counts.get(k, 0)}
@@ -3597,30 +3682,6 @@ def _par_steps(trainer, n_iter, snap_its, tmp, label, device):
     return rows, snaps, refs, kept, faults
 
 
-def k3_widths(cfg, vm_cfg, comp: int = 1) -> set:
-    """K3's channel counts in one step with StepConfig ``cfg`` on a field of
-    VMConfig ``vm_cfg`` whose components are split over ``comp`` ranks
-    (the paths of expected_launches): 4 packed corners x the components a
-    rank holds of each sampled plane (the fused planes' density and
-    appearance together), 8 for the dense grid's corner rows."""
-    from joint_tensorf_tpu_torch.models import vm as vm_lib
-
-    rd = {4 * n // comp for n in vm_cfg.density_n_comp}
-    ra = {4 * n // comp for n in vm_cfg.app_n_comp}
-    if vm_cfg.decomposition == "CP":
-        rd = ra = set()
-    predict = cfg.mlp_predict_density
-    if cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict:
-        return {8} | ra
-    if predict:
-        return ra
-    if cfg.app_k is None and vm_lib.can_fuse_features(vm_cfg):
-        return {4 * (d + a) // comp for d, a in zip(vm_cfg.density_n_comp,
-                                                     vm_cfg.app_n_comp)}
-    split = cfg.blur is not None and vm_cfg.convolve_positive_only
-    return (set() if split else rd) | ra
-
-
 def _held_against(per_rank, tag, vm, cuda, faults, comp=None) -> dict:
     """The checks of a spawned run's ranks against the one-rank run they
     started from: each step's loss within 1e-4 relative, every gradient
@@ -3637,7 +3698,8 @@ def _held_against(per_rank, tag, vm, cuda, faults, comp=None) -> dict:
     for rank, o in enumerate(per_rank):
         for row in o["history"]:
             cfg = StepConfig(**row["config"])
-            want = (expected_launches(cfg, vm) if cuda else
+            rays = comp[0] if comp is not None else len(per_rank)
+            want = (expected_launches(cfg, vm, rays) if cuda else
                     {k: 0 for k in row["launches"]})
             if row["launches"] != want:
                 faults.append(f"{tag} rank {rank} it {row['it']}: launched "
@@ -3720,9 +3782,12 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
     bit-identical by group (the factor blocks over a rays group, the
     rest over the world); the collectives a step by purpose with their
     bytes, the peak GB per rank and the ms a step (contention); then K3
-    against its plain version (index_add_) at every channel count those
-    steps gave it (the components of a rank: k3_widths) on ``gen``.  Any
-    mismatch raises.  ``device``, ``backend`` and the arguments exist so
+    against its plain version (index_add_) on ``gen`` at the shapes those
+    steps launched it at (each step's scatter_shapes, from the ranks'
+    cuda_build.SCATTER_SHAPES): for each channel count C the launch of the
+    most rows N, the launch into the fewest destination rows (the most
+    collisions) and the one into the most (a plane or the dense grid),
+    each at its own N, C and n_rows.  Any mismatch raises.  ``device``, ``backend`` and the arguments exist so
     that the phase can be rehearsed at a tiny size on the CPU."""
     import gc
     import tempfile
@@ -3885,7 +3950,7 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                       f"{[round(x, 1) for x in ms]}; spawn {wall:.1f} s "
                       f"({smi})", flush=True)
         # ---------------- (d) the comp layout: R x C gloo ranks
-        widths = {}
+        launched = {}   # C -> [(N, n_rows, S kept, job, it)] of K3
         for n, (R_, C_) in enumerate(comp_shapes):
             mesh_args = [f"--tpu.mesh_shape=[{R_},{C_}]",
                          "--tpu.mesh_axes=[rays,comp]"]
@@ -3913,21 +3978,14 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                 worst = _held_against(per_rank, tag, vm, cuda, faults,
                                       comp=(R_, C_))
                 hist = per_rank[0]["history"]
-                rays_per_rank = (l2g_rays if label == "l2g"
-                                 else bat_rays) // R_
-                app_w = {4 * a // C_ for a in vm.app_n_comp}
-                for row in hist:
-                    # the most rows one call scattered at each width: the
-                    # kept samples a ray, app_k of them on the appearance
-                    cfg = StepConfig(**row["config"])
-                    S_kept = min(cfg.compact_k or cfg.n_samples,
-                                 cfg.n_samples)
-                    for w in k3_widths(cfg, vm, C_):
-                        S_w = (min(cfg.app_k, S_kept)
-                               if cfg.app_k and w in app_w else S_kept)
-                        if rays_per_rank * S_w > widths.get(w, (0,))[0]:
-                            widths[w] = (rays_per_rank * S_w, rays_per_rank,
-                                         S_w, label, row["it"])
+                for o in per_rank:
+                    for row in o["history"]:
+                        cfg = StepConfig(**row["config"])
+                        S_kept = min(cfg.compact_k or cfg.n_samples,
+                                     cfg.n_samples)
+                        for C, n_rows, N in row["scatter_shapes"]:
+                            launched.setdefault(C, []).append(
+                                (N, n_rows, S_kept, label, row["it"]))
                 ms = [row["ms"] for row in hist]
                 last = hist[-1]
                 peak = [max(row.get("peak_gb", 0.0) for row in o["history"])
@@ -3954,28 +4012,37 @@ def run_parallel(device="cuda", backend="nccl", bat_args=PAR_ARGS,
                       f"step ms (contention of {R_ * C_} ranks on one card, "
                       f"not scaling) {[round(x, 1) for x in ms]}; spawn "
                       f"{wall:.1f} s ({smi})", flush=True)
-        # K3 against index_add_ at each channel count the comp steps gave
-        # it, at the most rows one call scattered (into a 400 x 400 plane,
-        # or the grid of 8-wide rows at 400^3)
+        # K3 against index_add_ at the shapes the comp steps launched it
+        # at: for each channel count the launch of the most rows, the
+        # launch into the fewest destination rows and the one into the
+        # most, with march-order indices along its n_rows rows (S kept
+        # samples a ray)
         checks = []
-        for w, (_, n_rays, S_w, label, it) in sorted(widths.items()):
-            if not cuda:
-                continue
-            grid = (400, 400, 400) if w == 8 else None
-            r = check_scatter(n_rays, S_w, 400, 400, w, gen, tol=1e-5,
-                              grid3d=grid)
+        picked = sorted({(C,) + pick for C, runs in launched.items()
+                         for pick in (max(runs, key=lambda r: (r[0], -r[1])),
+                                      min(runs, key=lambda r: (r[1], -r[0])),
+                                      max(runs, key=lambda r: (r[1], r[0])))})
+        if cuda and not picked:
+            faults.append("(d): the ranks noted no K3 launch")
+        for C, N, n_rows, S_k, label, it in picked if cuda else ():
+            r = check_scatter(-(-N // S_k), S_k, 0, 0, C, gen, tol=1e-5,
+                              line=n_rows, n=N)
+            r["shape"]["rows"] = "as launched"
             r.update(path=f"comp {label} it {it}")
             checks.append(r)
             emit({"kernel_check": r})
-            print(f"[parallel] (d) K3 at {w} channels ({n_rays} rays x "
-                  f"{S_w} rows, {label} it {it}): {r['ms']:.3f} ms, device "
+            print(f"[parallel] (d) K3 as launched: {N} x {C} into {n_rows} "
+                  f"rows ({label} it {it}): "
+                  f"{r['ms']:.3f} ms, device "
                   f"{r['device_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
                   f"({r['bound_by']}), index_add_ {r['library_ms']:.3f} ms, "
                   f"err {r['max_abs_err']:.3g} ({smi})", flush=True)
         result["d_k3"] = [{k: r[k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "shape", "path")} for r in checks]
-        result["d_k3_widths"] = sorted(widths)
+        result["d_k3_launched"] = sorted(
+            [C, n_rows, max(r[0] for r in runs if r[1] == n_rows)]
+            for C, runs in launched.items() for n_rows in {r[1] for r in runs})
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4145,8 +4212,8 @@ def rest_hybrid(field, n_rays, S, app_k, gen, faults, device="cuda"):
     largest appearance plane and its line (n_rays x app_k samples, 4R and
     2R channels) and its longest density line (n_rays x S samples):
     values and every gradient, K3 once a backward; then K3's line scatter
-    against the one-hot matmul the trainer's lines use
-    (sampling._scatter_rows_matmul) and index_add_ at each line shape.
+    against the one-hot matmul the trainer's lines used before they went
+    through K3 (onehot_rows_matmul) and index_add_ at each line shape.
     Returns (out, K3 rows for the kernels line)."""
     import torch
 
@@ -4201,16 +4268,29 @@ def rest_hybrid(field, n_rays, S, app_k, gen, faults, device="cuda"):
     return out, k3_rows
 
 
+def onehot_rows_matmul(idx, updates, n_rows: int):
+    """zeros([n_rows, C]).at[idx].add(updates) as onehot(idx)^T @ updates:
+    the JAX package's _scatter_rows_matmul (its unchunked line gradient),
+    which the port's line gradients took until they went through K3; an
+    [N, n_rows] float32 one-hot keeps every product exact, only the
+    summation order differs from a scatter.  Timed here as K3's
+    comparison at the line shapes; no port path calls it."""
+    import torch
+
+    onehot = (torch.arange(n_rows, device=idx.device)[None, :]
+              == idx[:, None]).to(updates.dtype)
+    return onehot.T @ updates
+
+
 def rest_k3(idx, C, n_rows, gen, faults, device="cuda") -> dict:
     """K3 at a new shape: the samples' rows ``idx`` in march order, C
     channels into n_rows rows, against index_add_ (its plain version and
     the library call) and, for a short destination (the lines), the
-    one-hot matmul the trainer's lines use; the same with every sample in
+    one-hot matmul (onehot_rows_matmul); the same with every sample in
     one row, exactly.  Atomics sum in a run-dependent order: march order is
     held at 1e-5 of the output's largest magnitude."""
     import torch
 
-    from joint_tensorf_tpu_torch.ops import sampling
     from joint_tensorf_tpu_torch.ops import segment_scatter as K
 
     n = idx.shape[0]
@@ -4227,8 +4307,7 @@ def rest_k3(idx, C, n_rows, gen, faults, device="cuda") -> dict:
         got = K.scatter_add_rows(ix, u, n_rows)
         err = _rel(got, want)
         if short:
-            err = max(err, _rel(sampling._scatter_rows_matmul(ix, u, n_rows),
-                                want))
+            err = max(err, _rel(onehot_rows_matmul(ix, u, n_rows), want))
         if not torch.isfinite(got).all() or err > tol:
             faults.append(f"[rest] K3 at {n} x {C} into {n_rows} rows "
                           f"({case}): {err:.3g} > {tol}")
@@ -4240,12 +4319,18 @@ def rest_k3(idx, C, n_rows, gen, faults, device="cuda") -> dict:
         n * 8 + n * C * 4 + n_rows * C * 4, n * C)
     if device == "cuda":
         out["ms"] = time_ms(lambda: K.scatter_add_rows_cuda(idx, upd, n_rows))
+        # the kernel's device time from torch.profiler (its memset apart)
+        by_kernel = device_times(
+            lambda: K.scatter_add_rows_cuda(idx, upd, n_rows))
+        out["device_ms"] = sum(t for name, t in by_kernel.items()
+                               if "scatter_add_rows" in name)
+        out["device_ms_by_kernel"] = by_kernel
         out["plain_ms"] = time_ms(
             lambda: K.scatter_add_rows_plain(idx, upd, n_rows))
         out["library_ms"] = out["plain_ms"]       # index_add_ is both
         if short:
             out["onehot_ms"] = time_ms(
-                lambda: sampling._scatter_rows_matmul(idx, upd, n_rows))
+                lambda: onehot_rows_matmul(idx, upd, n_rows))
     return out
 
 
@@ -4467,6 +4552,314 @@ def run_rest_phase(trainer, data, n_rays, cfg, gen):
     return result, k3_rows
 
 
+# ------------------------------ [f1]: the fused sample's chunked backward
+# the LLFF / NDC appearance line: 4420 rays x 1000 samples on the
+# 771 x 859 x 771 grid, 20 appearance components (bat_llff_VM_MLP.yaml)
+F1_LLFF = (4420, 1000, (771, 859, 771), 20)
+# CP-384's components (density, appearance) on BAT's last-phase lines
+F1_CP = (96, 288)
+
+
+def f1_fused(name, plane, line, n_rays, S, gen, faults):
+    """The fused factor sample on n_rays x S march-order samples: values
+    and every gradient on the K3 route against the plain route
+    (scatter_add_rows_plain) and against the same call with
+    _PROD_BWD_CHUNK above N, within 1e-5 of each leaf's largest value; K3
+    launches a call against 2 x the chunks; ms forward + backward."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import sampling
+    from joint_tensorf_tpu_torch.ops import segment_scatter as K
+
+    H, W, R = plane.shape
+    D = line.shape[0]
+    u, v, w = march_coords(n_rays, S, (W, H, D), gen)
+    N = n_rays * S
+    cot = torch.randn((N, R), generator=gen, device="cuda")
+    inputs = (plane, line, u, v, w)
+
+    def call():
+        return _fwd_bwd(sampling.sample_planeline_prod, inputs, cot)
+
+    chunks = -(-N // sampling._PROD_BWD_CHUNK)
+    got = call()
+    with mock.patch.object(sampling, "scatter_add_rows",
+                           K.scatter_add_rows_plain):
+        err_plain = _held(f"[f1] {name} K3 vs plain route", got, call(),
+                          1e-5, faults)
+    with mock.patch.object(sampling, "_PROD_BWD_CHUNK", N + 1):
+        err_whole = _held(f"[f1] {name} chunked vs unchunked", got, call(),
+                          1e-5, faults)
+        whole_launches = _launches_of(call)
+    del got
+    launches = _launches_of(call)
+    want = {"scatter_add_rows": 2 * chunks}
+    if launches != want or whole_launches != {"scatter_add_rows": 2}:
+        faults.append(f"[f1] {name}: launches {launches} (want {want}), "
+                      f"unchunked {whole_launches} (want 2)")
+    return {"plane": [H, W, R], "line": [D, R], "samples": N,
+            "chunks": chunks, "err_plain_route": err_plain,
+            "err_unchunked": err_whole, "launches": launches,
+            "ms": time_ms(call, reps=REST_REPS, warmup=1)}
+
+
+def f1_line(name, line, n_rays, S, gen, faults):
+    """sample_line on n_rays x S march-order samples: values and
+    gradients on the K3 route against the plain route, K3 once a
+    backward, ms forward + backward."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import sampling
+    from joint_tensorf_tpu_torch.ops import segment_scatter as K
+
+    D, R = line.shape
+    w = march_coords(n_rays, S, (2, 2, D), gen)[2]
+    cot = torch.randn((n_rays * S, R), generator=gen, device="cuda")
+
+    def call():
+        return _fwd_bwd(sampling.sample_line, (line, w), cot)
+
+    got = call()
+    with mock.patch.object(sampling, "scatter_add_rows",
+                           K.scatter_add_rows_plain):
+        err = _held(f"[f1] {name} K3 vs plain route", got, call(), 1e-5,
+                    faults)
+    del got
+    launches = _launches_of(call)
+    if launches != {"scatter_add_rows": 1}:
+        faults.append(f"[f1] {name}: launches {launches}, want one K3")
+    return {"line": [D, R], "samples": n_rays * S, "err_plain_route": err,
+            "launches": launches,
+            "ms": time_ms(call, reps=REST_REPS, warmup=1)}
+
+
+def f1_llff_memory(gen, faults):
+    """One fused sample of the LLFF appearance plane and line (F1_LLFF:
+    4420 x 1000 samples, 20 components, its line 771 long): the peak
+    memory its backward adds over the forward's, ms forward + backward
+    and K3 launches, beside the [N, 771] float32 one-hot the line's
+    gradient took before it went through K3."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    n_rays, S, (X, Y, Z), R = F1_LLFF
+    plane = torch.rand((Y, X, R), generator=gen, device="cuda")
+    line = torch.rand((Z, R), generator=gen, device="cuda")
+    u, v, w = march_coords(n_rays, S, (X, Y, Z), gen)
+    N = n_rays * S
+    cot = torch.randn((N, R), generator=gen, device="cuda")
+    leaves = [t.detach().requires_grad_(True)
+              for t in (plane, line, u, v, w)]
+    torch.cuda.synchronize()
+    out = sampling.sample_planeline_prod(*leaves)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    from joint_tensorf_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launches()
+    grads = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    finite = all(torch.isfinite(g).all() for g in grads)
+    del out, grads
+    chunks = -(-N // sampling._PROD_BWD_CHUNK)
+    if launches != {"scatter_add_rows": 2 * chunks} or not finite:
+        faults.append(f"[f1] llff line: launches {launches} (want "
+                      f"{2 * chunks}), finite {finite}")
+    inputs = (plane.detach(), line.detach(), u.detach(), v.detach(),
+              w.detach())
+    ms = time_ms(lambda: _fwd_bwd(sampling.sample_planeline_prod, inputs,
+                                  cot), reps=REST_REPS, warmup=1)
+    return {"plane": [Y, X, R], "line": [Z, R], "samples": N,
+            "chunks": chunks, "launches": launches,
+            "backward_peak_gb": peak, "ms": ms,
+            "onehot_gb": N * Z * 4 / 1e9}
+
+
+def run_f1_phase(trainer, n_rays, cfg, gen):
+    """[f1] the fused factor sample's backward in chunks of at most
+    _PROD_BWD_CHUNK samples with its line gradient through K3, on the
+    default path's trained state (its last phase: the 423x359x420 grid,
+    density R 16, appearance R 48): the density and appearance factors of
+    the largest plane at n_rays x S (2028 x 1000: two chunks) held
+    against the plain route and the unchunked call (f1_fused); sample_line
+    at CP-384's widths on the longest line (density 96 components on
+    every sample, appearance 288 on app_k a ray: f1_line); the LLFF
+    appearance line's backward peak and ms (f1_llff_memory); K3 against
+    index_add_ and the one-hot matmul at every line shape the trainers now
+    give it (a chunk of at most _PROD_BWD_CHUNK rows for the fused sample,
+    all samples for sample_line).  Prints one [f1] line per part; returns
+    ({"f1": ...}, K3's rows at the line shapes)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.models.vm import MAT_MODE, VEC_MODE
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    t0 = time.perf_counter()
+    faults = []
+    field = trainer.state.field
+    res = field.resolution()
+    S, app_k = cfg.n_samples, cfg.app_k or cfg.n_samples
+    i = max(range(3), key=lambda a: res[MAT_MODE[a][0]] * res[MAT_MODE[a][1]])
+    j = max(range(3), key=lambda a: res[VEC_MODE[a]])
+    out = {"fused": {}, "line": {}}
+    for name, plane, line in (
+            ("density", field.density_planes[i], field.density_lines[i]),
+            ("appearance", field.app_planes[i], field.app_lines[i])):
+        row = f1_fused(name, plane.detach().float(), line.detach().float(),
+                       n_rays, S, gen, faults)
+        out["fused"][name] = row
+        print(f"[f1] fused {name} {row['plane']} x {row['line']} at "
+              f"{row['samples']} samples ({row['chunks']} chunks): K3 vs "
+              f"plain route {row['err_plain_route']:.3g}, vs unchunked "
+              f"{row['err_unchunked']:.3g}, launches {row['launches']}, "
+              f"fwd+bwd {row['ms']:.3f} ms", flush=True)
+        torch.cuda.empty_cache()
+    D = res[VEC_MODE[j]]
+    for name, R, per_ray in (("cp_density", F1_CP[0], S),
+                             ("cp_appearance", F1_CP[1], app_k)):
+        line = torch.rand((D, R), generator=gen, device="cuda")
+        row = f1_line(name, line, n_rays, per_ray, gen, faults)
+        out["line"][name] = row
+        print(f"[f1] sample_line {name} {row['line']} at {row['samples']} "
+              f"samples: K3 vs plain route {row['err_plain_route']:.3g}, "
+              f"launches {row['launches']}, fwd+bwd {row['ms']:.3f} ms",
+              flush=True)
+        torch.cuda.empty_cache()
+    llff = f1_llff_memory(gen, faults)
+    out["llff"] = llff
+    print(f"[f1] LLFF appearance {llff['plane']} x {llff['line']} at "
+          f"{llff['samples']} samples ({llff['chunks']} chunks): backward "
+          f"peak {llff['backward_peak_gb']:.2f} GB over the forward's "
+          f"(the one-hot alone was {llff['onehot_gb']:.1f} GB), fwd+bwd "
+          f"{llff['ms']:.2f} ms, launches {llff['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    # K3 at the line shapes as the trainers call it: a fused sample's
+    # chunk (2R channels of its line) and a whole sample_line
+    ck = sampling._PROD_BWD_CHUNK
+    shapes = [("density line chunk", 2 * field.density_lines[i].shape[1],
+               field.density_lines[i].shape[0], min(n_rays * S, ck)),
+              ("appearance line (app_k)", 2 * field.app_lines[i].shape[1],
+               field.app_lines[i].shape[0], min(n_rays * app_k, ck)),
+              ("llff appearance line chunk", 2 * F1_LLFF[3], F1_LLFF[2][2],
+               ck),
+              ("cp density line", 2 * F1_CP[0], D, n_rays * S),
+              ("cp appearance line (app_k)", 2 * F1_CP[1], D,
+               n_rays * app_k)]
+    k3_rows = []
+    for name, C, n_rows, N in shapes:
+        w = march_coords(-(-N // S), S, (2, 2, n_rows), gen)[2][:N]
+        idx = sampling._floor_frac(sampling._pix(w, n_rows), n_rows)[0]
+        k = rest_k3(idx.contiguous(), C, n_rows, gen, faults)
+        k["path"] = f"[f1] {name}"
+        k3_rows.append(k)
+        print(f"[f1] K3 {name}: {N} x {C} into {n_rows} rows {k['ms']:.4f} "
+              f"ms (device {k['device_ms']:.4f}), one-hot "
+              f"{k['onehot_ms']:.4f}, index_add_ {k['library_ms']:.4f}, "
+              f"bound {k['bound_ms']:.4f} ({k['bound_by']}), err march "
+              f"{k['max_rel_err_march']:.3g} / one row "
+              f"{k['max_rel_err_one_row']:.3g}", flush=True)
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"[f1] phase: {wall:.1f} s", flush=True)
+    out.update(k3=k3_rows, wall_s=wall)
+    emit({"f1": out})
+    if faults:
+        fail("[f1]: " + "; ".join(faults))
+    return out, k3_rows
+
+
+# ------------------------------------- [entry]: the root's entry points
+ENTRY_RANKS = (2, 4)
+
+
+def run_entry_phase(smi=""):
+    """[entry] the port's graft_entry and run_experiments on the card:
+    entry()'s render held against entry(device="cpu") (the same state,
+    rays and offsets) within 1e-5 of the largest output, its K1 launch
+    counted (counters zeroed just before and read just after) and its ms;
+    dryrun_multichip(2) and (4), gloo ranks on cuda:0, with the seconds
+    each took; the scheduler over two slots on two tiny train CLIs
+    (TINY_CLI_ARGS on the blob and solids scenes, both on this card) with
+    their return codes and seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from joint_tensorf_tpu_torch import graft_entry
+    from joint_tensorf_tpu_torch import run_experiments as sched
+    from joint_tensorf_tpu_torch.ops import cuda_build
+
+    faults, out = [], {"card": smi}
+    fn, args = graft_entry.entry()
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    with torch.no_grad():
+        fn(*args)
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        want = fn_c(*args_c)
+        largest = max(float(w.abs().max()) for w in want)
+        err = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got, want))
+        ms = time_ms(lambda: fn(*args))
+    finite = all(torch.isfinite(g).all() for g in got)
+    if err > 1e-5 * largest or not finite or \
+            launches != {"composite_fwd": 1}:
+        faults.append(f"entry(): err {err:.3g} of {largest:.3g}, finite "
+                      f"{finite}, launches {launches}")
+    out["entry"] = {"shapes": [list(g.shape) for g in got],
+                    "max_abs_err_vs_cpu": err, "largest": largest,
+                    "launches": launches, "ms": ms}
+    print(f"[entry] entry(): {out['entry']['shapes']} on the card vs the "
+          f"CPU {err:.3g} (largest output {largest:.3g}), launches "
+          f"{launches}, {ms:.3f} ms ({smi})", flush=True)
+    for n in ENTRY_RANKS:
+        t0 = time.perf_counter()
+        ranks = graft_entry.dryrun_multichip(n)
+        secs = time.perf_counter() - t0
+        out[f"dryrun_{n}"] = {"s": secs, "rank0": ranks[0]}
+        print(f"[entry] dryrun_multichip({n}): {n} gloo ranks on cuda:0, "
+              f"{secs:.1f} s", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sched_")
+    try:
+        class A:
+            yaml = os.path.join(HERE, "configs", "bat_blender_VM.yaml")
+            scenes = ["blobs", "solids"]
+            mode = "train"
+            prefix = "sched_"
+            group = "sched"
+
+        cmds = sched.build_commands(A, [*TINY_CLI_ARGS,
+                                        f"--output_root={tmp}"])
+        t0 = time.perf_counter()
+        results = sched.run_scheduler(cmds, n_slots=2)
+        secs = time.perf_counter() - t0
+        written = {s: os.path.exists(os.path.join(
+            tmp, "sched", f"sched_{s}", "model.ckpt.npz"))
+            for s in A.scenes}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rcs = [rc for _, rc in results]
+    out["scheduler"] = {"slots": 2, "return_codes": rcs, "s": secs,
+                        "checkpoints": written}
+    print(f"[entry] run_experiments: 2 tiny train CLIs over 2 slots on one "
+          f"card, return codes {rcs}, {secs:.1f} s, checkpoints "
+          f"{written}", flush=True)
+    if rcs != [0, 0] or not all(written.values()):
+        faults.append(f"scheduler: {out['scheduler']}")
+    emit({"entry_phase": out})
+    if faults:
+        fail("[entry]: " + "; ".join(faults))
+    return out
+
+
 def main(argv):
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         fail(f"usage: python3 chip_smoke.py [--profile DIR], got {argv}")
@@ -4541,6 +4934,12 @@ def main(argv):
     scatter = check_scatter(n_rays, min(cfg.app_k, S), res[1], res[0], 192,
                             gen, tol=1e-5)
     emit({"kernel_check": scatter})
+    # and the appearance lines' gradient (2 x 48 packed channels) into the
+    # longest line, the most collisions of the path's scatters
+    main_line = check_scatter(n_rays, min(cfg.app_k, S), 0, 0, 2 * 48, gen,
+                              tol=1e-5, line=max(res))
+    main_line["path"] = "main path appearance line"
+    emit({"kernel_check": main_line})
     torch.cuda.empty_cache()
     n_rays, S, res, cfg, (S_blur, res_blur), trained = run_all_phases(
         "tpu_default", (), profile_dir)
@@ -4580,6 +4979,10 @@ def main(argv):
     # helpers at the last phase's shapes, K3 at its new ones
     _, rest_k3_rows = run_rest_phase(trained[0], trained[1], n_rays, cfg,
                                      gen)
+    torch.cuda.empty_cache()
+    # [f1]: the fused sample's chunked backward and the line gradients
+    # through K3, on the same state
+    _, f1_k3_rows = run_f1_phase(trained[0], n_rays, cfg, gen)
     del trained
     torch.cuda.empty_cache()
     emit(check_small_eval())
@@ -4668,6 +5071,10 @@ def main(argv):
     # against it, then [1,2] and [2,2] over [rays,comp]
     run_parallel(smi=smi[0] if smi else "", gen=gen)
     torch.cuda.empty_cache()
+    # [entry]: the port's graft_entry (entry(), the dry runs) and its
+    # experiment scheduler
+    run_entry_phase(smi=smi[0] if smi else "")
+    torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []
     # K1 and K2 as the main path's step calls them: K2 with g_weights when
@@ -4680,11 +5087,15 @@ def main(argv):
         k["launches"] = launches[r["name"]]
         if r["name"] == "scatter_add_rows":
             # K3 at the shapes of the lane grid's and the hybrid lines'
-            # backwards ([rest])
-            keys = ("N", "C", "n_rows", "max_abs_err", "ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms", "onehot_ms")
+            # backwards ([rest]) and at the trainers' line shapes ([f1])
+            keys = ("N", "C", "n_rows", "max_abs_err", "ms", "device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "onehot_ms", "path")
             k["new_shapes"] = [{key: row[key] for key in keys if key in row}
                                for row in rest_k3_rows]
+            main = dict(main_line["shape"], **main_line)
+            k["line_shapes"] = [{key: row[key] for key in keys if key in row}
+                                for row in [main] + f1_k3_rows]
         kernels.append(k)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ starts one ``nvcc`` per source at once and waits for all of them.
 
 Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at the
 launch and nowhere else, so a run can show that its main path went through
-the kernels.  Nothing here runs at import: no compiler, no CUDA context.
+the kernels; K3's wrapper also notes there the shapes it launched at
+(``SCATTER_SHAPES``), so that a run can check K3 at those shapes.
+Nothing here runs at import: no compiler, no CUDA context.
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ HEADERS = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
 LAUNCHES = {name: 0 for name in (
     "composite_fwd", "composite_bwd", "scatter_add_rows",
     "binned_plane_scatter", "scatter_add_rows_tiled")}
+# K3's launches by shape: (C, n_rows) -> the most rows N one launch
+# scattered into n_rows rows of C channels
+SCATTER_SHAPES: dict[tuple[int, int], int] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[str, ctypes._CFuncPtr] = {}   # by C symbol
 
@@ -41,6 +46,7 @@ _FNS: dict[str, ctypes._CFuncPtr] = {}   # by C symbol
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SCATTER_SHAPES.clear()
 
 
 def _nvcc() -> str:

@@ -6,22 +6,24 @@ with its hand-written backward (:219-426).
     sample_plane(plane [H,W,R], u, v [N]) -> [N,R]    one packed gather,
         index_add_ backward (K4's plain version, convolve_positive_only);
         JAX's sample_plane_packed, the same values bit for bit
-    sample_line(line [D,R], w [N]) -> [N,R]    one packed gather, one-hot
-        matmul backward (CP's lines, convolve_positive_only); JAX's
-        sample_line_packed
+    sample_line(line [D,R], w [N]) -> [N,R]    one packed gather, one
+        row-scatter backward (K3 on a CUDA tensor; CP's lines,
+        convolve_positive_only); JAX's sample_line_packed
     sample_plane_hybrid(plane, u, v) / sample_line_hybrid(line, w)
         the 4-corner or 2-point gather forward; the backward ONE row
         scatter of [N, 4R] or [N, 2R] (K3 on a CUDA tensor), folded
     sample_grid3d(grid [X,Y,Z], (x, y, z) [N]) -> [N]    trilinear (alpha mask)
     sample_planeline_prod(plane [H,W,R], line [D,R], u, v, w [N]) -> p(u,v) * l(w)  [N,R]
+        its backward in chunks of at most _PROD_BWD_CHUNK samples, as
+        JAX's _prod_bwd: per chunk one [ck, 4R] plane and one [ck, 2R]
+        line row scatter (K3 on a CUDA tensor), folded once at the end
 
 Bilinear plane / linear line sampling with align_corners semantics,
 channels-last, clamped to the border as jnp.clip clamps (_pix), so a
 coordinate exactly on the border gets half the gradient there.  The
 backwards return those of their gradients that autograd asks for
-(ctx.needs_input_grad): the factor gradients (one corner-packed row
-scatter per plane, folded densely; a one-hot matmul for the short line in
-the fused sample, K3 in the hybrid line) and the coordinate gradients,
+(ctx.needs_input_grad): the factor gradients (corner-packed row scatters
+into the plane and the line, folded densely) and the coordinate gradients,
 which are the path pose gradients take: the fused sample's with the
 border masks of its reference VJP, the hybrids' and the binned sample's
 those of autograd through the plain gather with the factor held constant,
@@ -96,11 +98,12 @@ def _index_add_rows(idx, updates, n_rows: int):
 def sample_line(line, w):
     """line [D, R]; w [N] normalized coord along the line axis -> [N, R]:
     one packed row gather (the JAX package's sample_line_packed, the
-    same values as sampling both neighbours), its backward the one-hot
-    matmul of a short destination, autograd through the fraction."""
+    same values as sampling both neighbours), its backward one [N, 2R] row
+    scatter (K3 on a CUDA tensor; jnp.take's VJP is a scatter too),
+    autograd through the fraction."""
     D, R = line.shape
     i0, fx = _floor_frac(_pix(w, D), D)
-    rows = _GatherRows.apply(pack_line(line), i0, _scatter_rows_matmul)
+    rows = _GatherRows.apply(pack_line(line), i0, scatter_add_rows)
     return rows[:, :R] * (1.0 - fx)[:, None] + rows[:, R:] * fx[:, None]
 
 
@@ -274,18 +277,59 @@ def _line_fold(d_packed, D: int, R: int):
     return d_line
 
 
-def _scatter_rows_matmul(idx, updates, n_rows: int):
-    """zeros([n_rows, C]).at[idx].add(updates) for a short destination (the
-    line factors) as onehot(idx)^T @ updates; f32 one-hots keep every
-    product exact, only the summation order differs from a scatter."""
-    onehot = (torch.arange(n_rows, device=idx.device)[None, :]
-              == idx[:, None]).to(updates.dtype)
-    return onehot.T @ updates
-
-
 def _bilinear_weights(fx, fy):
     return (((1 - fy) * (1 - fx))[:, None], ((1 - fy) * fx)[:, None],
             (fy * (1 - fx))[:, None], (fy * fx)[:, None])
+
+
+# The backward's transients ([chunk, 4R] plane rows, [chunk, 2R] line rows
+# and their updates) are bounded by chunks of at most this many samples,
+# as JAX's _prod_bwd bounds them (joint_tensorf_tpu/ops/sampling.py:249-256);
+# the factor gradients accumulate over the chunks.
+_PROD_BWD_CHUNK = 1 << 20
+
+
+def _prod_chunk_grads(packed_plane, packed_line, shape, u, v, w, g, need):
+    """JAX's chunk_grads on one chunk of samples, only what ``need``
+    (plane, line, u, v, w) asks for: (plane row index [ck], plane updates
+    [ck, 4R], line row index [ck], line updates [ck, 2R], d_u, d_v, d_w
+    [ck]), None where not asked."""
+    H, W, D, R = shape
+    need_p, need_l, need_u, need_v, need_w = need
+    x_raw = (u + 1.0) * 0.5 * (W - 1)
+    y_raw = (v + 1.0) * 0.5 * (H - 1)
+    z_raw = (w + 1.0) * 0.5 * (D - 1)
+    x0, fx = _floor_frac(torch.clamp(x_raw, 0.0, W - 1.0), W)
+    y0, fy = _floor_frac(torch.clamp(y_raw, 0.0, H - 1.0), H)
+    i0, fz = _floor_frac(torch.clamp(z_raw, 0.0, D - 1.0), D)
+    idx = y0 * W + x0
+    rows = packed_plane[idx]                                  # [ck, 4R]
+    f00, f01, f10, f11 = (rows[:, :R], rows[:, R:2 * R],
+                          rows[:, 2 * R:3 * R], rows[:, 3 * R:])
+    lrows = packed_line[i0]                                   # [ck, 2R]
+    l0, l1 = lrows[:, :R], lrows[:, R:]
+    w00, w01, w10, w11 = _bilinear_weights(fx, fy)
+    l = l0 * (1.0 - fz)[:, None] + l1 * fz[:, None]
+    gl = g * l
+    g4 = g2 = d_u = d_v = d_w = gp = None
+    if need_p:
+        g4 = torch.cat([gl * w00, gl * w01, gl * w10, gl * w11], -1)
+    if need_l or need_w:
+        gp = g * (f00 * w00 + f01 * w01 + f10 * w10 + f11 * w11)
+    if need_l:
+        g2 = torch.cat([gp * (1.0 - fz)[:, None], gp * fz[:, None]], -1)
+    if need_u:
+        dp_dx = (f01 - f00) * (1 - fy)[:, None] + (f11 - f10) * fy[:, None]
+        mx = ((x_raw > 0) & (x_raw < W - 1)).to(g.dtype)
+        d_u = torch.sum(gl * dp_dx, -1) * (0.5 * (W - 1)) * mx
+    if need_v:
+        dp_dy = (f10 - f00) * (1 - fx)[:, None] + (f11 - f01) * fx[:, None]
+        my = ((y_raw > 0) & (y_raw < H - 1)).to(g.dtype)
+        d_v = torch.sum(gl * dp_dy, -1) * (0.5 * (H - 1)) * my
+    if need_w:
+        mz = ((z_raw > 0) & (z_raw < D - 1)).to(g.dtype)
+        d_w = torch.sum(gp * (l1 - l0), -1) * (0.5 * (D - 1)) * mz
+    return idx, g4, i0, g2, d_u, d_v, d_w
 
 
 class SamplePlaneLineProd(torch.autograd.Function):
@@ -308,50 +352,44 @@ class SamplePlaneLineProd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        """Only the cotangents autograd asks for: with the factors frozen
-        (test-time pose optimisation) neither the plane scatter (K3) nor
-        the line matmul runs, as JAX's value_and_grad w.r.t. the pose
-        alone drops them."""
+        """JAX's _prod_bwd: the N samples in chunks of at most
+        _PROD_BWD_CHUNK (slices, so views: no padding), per chunk the
+        plane's [ck, 4R] and the line's [ck, 2R] row scatters
+        (scatter_add_rows: K3 on a CUDA tensor) summed into one packed
+        gradient each, folded once.  Only the cotangents autograd asks
+        for: with the factors frozen (test-time pose optimisation) no
+        scatter runs, as JAX's value_and_grad w.r.t. the pose alone drops
+        them."""
         plane, line, u, v, w = ctx.saved_tensors
-        need_p, need_l, need_u, need_v, need_w = ctx.needs_input_grad
+        need = ctx.needs_input_grad
+        need_p, need_l, need_u, need_v, need_w = need
         H, W, R = plane.shape
         D = line.shape[0]
+        N = u.shape[0]
         g = g.contiguous()
-        x_raw = (u + 1.0) * 0.5 * (W - 1)
-        y_raw = (v + 1.0) * 0.5 * (H - 1)
-        z_raw = (w + 1.0) * 0.5 * (D - 1)
-        x0, fx = _floor_frac(torch.clamp(x_raw, 0.0, W - 1.0), W)
-        y0, fy = _floor_frac(torch.clamp(y_raw, 0.0, H - 1.0), H)
-        i0, fz = _floor_frac(torch.clamp(z_raw, 0.0, D - 1.0), D)
-        idx = y0 * W + x0
-        rows = pack_plane(plane).reshape(H * W, 4 * R)[idx]       # [N, 4R]
-        f00, f01, f10, f11 = (rows[:, :R], rows[:, R:2 * R],
-                              rows[:, 2 * R:3 * R], rows[:, 3 * R:])
-        lrows = pack_line(line)[i0]                               # [N, 2R]
-        l0, l1 = lrows[:, :R], lrows[:, R:]
-        w00, w01, w10, w11 = _bilinear_weights(fx, fy)
-        l = l0 * (1.0 - fz)[:, None] + l1 * fz[:, None]
-        gl = g * l
-        d_plane = d_line = d_u = d_v = d_w = None
-        if need_p:
-            g4 = torch.cat([gl * w00, gl * w01, gl * w10, gl * w11], -1)
-            d_plane = _plane_fold(scatter_add_rows(idx, g4, H * W), H, W, R)
-        if need_l or need_w:
-            gp = g * (f00 * w00 + f01 * w01 + f10 * w10 + f11 * w11)
-        if need_l:
-            g2 = torch.cat([gp * (1.0 - fz)[:, None], gp * fz[:, None]], -1)
-            d_line = _line_fold(_scatter_rows_matmul(i0, g2, D), D, R)
-        if need_u:
-            dp_dx = (f01 - f00) * (1 - fy)[:, None] + (f11 - f10) * fy[:, None]
-            mx = ((x_raw > 0) & (x_raw < W - 1)).to(g.dtype)
-            d_u = torch.sum(gl * dp_dx, -1) * (0.5 * (W - 1)) * mx
-        if need_v:
-            dp_dy = (f10 - f00) * (1 - fx)[:, None] + (f11 - f01) * fx[:, None]
-            my = ((y_raw > 0) & (y_raw < H - 1)).to(g.dtype)
-            d_v = torch.sum(gl * dp_dy, -1) * (0.5 * (H - 1)) * my
-        if need_w:
-            mz = ((z_raw > 0) & (z_raw < D - 1)).to(g.dtype)
-            d_w = torch.sum(gp * (l1 - l0), -1) * (0.5 * (D - 1)) * mz
+        packed_plane = pack_plane(plane).reshape(H * W, 4 * R)
+        packed_line = pack_line(line)
+        d_pk = d_lk = None
+        d_u = torch.empty_like(u) if need_u else None
+        d_v = torch.empty_like(v) if need_v else None
+        d_w = torch.empty_like(w) if need_w else None
+        ck = max(1, min(_PROD_BWD_CHUNK, N))
+        for s in range(0, N, ck):
+            e = min(s + ck, N)
+            idx, g4, i0, g2, du, dv, dw = _prod_chunk_grads(
+                packed_plane, packed_line, (H, W, D, R), u[s:e], v[s:e],
+                w[s:e], g[s:e], need)
+            if need_p:
+                part = scatter_add_rows(idx, g4, H * W)
+                d_pk = part if d_pk is None else d_pk.add_(part)
+            if need_l:
+                part = scatter_add_rows(i0, g2, D)
+                d_lk = part if d_lk is None else d_lk.add_(part)
+            for full, part in ((d_u, du), (d_v, dv), (d_w, dw)):
+                if full is not None:
+                    full[s:e] = part
+        d_plane = None if d_pk is None else _plane_fold(d_pk, H, W, R)
+        d_line = None if d_lk is None else _line_fold(d_lk, D, R)
         return d_plane, d_line, d_u, d_v, d_w
 
 

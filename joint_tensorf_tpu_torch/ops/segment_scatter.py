@@ -8,9 +8,10 @@ scatter per plane (ops/sampling.py), and the dense grid's gradient another
 (ops/densify.py).  On a CUDA tensor the wrapper launches the hand-written
 kernel (csrc/segment_scatter.cu, whose C entry point picks its route from
 C: one row a thread up to 16 channels, groups of C/4 threads beyond; one
-counted launch either way); on a CPU tensor it takes the plain version,
-``index_add_``.  There is no other path.  Indices outside [0, n_rows) are
-dropped by the kernel; ``index_add_`` refuses them.
+counted launch either way, its shape noted in cuda_build.SCATTER_SHAPES);
+on a CPU tensor it takes the plain version, ``index_add_``.  There is no
+other path.  Indices outside [0, n_rows) are dropped by the kernel;
+``index_add_`` refuses them.
 """
 from __future__ import annotations
 
@@ -65,6 +66,8 @@ def scatter_add_rows_cuda(idx, updates, n_rows: int):
         with torch.cuda.device(dev):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     cuda_build.LAUNCHES["scatter_add_rows"] += 1
+    shape = cuda_build.SCATTER_SHAPES
+    shape[C, n_rows] = max(N, shape.get((C, n_rows), 0))
     cuda_build.check(err, "scatter_add_rows")
     return out
 

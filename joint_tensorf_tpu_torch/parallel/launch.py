@@ -24,8 +24,10 @@ each, what the caller compares:
   pre-drawn jitter, if given), or for one step from each snapshot of
   another run, held against that run's loss and gradients of the step ->
   per iteration the metrics, the step's configuration, the collectives
-  and their bytes, the kernel launches and on a card the peak memory
-  (and the budgets after the schedule update), and
+  and their bytes, the kernel launches, K3's shapes (``scatter_shapes``:
+  [C, n_rows, most rows N] of each, from cuda_build.SCATTER_SHAPES,
+  which is cleared before the step) and on a card the peak memory (and
+  the budgets after the schedule update), and
   the state, budgets and replica checksums (by the group that holds
   them equal) at the end; optionally a checkpoint restored before the
   first step (``restore``), the first view rendered by render_views at
@@ -52,7 +54,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from .mesh import initialize_distributed
+from .mesh import initialize_distributed, resolve_device
 
 
 def _child(rank, fn, nprocs, tmp, backend, device, payload, timeout_s):
@@ -68,11 +70,13 @@ def _child(rank, fn, nprocs, tmp, backend, device, payload, timeout_s):
         dist.destroy_process_group()
 
 
-def spawn(fn, nprocs: int, payload, backend: str = "gloo", device="cpu",
+def spawn(fn, nprocs: int, payload, backend: str = "gloo", device=None,
           timeout_s: float = 600.0) -> list:
     """Run ``fn(payload, device)`` on ``nprocs`` ranks (see the module
-    docstring); ``device`` is every rank's (e.g. "cpu", or "cuda:0" for
-    several gloo ranks on one card)."""
+    docstring); ``device`` is every rank's: the card when None (without
+    one this raises, before any rank starts), "cpu", or e.g. "cuda:0"
+    for several gloo ranks on one card."""
+    device = resolve_device(device)
     with tempfile.TemporaryDirectory(prefix="jtf_spawn_") as tmp:
         ctx = mp.start_processes(
             _child, args=(fn, nprocs, tmp, backend, str(device), payload,
@@ -271,6 +275,7 @@ def _trainer_job(job, device):
         before = dict(tr.mesh.counts)
         before_bytes = dict(tr.mesh.nbytes)
         launches = dict(cuda_build.LAUNCHES)
+        cuda_build.SCATTER_SHAPES.clear()
         captured.clear()
         if device != "cpu":
             torch.cuda.synchronize(device)
@@ -283,6 +288,9 @@ def _trainer_job(job, device):
                "metrics": {k: float(v) for k, v in m.items()},
                "launches": {k: v - launches[k]
                             for k, v in cuda_build.LAUNCHES.items()},
+               "scatter_shapes": sorted(
+                   [C, n_rows, N] for (C, n_rows), N in
+                   cuda_build.SCATTER_SHAPES.items()),
                "config": dict(vars(tr.last_step_config)),
                "counts": _counts(tr.mesh.counts, before),
                "bytes": _counts(tr.mesh.nbytes, before_bytes)}

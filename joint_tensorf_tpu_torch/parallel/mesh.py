@@ -21,7 +21,10 @@ in the same order, as torch.distributed.new_group requires).  A
 collective over an axis of one rank in a larger world is skipped.
 
 The process group is torch.distributed's: NCCL for CUDA tensors, gloo for
-CPU ones.  A caller may name gloo for CUDA tensors too; that is how several
+CPU ones.  The entry points (initialize_distributed, make_mesh and
+parallel/launch.spawn) run on the card unless the caller names another
+device (``device="cpu"``): without a card they raise, they do not carry on
+on the host.  A caller may name gloo for CUDA tensors too; that is how several
 ranks share one card (each rank's device is then given explicitly, e.g.
 ``cuda:0``).  NCCL never falls back to gloo: asking for it with more ranks
 on a host than it has cards raises.
@@ -103,6 +106,17 @@ class Mesh:
         return self.rank == 0
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or ``cuda`` when None; a CUDA device on a host without
+    a card raises RuntimeError (no fallback to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev}: this host has no CUDA card; pass device='cpu' "
+            f"to run on the host")
+    return dev
+
+
 def _init_method(coordinator: str) -> str:
     """JAX's coordinator is host:port; torch wants a URL."""
     return coordinator if "://" in coordinator else f"tcp://{coordinator}"
@@ -111,19 +125,21 @@ def _init_method(coordinator: str) -> str:
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
-                           backend: Optional[str] = None, device="cpu",
+                           backend: Optional[str] = None, device=None,
                            timeout_s: float = 600.0) -> bool:
     """Start this process's process group; True when one is running after
     the call.  The coordinator (``host:port``, ``tcp://...`` or
     ``file://...``), the process count and this process's rank are JAX's
     arguments; without them torchrun's environment (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR, MASTER_PORT) is read, and without that
-    nothing is started (a single process, as JAX's no-op).  ``backend``
-    defaults to the device's: NCCL for CUDA, gloo for the CPU.  NCCL with
-    more ranks on this host than cards raises."""
+    nothing is started (a single process, as JAX's no-op).  ``device``
+    defaults to the card (resolve_device: without one this raises);
+    ``backend`` to the device's: NCCL for CUDA, gloo for the CPU.  NCCL
+    with more ranks on this host than cards raises."""
     if dist.is_initialized():
         return True
     env = os.environ
+    local_ranks = None
     if num_processes is None and "WORLD_SIZE" in env:
         num_processes, process_id = int(env["WORLD_SIZE"]), int(env["RANK"])
         init_method = "env://"
@@ -134,11 +150,11 @@ def initialize_distributed(coordinator: Optional[str] = None,
                              "the coordinator and this process's rank")
         init_method = _init_method(coordinator)
         local_ranks = num_processes
-    else:
-        return False
-    backend = backend or ("nccl" if torch.device(device).type == "cuda"
-                          else "gloo")
-    if backend == "nccl":
+    kind = torch.device("cuda" if device is None else device).type
+    backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    # NCCL's card count before the device, so that a host short of cards
+    # is told how to launch
+    if local_ranks is not None and backend == "nccl":
         n_cards = torch.cuda.device_count()
         if local_ranks > n_cards:
             raise RuntimeError(
@@ -146,6 +162,10 @@ def initialize_distributed(coordinator: Optional[str] = None,
                 f"host, {n_cards} card(s).  Launch at most {n_cards} ranks "
                 f"a host, or name backend gloo (and the device of each "
                 f"rank) to share a card")
+    device = resolve_device(device)
+    if local_ranks is None:
+        return False
+    if backend == "nccl":
         torch.cuda.set_device(rank_device(device))
     dist.init_process_group(backend, init_method=init_method,
                             world_size=num_processes, rank=process_id,
@@ -163,13 +183,15 @@ def rank_device(device) -> torch.device:
     return dev
 
 
-def make_mesh(shape, axes=("rays",), device="cpu") -> Mesh:
-    """The mesh of this rank over the running process group.  Raises
+def make_mesh(shape, axes=("rays",), device=None) -> Mesh:
+    """The mesh of this rank over the running process group, on ``device``
+    (the card when None; resolve_device: without one this raises).  Raises
     ValueError, as JAX's make_mesh does, when the world has fewer ranks
     than the shape needs (and when it has more: a rank outside the mesh
     would have no share of the rays), saying how to launch them.  A shape of one rank
     without a process group starts one (a file store in a fresh temporary
     directory), so the one-rank mesh runs the collectives too."""
+    device = resolve_device(device)
     axes = tuple(axes)
     world = dist.get_world_size() if dist.is_initialized() else 1
     shape = tuple(int(s) for s in shape)

@@ -12,6 +12,13 @@ that has a same-named counterpart (a stale entry).  DIFFERS lists the
 same-named pairs that compute another function, with the port's name for
 JAX's: ``ops/composite.py:composite`` is K1's wrapper from alpha in the
 port, where JAX's composites given weights.
+
+The repository's root entry points outside the package have theirs too
+(ROOT_MODULES): every module-level function or class of
+``__graft_entry__.py`` and ``scripts/run_experiments.py``, private names
+included, is defined in the port module that stands for it.  WAITING
+lists the root modules not ported yet, with the work that ports them;
+each still exists and still lacks its port module.
 """
 import ast
 import functools
@@ -60,6 +67,13 @@ RENAMED = {
 }
 
 DIFFERS = {"ops/composite.py:composite": "ops/composite.py:composite_weights"}
+
+# root module -> the port module that stands for it
+ROOT_MODULES = {"__graft_entry__.py": "graft_entry.py",
+                "scripts/run_experiments.py": "run_experiments.py"}
+# root module -> (the port module it will get, the work that ports it)
+WAITING = {"bench.py": ("bench.py", "the port's benchmark, which writes "
+                                    "BENCHMARK.json")}
 
 
 @functools.cache
@@ -132,3 +146,21 @@ def test_no_stale_entry():
     assert not renamed_but_present, (
         f"entries with a same-named counterpart: {renamed_but_present}")
     assert all(_same_named(k) for k in DIFFERS)
+
+
+def test_root_entry_points_have_their_counterparts():
+    for root, port in ROOT_MODULES.items():
+        names = [n.name for n in _module(ROOT / root)
+                 if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+        assert names, root
+        missing = [n for n in names if n not in _defined(PORT / port)]
+        assert not missing, f"{root}: no counterpart in {port}: {missing}"
+    assert {"_tiny_setup", "entry", "dryrun_multichip"} <= set(
+        _defined(PORT / "graft_entry.py"))
+
+
+def test_waiting_root_modules_are_still_unported():
+    for root, (port, _) in WAITING.items():
+        assert (ROOT / root).exists(), f"{root} is gone: drop its entry"
+        assert not (PORT / port).exists(), (
+            f"{port} exists: move {root} to ROOT_MODULES")

@@ -22,7 +22,9 @@ their tolerances).
   iteration equal to the JAX trainer's;
 * one CPU step's row-scatter calls (K3 on the card) for each variant, the
   density head, CP (plain and component-wise) and SH, with and without
-  the dense grid, app_k and the blur, equal chip_smoke.expected_launches;
+  the dense grid, app_k and the blur, equal chip_smoke.expected_launches,
+  and so do a step's whose fused samples run in chunks (_PROD_BWD_CHUNK
+  lowered to 200);
 * check_ported accepts every value it refused before and a mesh of the
   rays or the comp layout, refuses a component count that does not
   divide by the comp axis (ValueError) and an axis of another name;
@@ -70,6 +72,7 @@ from joint_tensorf_tpu_torch.convert import (field_from_numpy,
 from joint_tensorf_tpu_torch.data import synthetic
 from joint_tensorf_tpu_torch.models import alpha_mask as am
 from joint_tensorf_tpu_torch.models import vm
+from joint_tensorf_tpu_torch.ops import sampling
 from joint_tensorf_tpu_torch.render import renderer
 from joint_tensorf_tpu_torch.render.renderer import BlurSpec
 from joint_tensorf_tpu_torch.train.step import (StepConfig, StepScalars,
@@ -450,33 +453,81 @@ def test_step_scatter_calls_match_expected_launches(monkeypatch, name,
 
 
 def test_expected_launches_table():
-    """K3 a step by field and path in chip_smoke.expected_launches: the
-    dense grid + 3 appearance planes
-    (4) wherever the grid may run; without it 6 with app_k, 3 fused
-    (convolve_plane_only, ignore_negative_split) or 6 (the activation
-    flags); convolve_positive_only under the blur 3; CP 1 with the grid,
-    0 without; the density head 3."""
+    """K3 a step by field and path in chip_smoke.expected_launches, each
+    fused factor sample a plane and a line scatter a chunk: the dense
+    grid + 3 appearance samples (7) wherever the grid may run; without it
+    12 with app_k, 6 fused (convolve_plane_only, ignore_negative_split)
+    or 12 (the activation flags); convolve_positive_only under the blur 3
+    density lines + 6 (9); CP the grid + 3 appearance lines (4), 6 lines
+    without the grid; the density head 6.  Past _PROD_BWD_CHUNK samples
+    (2**20) a fused sample scatters per chunk: BAT's 2028 x 1000 fused
+    (2 chunks a sample), app_k 128 on the dense grid (1), LLFF's 4420 x
+    1000 on the dense appearance (5), pod16's 4096 x 512 kept samples on
+    one rank (2) and on each of two (exactly one chunk)."""
     blur = BlurSpec("uniform-gaussian", 8)
 
-    def k3(field_kw, **step_kw):
+    def k3(field_kw, rays=1, **step_kw):
         _, pcfg = _cfgs(**field_kw)
-        scfg = StepConfig(H=8, W=8, n_views=1, rays_per_view=8,
-                          n_samples=16, blur=blur, **step_kw)
-        return chip_smoke.expected_launches(scfg, pcfg)["scatter_add_rows"]
+        step_kw = {"n_views": 1, "rays_per_view": 8, "n_samples": 16,
+                   "blur": blur, **step_kw}
+        scfg = StepConfig(H=8, W=8, **step_kw)
+        return chip_smoke.expected_launches(scfg, pcfg, rays)[
+            "scatter_add_rows"]
 
     for name, kw in VARIANTS.items():
         positive = kw.get("convolve_positive_only", False)
         fusable = vm.can_fuse_features(_cfgs(**kw)[1])
         assert k3(kw, densify_density=True, app_k=64) == (
-            3 if positive else 4), name
-        assert k3(kw, app_k=64) == (3 if positive else 6), name
-        assert k3(kw) == (3 if positive or fusable else 6), name
-    assert k3(dict(convolve_plane_only=True)) == 3
-    assert k3(dict(ignore_negative_split=True)) == 3
-    assert k3(dict(decomposition="CP"), densify_density=True, app_k=64) == 1
-    assert k3(dict(decomposition="CP"), app_k=64) == 0
+            9 if positive else 7), name
+        assert k3(kw, app_k=64) == (9 if positive else 12), name
+        assert k3(kw) == (9 if positive else 6 if fusable else 12), name
+    assert k3(dict(convolve_plane_only=True)) == 6
+    assert k3(dict(ignore_negative_split=True)) == 6
+    assert k3(dict(decomposition="CP"), densify_density=True, app_k=64) == 4
+    assert k3(dict(decomposition="CP"), app_k=64) == 6
     assert k3(dict(shading_mode="MLP_Fea_WeakView_Density"),
-              densify_density=True, app_k=64, mlp_predict_density=True) == 3
+              densify_density=True, app_k=64, mlp_predict_density=True) == 6
+    bat = dict(n_views=12, rays_per_view=169, n_samples=1000, blur=None)
+    assert k3({}, **bat) == 12
+    assert k3({}, densify_density=True, app_k=128, **bat) == 7
+    assert k3({}, compact_k=512, app_k=128, **bat) == 12
+    assert k3({}, compact_k=640, app_k=128, **bat) == 18
+    assert k3({}, n_views=20, rays_per_view=221, n_samples=1000,
+              densify_density=True) == 31
+    pod16 = dict(n_views=16, rays_per_view=256, n_samples=1000,
+                 compact_k=512, app_k=128, blur=None)
+    assert k3({}, **pod16) == 18
+    assert k3({}, rays=2, **pod16) == 12
+    assert k3(dict(decomposition="CP"), **bat) == 6
+
+
+@pytest.mark.parametrize("densify_density,app_k", [(True, 4), (False, 4),
+                                                   (False, None)])
+def test_chunked_step_scatter_calls_match_expected_launches(
+        monkeypatch, densify_density, app_k):
+    """With _PROD_BWD_CHUNK at 200 samples a CPU step's 2 x 16 x 48 = 1536
+    samples run 8 chunks in each fused backward, app_k's 128 one: the
+    row-scatter calls still equal expected_launches, which reads the
+    constant."""
+    monkeypatch.setattr(sampling, "_PROD_BWD_CHUNK", 200)
+    _, pcfg = _cfgs()
+    field = vm.init_vm(pcfg, (12, 12, 12), [-1.5] * 3 + [1.5] * 3,
+                       torch.Generator().manual_seed(0))
+    scene = synthetic.make_scene(n_views=2, H=12, W=12, device="cpu")
+    scfg = StepConfig(H=12, W=12, n_views=2, rays_per_view=16, n_samples=48,
+                      densify_density=densify_density, app_k=app_k)
+    count = _Counter(monkeypatch)
+    images = torch.as_tensor(scene.images).reshape(2, 3, -1).transpose(1, 2)
+    metrics, _ = train_step(
+        init_train_state(field, 2), scfg, pcfg, torch.as_tensor(scene.poses),
+        torch.as_tensor(scene.intr_inv), images.contiguous(),
+        torch.zeros((2, 144)), torch.arange(2), torch.arange(16),
+        StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3),
+        generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(float(metrics["loss"]))
+    want = chip_smoke.expected_launches(scfg, pcfg)["scatter_add_rows"]
+    assert count.n == want == (7 if densify_density else
+                               6 + 6 * 8 if app_k else 6 * 8)
 
 
 EVAL_ZOO = {

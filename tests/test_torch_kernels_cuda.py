@@ -17,8 +17,9 @@ binned plane scatter K4 and the block-local row scatter K5 at 1e-5 of the
 output's largest magnitude (atomics sum in an order that varies from run
 to run), and exactly where every partial sum is exact (integer updates);
 the lane grid's samples card against CPU (through K3) at rtol / atol
-1e-5, the hybrids' at rtol 1e-5 and 1e-5 of each output's largest
-magnitude (the coordinates' gradients scale with the grid's size).
+1e-5, the hybrids', the chunked fused sample's and sample_line's at rtol
+1e-5 and 1e-5 of each output's largest magnitude (the coordinates'
+gradients scale with the grid's size).
 """
 import pytest
 import torch
@@ -301,6 +302,25 @@ def test_scatter_kernel_at_the_rest_shapes(case, n, rows, c):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_scatter_shapes_are_noted_at_the_launch():
+    """K3's wrapper notes each (C, n_rows) it launched at with the most
+    rows N of one launch there (cuda_build.SCATTER_SHAPES), beside its
+    count; reset_launches clears both."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import cuda_build
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cuda_build.reset_launches()
+    for n, rows, c in ((5000, 420, 96), (7000, 420, 96), (300, 9, 8)):
+        idx, upd = _scatter_case("sorted", n, rows, c, gen)
+        segment_scatter.scatter_add_rows(idx, upd, rows)
+    assert cuda_build.LAUNCHES["scatter_add_rows"] == 3
+    assert cuda_build.SCATTER_SHAPES == {(96, 420): 7000, (8, 9): 300}
+    cuda_build.reset_launches()
+    assert cuda_build.SCATTER_SHAPES == {}
+
+
 def _card_and_cpu(fn, inputs, cot):
     """fn's value and its gradients w.r.t. every input on the CPU and on
     the card, and the K3 launches of the card's call."""
@@ -365,6 +385,35 @@ def test_hybrid_samples_take_k3(kind):
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1 << 20, 1000])
+def test_chunked_factor_sample_takes_k3(monkeypatch, chunk):
+    """The fused factor sample's backward in chunks of _PROD_BWD_CHUNK
+    samples (one chunk, and 8 of at most 1000) goes through K3 twice a
+    chunk (the plane's 4R and the line's 2R channels) and equals the
+    CPU's index_add_ route; sample_line's through K3 once (1e-5 of each
+    output's largest magnitude)."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    monkeypatch.setattr(sampling, "_PROD_BWD_CHUNK", chunk)
+    gen = torch.Generator().manual_seed(6)
+    n = 7500
+    plane = torch.randn((33, 17, 16), generator=gen)
+    line = torch.randn((420, 16), generator=gen)
+    coords = [torch.rand((n,), generator=gen) * 2.2 - 1.1 for _ in range(3)]
+    cot = torch.randn((n, 16), generator=gen)
+    for fn, inputs, want in (
+            (sampling.sample_planeline_prod, [plane, line] + coords,
+             2 * -(-n // chunk)),
+            (sampling.sample_line, [line, coords[2]], 1)):
+        out = _card_and_cpu(fn, inputs, cot)
+        assert out["launches"] == want
+        for a, b in zip(out["cuda"], out["cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.cuda

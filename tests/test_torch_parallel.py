@@ -28,7 +28,10 @@ to each other bit for bit.
 * check_ported taking a comp axis and refusing a component count that
   does not divide by it, make_mesh refusing too few ranks,
   NCCL refusing more ranks than cards, the train CLI refusing a mesh
-  config without a launcher.
+  config without a launcher;
+* initialize_distributed, make_mesh and spawn default to the card: called
+  without a device on a host without one, each raises (no fallback to
+  the host).
 """
 import dataclasses
 import os
@@ -320,10 +323,11 @@ def runs(tmp_path_factory):
                                   f"{thresh}", "--tpu.mesh_shape=[4]"])
     out2 = spawn(run_jobs, 2, {"mesh_shape": [2],
                                "jobs": jobs + [l2g_job, trainer_job]},
-                 timeout_s=400)
+                 device="cpu", timeout_s=400)
     out4 = spawn(run_jobs, 4, {"mesh_shape": [4],
                                "jobs": [jobs[0], jobs[1], jobs[3], l2g_job,
-                                        gate_job]}, timeout_s=400)
+                                        gate_job]},
+                 device="cpu", timeout_s=400)
     names2 = [j["name"] for j in jobs] + ["l2g", "trainer"]
     names4 = ["blur_edge", "tv_depth", "tensorf", "l2g", "gate"]
     return (refs, {2: {n: [r[i] for r in out2] for i, n in
@@ -484,6 +488,8 @@ def test_sharded_trainer_matches_jax_and_one_rank(runs):
             c = r["history"][i]["counts"]
             assert c["grads"] == 1 and c.get("nan_counts", 0) <= 1, (i, c)
             assert set(c) <= {"grads", "nan_counts", "gather", "broadcast"}
+            # the CPU's index_add_ route launches no K3
+            assert r["history"][i]["scatter_shapes"] == [], i
     # the upsample, the mask build with its shrink, compaction with and
     # without the blur, the dense grid under the blur
     assert hist[-1]["resolution"] != hist[0]["resolution"]
@@ -553,7 +559,7 @@ def test_make_mesh_needs_the_ranks():
     assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match=r"needs 2 ranks but 1 is running"
                        r".*torch\.distributed\.run --nproc_per_node=2"):
-        mesh_lib.make_mesh((2,), ("rays",))
+        mesh_lib.make_mesh((2,), ("rays",), device="cpu")
 
 
 def test_nccl_refuses_more_ranks_than_cards(tmp_path):
@@ -572,3 +578,35 @@ def test_train_cli_refuses_a_mesh_without_a_launcher(tmp_path):
               "--device=cpu", "--data.dataset=synthetic",
               "--data.image_size=[16,16]", "--data.n_views=4",
               f"--output_root={tmp_path}"])
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs on it")
+
+
+def test_initialize_distributed_defaults_to_the_card(tmp_path,
+                                                     monkeypatch):
+    _no_card()
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="card"):
+        mesh_lib.initialize_distributed(f"file://{tmp_path}/store", 1, 0)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mesh_lib.initialize_distributed()
+    assert not torch.distributed.is_initialized()
+    assert mesh_lib.initialize_distributed(device="cpu") is False
+
+
+def test_make_mesh_defaults_to_the_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA card.*device='cpu'"):
+        mesh_lib.make_mesh((1,), ("rays",))
+    assert not torch.distributed.is_initialized()
+
+
+def test_spawn_defaults_to_the_card():
+    _no_card()
+    from joint_tensorf_tpu_torch.parallel import launch
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch.spawn(run_jobs, 2, {"jobs": []}, timeout_s=30)

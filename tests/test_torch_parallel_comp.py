@@ -359,14 +359,16 @@ def runs(tmp_path_factory):
                        args=TRAIN + MESH22, steps=0, restore=jax_ckpt)
     axes = ["rays", "comp"]
     out12 = spawn(run_jobs, 2, {"mesh_shape": [1, 2], "mesh_axes": axes,
-                                "jobs": jobs + [l2g_job]}, timeout_s=400)
+                                "jobs": jobs + [l2g_job]},
+                  device="cpu", timeout_s=400)
     out22 = spawn(run_jobs, 4, {"mesh_shape": [2, 2], "mesh_axes": axes,
                                 "jobs": jobs + [l2g_job, trainer_job,
                                                 restore_job]},
-                  timeout_s=500)
+                  device="cpu", timeout_s=500)
     swapped = spawn(run_jobs, 4, {"mesh_shape": [2, 2],
                                   "mesh_axes": ["comp", "rays"],
-                                  "jobs": jobs[:1]}, timeout_s=300)
+                                  "jobs": jobs[:1]},
+                    device="cpu", timeout_s=300)
     names = [j["name"] for j in jobs] + ["l2g"]
 
     def by_name(out, names):

@@ -16,8 +16,9 @@ voxels (S 138 -> 221), 64 rays, small ranks:
   gradient is zero; no pose noise is drawn, the blur and the pose lr are
   off, and the training poses are GT;
 * stop_coord_grad: the coordinates are detached, the factor gradients are
-  the same bit for bit, the plane and line gradients are still scattered,
-  and the rays get no gradient;
+  the same bit for bit, the plane and line gradients are still scattered
+  (a plane and a line row scatter a fused sample: 6 calls fused, 12 with
+  app_k), and the rays get no gradient;
 * validate without alignment equals JAX's PSNR (1e-4);
 * a checkpoint written by either package restores into both (leaves
   bit for bit, mask bits, renders within 5e-5 of max|rgb|);
@@ -214,7 +215,7 @@ def test_stop_coord_grad_still_scatters_factors(monkeypatch, app_k):
     g_free, c_free = grads(False)
     n_free, calls[:] = len(calls), []
     g_stop, c_stop = grads(True)
-    assert len(calls) == n_free == (3 if app_k is None else 6)
+    assert len(calls) == n_free == (6 if app_k is None else 12)
     assert c_stop is None and torch.count_nonzero(c_free) > 0
     for k in g_free:
         assert torch.equal(g_stop[k], g_free[k]), k

@@ -14,8 +14,9 @@ with a frozen field.
   (sampling.scatter_add_rows, densify.scatter_add_rows; K3 on CUDA) is
   called zero times;
 * the training step still calls the row scatter as often as
-  chip_smoke.expected_launches says: 4 with the dense grid, 6 with the
-  two-stage appearance, 3 on the fused path.
+  chip_smoke.expected_launches says: 7 with the dense grid (its row
+  gather, and a plane and a line scatter for each appearance axis), 12
+  with the two-stage appearance, 6 on the fused path.
 """
 import dataclasses
 
@@ -198,4 +199,4 @@ def test_train_step_scatter_calls_unchanged(monkeypatch, densify_density,
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
     want = chip_smoke.expected_launches(scfg)["scatter_add_rows"]
-    assert count.n == want == (4 if densify_density else 6 if app_k else 3)
+    assert count.n == want == (7 if densify_density else 12 if app_k else 6)
