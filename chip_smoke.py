@@ -238,7 +238,18 @@
    as gloo ranks on cuda:0 (seconds each); run_experiments' scheduler
    over two slots running two tiny train CLIs on this card (return codes,
    seconds);
-21. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+21. the [bench] phase (run_bench_phase, after [entry]): the port's bench
+   (joint_tensorf_tpu_torch/bench.py): (a) every step it measures at its
+   headline shapes (400^3, S 1000, 2000 rays; early 128^3 / S 443), two
+   steps each from a copy of its state, counters zeroed before the
+   second: K1-K3 as expected_launches, K3 at each (C, n_rows) they noted
+   against its plain version; (b) the same steps at its smoke shapes, one
+   on the card against the CPU (app_k raised to the kept slots, so that
+   none is clipped); (c) python -m joint_tensorf_tpu_torch.bench in a
+   subprocess: its line parses, value > 0, no partial record or carried
+   phase, the card named, every phase's ms finite, hbm_util <= 1; the
+   [bench] lines print its phases, weights, rays/s and roofline;
+22. prints one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 
 Any failed check raises and the script exits non-zero without the last
 line.  It needs one CUDA card and exits 2 without one.
@@ -685,13 +696,14 @@ def march_indices_1d(n_rays, S, D, gen):
 
 
 def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None, line=None,
-                  n=None):
+                  n=None, timed=True):
     """K3 on n_rays x S rows of C channels into an H x W plane in march
     order, with grid3d = (X, Y, Z) into the dense grid's X*Y*Z rows, or
     with ``line`` into a line of that many rows; with ``n`` on the first n
     of those rows;
     times the wrapper back to back and, from torch.profiler, its memset
-    and its kernel apart (device_ms_by_kernel; device_ms is the kernel's)."""
+    and its kernel apart (device_ms_by_kernel; device_ms is the kernel's);
+    without ``timed`` only the check."""
     import torch
 
     from joint_tensorf_tpu_torch.ops import segment_scatter as K
@@ -719,6 +731,10 @@ def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None, line=None,
              f"{err:.3g} > {tol} x {scale:.3g}")
     del got, want
     N = idx.shape[0]
+    if not timed:
+        return {"name": "scatter_add_rows", "max_abs_err": err,
+                "tolerance": f"{tol} x max|out| = {tol * scale:.3g}",
+                "shape": {"N": N, "C": C, "n_rows": n_rows}}
     b_ms, b_by = bound(N * 8 + N * C * 4 + n_rows * C * 4, N * C)
 
     def k3():
@@ -959,6 +975,15 @@ def run_entry_points(gen):
 
 
 # ------------------------------------------- small step: card vs the CPU
+def _small_setup_vm_config():
+    """The small steps' field: ranks 4 / 8, app_dim 9, MLP_Fea with 16
+    hidden units (their density factors are raised x 8)."""
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    return vm_lib.VMConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8),
+                           app_dim=9, hidden=16)
+
+
 def _small_setup():
     """The tiny scene, field and draws of the card-vs-CPU steps: a 24^3
     field (ranks 4/8, app_dim 9, density x 8), 3 views of 24 x 24, 64 rays
@@ -972,8 +997,7 @@ def _small_setup():
     from joint_tensorf_tpu_torch.render.renderer import BlurSpec
     from joint_tensorf_tpu_torch.train.step import StepConfig, StepScalars
 
-    cfg = vm_lib.VMConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8),
-                          app_dim=9, hidden=16)
+    cfg = _small_setup_vm_config()
     res, V, H, W, R = (24, 24, 24), 3, 24, 24, 64
     scene = make_scene(n_views=V, H=H, W=W, device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -4860,6 +4884,236 @@ def run_entry_phase(smi=""):
     return out
 
 
+# -------------------------------------------------- [bench]: the bench
+BENCH_TIMEOUT_S = 600
+
+
+def run_bench_phase(smi="", gen=None):
+    """[bench] the port's bench (joint_tensorf_tpu_torch/bench.py): (a)
+    every step it measures (bench.phase_setups at the headline shapes)
+    for two steps from a copy of its state, the counters zeroed before
+    the second and read after it: K1-K3 as expected_launches, and K3 at
+    each (C, n_rows) those steps noted (the most rows of each) against
+    its plain version within 1e-5 of the largest output; (b) the same
+    steps at the smoke shapes, one step on the card against the same
+    step on the CPU (the same state, rays and offsets; app_k raised to
+    the kept slots, so that no gated sample is clipped: a clipping app_k
+    is discontinuous) on the small steps' field (_small_setup_vm_config,
+    density x 8), within their gates (loss rel 1e-5, gradients 1e-3 of
+    each leaf's max); on the bench's own field, whose 64-unit ReLU layers
+    give a few pre-activations within rounding of 0 at these sample
+    counts (a kink: a 1e-7 perturbation of its weights moves its
+    gradients by up to ~8e-3 of a leaf's max on the CPU alone), the card's
+    gradients within max(1e-3, 3 x the CPU's own distance under that
+    perturbation) of each leaf's max, and its loss within rel 1e-5; (c)
+    ``python -m joint_tensorf_tpu_torch.bench`` in a subprocess, as a
+    user runs it: its last line must parse, with a value > 0, no partial
+    record and no carried phase, ``detail`` naming this card, every
+    phase's ms finite and hbm_util at most 1.  Prints the [bench] lines."""
+    import copy
+
+    import torch
+
+    from joint_tensorf_tpu_torch import bench
+    from joint_tensorf_tpu_torch.ops import cuda_build
+
+    faults, out = [], {"card": smi}
+    t0 = time.perf_counter()
+    work, phases = bench.phase_setups(small=False, device="cuda")
+    launched, steps = {}, []
+    for p in phases:
+        st = copy.deepcopy(p.state)
+        float(bench.run_iter(work, p, st)[0]["loss"])
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        loss = float(bench.run_iter(work, p, st)[0]["loss"])
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        want = expected_launches(p.cfg)
+        S_k = min(p.cfg.compact_k or p.cfg.n_samples, p.cfg.n_samples)
+        for (C, n_rows), N in cuda_build.SCATTER_SHAPES.items():
+            if N > launched.get((C, n_rows), (0,))[0]:
+                launched[(C, n_rows)] = (N, S_k, p.name)
+        if launches != want or not math.isfinite(loss):
+            faults.append(f"(a) {p.name}: loss {loss}, launched {launches}, "
+                          f"expected {want}")
+        steps.append({"phase": p.name, "loss": loss, "launches": launches,
+                      "n_samples": p.cfg.n_samples,
+                      "compact_k": p.cfg.compact_k, "app_k": p.cfg.app_k,
+                      "densify": p.cfg.densify_density,
+                      "blur": p.cfg.blur is not None,
+                      "mask": p.mask is not None})
+        del st
+    del work, phases
+    torch.cuda.empty_cache()
+    k3 = []
+    for (C, n_rows), (N, S_k, name) in sorted(launched.items()):
+        r = check_scatter(-(-N // S_k), S_k, 0, 0, C, gen, tol=1e-5,
+                          line=n_rows, n=N, timed=False)
+        k3.append(dict(r, phase=name))
+    if not k3:
+        faults.append("(a): the steps noted no K3 launch")
+    out["a"] = {"steps": steps, "k3_held": k3,
+                "s": time.perf_counter() - t0}
+    k123 = {s["phase"]: [s["launches"][k] for k in (
+        "composite_fwd", "composite_bwd", "scatter_add_rows")]
+        for s in steps}
+    print(f"[bench] (a) {len(steps)} steps at the headline shapes, "
+          f"K1 / K2 / K3 launches {k123}, losses "
+          f"{[round(s['loss'], 5) for s in steps]}; K3 held at "
+          f"{[(r['shape']['N'], r['shape']['C'], r['shape']['n_rows']) for r in k3]}"
+          f", worst err {max((r['max_abs_err'] for r in k3), default=0):.3g}"
+          f" ({out['a']['s']:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+
+    # (b) the smoke shapes on the card against the CPU
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.train.step import init_train_state
+
+    small = {}
+    (w_c, ph_c), (w_d, ph_d) = (bench.phase_setups(small=True, device=d)
+                                for d in ("cpu", "cuda"))
+    narrow_cfg = _small_setup_vm_config()
+    f = vm_lib.init_vm(narrow_cfg, w_c.res, bench.AABB,
+                       torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for t in list(f.density_planes) + list(f.density_lines):
+            t.mul_(8.0)
+    narrow = {"cpu": (dataclasses.replace(w_c, vm_cfg=narrow_cfg),
+                      init_train_state(f, w_c.n_views)),
+              "cuda": (dataclasses.replace(w_d, vm_cfg=narrow_cfg),
+                       init_train_state(copy.deepcopy(f).to("cuda"),
+                                        w_d.n_views))}
+
+    def one_step(w, p, cfg, state, jitter, perturb=0.0):
+        """(loss, {leaf: gradient on the CPU}) of one step from a copy of
+        ``state`` on the workload's first ray draw; with ``perturb`` the
+        weights times 1 + perturb * N(0, 1) first."""
+        st = copy.deepcopy(state)
+        if perturb:
+            pg = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for t in st.field.parameters():
+                    t.mul_(1 + perturb * torch.randn(t.shape, generator=pg)
+                           .to(t.device))
+        m, grads = bench.run_iter(
+            dataclasses.replace(w, rng=copy.deepcopy(w.rng)),
+            dataclasses.replace(p, cfg=cfg), st, jitter=jitter.to(w.device))
+        return float(m["loss"]), {k: v.detach().cpu()
+                                  for k, v in grads.items()}
+
+    g = torch.Generator().manual_seed(0)
+    for p_c, p_d in zip(ph_c, ph_d):
+        kept = min(p_c.cfg.compact_k or p_c.cfg.n_samples,
+                   p_c.cfg.n_samples)
+        cfg = (p_c.cfg if p_c.cfg.app_k is None
+               else dataclasses.replace(p_c.cfg, app_k=kept))
+        jitter = torch.rand((w_c.n_rays, 1), generator=g)
+        res = {d: one_step(narrow[d][0], p, cfg, narrow[d][1], jitter)
+               + (None, None, None)
+               for d, p in (("cpu", p_c), ("cuda", p_d))}
+        row = _compare_small(f"bench {p_c.name}", res)
+        # the bench's own field (64 hidden ReLU units a layer): the card
+        # against the CPU, gated against the CPU's own distance with the
+        # weights perturbed by 1e-7
+        cpu = one_step(w_c, p_c, cfg, p_c.state, jitter)
+        own = _grad_dist(cpu, one_step(w_d, p_d, cfg, p_d.state, jitter))
+        noise = _grad_dist(cpu, one_step(w_c, p_c, cfg, p_c.state, jitter,
+                                         perturb=1e-7))
+        gate = max(1e-3, 3 * noise["max_grad_err_rel"])
+        row["bench_field"] = {"card_vs_cpu": own,
+                              "cpu_vs_cpu_perturbed_1e-7": noise,
+                              "grad_gate": gate}
+        if own["max_grad_err_rel"] > gate or own["loss_rel"] > 1e-5:
+            faults.append(
+                f"(b) {p_c.name} on the bench's field: card vs CPU loss rel "
+                f"{own['loss_rel']:.3g} (gate 1e-5), gradients "
+                f"{own['max_grad_err_rel']:.3g} of {own['leaf']}'s max "
+                f"(gate {gate:.3g})")
+        small[p_c.name] = row
+    out["b"] = small
+    print(f"[bench] (b) smoke shapes, the small steps' field, card vs CPU: "
+          + ", ".join(f"{k} loss rel "
+                      f"{abs(v['loss_cuda'] - v['loss_cpu']) / abs(v['loss_cpu']):.3g}"
+                      f" grads {v['max_grad_err_rel']:.3g}"
+                      for k, v in small.items()), flush=True)
+    print(f"[bench] (b) the bench's own field, card vs CPU (worst leaf's "
+          f"gradient distance of its max, its gate): "
+          + ", ".join(f"{k} loss rel "
+                      f"{v['bench_field']['card_vs_cpu']['loss_rel']:.3g} "
+                      f"grads "
+                      f"{v['bench_field']['card_vs_cpu']['max_grad_err_rel']:.3g}"
+                      f" ({v['bench_field']['card_vs_cpu']['leaf']}) gate "
+                      f"{v['bench_field']['grad_gate']:.3g}, the CPU under "
+                      f"1e-7 "
+                      f"{v['bench_field']['cpu_vs_cpu_perturbed_1e-7']['max_grad_err_rel']:.3g}"
+                      for k, v in small.items()), flush=True)
+    del w_c, ph_c, w_d, ph_d, narrow
+    torch.cuda.empty_cache()
+
+    # (c) the bench as a user runs it
+    env = {k: v for k, v in os.environ.items() if k != "JTF_BENCH_SMALL"}
+    env["PYTHONPATH"] = HERE
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "joint_tensorf_tpu_torch.bench"],
+        cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench]"):
+            print(f"[bench] (c) {line[len('[bench] '):]}", flush=True)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        rec = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        rec = None
+    if proc.returncode != 0 or not isinstance(rec, dict):
+        fail(f"[bench] (c): the bench exited {proc.returncode}, last line "
+             f"{lines[-1:] }; stderr: {proc.stderr[-3000:]}")
+    det = rec.get("detail", {})
+    windows = det.get("dense_blur_mask", {}).get("windows", [])
+    ms = {k: det.get(k) for k in (
+        "ms_compacted", "ms_early", "ms_dense", "ms_compacted_appk64",
+        "ms_compacted_appknone_fused") if k in det}
+    ms.update({f"window_{i}": w.get("ms") for i, w in enumerate(windows)})
+    roof = det.get("roofline_compacted", {})
+    card = torch.cuda.get_device_name(0)
+    checks = {
+        "value > 0": isinstance(rec.get("value"), (int, float))
+        and rec["value"] > 0,
+        "no partial record": "partial" not in rec,
+        "no carried phase": "carried_phases" not in rec,
+        "detail names the card": det.get("device") == card,
+        "every phase's ms finite": len(ms) >= 3 and all(
+            isinstance(v, (int, float)) and math.isfinite(v)
+            for v in ms.values()),
+        "hbm_util <= 1": isinstance(roof.get("hbm_util"), (int, float))
+        and roof["hbm_util"] <= 1.0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        faults.append(f"(c): {failed} in {lines[-1]}")
+    out["c"] = {"record": rec, "s": secs, "checks": checks}
+    print(f"[bench] (c) python -m joint_tensorf_tpu_torch.bench: "
+          f"{rec.get('value')} rays/s (vs_baseline {rec.get('vs_baseline')})"
+          f"; compacted / early / dense {det.get('ms_compacted')} / "
+          f"{det.get('ms_early')} / {det.get('ms_dense')} ms; weights "
+          f"{det.get('phase_weights_simulated')}; app_k 64 "
+          f"{det.get('ms_compacted_appk64')} ms, uncapped "
+          f"{det.get('ms_compacted_appknone_fused')} ms; windows "
+          f"{windows}; roofline t_hbm_floor "
+          f"{roof.get('t_hbm_floor_ms')} ms, t_f32_flop_floor "
+          f"{roof.get('t_f32_flop_floor_ms')} ms, hbm_util "
+          f"{roof.get('hbm_util')}, {roof.get('effective_ns_per_row')} ns a "
+          f"row; peak {det.get('peak_gb')} GB; {secs:.1f} s; device "
+          f"{det.get('device')} ({det.get('nvidia_smi')})", flush=True)
+    emit({"bench_phase": out})
+    if faults:
+        fail("[bench]: " + "; ".join(faults))
+    return out
+
+
 def main(argv):
     if argv and (len(argv) != 2 or argv[0] != "--profile"):
         fail(f"usage: python3 chip_smoke.py [--profile DIR], got {argv}")
@@ -5074,6 +5328,9 @@ def main(argv):
     # [entry]: the port's graft_entry (entry(), the dry runs) and its
     # experiment scheduler
     run_entry_phase(smi=smi[0] if smi else "")
+    torch.cuda.empty_cache()
+    # [bench]: the port's bench, its steps held, then run as a user does
+    run_bench_phase(smi=smi[0] if smi else "", gen=gen)
     torch.cuda.empty_cache()
     launches.update(entry_launches)
     kernels = []

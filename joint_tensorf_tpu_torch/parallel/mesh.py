@@ -42,6 +42,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+# the entry points' device rule, under the name this module's callers use
+from ..utils.torch_setup import resolve_device  # noqa: F401
+
 _LAUNCH = ("python -m torch.distributed.run --nproc_per_node={n} "
            "-m joint_tensorf_tpu_torch.train --yaml=<config> [--k=v ...]")
 
@@ -106,17 +109,6 @@ class Mesh:
         return self.rank == 0
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device``, or ``cuda`` when None; a CUDA device on a host without
-    a card raises RuntimeError (no fallback to the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev}: this host has no CUDA card; pass device='cpu' "
-            f"to run on the host")
-    return dev
-
-
 def _init_method(coordinator: str) -> str:
     """JAX's coordinator is host:port; torch wants a URL."""
     return coordinator if "://" in coordinator else f"tcp://{coordinator}"
@@ -150,10 +142,10 @@ def initialize_distributed(coordinator: Optional[str] = None,
                              "the coordinator and this process's rank")
         init_method = _init_method(coordinator)
         local_ranks = num_processes
-    kind = torch.device("cuda" if device is None else device).type
-    backend = backend or ("nccl" if kind == "cuda" else "gloo")
-    # NCCL's card count before the device, so that a host short of cards
-    # is told how to launch
+    device = torch.device("cuda" if device is None else device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    # NCCL's card count before the device's check, so that a host short
+    # of cards is told how to launch
     if local_ranks is not None and backend == "nccl":
         n_cards = torch.cuda.device_count()
         if local_ranks > n_cards:

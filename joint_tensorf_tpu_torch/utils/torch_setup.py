@@ -23,10 +23,11 @@ def setup_torch():
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another one.  There is no fallback: asking for CUDA on a machine
-    without it raises."""
+    without it raises RuntimeError."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path")
+            f"device {dev}: CUDA was requested but this host has no CUDA "
+            f"card (torch.cuda.is_available() is False); pass device='cpu' "
+            f"to run the plain PyTorch path on the host")
     return dev

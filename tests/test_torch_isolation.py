@@ -1,7 +1,7 @@
 """The PyTorch port and chip_smoke.py import neither JAX nor the JAX
-package, nor the root modules the port's graft_entry and run_experiments
-stand for: a fresh interpreter with all of them blocked imports every
-module."""
+package, nor the root modules the port's graft_entry, run_experiments and
+bench stand for: a fresh interpreter with all of them blocked imports
+every module."""
 import os
 import pkgutil
 import subprocess
@@ -13,13 +13,16 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["joint_tensorf_tpu"] = None
-# the root modules the port's graft_entry and run_experiments stand for
+# the root modules the port's graft_entry, run_experiments and bench
+# stand for
 sys.modules["__graft_entry__"] = None
 sys.modules["run_experiments"] = None
+sys.modules["bench"] = None
 import joint_tensorf_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 assert {"joint_tensorf_tpu_torch.graft_entry",
-        "joint_tensorf_tpu_torch.run_experiments"} <= set(names)
+        "joint_tensorf_tpu_torch.run_experiments",
+        "joint_tensorf_tpu_torch.bench"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
