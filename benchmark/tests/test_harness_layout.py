@@ -1,0 +1,105 @@
+"""The benchmark is driven by data: BENCHMARK.json keeps the contract's
+shape, and a cell, a configuration, a traffic mix and a per-layer metric
+are added by adding files, with no edit to any file already there."""
+import json
+import os
+import re
+import shutil
+
+import pytest
+
+from benchmark import judge, spec
+from benchmark.tests.tiny import BENCH, ROOT
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+def test_benchmark_json_keeps_the_contract():
+    b = spec.load(ROOT)
+    assert set(b) == {"command", "paths", "run_seconds", "configs",
+                      "workloads", "end_to_end", "per_layer"}
+    assert b["paths"] == ["benchmark"]
+    assert 1 <= b["run_seconds"] <= 51
+    names = [c["name"] for c in b["configs"]]
+    for c in b["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["file"].startswith("benchmark/")
+        assert all(NAME.match(k) for k in c["reduced"])
+    for w in b["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["config"] in names and w["chips"] in (1, 4)
+        assert len(w["why"]) <= 200 and NAME.match(w["traffic"])
+    metrics = b["end_to_end"] + b["per_layer"]
+    assert len({m["name"] for m in metrics}) == len(metrics)
+    assert "setup_s" in {m["name"] for m in b["end_to_end"]}
+    for m in metrics:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    for m in b["end_to_end"]:
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    for m in b["per_layer"]:
+        assert m["moves"] in {e["name"] for e in b["end_to_end"]}
+        assert os.path.exists(os.path.join(BENCH, "metrics",
+                                           m["name"] + ".py"))
+    assert len(json.dumps(b)) < 64 * 1024
+
+
+@pytest.mark.parametrize("name", spec.cells(ROOT))
+def test_every_cell_resolves(name):
+    cell = spec.cell(ROOT, name)
+    assert cell.start_it > 0 and cell.per_layer and cell.end_to_end
+    assert {"loss_gap", "change_gap"} <= set(cell.limits) <= set(
+        judge.NUMBERS)
+    for m in cell.per_layer:
+        assert callable(spec.reader(ROOT, m["name"]))
+
+
+def test_a_cell_is_added_by_files_alone(tmp_path):
+    root = str(tmp_path / "checkout")
+    shutil.copytree(BENCH, os.path.join(root, "benchmark"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+    before = {}
+    for dirpath, _, files in os.walk(os.path.join(root, "benchmark")):
+        for f in files:
+            p = os.path.join(dirpath, f)
+            before[p] = open(p, "rb").read()
+    b = os.path.join(root, "benchmark")
+    cfg = json.load(open(os.path.join(b, "configs", "bat_blender.json")))
+    cfg["options"]["model"] = "bat"
+    json.dump(cfg, open(os.path.join(b, "configs", "bat_blender_b.json"),
+                        "w"))
+    json.dump({"why": "one past the second mask update",
+               "start": {"after": "update_alphamask_iters", "index": 0},
+               "check_steps": 3, "warmup_steps": 2, "chunk_steps": 1,
+               "trace_steps": 4},
+              open(os.path.join(b, "traffic", "mask_one.json"), "w"))
+    json.dump({k: {"limit": 1.0} for k in
+               ("loss_gap", "grad_gap", "change_gap")},
+              open(os.path.join(b, "limits", "bat_blender_b.mask_one.json"),
+                   "w"))
+    with open(os.path.join(b, "metrics", "steps_traced.py"), "w") as f:
+        f.write("def read(ctx):\n    return float(ctx.steps)\n")
+    # BENCHMARK.json gains entries; no file under benchmark/ changes
+    bench = spec.load(root)
+    bench["configs"].append(dict(bench["configs"][0], name="bat_blender_b",
+                                 file="benchmark/configs/bat_blender_b.json"))
+    bench["workloads"].append({"name": "bat_blender_b.mask_one",
+                               "config": "bat_blender_b",
+                               "traffic": "mask_one", "chips": 1,
+                               "why": "added by files"})
+    bench["per_layer"].append({"name": "steps_traced", "unit": "steps",
+                               "better": "higher", "source":
+                               "program_counter", "layer": "device",
+                               "moves": "train_rays_per_s"})
+    json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
+    assert "bat_blender_b.mask_one" in spec.cells(root)
+    cell = spec.cell(root, "bat_blender_b.mask_one")
+    assert cell.start_it == 12001
+    assert "steps_traced" in [m["name"] for m in cell.per_layer]
+    assert spec.reader(root, "steps_traced")(type("C", (), {"steps": 4})) \
+        == 4.0
+    for p, data in before.items():
+        assert open(p, "rb").read() == data, p
