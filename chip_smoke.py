@@ -2855,11 +2855,13 @@ def check_registration_sync():
 def count_host_syncs(trainer, n_steps: int) -> list:
     """Synchronising CUDA calls of each of ``n_steps`` training steps (the
     schedule updates included)."""
+    from joint_tensorf_tpu_torch.utils.tracing import count_syncs
+
     def step():
         trainer.train_iteration()
         trainer._update_schedule()
         trainer.it += 1
-    return count_step_syncs(step, n_steps)
+    return count_syncs(step, n_steps)
 
 
 def run_l2g(profile_dir=None):
@@ -3203,33 +3205,6 @@ def mlp_step_flops(cfg, n_points: int) -> float:
     return 6.0 * macs * n_points
 
 
-def count_step_syncs(step, n_steps: int, where: dict = None) -> list:
-    """Synchronising CUDA calls of each of ``n_steps`` calls of ``step``,
-    counted as the warnings of torch's sync debug mode "warn"; ``where``
-    collects how many came from each source line (file:line of the
-    Python call that synchronised)."""
-    import warnings
-
-    import torch
-
-    counts = []
-    for _ in range(n_steps):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as w:
-                warnings.simplefilter("always")
-                step()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        syncs = [x for x in w if "synchroniz" in str(x.message)]
-        counts.append(len(syncs))
-        for x in syncs if where is not None else ():
-            key = f"{os.path.relpath(x.filename, HERE)}:{x.lineno}"
-            where[key] = where.get(key, 0) + 1
-    return counts
-
-
 def _no_launches(label, launches, faults):
     if launches != NO_LAUNCHES:
         faults.append(f"{label}: launched {launches}, expected none of "
@@ -3251,6 +3226,7 @@ def run_mlp_nerf(yaml: str, extra=()):
     from joint_tensorf_tpu_torch.pose.test_optim import \
         make_barf_test_time_optimizer
     from joint_tensorf_tpu_torch.train.barf_trainer import BarfTrainer
+    from joint_tensorf_tpu_torch.utils.tracing import count_syncs
 
     opt = set_options(os.path.join(HERE, "configs", yaml),
                       MLP_ARGS + list(extra))
@@ -3287,7 +3263,7 @@ def run_mlp_nerf(yaml: str, extra=()):
         trainer.it += 1
 
     sync_lines = {}
-    syncs = count_step_syncs(step, 3, sync_lines)
+    syncs = count_syncs(step, 3, sync_lines)
     val_times = []
     cuda_build.reset_launches()
     for i in range(val.n_views):
@@ -3372,6 +3348,7 @@ def run_planar():
     from joint_tensorf_tpu_torch.geometry import warp2d
     from joint_tensorf_tpu_torch.ops import cuda_build
     from joint_tensorf_tpu_torch.train.planar_trainer import PlanarTrainer
+    from joint_tensorf_tpu_torch.utils.tracing import count_syncs
 
     rows, faults = [], []
     for yaml in PLANAR_CFGS:
@@ -3401,7 +3378,7 @@ def run_planar():
             tr.it += 1
 
         sync_lines = {}
-        syncs = count_step_syncs(step, 3, sync_lines)
+        syncs = count_syncs(step, 3, sync_lines)
         row = {"config": f"configs/{yaml}", "model": opt.model,
                "image_hw": [tr.H, tr.W], "patches": tr.B,
                "crop": [tr.H_crop, tr.W_crop], "warp": tr.warp_type,

@@ -74,6 +74,7 @@ from ..models import vm as vm_lib
 from ..models.alpha_mask import AlphaMask, sample_alpha
 from ..ops.composite import composite
 from ..parallel import sharding
+from ..utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +229,7 @@ def _first_k(valid, K: int):
     return top, torch.arange(K, device=valid.device)[None, :] < n_valid
 
 
+@tracing.spanned("render")
 def render_rays(
     field: vm_lib.VMField,
     cfg: vm_lib.VMConfig,
@@ -257,208 +259,219 @@ def render_rays(
     resolution = field.resolution()
     aabb = field.aabb.detach()
     aabb_size = aabb[1] - aabb[0]
-    res_t = torch.as_tensor(resolution, dtype=aabb.dtype, device=aabb.device)
-    near, far = float(near_far[0]), float(near_far[1])
-    stratified = rcfg.is_train and rcfg.stratified
+    with tracing.span("render.sample"):
+        res_t = torch.as_tensor(resolution, dtype=aabb.dtype,
+                                device=aabb.device)
+        near, far = float(near_far[0]), float(near_far[1])
+        stratified = rcfg.is_train and rcfg.stratified
 
-    viewdirs = dirs
-    if rcfg.ndc:
-        axes_w, z_vals, in_bbox = sample_ray_ndc(
-            aabb, S, centers, dirs, near, far, stratified,
-            rcfg.ndc_near_plane, rcfg.ndc_simulate_euclid_sample,
-            rcfg.ndc_simulate_euclid_depth, jitter=ray_jitter,
-            generator=generator)
-        rays_norm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
-        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                           torch.zeros_like(z_vals[:, :1])], -1) * rays_norm
-        viewdirs = dirs / rays_norm
-    else:
-        step = step_size(aabb, resolution, cfg.step_ratio)
-        axes_w, z_vals, in_bbox, (t_min, jitter) = sample_ray_axes(
-            aabb, step, S, centers, dirs, near, far, stratified,
-            jitter=ray_jitter, generator=generator)
-        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                           torch.zeros_like(z_vals[:, :1])], -1)
-    if stats is not None:
-        stats["inbbox_frac"] = in_bbox.float().mean()
-
-    # ------------------------------------------------ alpha-mask gate
-    K = rcfg.compact_k if (rcfg.compact_k is not None
-                           and rcfg.compact_k < S) else None
-    stride = rcfg.mask_stride if S % max(rcfg.mask_stride, 1) == 0 else 1
-    valid = in_bbox
-    group_alive = None      # [n, S // stride]: per-group selection below
-    if alpha_mask is not None:
-        probe = tuple(w.detach()[:, ::stride].reshape(-1) for w in axes_w)
-        group_alive = sample_alpha(alpha_mask, probe).reshape(
-            n, S // stride) > 0
-        if K is None or stride == 1 or K % stride or rcfg.ndc:
-            valid = valid & torch.repeat_interleave(group_alive, stride,
-                                                    dim=1)
-            group_alive = None
-    elif K is not None and stride > 1 and K % stride == 0 and not rcfg.ndc:
-        # no mask in use: compact groups on the in-bbox gate alone
-        group_alive = torch.ones((n, S // stride), dtype=torch.bool,
-                                 device=centers.device)
-
-    # ------------------------------------------------ sample compaction
-    if K is not None:
-        if group_alive is not None:
-            # the first K / stride live probe groups, then their samples
-            g = stride
-            gvalid = group_alive & in_bbox.reshape(n, S // g, g).any(-1)
-            live_before = gvalid
-            topg, gsel = _first_k(gvalid, K // g)
-            idx = (topg[..., None] * g
-                   + torch.arange(g, device=topg.device)).reshape(n, K)
-            live = torch.repeat_interleave(gsel, g, dim=1)
-        else:
-            live_before = valid
-            idx, live = _first_k(valid, K)
+        viewdirs = dirs
         if rcfg.ndc:
-            # the points are not o + d * z under the simulate flags: the
-            # kept slots' points ride a gather
-            z_vals = torch.gather(z_vals.detach(), 1, idx)
-            dists = torch.gather(dists.detach(), 1, idx)
-            axes_w = tuple(torch.gather(w, 1, idx) for w in axes_w)
+            axes_w, z_vals, in_bbox = sample_ray_ndc(
+                aabb, S, centers, dirs, near, far, stratified,
+                rcfg.ndc_near_plane, rcfg.ndc_simulate_euclid_sample,
+                rcfg.ndc_simulate_euclid_depth, jitter=ray_jitter,
+                generator=generator)
+            rays_norm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+            dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                               torch.zeros_like(z_vals[:, :1])],
+                              -1) * rays_norm
+            viewdirs = dirs / rays_norm
         else:
-            z_vals = (t_min[:, None] + step * (idx.to(z_vals.dtype)
-                                               + jitter)).detach()
-            dists = torch.where(idx == S - 1, torch.zeros_like(z_vals),
-                                step.expand(z_vals.shape))
-            axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_vals
-                           for a in range(3))
-        valid = live & _in_bbox(axes_w, aabb) if group_alive is not None \
-            else live
+            step = step_size(aabb, resolution, cfg.step_ratio)
+            axes_w, z_vals, in_bbox, (t_min, jitter) = sample_ray_axes(
+                aabb, step, S, centers, dirs, near, far, stratified,
+                jitter=ray_jitter, generator=generator)
+            dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                               torch.zeros_like(z_vals[:, :1])], -1)
         if stats is not None:
-            if group_alive is not None:     # the live samples of live groups
-                live_before = torch.repeat_interleave(
-                    live_before, stride, dim=1) & in_bbox
-            stats["valid_frac"] = valid.float().sum() / (n * S)
-            stats["kept_frac"] = torch.tensor(K / S)
-            stats["dropped_frac"] = (live_before.float().sum()
-                                     - valid.float().sum()) / (n * S)
-        S = K
-    elif stats is not None:
-        stats["valid_frac"] = valid.float().mean()
-        stats["kept_frac"] = torch.tensor(1.0)
-        stats["dropped_frac"] = torch.tensor(0.0)
+            stats["inbbox_frac"] = in_bbox.float().mean()
 
-    d_mats = c_mats = None
-    if blur is not None:
-        grid_scale = _mean3(res_t / aabb_size)
-        dk = vm_lib.c2f_kernel(blur.mode, c2f_density, blur.kernel_size,
-                               grid_scale)
-        ck = vm_lib.c2f_kernel(blur.mode, c2f_color, blur.kernel_size,
-                               grid_scale)
-        d_mats = vm_lib.make_blur_mats(dk, resolution)
-        c_mats = vm_lib.make_blur_mats(ck, resolution)
+        # ------------------------------------------------ alpha-mask gate
+        K = rcfg.compact_k if (rcfg.compact_k is not None
+                               and rcfg.compact_k < S) else None
+        stride = rcfg.mask_stride if S % max(rcfg.mask_stride, 1) == 0 else 1
+        valid = in_bbox
+        group_alive = None      # [n, S // stride]: per-group selection below
+        if alpha_mask is not None:
+            probe = tuple(w.detach()[:, ::stride].reshape(-1) for w in axes_w)
+            group_alive = sample_alpha(alpha_mask, probe).reshape(
+                n, S // stride) > 0
+            if K is None or stride == 1 or K % stride or rcfg.ndc:
+                valid = valid & torch.repeat_interleave(group_alive, stride,
+                                                        dim=1)
+                group_alive = None
+        elif K is not None and stride > 1 and K % stride == 0 and not rcfg.ndc:
+            # no mask in use: compact groups on the in-bbox gate alone
+            group_alive = torch.ones((n, S // stride), dtype=torch.bool,
+                                     device=centers.device)
 
-    # ------------------------------------------------ density
-    coords = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
-                   for a, w in enumerate(axes_w))
-    if rcfg.stop_coord_grad:
-        coords = tuple(c.detach() for c in coords)
-    head = field.shading
+        # ------------------------------------------------ sample compaction
+        if K is not None:
+            if group_alive is not None:
+                # the first K / stride live probe groups, then their samples
+                g = stride
+                gvalid = group_alive & in_bbox.reshape(n, S // g, g).any(-1)
+                live_before = gvalid
+                topg, gsel = _first_k(gvalid, K // g)
+                idx = (topg[..., None] * g
+                       + torch.arange(g, device=topg.device)).reshape(n, K)
+                live = torch.repeat_interleave(gsel, g, dim=1)
+            else:
+                live_before = valid
+                idx, live = _first_k(valid, K)
+            if rcfg.ndc:
+                # the points are not o + d * z under the simulate flags: the
+                # kept slots' points ride a gather
+                z_vals = torch.gather(z_vals.detach(), 1, idx)
+                dists = torch.gather(dists.detach(), 1, idx)
+                axes_w = tuple(torch.gather(w, 1, idx) for w in axes_w)
+            else:
+                z_vals = (t_min[:, None] + step * (idx.to(z_vals.dtype)
+                                                   + jitter)).detach()
+                dists = torch.where(idx == S - 1, torch.zeros_like(z_vals),
+                                    step.expand(z_vals.shape))
+                axes_w = tuple(centers[:, a, None] + dirs[:, a, None] * z_vals
+                               for a in range(3))
+            valid = live & _in_bbox(axes_w, aabb) if group_alive is not None \
+                else live
+            if stats is not None:
+                if group_alive is not None:
+                    # the live samples of live groups
+                    live_before = torch.repeat_interleave(
+                        live_before, stride, dim=1) & in_bbox
+                stats["valid_frac"] = valid.float().sum() / (n * S)
+                stats["kept_frac"] = torch.tensor(K / S)
+                stats["dropped_frac"] = (live_before.float().sum()
+                                         - valid.float().sum()) / (n * S)
+            S = K
+        elif stats is not None:
+            stats["valid_frac"] = valid.float().mean()
+            stats["kept_frac"] = torch.tensor(1.0)
+            stats["dropped_frac"] = torch.tensor(0.0)
 
-    def head_inputs(axes, m):
-        """The head's points and view directions [n * m, 3], detached as
-        the config asks."""
-        pts = torch.stack(axes, dim=-1).reshape(-1, 3)
-        vd = viewdirs[:, None, :].expand(n, m, 3).reshape(-1, 3)
-        return (pts.detach() if rcfg.detach_xyz else pts,
-                vd.detach() if rcfg.detach_viewdirs else vd)
+    with tracing.span("render.density"):
+        d_mats = c_mats = None
+        if blur is not None:
+            grid_scale = _mean3(res_t / aabb_size)
+            dk = vm_lib.c2f_kernel(blur.mode, c2f_density, blur.kernel_size,
+                                   grid_scale)
+            ck = vm_lib.c2f_kernel(blur.mode, c2f_color, blur.kernel_size,
+                                   grid_scale)
+            d_mats = vm_lib.make_blur_mats(dk, resolution)
+            c_mats = vm_lib.make_blur_mats(ck, resolution)
 
-    predict = rcfg.mlp_predict_density
-    use_densify = (rcfg.densify_density and vm_lib.can_densify(cfg)
-                   and not predict)
-    use_fused = (not use_densify and rcfg.app_k is None and not predict
-                 and vm_lib.can_fuse_features(cfg))
-    app_feat = rgb = None
-    if use_densify:
-        sigma_feature = vm_lib.sample_density_grid(
-            field, cfg, coords, blur_mats=d_mats,
-            row_dtype=rcfg.densify_dtype)
-    elif predict:
-        # the head gives the density feature (the reference's
-        # batBase.py:106-109)
-        rgb, sigma_feature = head(
-            *head_inputs(axes_w, S), vm_lib.compute_app_feature(
-                field, cfg, coords, blur_mats=c_mats),
-            view_pe_progress, fea_pe_progress)
-    elif use_fused:
-        sigma_feature, app_feat = vm_lib.compute_fused_features(
-            field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
-    else:
-        sigma_feature = vm_lib.compute_density_feature(field, cfg, coords,
-                                                       blur_mats=d_mats)
-    sigma_feature = sigma_feature.reshape(n, S)
-    # a component-wise activated feature is the density already
-    sigma = (sigma_feature if cfg.component_wise_feature2density
-             else vm_lib.feature2density(cfg, sigma_feature))
-    sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
-    alpha = 1.0 - torch.exp(-sigma * dists * cfg.distance_scale)
-    thres = cfg.raymarch_weight_thres
-
-    # ------------------------------------------------ appearance
-    if rcfg.app_k is not None and not predict:
-        K2 = min(rcfg.app_k, S)
-        _, depth_map, acc_map, weight = composite(
-            alpha, torch.zeros((n, S, 3), dtype=alpha.dtype,
-                               device=alpha.device), z_vals, thres)
-        gate = (weight > thres) & valid
-        score = torch.where(gate, weight, torch.zeros_like(weight)).detach()
-        sel = torch.topk(score, K2, dim=-1).indices.sort(dim=-1).values
-        if stats is not None and field.comp is not None:
-            # every comp rank reads the same reduced weights, so every
-            # rank must keep the same samples
-            sharding.verify_replicas(field.comp, {"app_k_selection": sel},
-                                     "the two-stage selection", axis="comp")
-        w_sel = torch.gather(weight, 1, sel)
-        gate_sel = torch.gather(gate.to(weight.dtype), 1, sel)
-        if rcfg.ndc:
-            axes_sel = tuple(torch.gather(w, 1, sel) for w in axes_w)
-        else:
-            z_sel = torch.gather(z_vals.detach(), 1, sel)
-            axes_sel = tuple(centers[:, a, None] + dirs[:, a, None] * z_sel
-                             for a in range(3))
-        coords_sel = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
-                           for a, w in enumerate(axes_sel))
+        # ------------------------------------------------ density
+        coords = tuple(vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
+                       for a, w in enumerate(axes_w))
         if rcfg.stop_coord_grad:
-            coords_sel = tuple(c.detach() for c in coords_sel)
-        app_sel = vm_lib.compute_app_feature(field, cfg, coords_sel,
-                                             blur_mats=c_mats)
-        rgb_sel = head(*head_inputs(axes_sel, K2), app_sel,
-                       view_pe_progress, fea_pe_progress)
-        rgb_sel = rgb_sel.reshape(n, K2, 3) * gate_sel[..., None]
-        rgb_map = torch.sum(w_sel[..., None] * rgb_sel, dim=-2)
-    elif predict:
-        # the colour is gated by the sample's validity, not by its weight:
-        # K1 composites colours pre-multiplied by ``valid`` ungated
-        rgb = rgb.reshape(n, S, 3) * valid[..., None]
-        rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals)
-    else:
-        if app_feat is None:
-            app_feat = vm_lib.compute_app_feature(field, cfg, coords,
-                                                  blur_mats=c_mats)
-        rgb = head(*head_inputs(axes_w, S), app_feat, view_pe_progress,
-                   fea_pe_progress).reshape(n, S, 3)
-        rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals, thres)
+            coords = tuple(c.detach() for c in coords)
+        head = field.shading
 
-    if rcfg.white_bg:
-        rgb_map = rgb_map + (1.0 - acc_map[..., None])
-    elif rcfg.is_train:
-        if bg_coin is None:
-            bg_coin = torch.rand((), generator=generator,
-                                 device=centers.device) < 0.5
-        rgb_map = rgb_map + torch.as_tensor(
-            bg_coin, dtype=rgb_map.dtype, device=rgb_map.device) * (
-                1.0 - acc_map[..., None])
-    rgb_map = torch.clamp(rgb_map, 0.0, 1.0)
+        def head_inputs(axes, m):
+            """The head's points and view directions [n * m, 3], detached as
+            the config asks."""
+            pts = torch.stack(axes, dim=-1).reshape(-1, 3)
+            vd = viewdirs[:, None, :].expand(n, m, 3).reshape(-1, 3)
+            return (pts.detach() if rcfg.detach_xyz else pts,
+                    vd.detach() if rcfg.detach_viewdirs else vd)
 
-    depth_map = depth_map + (1.0 - acc_map) * dirs[..., -1]
-    if rcfg.ndc_simulate_euclid_depth:
-        depth_map = torch.clamp(depth_map, 0.0, 10.0)
-    else:
-        depth_map = depth_map - near + 0.05
+        predict = rcfg.mlp_predict_density
+        use_densify = (rcfg.densify_density and vm_lib.can_densify(cfg)
+                       and not predict)
+        use_fused = (not use_densify and rcfg.app_k is None and not predict
+                     and vm_lib.can_fuse_features(cfg))
+        app_feat = rgb = None
+        if use_densify:
+            sigma_feature = vm_lib.sample_density_grid(
+                field, cfg, coords, blur_mats=d_mats,
+                row_dtype=rcfg.densify_dtype)
+        elif predict:
+            # the head gives the density feature (the reference's
+            # batBase.py:106-109)
+            rgb, sigma_feature = head(
+                *head_inputs(axes_w, S), vm_lib.compute_app_feature(
+                    field, cfg, coords, blur_mats=c_mats),
+                view_pe_progress, fea_pe_progress)
+        elif use_fused:
+            sigma_feature, app_feat = vm_lib.compute_fused_features(
+                field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
+        else:
+            sigma_feature = vm_lib.compute_density_feature(field, cfg, coords,
+                                                           blur_mats=d_mats)
+        sigma_feature = sigma_feature.reshape(n, S)
+        # a component-wise activated feature is the density already
+        sigma = (sigma_feature if cfg.component_wise_feature2density
+                 else vm_lib.feature2density(cfg, sigma_feature))
+        sigma = torch.where(valid, sigma, torch.zeros_like(sigma))
+        alpha = 1.0 - torch.exp(-sigma * dists * cfg.distance_scale)
+        thres = cfg.raymarch_weight_thres
+
+    with tracing.span("render.appearance"):
+        # ------------------------------------------------ appearance
+        if rcfg.app_k is not None and not predict:
+            K2 = min(rcfg.app_k, S)
+            _, depth_map, acc_map, weight = composite(
+                alpha, torch.zeros((n, S, 3), dtype=alpha.dtype,
+                                   device=alpha.device), z_vals, thres)
+            gate = (weight > thres) & valid
+            score = torch.where(gate, weight,
+                                torch.zeros_like(weight)).detach()
+            sel = torch.topk(score, K2, dim=-1).indices.sort(dim=-1).values
+            if stats is not None and field.comp is not None:
+                # every comp rank reads the same reduced weights, so every
+                # rank must keep the same samples
+                sharding.verify_replicas(field.comp, {"app_k_selection": sel},
+                                         "the two-stage selection",
+                                         axis="comp")
+            w_sel = torch.gather(weight, 1, sel)
+            gate_sel = torch.gather(gate.to(weight.dtype), 1, sel)
+            if rcfg.ndc:
+                axes_sel = tuple(torch.gather(w, 1, sel) for w in axes_w)
+            else:
+                z_sel = torch.gather(z_vals.detach(), 1, sel)
+                axes_sel = tuple(centers[:, a, None] + dirs[:, a, None] * z_sel
+                                 for a in range(3))
+            coords_sel = tuple(
+                vm_lib.normalize_coord(w, aabb[:, a]).reshape(-1)
+                for a, w in enumerate(axes_sel))
+            if rcfg.stop_coord_grad:
+                coords_sel = tuple(c.detach() for c in coords_sel)
+            app_sel = vm_lib.compute_app_feature(field, cfg, coords_sel,
+                                                 blur_mats=c_mats)
+            rgb_sel = head(*head_inputs(axes_sel, K2), app_sel,
+                           view_pe_progress, fea_pe_progress)
+            rgb_sel = rgb_sel.reshape(n, K2, 3) * gate_sel[..., None]
+            rgb_map = torch.sum(w_sel[..., None] * rgb_sel, dim=-2)
+        elif predict:
+            # the colour is gated by the sample's validity, not by its weight:
+            # K1 composites colours pre-multiplied by ``valid`` ungated
+            rgb = rgb.reshape(n, S, 3) * valid[..., None]
+            rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals)
+        else:
+            if app_feat is None:
+                app_feat = vm_lib.compute_app_feature(field, cfg, coords,
+                                                      blur_mats=c_mats)
+            rgb = head(*head_inputs(axes_w, S), app_feat, view_pe_progress,
+                       fea_pe_progress).reshape(n, S, 3)
+            rgb_map, depth_map, acc_map, _ = composite(alpha, rgb, z_vals,
+                                                       thres)
+
+        if rcfg.white_bg:
+            rgb_map = rgb_map + (1.0 - acc_map[..., None])
+        elif rcfg.is_train:
+            if bg_coin is None:
+                bg_coin = torch.rand((), generator=generator,
+                                     device=centers.device) < 0.5
+            rgb_map = rgb_map + torch.as_tensor(
+                bg_coin, dtype=rgb_map.dtype, device=rgb_map.device) * (
+                    1.0 - acc_map[..., None])
+        rgb_map = torch.clamp(rgb_map, 0.0, 1.0)
+
+        depth_map = depth_map + (1.0 - acc_map) * dirs[..., -1]
+        if rcfg.ndc_simulate_euclid_depth:
+            depth_map = torch.clamp(depth_map, 0.0, 10.0)
+        else:
+            depth_map = depth_map - near + 0.05
+
     return rgb_map, depth_map.detach(), acc_map

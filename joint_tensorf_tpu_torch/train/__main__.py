@@ -43,6 +43,17 @@ compaction budgets (the VM trainers).
 torch.profiler, writes the trace to ``torch_trace/trace.json`` (utils/
 logging.profile_trace), prints one line naming it and returns without
 further training (no log, checkpoint or quant file), as train.py does.
+The trace holds the program's own ranges (utils/tracing.py), nested as
+listed: ``jt.trainer.schedule`` (with ``jt.trainer.blur_cache`` and
+``jt.trainer.blur_mask`` inside), ``jt.trainer.upload``,
+``jt.trainer.update_schedule`` and ``jt.trainer.log_point`` from the
+trainer; ``jt.step`` with ``jt.step.rays``, ``jt.step.loss``,
+``jt.step.backward``, ``jt.step.reduce`` (under a mesh) and
+``jt.step.adam`` from the step; ``jt.render`` with ``jt.render.sample``,
+``jt.render.density`` and ``jt.render.appearance`` from the renderer
+(inside ``jt.step``).  The backward's kernels are launched from
+autograd's own thread, so they fall inside ``jt.step.backward`` by time,
+not by parent.
 ``--pdb`` opens a post-mortem debugger on an exception (utils/cli.py).
 
 A config with ``tpu.mesh_shape`` ([D] with a rays axis, as

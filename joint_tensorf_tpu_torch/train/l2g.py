@@ -49,6 +49,7 @@ from ..geometry.rays import camera_grid_3d, pixel_grid
 from ..models import vm as vm_lib
 from ..parallel import sharding
 from ..render.renderer import render_rays
+from ..utils import tracing
 from . import losses
 from .optim import AdamState, adam_init, adam_update, field_lr_tree, masked_update
 from .step import (StepConfig, StepScalars, add_regularizers, predraw,
@@ -207,6 +208,7 @@ def local_pose_and_rays(emb, warp_mlp: WarpMLP, base_pose, view_sel,
     return centers, grid_world - centers, cam_grid, grid_world, local_se3
 
 
+@tracing.spanned("step")
 def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
                    vm_cfg: vm_lib.VMConfig, pose_base, intr, intr_inv,
                    images, edge_masks, view_sel, ray_idx, s: StepScalars,
@@ -221,36 +223,37 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
     (module docstring) the draws given are the whole step's."""
     ems = l2g_cfg.error_map_size
     coarse = None
-    if ems > 0:
-        if error_draws is None:
-            error_draws = draw_error_map_uniforms(
-                len(view_sel), ems, cfg.rays_per_view, generator,
-                images.device)
-        ray_idx, coarse = sample_error_map_rays(
-            state.error_map[view_sel], cfg.H, cfg.W, ems, cfg.rays_per_view,
-            *error_draws)
-    if mesh is not None:
-        n_views, n_rays = len(view_sel), ray_idx.shape[-1]
-        jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
-                                  images.device, jitter, bg_coin)
-        if jitter is not None:
-            jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
     field = state.field
     rcfg = cfg.render_config()
     render_stats = {} if stats else None
-    centers, dirs, cam_grid, grid_world, _ = local_pose_and_rays(
-        state.warp_embedding, state.warp_mlp, pose_base[view_sel], view_sel,
-        intr_inv[view_sel], ray_idx, cfg.H, cfg.W)
-    world_centers = centers
-    if mesh is not None:
-        # every ray warped (the registration's points); this rank renders
-        # its block of them
-        blk = sharding.ray_block(mesh, n_rays)
-        centers, dirs, ray_idx = centers[:, blk], dirs[:, blk], \
-            ray_idx[..., blk]
-    if cfg.ndc:
-        centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
-                                    near=cfg.ndc_near_plane)
+    with tracing.span("step.rays"):
+        if ems > 0:
+            if error_draws is None:
+                error_draws = draw_error_map_uniforms(
+                    len(view_sel), ems, cfg.rays_per_view, generator,
+                    images.device)
+            ray_idx, coarse = sample_error_map_rays(
+                state.error_map[view_sel], cfg.H, cfg.W, ems,
+                cfg.rays_per_view, *error_draws)
+        if mesh is not None:
+            n_views, n_rays = len(view_sel), ray_idx.shape[-1]
+            jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
+                                      images.device, jitter, bg_coin)
+            if jitter is not None:
+                jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
+        centers, dirs, cam_grid, grid_world, _ = local_pose_and_rays(
+            state.warp_embedding, state.warp_mlp, pose_base[view_sel],
+            view_sel, intr_inv[view_sel], ray_idx, cfg.H, cfg.W)
+        world_centers = centers
+        if mesh is not None:
+            # every ray warped (the registration's points); this rank
+            # renders its block of them
+            blk = sharding.ray_block(mesh, n_rays)
+            centers, dirs, ray_idx = centers[:, blk], dirs[:, blk], \
+                ray_idx[..., blk]
+        if cfg.ndc:
+            centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
+                                        near=cfg.ndc_near_plane)
     B, R = centers.shape[:2]
     rgb, _, _ = render_rays(
         field, vm_cfg, rcfg, centers.reshape(-1, 3), dirs.reshape(-1, 3),
@@ -259,70 +262,79 @@ def l2g_train_step(state: L2GState, cfg: StepConfig, l2g_cfg: L2GConfig,
         fea_pe_progress=s.fea_pe_progress, ray_jitter=jitter,
         generator=generator, alpha_mask=alpha_mask, stats=render_stats,
         bg_coin=bg_coin)
-    rgb = rgb.reshape(B, R, 3)
-    if ray_idx.dim() == 1:
-        target = images[:, ray_idx][view_sel]
-        mask = edge_masks[:, ray_idx][view_sel]
-    else:
-        target = torch.gather(images[view_sel], 1,
-                              ray_idx[..., None].expand(B, R, 3))
-        mask = torch.gather(edge_masks[view_sel], 1, ray_idx)
+    with tracing.span("step.loss"):
+        rgb = rgb.reshape(B, R, 3)
+        if ray_idx.dim() == 1:
+            target = images[:, ray_idx][view_sel]
+            mask = edge_masks[:, ray_idx][view_sel]
+        else:
+            target = torch.gather(images[view_sel], 1,
+                                  ray_idx[..., None].expand(B, R, 3))
+            mask = torch.gather(edge_masks[view_sel], 1, ray_idx)
 
-    if mesh is None:
-        loss = losses.edge_weighted_render_loss(
-            rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
-        plain_mse = losses.mse(rgb, target)
-    else:
-        loss, sq_sum, counts = render_loss_share(mesh, rgb, target, mask, s)
-    per_ray_err = torch.mean((rgb - target) ** 2, dim=-1).detach()   # [B,R]
-    if mesh is not None and ems > 0:
-        per_ray_err = sharding.gather_rays(mesh, per_ray_err)
+        if mesh is None:
+            loss = losses.edge_weighted_render_loss(
+                rgb, target, mask, s.edge_factor, s.non_edge_factor,
+                s.use_edge)
+            plain_mse = losses.mse(rgb, target)
+        else:
+            loss, sq_sum, counts = render_loss_share(mesh, rgb, target,
+                                                     mask, s)
+        per_ray_err = torch.mean((rgb - target) ** 2,
+                                 dim=-1).detach()                # [B,R]
+        if mesh is not None and ems > 0:
+            per_ray_err = sharding.gather_rays(mesh, per_ray_err)
 
-    # global alignment: one SE(3) a view from the warped ray points
-    source = torch.cat([cam_grid, torch.zeros_like(cam_grid)], dim=1)
-    target_pts = torch.cat([grid_world, world_centers], dim=1)
-    R_g, t_g = rigid_points_registration(target_pts, source)
-    svd_poses = pose_ops.make(R_g, t_g)                          # [B,3,4]
-    ga_loss = losses.mse(target_pts, pose_ops.cam2world(source, svd_poses))
-    # the registration term and the replicated terms once a rays group
-    if mesh is None:
-        loss = add_regularizers(
-            loss + l2g_cfg.global_alignment_weight * ga_loss, field, s)
-    else:
-        loss, report, partial = rank_terms(
-            mesh, field, s, loss, l2g_cfg.global_alignment_weight * ga_loss)
+        # global alignment: one SE(3) a view from the warped ray points
+        source = torch.cat([cam_grid, torch.zeros_like(cam_grid)], dim=1)
+        target_pts = torch.cat([grid_world, world_centers], dim=1)
+        R_g, t_g = rigid_points_registration(target_pts, source)
+        svd_poses = pose_ops.make(R_g, t_g)                      # [B,3,4]
+        ga_loss = losses.mse(target_pts,
+                             pose_ops.cam2world(source, svd_poses))
+        # the registration term and the replicated terms once a rays group
+        if mesh is None:
+            loss = add_regularizers(
+                loss + l2g_cfg.global_alignment_weight * ga_loss, field, s)
+        else:
+            loss, report, partial = rank_terms(
+                mesh, field, s, loss,
+                l2g_cfg.global_alignment_weight * ga_loss)
 
     params = dict(field.named_parameters())
     names = list(params)
     pparams = pose_params(state)
     pnames = list(pparams)
-    g = torch.autograd.grad(loss, [params[k] for k in names]
-                            + [pparams[k] for k in pnames])
+    with tracing.span("step.backward"):
+        g = torch.autograd.grad(loss, [params[k] for k in names]
+                                + [pparams[k] for k in pnames])
     grads = dict(zip(names + pnames, g))
     if mesh is not None:
-        grads, metrics = reduce_step(mesh, grads, report, sq_sum, counts[2],
-                                     render_stats, partial)
+        with tracing.span("step.reduce"):
+            grads, metrics = reduce_step(mesh, grads, report, sq_sum,
+                                         counts[2], render_stats, partial)
 
     with torch.no_grad():
-        lrs = field_lr_tree(field, s.lr_index, s.lr_basis)
-        new_params, state.scene_opt = adam_update(
-            {k: grads[k] for k in names}, state.scene_opt, params, lrs,
-            b2=cfg.scene_b2)
-        for k in names:
-            params[k].copy_(new_params[k])
+        with tracing.span("step.adam"):
+            lrs = field_lr_tree(field, s.lr_index, s.lr_basis)
+            new_params, state.scene_opt = adam_update(
+                {k: grads[k] for k in names}, state.scene_opt, params, lrs,
+                b2=cfg.scene_b2)
+            for k in names:
+                params[k].copy_(new_params[k])
 
-        do_step = s.pose_do_step > 0
-        accum = {k: state.pose_grad_accum[k] + grads[k] for k in pnames}
-        old = {k: pparams[k] for k in pnames}
-        new_pose, new_opt = adam_update(accum, state.pose_opt, old,
-                                        s.lr_pose, b2=cfg.pose_b2)
-        new_pose, state.pose_opt = masked_update(do_step, new_pose, new_opt,
-                                                 old, state.pose_opt)
-        for k in pnames:
-            pparams[k].copy_(new_pose[k])
-        state.pose_grad_accum = ({k: torch.zeros_like(a)
-                                  for k, a in accum.items()}
-                                 if do_step else accum)
+            do_step = s.pose_do_step > 0
+            accum = {k: state.pose_grad_accum[k] + grads[k] for k in pnames}
+            old = {k: pparams[k] for k in pnames}
+            new_pose, new_opt = adam_update(accum, state.pose_opt, old,
+                                            s.lr_pose, b2=cfg.pose_b2)
+            new_pose, state.pose_opt = masked_update(
+                do_step, new_pose, new_opt, old, state.pose_opt)
+            for k in pnames:
+                pparams[k].copy_(new_pose[k])
+            state.pose_grad_accum = ({k: torch.zeros_like(a)
+                                      for k, a in accum.items()}
+                                     if do_step else accum)
 
         optimised = state.optimised_poses.clone()
         optimised[view_sel] = svd_poses.detach()

@@ -60,6 +60,7 @@ from ..geometry.rays import get_center_and_ray
 from ..models import vm as vm_lib
 from ..parallel import sharding
 from ..render.renderer import BlurSpec, RenderConfig, render_rays
+from ..utils import tracing
 from . import losses
 from .optim import AdamState, adam_init, adam_update, field_lr_tree, masked_update
 
@@ -270,6 +271,7 @@ def reduce_step(mesh, grads: dict, loss_report, sq_sum, count, stats=None,
     return dict(zip(keys, red[:n])), metrics
 
 
+@tracing.spanned("step")
 def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                pose_base, intr_inv, images, edge_masks, view_sel, ray_idx,
                s: StepScalars, generator: Optional[torch.Generator] = None,
@@ -297,20 +299,22 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     field = state.field
     rcfg = cfg.render_config()
     render_stats = {} if stats else None
-    if mesh is not None:
-        n_views, n_rays = view_sel.shape[0], ray_idx.shape[-1]
-        jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
-                                  images.device, jitter, bg_coin)
-        if jitter is not None:
-            jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
-        ray_idx = ray_idx[sharding.ray_block(mesh, n_rays)]
-    pose = compose_train_pose(state.se3_refine, pose_base, view_sel,
-                              cfg.pose_opt)
-    centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose, intr_inv[view_sel],
-                                       ray_idx=ray_idx)
-    if cfg.ndc:
-        centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
-                                    near=cfg.ndc_near_plane)
+    with tracing.span("step.rays"):
+        if mesh is not None:
+            n_views, n_rays = view_sel.shape[0], ray_idx.shape[-1]
+            jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
+                                      images.device, jitter, bg_coin)
+            if jitter is not None:
+                jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
+            ray_idx = ray_idx[sharding.ray_block(mesh, n_rays)]
+        pose = compose_train_pose(state.se3_refine, pose_base, view_sel,
+                                  cfg.pose_opt)
+        centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose,
+                                           intr_inv[view_sel],
+                                           ray_idx=ray_idx)
+        if cfg.ndc:
+            centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
+                                        near=cfg.ndc_near_plane)
     B, R = centers.shape[0], centers.shape[1]
     rgb, depth, _ = render_rays(
         field, vm_cfg, rcfg, centers.reshape(-1, 3), dirs.reshape(-1, 3),
@@ -319,55 +323,60 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
         fea_pe_progress=s.fea_pe_progress, ray_jitter=jitter,
         generator=generator, alpha_mask=alpha_mask, stats=render_stats,
         bg_coin=bg_coin)
-    rgb = rgb.reshape(B, R, 3)
-    # the small ray subset first, then the views
-    target = images[:, ray_idx][view_sel]                        # [B,R,3]
-    mask = edge_masks[:, ray_idx][view_sel]                      # [B,R]
+    with tracing.span("step.loss"):
+        rgb = rgb.reshape(B, R, 3)
+        # the small ray subset first, then the views
+        target = images[:, ray_idx][view_sel]                    # [B,R,3]
+        mask = edge_masks[:, ray_idx][view_sel]                  # [B,R]
 
-    if mesh is None:
-        loss = losses.edge_weighted_render_loss(
-            rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
-        plain_mse = losses.mse(rgb, target)
-        loss = add_regularizers(loss, field, s)
-        if cfg.grid_hw is not None:
-            gh, gw = cfg.grid_hw
-            loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
-                depth.reshape(B, R), gh, gw)
-    else:
-        loss, sq_sum, counts = render_loss_share(mesh, rgb, target, mask, s)
-        loss, report, partial = rank_terms(mesh, field, s, loss)
-        # the term enters every rank's loss (its gather's backward takes
-        # this rank's block) and the reported loss once a rays group;
-        # without weight no gather is made
-        if cfg.grid_hw is not None and s.tv_depth_weight:
-            gh, gw = cfg.grid_hw
-            tv = s.tv_depth_weight * losses.depth_tv_loss(
-                sharding.gather_rays(mesh, depth.reshape(B, R)), gh, gw)
-            loss = loss + tv
-            report = report + tv if mesh.rays_index == 0 else report
+        if mesh is None:
+            loss = losses.edge_weighted_render_loss(
+                rgb, target, mask, s.edge_factor, s.non_edge_factor,
+                s.use_edge)
+            plain_mse = losses.mse(rgb, target)
+            loss = add_regularizers(loss, field, s)
+            if cfg.grid_hw is not None:
+                gh, gw = cfg.grid_hw
+                loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
+                    depth.reshape(B, R), gh, gw)
+        else:
+            loss, sq_sum, counts = render_loss_share(mesh, rgb, target,
+                                                     mask, s)
+            loss, report, partial = rank_terms(mesh, field, s, loss)
+            # the term enters every rank's loss (its gather's backward
+            # takes this rank's block) and the reported loss once a rays
+            # group; without weight no gather is made
+            if cfg.grid_hw is not None and s.tv_depth_weight:
+                gh, gw = cfg.grid_hw
+                tv = s.tv_depth_weight * losses.depth_tv_loss(
+                    sharding.gather_rays(mesh, depth.reshape(B, R)), gh, gw)
+                loss = loss + tv
+                report = report + tv if mesh.rays_index == 0 else report
 
     params = dict(field.named_parameters())
     names = list(params)
     wrt = [params[k] for k in names]
     if cfg.pose_opt:
         wrt.append(state.se3_refine)
-    grads = dict(zip(names + ["se3_refine"], torch.autograd.grad(loss, wrt)))
+    with tracing.span("step.backward"):
+        grads = dict(zip(names + ["se3_refine"],
+                         torch.autograd.grad(loss, wrt)))
     if mesh is not None:
-        grads, metrics = reduce_step(mesh, grads, report, sq_sum, counts[2],
-                                     render_stats, partial)
+        with tracing.span("step.reduce"):
+            grads, metrics = reduce_step(mesh, grads, report, sq_sum,
+                                         counts[2], render_stats, partial)
     if not cfg.pose_opt:
         grads["se3_refine"] = torch.zeros_like(state.se3_refine)
 
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("step.adam"):
         lrs = field_lr_tree(field, s.lr_index, s.lr_basis)
         new_params, state.scene_opt = adam_update(
             grads, state.scene_opt, params, lrs, b2=cfg.scene_b2)
         for k in names:
             params[k].copy_(new_params[k])
 
-    # pose update on the accumulation cadence (pose_do_step)
-    if cfg.pose_opt:
-        with torch.no_grad():
+        # pose update on the accumulation cadence (pose_do_step)
+        if cfg.pose_opt:
             g_se3 = grads["se3_refine"]
             if cfg.pin_first_pose:
                 g_se3 = g_se3.clone()

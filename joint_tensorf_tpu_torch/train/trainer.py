@@ -85,6 +85,7 @@ from ..ops.composite import transmittance
 from ..render.renderer import (BlurSpec, RenderConfig, render_rays,
                                sample_ray_axes, step_size)
 from ..sched import schedules
+from ..utils import tracing
 from ..utils.torch_setup import resolve_device, setup_torch
 from .step import (StepConfig, StepScalars, compose_train_pose,
                    init_train_state, rebuild_opt_state, train_step)
@@ -571,6 +572,7 @@ class Trainer:
         return float(lw.TV_depth)
 
     # ------------------------------------------------------ 2D blur pipeline
+    @tracing.spanned("trainer.blur_cache")
     @torch.no_grad()
     def _refresh_blur_cache(self):
         """Blur the GT images and build the edge masks (soft with
@@ -695,25 +697,29 @@ class Trainer:
         and background coin (else drawn from the trainer's generator);
         ``draws``: the step's other pre-drawn inputs (L2G's
         error_draws)."""
-        self._reset_poses()
-        scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d = \
-            self.host_schedule()
-        if blur_spec is not None:
-            self._refresh_blur_mask()
-        if self.blur_2d:
-            self.current_images = self.blurred_images[sc2d]
-            edge_scale = float(self.opt.get("edge_mask_use_scale", sc2d))
-            self.current_edges = self.edge_masks.get(edge_scale,
-                                                     self.edge_masks[sc2d])
-        cfg = self._step_config(len(ray_idx), blur_spec, grid_hw)
-        self.rays_per_step = len(view_sel) * len(ray_idx)
-        self.last_step_config = cfg
+        with tracing.span("trainer.schedule"):
+            self._reset_poses()
+            scalars, blur_spec, view_sel, ray_idx, grid_hw, sc2d = \
+                self.host_schedule()
+            if blur_spec is not None:
+                self._refresh_blur_mask()
+            if self.blur_2d:
+                self.current_images = self.blurred_images[sc2d]
+                edge_scale = float(self.opt.get("edge_mask_use_scale",
+                                                sc2d))
+                self.current_edges = self.edge_masks.get(
+                    edge_scale, self.edge_masks[sc2d])
+            cfg = self._step_config(len(ray_idx), blur_spec, grid_hw)
+            self.rays_per_step = len(view_sel) * len(ray_idx)
+            self.last_step_config = cfg
+            alpha_mask = self._step_mask(blur_spec is not None)
+        with tracing.span("trainer.upload"):
+            view_sel = torch.as_tensor(view_sel, device=self.device)
+            ray_idx = torch.as_tensor(ray_idx, device=self.device)
         metrics, _ = self._step(
-            cfg, torch.as_tensor(view_sel, device=self.device),
-            torch.as_tensor(ray_idx, device=self.device), scalars,
-            generator=self.generator, jitter=jitter, bg_coin=bg_coin,
-            alpha_mask=self._step_mask(blur_spec is not None), stats=stats,
-            mesh=self.mesh, **draws)
+            cfg, view_sel, ray_idx, scalars, generator=self.generator,
+            jitter=jitter, bg_coin=bg_coin, alpha_mask=alpha_mask,
+            stats=stats, mesh=self.mesh, **draws)
         return metrics
 
     def _step(self, cfg: StepConfig, view_sel, ray_idx, scalars, **kw):
@@ -816,6 +822,7 @@ class Trainer:
     def _field_aabb_np(self) -> np.ndarray:
         return self.state.field.aabb.cpu().numpy()
 
+    @tracing.spanned("trainer.update_schedule")
     def _update_schedule(self):
         """Post-iteration schedule updates (the JAX trainer's
         _update_schedule, joint_tensorf_tpu/train/trainer.py:795-842)."""
@@ -1061,6 +1068,7 @@ class Trainer:
                                  * mask_scale / grid_scale))
         return max(1, min(halfw_mask, r))
 
+    @tracing.spanned("trainer.blur_mask")
     def _refresh_blur_mask(self):
         """The dilated-mask budget while the blur is on
         (trainer.py:314-382): once the resolution is final, every
@@ -1121,12 +1129,14 @@ class Trainer:
                 on_step(self, None)
             pending.append((self.it, metrics))
             if self.it % log_every == 0:
-                for it_i, vals in pending:
-                    for key, val in vals.items():
-                        if not math.isfinite(float(val)):
-                            raise FloatingPointError(
-                                f"non-finite {key}={float(val)} at it {it_i} "
-                                f"(detected at log point it {self.it})")
+                with tracing.span("trainer.log_point"):
+                    for it_i, vals in pending:
+                        for key, val in vals.items():
+                            if not math.isfinite(float(val)):
+                                raise FloatingPointError(
+                                    f"non-finite {key}={float(val)} at it "
+                                    f"{it_i} (detected at log point it "
+                                    f"{self.it})")
                 m = {k: float(v) for k, v in pending[-1][1].items()}
                 pending.clear()
                 m.update(it=self.it, wall=time.time() - t0,
