@@ -14,7 +14,9 @@
    device time from torch.profiler), the plain version and, where one
    exists, the one PyTorch call that computes the same function (K3:
    index_add_);
-4. holds K4 (the tile-binned plane-gradient scatter) and K5 (the
+4. holds K6 (the summed density sample, forward and backward) against
+   its plain version at the masked cell's shape and times both; holds
+   K4 (the tile-binned plane-gradient scatter) and K5 (the
    block-local row scatter) against their plain versions at the JAX
    bench scripts' shapes (K4 also at a 400x400 plane with 2.03M samples in
    march order and with every sample in one cell, exactly; K5 also with
@@ -177,7 +179,7 @@
    as they stand (planar_bat, planar_fft, planar_barf) for PLANAR_STEPS
    steps each (step ms, peak memory, host syncs, warp_error) and checks
    whether torch.linalg.matrix_exp synchronises the host; the counters
-   zeroed before and read after each piece: K1-K5 launch 0 times there
+   zeroed before and read after each piece: K1-K6 launch 0 times there
    (none lies on these paths, as no Pallas kernel does in JAX);
 17. the [parallel] phase (run_parallel; parallel/, the rays layout of
    configs/bat_blender_VM_pod16.yaml on 16 views, whose 4096 rays make a
@@ -420,10 +422,11 @@ MLP_TEST_ITER = 20
 # start (kernel_t sigma 128 -> 127.6 for the SVD and FFT images)
 PLANAR_CFGS = ("planar_bat.yaml", "planar_fft.yaml", "planar_barf.yaml")
 PLANAR_STEPS = 50
-# K1-K5: none lies on the MLP or planar paths (JAX computes them in plain
+# K1-K6: none lies on the MLP or planar paths (JAX computes them in plain
 # XLA, no Pallas kernel)
 NO_LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "scatter_add_rows": 0,
-               "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
+               "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0,
+               "density_sample_fwd": 0, "density_sample_bwd": 0}
 
 
 def emit(obj):
@@ -640,7 +643,11 @@ def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
     (sampling.sample_planeline_prod) two a chunk of at most
     _PROD_BWD_CHUNK samples (the plane's and the line's row scatters), for
     each sample_line (CP's lines, convolve_positive_only's density lines
-    under the blur) one.  The samples are the rank's (step_samples): all
+    under the blur) one; K6 (sampling.sample_planeline_prod_sum) once
+    forward and once backward for a VM density sampled from its factors
+    apart from the appearance (vm.density_sample_skips_dead: not the dense
+    grid, the fused sample, the head's density, CP or the split), with no
+    K3 call.  The samples are the rank's (step_samples): all
     kept samples for the density and the fused sample, app_k of them a
     ray for the two-stage appearance.  The field decides which paths run,
     as the renderer does: the dense grid only where vm.can_densify and the
@@ -654,6 +661,7 @@ def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
 
     vm_cfg = vm_cfg or vm_lib.VMConfig()
     cp = vm_cfg.decomposition == "CP"
+    k6 = render_k6(cfg, vm_cfg, blur=cfg.blur is not None)
     N, N_app = step_samples(cfg, rays)
     # the renderer's choice (renderer.py:455-459 of the JAX package)
     predict = cfg.mlp_predict_density
@@ -672,9 +680,27 @@ def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
     elif fused:
         k3 = 3 * _fused_k3(N)
     else:
-        k3 = (3 if cp or split else 3 * _fused_k3(N)) + app(N_app)
+        k3 = (3 if cp or split else 0) + app(N_app)
     return {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": k3,
-            "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0}
+            "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0,
+            "density_sample_fwd": k6, "density_sample_bwd": k6}
+
+
+def render_k6(cfg, vm_cfg, blur: bool = False) -> int:
+    """K6's launches in one render_rays call (forward, and as many in
+    its backward where one runs) with a StepConfig or RenderConfig ``cfg``
+    on a field of VMConfig ``vm_cfg``, blurred or not: 1 where the density
+    takes the summed factor sample (the renderer's choice: not the dense
+    grid, the fused sample or the head's density;
+    vm.density_sample_skips_dead)."""
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    predict = cfg.mlp_predict_density
+    grid = cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict
+    fused = (not grid and cfg.app_k is None and not predict
+             and vm_lib.can_fuse_features(vm_cfg))
+    return int(not (grid or predict or fused)
+               and vm_lib.density_sample_skips_dead(vm_cfg, blur))
 
 
 def march_indices_1d(n_rays, S, D, gen):
@@ -763,6 +789,94 @@ def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None, line=None,
             "shape": {"N": N, "C": C, "n_rows": n_rows,
                       "rows": ("line" if line is not None else
                                "dense grid" if grid3d else "plane")}}
+
+
+def density_sample_inputs(gen, rays=2500, K=896, res=400, R=16):
+    """K6's inputs at the masked cell's shape: three res^2 x R planes, res
+    x R lines, rays x K slots marching through the box, each ray's live
+    slots a prefix of 0-96 (about 5%, as the cell's kept_slot_use)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    planes = [torch.randn((res, res, R), generator=gen, device="cuda")
+              for _ in range(3)]
+    lines = [torch.randn((res, R), generator=gen, device="cuda")
+             for _ in range(3)]
+    start = torch.rand((rays, 1, 3), generator=gen, device="cuda") * 2.2 - 1.1
+    step = (torch.rand((rays, 1, 3), generator=gen, device="cuda") - 0.5) \
+        * (4.0 / K)
+    pts = start + torch.arange(K, device="cuda")[None, :, None] * step
+    coords = [pts[..., a].reshape(-1).contiguous() for a in range(3)]
+    n_live = torch.randint(0, 97, (rays, 1), generator=gen, device="cuda")
+    live = (torch.arange(K, device="cuda")[None] < n_live).reshape(-1)
+    return planes, lines, coords, vm_lib.AXES, live
+
+
+def check_density_sample(gen, tol=1e-5, **shape):
+    """K6 (ops/density_sample.py) against its plain version at the masked
+    cell's shape (density_sample_inputs): forward and backward (every
+    gradient), within ``tol`` of each output's largest magnitude; times
+    the forward and the backward back to back and by torch.profiler, the
+    plain version's forward + backward, and the bound: the bytes of the
+    predicates, the live slots' coordinates and factor rows (four plane
+    and two line rows of R floats an axis) read and, backward, as many
+    gradient adds, the feature and coordinate gradients written."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import density_sample as K6
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    planes, lines, coords, axes, live = density_sample_inputs(gen, **shape)
+    g = torch.randn(coords[0].shape, generator=gen, device="cuda")
+
+    def plain():
+        xs = [t.detach().requires_grad_(True) for t in planes + lines
+              + coords]
+        out = sampling.sample_planeline_prod_sum_plain(
+            xs[0:3], xs[3:6], xs[6:9], axes, live)
+        return [out.detach()] + list(torch.autograd.grad((out * g).sum(),
+                                                         xs))
+
+    def fwd():
+        return K6.density_sample_fwd_cuda(planes, lines, coords, axes, live)
+
+    def bwd():
+        return K6.density_sample_bwd_cuda(planes, lines, coords, axes, live,
+                                          g)
+
+    d_p, d_l, d_c = bwd()
+    got = [fwd()] + d_p + d_l + d_c
+    want = plain()
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+    dead = int(torch.count_nonzero(got[0][~live])) + sum(
+        int(torch.count_nonzero(d[~live])) for d in d_c)
+    if max(errs) > tol or dead or not all(torch.isfinite(t).all()
+                                          for t in got):
+        fail(f"K6 disagrees with its plain version: relative errors "
+             f"{errs}, {dead} non-zero dead-slot outputs")
+    del got, want, d_p, d_l, d_c
+    N, n_live = coords[0].shape[0], int(live.sum())
+    R = planes[0].shape[-1]
+    rows = n_live * 3 * 6 * R * 4
+    fwd_bytes = N + n_live * 12 + rows + N * 4
+    bwd_bytes = N + n_live * 16 + 2 * rows + N * 12
+    f_ms, f_by = bound(fwd_bytes, n_live * 3 * R * 12)
+    b_ms, b_by = bound(bwd_bytes, n_live * 3 * R * 40)
+    return {"name": "density_sample", "route": "cuda",
+            "source": "joint_tensorf_tpu_torch/csrc/density_sample.cu",
+            "replaces": None, "max_rel_err": errs,
+            "tolerance": f"{tol} x max|out|",
+            "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd),
+            "plain_ms": time_ms(plain, reps=5),
+            "fwd_device_ms": device_times(fwd),
+            "bwd_device_ms": device_times(bwd),
+            "fwd_bound_ms": f_ms, "fwd_bound_by": f_by,
+            "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
+            "shape": {"N": N, "live": n_live, "R": R,
+                      "plane": list(planes[0].shape)}}
 
 
 def check_binned(H, W, R, N, gen, tol, samples="uniform"):
@@ -2046,6 +2160,7 @@ def run_eval_phase(trainer, data):
         torch.cuda.synchronize()
         val_s = time.perf_counter() - t0
         rcfg = trainer.last_eval_config
+        expect_chunk["density_sample_fwd"] = render_k6(rcfg, trainer.vm_cfg)
         bad = [c for c in chunks if c != expect_chunk]
         if bad or not chunks:
             faults.append(f"validate: {len(bad)} of {len(chunks)} chunks "
@@ -2083,7 +2198,9 @@ def run_eval_phase(trainer, data):
         print(f"[eval] pose error {err}, clip stats {clip}", flush=True)
 
         # ---------------- 4. test-time optimisation, counters per step
-        expect_step = dict(expect_chunk, composite_bwd=1)
+        k6 = render_k6(render_config(trainer), trainer.vm_cfg)
+        expect_step = dict(expect_chunk, composite_bwd=1,
+                           density_sample_fwd=k6, density_sample_bwd=k6)
         steps = []
         clock = [0.0]
 
@@ -2403,7 +2520,8 @@ def run_viz_phase(trainer, data):
             calls.append({"views": int(pose.shape[0]),
                           "s": time.perf_counter() - t0, "chunks": chunks,
                           "eval_compact_k": rcfg.compact_k,
-                          "dense_grid": rcfg.densify_density})
+                          "dense_grid": rcfg.densify_density,
+                          "k6": render_k6(rcfg, self.vm_cfg)})
             return r
 
         buf = io.StringIO()
@@ -2426,7 +2544,7 @@ def run_viz_phase(trainer, data):
         with open(os.path.join(run_dir, "quant.txt")) as f:
             n_test = sum(1 for _ in f)
         bad = [c for call in calls for c in call["chunks"]
-               if c != expect_chunk]
+               if c != dict(expect_chunk, density_sample_fwd=call["k6"])]
         if [c["views"] for c in calls] != [n_test, VIZ_FRAMES] or bad:
             faults.append(f"evaluate: render_views calls "
                           f"{[(c['views'], len(c['chunks'])) for c in calls]}"
@@ -3208,7 +3326,7 @@ def mlp_step_flops(cfg, n_points: int) -> float:
 def _no_launches(label, launches, faults):
     if launches != NO_LAUNCHES:
         faults.append(f"{label}: launched {launches}, expected none of "
-                      f"K1-K5")
+                      f"K1-K6")
 
 
 def run_mlp_nerf(yaml: str, extra=()):
@@ -3217,7 +3335,7 @@ def run_mlp_nerf(yaml: str, extra=()):
     the bound of the coarse MLP's operations, peak memory), the host syncs
     of 3 more steps, validate on 2 views (ms a view), with BARF
     MLP_TEST_ITER test-time steps on each of 2 views; the counters zeroed
-    before and read after each piece: K1-K5 launch 0 times."""
+    before and read after each piece: K1-K6 launch 0 times."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -3339,7 +3457,7 @@ def run_mlp_nerf(yaml: str, extra=()):
 def run_planar():
     """The three planar configs at their widths through PlanarTrainer.run:
     PLANAR_STEPS steps each (step ms, peak memory, host syncs of 3 more
-    steps, warp_error, the counters zeroed before and read after: K1-K5
+    steps, warp_error, the counters zeroed before and read after: K1-K6
     launch 0 times), and whether torch.linalg.matrix_exp of the 5
     homographies synchronises the host (sync debug "error")."""
     import torch
@@ -5141,6 +5259,7 @@ def main(argv):
     tiled = check_tiled_all(gen)
     for r in tiled:
         emit({"kernel_check": r})
+    emit({"kernel_check": check_density_sample(gen)})
     torch.cuda.empty_cache()
     emit(check_small_step())
     emit(check_small_l2g_ndc())
@@ -5291,7 +5410,7 @@ def main(argv):
         path="llff_800")})
     torch.cuda.empty_cache()
     # BARF, MLP-NeRF with fine sampling and the planar images: none of
-    # K1-K5 on their paths; their small steps on the card against the CPU
+    # K1-K6 on their paths; their small steps on the card against the CPU
     emit(check_small_mlp_planar())
     run_mlp_nerf("barf_blender.yaml")
     run_mlp_nerf("nerf_blender_repr.yaml", ["--nerf.density_noise_reg=1"])

@@ -64,12 +64,15 @@ import torch.nn as nn
 from ..ops import blur as blur_ops
 from ..ops import densify, lane_grid, resample
 from ..ops.kernels import average_kernel, gaussian_kernel
-from ..ops.sampling import sample_line, sample_plane, sample_planeline_prod
+from ..ops.sampling import (sample_line, sample_plane, sample_planeline_prod,
+                             sample_planeline_prod_sum)
 from ..parallel import sharding
 from .shading import make_head
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
+# the coordinates axis i's plane (u -> W, v -> H) and line (w) read
+AXES = tuple((m0, m1, v) for (m0, m1), v in zip(MAT_MODE, VEC_MODE))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,36 +390,46 @@ def _cp_feature(lines, cfg: VMConfig, coords, blur_mats, density: bool):
     return prod
 
 
+def density_sample_skips_dead(cfg: VMConfig, blurred: bool) -> bool:
+    """Whether compute_density_feature takes the summed plane x line
+    sample (K6 on the card), which evaluates the ``live`` slots alone: VM
+    factors, and not convolve_positive_only's split under the blur."""
+    return cfg.decomposition == "VM" and not (
+        blurred and cfg.convolve_positive_only)
+
+
 def compute_density_feature(field: VMField, cfg: VMConfig, coords,
-                            blur_mats=None):
+                            blur_mats=None, live=None):
     """Density feature [N] at normalized coords (cx, cy, cz) from the
     density factors alone, varied and blurred by ``blur_mats`` when given
     (the alpha-mask build and the probes unblurred).  Under the blur with
     convolve_positive_only the plane and line are sampled apart by plain
-    gathers; otherwise one sample_planeline_prod (K3 in its backward) per
-    axis."""
+    gathers; otherwise the three axes' plane x line products in one
+    sample_planeline_prod_sum (K6 on the card), which evaluates only the
+    slots ``live`` [N] bool marks (None: all) and gives 0 at the others
+    (density_sample_skips_dead).  CP and the split path evaluate every
+    slot and take no ``live``."""
     coords = _comp_coords(field, coords)
     if cfg.decomposition == "CP":
         return _comp_sum(field, torch.sum(_cp_feature(
             field.density_lines, cfg, coords, blur_mats, density=True),
             dim=-1))
+    factors = [_density_factors(field, cfg, i, blur_mats) for i in range(3)]
+    if density_sample_skips_dead(cfg, blur_mats is not None):
+        return _comp_sum(field, sample_planeline_prod_sum(
+            [f[0] for f in factors], [f[1] for f in factors], coords, AXES,
+            live))
     sigma = torch.zeros_like(coords[0])
-    for i in range(3):
-        m0, m1 = MAT_MODE[i]
-        u, v, w = coords[m0], coords[m1], coords[VEC_MODE[i]]
-        plane, line, sharp = _density_factors(field, cfg, i, blur_mats)
-        if blur_mats is not None and cfg.convolve_positive_only:
-            p = sample_plane(plane, u, v)
-            l = sample_line(line, w)
-            pos = l.detach() >= 0
-            if cfg.ignore_negative_split:
-                p = p * pos
-            else:
-                p = torch.where(pos, p, sample_plane(sharp, u, v))
-            prod = p * l
+    for (plane, line, sharp), (m0, m1, vec) in zip(factors, AXES):
+        u, v, w = coords[m0], coords[m1], coords[vec]
+        p = sample_plane(plane, u, v)
+        l = sample_line(line, w)
+        pos = l.detach() >= 0
+        if cfg.ignore_negative_split:
+            p = p * pos
         else:
-            prod = sample_planeline_prod(plane, line, u, v, w)
-        sigma = sigma + torch.sum(prod, dim=-1)
+            p = torch.where(pos, p, sample_plane(sharp, u, v))
+        sigma = sigma + torch.sum(p * l, dim=-1)
     return _comp_sum(field, sigma)
 
 

@@ -32,10 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the sources csrc/<stem>.cu; one source may hold several C entry points
 SOURCES = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 HEADERS = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-# the kernels whose launches are counted (K1-K5), by C entry point
+# the kernels whose launches are counted (K1-K6), by C entry point
 LAUNCHES = {name: 0 for name in (
     "composite_fwd", "composite_bwd", "scatter_add_rows",
-    "binned_plane_scatter", "scatter_add_rows_tiled")}
+    "binned_plane_scatter", "scatter_add_rows_tiled", "density_sample_fwd",
+    "density_sample_bwd")}
 # K3's launches by shape: (C, n_rows) -> the most rows N one launch
 # scattered into n_rows rows of C channels
 SCATTER_SHAPES: dict[tuple[int, int], int] = {}

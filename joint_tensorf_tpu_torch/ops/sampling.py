@@ -17,6 +17,11 @@ with its hand-written backward (:219-426).
         its backward in chunks of at most _PROD_BWD_CHUNK samples, as
         JAX's _prod_bwd: per chunk one [ck, 4R] plane and one [ck, 2R]
         line row scatter (K3 on a CUDA tensor), folded once at the end
+    sample_planeline_prod_sum(planes, lines, coords, axes, live) -> [N]
+        the VM density feature: sample_planeline_prod summed over R and
+        the three axes, 0 where ``live`` is False; kernel K6 forward and
+        backward on a CUDA tensor (ops/density_sample.py), which works on
+        the live slots alone; the plain version on a CPU tensor
 
 Bilinear plane / linear line sampling with align_corners semantics,
 channels-last, clamped to the border as jnp.clip clamps (_pix), so a
@@ -31,7 +36,9 @@ as JAX's jax.vjp of the plain gather gives them.
 
 Forward and backward are plain PyTorch, except the row scatters that go
 through ops/segment_scatter.scatter_add_rows: kernel K3 on a CUDA tensor,
-``index_add_`` on a CPU tensor.
+``index_add_`` on a CPU tensor; and the summed density sample, which is
+K6 on a CUDA tensor (its plain version's row scatters are ``index_add_``,
+never K3).
 
 The planar pipeline's image sample (:428-463) is here too:
 
@@ -44,6 +51,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import density_sample
 from .segment_scatter import scatter_add_rows
 
 
@@ -333,9 +341,11 @@ def _prod_chunk_grads(packed_plane, packed_line, shape, u, v, w, g, need):
 
 
 class SamplePlaneLineProd(torch.autograd.Function):
+    """p(u, v) * l(w); ``scatter`` (None: scatter_add_rows) takes the
+    backward's row scatters."""
 
     @staticmethod
-    def forward(ctx, plane, line, u, v, w):
+    def forward(ctx, plane, line, u, v, w, scatter=None):
         H, W, R = plane.shape
         D = line.shape[0]
         x0, fx = _floor_frac(_pix(u, W), W)
@@ -348,6 +358,7 @@ class SamplePlaneLineProd(torch.autograd.Function):
         lrows = pack_line(line)[i0]
         l = lrows[:, :R] * (1.0 - fz)[:, None] + lrows[:, R:] * fz[:, None]
         ctx.save_for_backward(plane, line, u, v, w)
+        ctx.scatter = scatter or scatter_add_rows
         return p * l
 
     @staticmethod
@@ -361,7 +372,7 @@ class SamplePlaneLineProd(torch.autograd.Function):
         scatter runs, as JAX's value_and_grad w.r.t. the pose alone drops
         them."""
         plane, line, u, v, w = ctx.saved_tensors
-        need = ctx.needs_input_grad
+        need = ctx.needs_input_grad[:5]
         need_p, need_l, need_u, need_v, need_w = need
         H, W, R = plane.shape
         D = line.shape[0]
@@ -380,23 +391,82 @@ class SamplePlaneLineProd(torch.autograd.Function):
                 packed_plane, packed_line, (H, W, D, R), u[s:e], v[s:e],
                 w[s:e], g[s:e], need)
             if need_p:
-                part = scatter_add_rows(idx, g4, H * W)
+                part = ctx.scatter(idx, g4, H * W)
                 d_pk = part if d_pk is None else d_pk.add_(part)
             if need_l:
-                part = scatter_add_rows(i0, g2, D)
+                part = ctx.scatter(i0, g2, D)
                 d_lk = part if d_lk is None else d_lk.add_(part)
             for full, part in ((d_u, du), (d_v, dv), (d_w, dw)):
                 if full is not None:
                     full[s:e] = part
         d_plane = None if d_pk is None else _plane_fold(d_pk, H, W, R)
         d_line = None if d_lk is None else _line_fold(d_lk, D, R)
-        return d_plane, d_line, d_u, d_v, d_w
+        return d_plane, d_line, d_u, d_v, d_w, None
 
 
 def sample_planeline_prod(plane, line, u, v, w):
     """p(u,v) * l(w): plane [H,W,R], line [D,R], u (->W), v (->H),
     w (->D) [N] in [-1,1] -> [N,R]."""
     return SamplePlaneLineProd.apply(plane, line, u, v, w)
+
+
+class SamplePlaneLineProdSum(torch.autograd.Function):
+    """sample_planeline_prod_sum on the card: K6's forward, and its
+    backward for the gradients autograd asks for (frozen factors: none
+    into the factors; detached coordinates: none for them)."""
+
+    @staticmethod
+    def forward(ctx, axes, live, p0, p1, p2, l0, l1, l2, x, y, z):
+        planes = tuple(t.contiguous() for t in (p0, p1, p2))
+        lines = tuple(t.contiguous() for t in (l0, l1, l2))
+        coords = tuple(t.contiguous() for t in (x, y, z))
+        live = None if live is None else live.contiguous()
+        ctx.axes = axes
+        ctx.save_for_backward(live, *planes, *lines, *coords)
+        return density_sample.density_sample_fwd_cuda(planes, lines, coords,
+                                                      axes, live)
+
+    @staticmethod
+    def backward(ctx, g):
+        live, *factors = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        if not any(need):
+            return (None,) * 11
+        d_planes, d_lines, d_coords = density_sample.density_sample_bwd_cuda(
+            factors[0:3], factors[3:6], factors[6:9], ctx.axes, live,
+            g.contiguous(), need)
+        return (None, None, *d_planes, *d_lines, *d_coords)
+
+
+def sample_planeline_prod_sum_plain(planes, lines, coords, axes, live=None):
+    """K6's plain version (any device): the sum over R and the axes of
+    sample_planeline_prod(planes[a], lines[a], *coords[axes[a]]), then 0
+    where ``live`` is False.  Its row scatters are ``index_add_``
+    (_index_add_rows): this is the plain version of K6, not a K3 call."""
+    sigma = torch.zeros_like(coords[0])
+    for plane, line, (a, b, c) in zip(planes, lines, axes):
+        prod = SamplePlaneLineProd.apply(plane, line, coords[a], coords[b],
+                                         coords[c], _index_add_rows)
+        sigma = sigma + torch.sum(prod, dim=-1)
+    if live is None:
+        return sigma
+    return torch.where(live, sigma, torch.zeros_like(sigma))
+
+
+def sample_planeline_prod_sum(planes, lines, coords, axes, live=None):
+    """sum_a sum_r planes[a](u, v)[r] * lines[a](w)[r] -> [N], with (u, v,
+    w) = coords[axes[a]] (u -> W, v -> H, w -> D of the factors), 0 where
+    ``live`` [N] bool is False (None: every slot live).  Three float32
+    planes [H,W,R_a], lines [D,R_a] and coordinates [N].  K6 on a CUDA
+    tensor, which reads only the live slots' factor rows and adds
+    gradients only from them; the plain version on a CPU tensor."""
+    if coords[0].is_cuda:
+        return SamplePlaneLineProdSum.apply(axes, live, *planes, *lines,
+                                            *coords)
+    if coords[0].device.type != "cpu":
+        raise ValueError(f"sample_planeline_prod_sum: no kernel for "
+                         f"{coords[0].device}")
+    return sample_planeline_prod_sum_plain(planes, lines, coords, axes, live)
 
 
 def sample_image(img, coords, mode: str = "bilinear"):

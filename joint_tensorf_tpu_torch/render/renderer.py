@@ -252,8 +252,10 @@ def render_rays(
     ``alpha_mask`` gates the samples, with or without the blur.  A ``stats``
     dict receives, as 0-d tensors, the fractions of the S sample slots in
     the box ("inbbox_frac"), live after the mask ("valid_frac"), kept by
-    the compaction ("kept_frac", K / S) and live but dropped by it
-    ("dropped_frac": a ray with more live slots than K)."""
+    the compaction ("kept_frac", K / S), live but dropped by it
+    ("dropped_frac": a ray with more live slots than K) and evaluated by
+    the density sample ("sampled_frac": valid_frac on the summed factor
+    sample, which skips the dead slots, else kept_frac)."""
     n = centers.shape[0]
     S = rcfg.n_samples
     resolution = field.resolution()
@@ -397,8 +399,15 @@ def render_rays(
             sigma_feature, app_feat = vm_lib.compute_fused_features(
                 field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
         else:
-            sigma_feature = vm_lib.compute_density_feature(field, cfg, coords,
-                                                           blur_mats=d_mats)
+            sigma_feature = vm_lib.compute_density_feature(
+                field, cfg, coords, blur_mats=d_mats, live=valid.reshape(-1))
+        if stats is not None:
+            # the slots the density sample evaluated: the live ones alone
+            # on the summed factor sample, every kept slot elsewhere
+            skips = not (use_densify or predict or use_fused) and \
+                vm_lib.density_sample_skips_dead(cfg, d_mats is not None)
+            stats["sampled_frac"] = stats["valid_frac" if skips
+                                          else "kept_frac"]
         sigma_feature = sigma_feature.reshape(n, S)
         # a component-wise activated feature is the density already
         sigma = (sigma_feature if cfg.component_wise_feature2density

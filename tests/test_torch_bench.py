@@ -280,7 +280,9 @@ def test_phase_steps_scatter_calls_match_expected_launches(monkeypatch,
                                                           smoke):
     """One CPU step of each phase makes the row-scatter calls that
     chip_smoke.expected_launches asks of K3 on the card for its step
-    config (12 two-stage compacted, 7 with the dense grid)."""
+    config (6 two-stage compacted, 7 with the dense grid), and the summed
+    density samples it asks of K6 (once each way compacted, none with the
+    dense grid)."""
     import chip_smoke
     from test_torch_test_optim import _Counter
 
@@ -289,10 +291,13 @@ def test_phase_steps_scatter_calls_match_expected_launches(monkeypatch,
         count = _Counter(monkeypatch)
         metrics, _ = pbench.run_iter(work, p, copy.deepcopy(p.state))
         assert np.isfinite(float(metrics["loss"]))
-        want = chip_smoke.expected_launches(p.cfg)["scatter_add_rows"]
-        assert count.n == want == (12 if p.mask is not None
-                                   and not p.cfg.densify_density else 7), \
+        want = chip_smoke.expected_launches(p.cfg)
+        masked = p.mask is not None and not p.cfg.densify_density
+        assert count.n == want["scatter_add_rows"] == (6 if masked else 7), \
             p.name
+        assert count.k6 == count.k6_of(want) == {
+            "density_sample_fwd": int(masked),
+            "density_sample_bwd": int(masked)}, p.name
 
 
 # --------------------------------------------------------- the command line

@@ -20,7 +20,8 @@ their tolerances).
 * optim.sched_pose.lr_pose_schedule (with the LambdaLR type, with no
   type, with ExponentialLR at lr_pose 0) and warmup: the pose lr of each
   iteration equal to the JAX trainer's;
-* one CPU step's row-scatter calls (K3 on the card) for each variant, the
+* one CPU step's row-scatter calls (K3 on the card) and summed density
+  samples forward and backward (K6 on the card) for each variant, the
   density head, CP (plain and component-wise) and SH, with and without
   the dense grid, app_k and the blur, equal chip_smoke.expected_launches,
   and so do a step's whose fused samples run in chunks (_PROD_BWD_CHUNK
@@ -448,57 +449,86 @@ def test_step_scatter_calls_match_expected_launches(monkeypatch, name,
                     c2f_density=0.1, c2f_color=0.1),
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
-    want = chip_smoke.expected_launches(scfg, pcfg)["scatter_add_rows"]
-    assert count.n == want
+    want = chip_smoke.expected_launches(scfg, pcfg)
+    assert count.n == want["scatter_add_rows"]
+    assert count.k6 == count.k6_of(want)
 
 
 def test_expected_launches_table():
     """K3 a step by field and path in chip_smoke.expected_launches, each
     fused factor sample a plane and a line scatter a chunk: the dense
     grid + 3 appearance samples (7) wherever the grid may run; without it
-    12 with app_k, 6 fused (convolve_plane_only, ignore_negative_split)
-    or 12 (the activation flags); convolve_positive_only under the blur 3
+    6 with app_k or with the activation flags (the appearance alone: the
+    density is K6's), 6 fused (convolve_plane_only,
+    ignore_negative_split); convolve_positive_only under the blur 3
     density lines + 6 (9); CP the grid + 3 appearance lines (4), 6 lines
     without the grid; the density head 6.  Past _PROD_BWD_CHUNK samples
     (2**20) a fused sample scatters per chunk: BAT's 2028 x 1000 fused
     (2 chunks a sample), app_k 128 on the dense grid (1), LLFF's 4420 x
     1000 on the dense appearance (5), pod16's 4096 x 512 kept samples on
-    one rank (2) and on each of two (exactly one chunk)."""
+    one rank and on each of two (the appearance's app_k 128 in one chunk;
+    the density K6's whatever its samples).  K6 (forward and backward
+    alike) once a step exactly where the VM density is sampled from its
+    factors apart from the appearance: app_k or the activation flags
+    without the grid, not CP, the density head or the split."""
     blur = BlurSpec("uniform-gaussian", 8)
 
-    def k3(field_kw, rays=1, **step_kw):
+    def launches(field_kw, rays=1, **step_kw):
         _, pcfg = _cfgs(**field_kw)
         step_kw = {"n_views": 1, "rays_per_view": 8, "n_samples": 16,
                    "blur": blur, **step_kw}
         scfg = StepConfig(H=8, W=8, **step_kw)
-        return chip_smoke.expected_launches(scfg, pcfg, rays)[
-            "scatter_add_rows"]
+        got = chip_smoke.expected_launches(scfg, pcfg, rays)
+        assert got["density_sample_fwd"] == got["density_sample_bwd"]
+        return got
+
+    def k3(*a, **kw):
+        return launches(*a, **kw)["scatter_add_rows"]
+
+    def k6(*a, **kw):
+        return launches(*a, **kw)["density_sample_fwd"]
 
     for name, kw in VARIANTS.items():
         positive = kw.get("convolve_positive_only", False)
         fusable = vm.can_fuse_features(_cfgs(**kw)[1])
         assert k3(kw, densify_density=True, app_k=64) == (
             9 if positive else 7), name
-        assert k3(kw, app_k=64) == (9 if positive else 12), name
-        assert k3(kw) == (9 if positive else 6 if fusable else 12), name
+        assert k3(kw, app_k=64) == (9 if positive else 6), name
+        assert k3(kw) == (9 if positive else 6), name
+        assert k6(kw, densify_density=True, app_k=64) == 0, name
+        assert k6(kw, app_k=64) == (0 if positive else 1), name
+        assert k6(kw) == (0 if positive or fusable else 1), name
     assert k3(dict(convolve_plane_only=True)) == 6
     assert k3(dict(ignore_negative_split=True)) == 6
     assert k3(dict(decomposition="CP"), densify_density=True, app_k=64) == 4
     assert k3(dict(decomposition="CP"), app_k=64) == 6
+    assert k6(dict(decomposition="CP"), app_k=64) == 0
     assert k3(dict(shading_mode="MLP_Fea_WeakView_Density"),
               densify_density=True, app_k=64, mlp_predict_density=True) == 6
+    assert k6(dict(shading_mode="MLP_Fea_WeakView_Density"), app_k=64,
+              mlp_predict_density=True) == 0
+    # convolve_positive_only splits only under the blur
+    assert k6(dict(convolve_positive_only=True), app_k=64, blur=None) == 1
     bat = dict(n_views=12, rays_per_view=169, n_samples=1000, blur=None)
     assert k3({}, **bat) == 12
     assert k3({}, densify_density=True, app_k=128, **bat) == 7
-    assert k3({}, compact_k=512, app_k=128, **bat) == 12
-    assert k3({}, compact_k=640, app_k=128, **bat) == 18
+    assert k3({}, compact_k=512, app_k=128, **bat) == 6
+    assert k3({}, compact_k=640, app_k=128, **bat) == 6
+    assert k6({}, compact_k=640, app_k=128, **bat) == 1
+    assert k6({}, **bat) == k6({}, densify_density=True, app_k=128,
+                               **bat) == 0
     assert k3({}, n_views=20, rays_per_view=221, n_samples=1000,
               densify_density=True) == 31
     pod16 = dict(n_views=16, rays_per_view=256, n_samples=1000,
                  compact_k=512, app_k=128, blur=None)
-    assert k3({}, **pod16) == 18
-    assert k3({}, rays=2, **pod16) == 12
+    assert k3({}, **pod16) == 6
+    assert k3({}, rays=2, **pod16) == 6
+    assert k6({}, **pod16) == k6({}, rays=2, **pod16) == 1
     assert k3(dict(decomposition="CP"), **bat) == 6
+    # the masked cell's step: 2500 rays x K 896, app_k 128
+    masked = dict(n_views=100, rays_per_view=25, n_samples=1000,
+                  compact_k=896, app_k=128, blur=None)
+    assert (k3({}, **masked), k6({}, **masked)) == (6, 1)
 
 
 @pytest.mark.parametrize("densify_density,app_k", [(True, 4), (False, 4),
@@ -525,9 +555,10 @@ def test_chunked_step_scatter_calls_match_expected_launches(
         StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3),
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
-    want = chip_smoke.expected_launches(scfg, pcfg)["scatter_add_rows"]
-    assert count.n == want == (7 if densify_density else
-                               6 + 6 * 8 if app_k else 6 * 8)
+    want = chip_smoke.expected_launches(scfg, pcfg)
+    assert count.n == want["scatter_add_rows"] == (
+        7 if densify_density else 6 if app_k else 6 * 8)
+    assert count.k6 == count.k6_of(want)
 
 
 EVAL_ZOO = {

@@ -19,7 +19,13 @@ to run), and exactly where every partial sum is exact (integer updates);
 the lane grid's samples card against CPU (through K3) at rtol / atol
 1e-5, the hybrids', the chunked fused sample's and sample_line's at rtol
 1e-5 and 1e-5 of each output's largest magnitude (the coordinates'
-gradients scale with the grid's size).
+gradients scale with the grid's size).  The summed density sample K6
+against its plain version on the card: the feature within 1e-5 of its
+largest magnitude (the group's shuffle sums the channels in another
+order), the plane, line and coordinate gradients at rtol 1e-5 and 1e-5
+of each gradient's largest magnitude (each slot's sum in another order,
+and the factor gradients' float32 atomics in an order that varies from
+run to run); the dead slots' feature and coordinate gradients exactly 0.
 """
 import pytest
 import torch
@@ -688,6 +694,130 @@ def test_binned_sample_takes_the_kernel():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+def _density_case(kind, gen):
+    """K6's inputs: three planes, lines and coordinates, the live mask.
+    "masked" is the masked cell's shape: 400^2 x 16 planes, 400 x 16
+    lines, 2500 rays x K 896 slots, each ray's live slots a prefix of
+    about 5% (0-96 of 896) along a march through the box; "scalar" widths
+    that are no multiple of 4 (5 / 3 / 7, scalar loads and atomics);
+    "global_lines" lines too long for the block's shared copy (3 x 4000 x
+    12 floats), every slot live (live None)."""
+    from joint_tensorf_tpu_torch.models import vm
+
+    res, ranks, rays, K = {
+        "masked": ((400, 400, 400), (16, 16, 16), 2500, 896),
+        "scalar": ((37, 29, 41), (5, 3, 7), 300, 64),
+        "global_lines": ((4000, 4000, 4000), (12, 12, 12), 200, 64)}[kind]
+    planes, lines = [], []
+    for (m0, m1, vec), r in zip(vm.AXES, ranks):
+        h, w = (res[m1], res[m0]) if kind != "global_lines" else (60, 50)
+        planes.append(torch.randn((h, w, r), generator=gen, device="cuda"))
+        lines.append(torch.randn((res[vec], r), generator=gen,
+                                 device="cuda"))
+    start = torch.rand((rays, 1, 3), generator=gen, device="cuda") * 2.2 - 1.1
+    step = (torch.rand((rays, 1, 3), generator=gen, device="cuda") - 0.5) \
+        * (4.0 / K)
+    pts = (start + torch.arange(K, device="cuda")[None, :, None] * step)
+    coords = [pts[..., a].reshape(-1).contiguous() for a in range(3)]
+    n_live = torch.randint(0, 97 if kind == "masked" else K // 2,
+                           (rays, 1), generator=gen, device="cuda")
+    live = (torch.arange(K, device="cuda")[None] < n_live).reshape(-1)
+    if kind == "global_lines":
+        live = None
+    return planes, lines, coords, live
+
+
+def _density_grads(fn, planes, lines, coords, live, cot, need):
+    """fn's value and the gradients ``need`` (nine flags) asks for."""
+    from joint_tensorf_tpu_torch.models import vm
+
+    xs = [t.detach().requires_grad_(w)
+          for t, w in zip(planes + lines + coords, need)]
+    val = fn(xs[0:3], xs[3:6], xs[6:9], vm.AXES, live)
+    asked = [x for x in xs if x.requires_grad]
+    grads = torch.autograd.grad((val * cot).sum(), asked)
+    it = iter(grads)
+    return val.detach(), [next(it) if x.requires_grad else None for x in xs]
+
+
+def _close(a, b):
+    torch.testing.assert_close(a, b, rtol=1e-5,
+                               atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["masked", "scalar", "global_lines"])
+def test_density_sample_kernel_matches_plain(kind):
+    """K6 through sample_planeline_prod_sum against its plain version on
+    the card: the feature, the nine gradients, zeros at the dead slots,
+    one launch each way and no K3."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import cuda_build, sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    planes, lines, coords, live = _density_case(kind, gen)
+    cot = torch.randn(coords[0].shape, generator=gen, device="cuda")
+    want, want_g = _density_grads(sampling.sample_planeline_prod_sum_plain,
+                                  planes, lines, coords, live, cot,
+                                  (True,) * 9)
+    cuda_build.reset_launches()
+    got, got_g = _density_grads(sampling.sample_planeline_prod_sum, planes,
+                                lines, coords, live, cot, (True,) * 9)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["density_sample_fwd"] == 1
+    assert cuda_build.LAUNCHES["density_sample_bwd"] == 1
+    assert cuda_build.LAUNCHES["scatter_add_rows"] == 0
+    _close(got, want)
+    for a, b in zip(got_g, want_g):
+        assert torch.isfinite(a).all()
+        _close(a, b)
+    if live is not None:
+        assert 0.02 < float(live.float().mean()) < 0.5
+        assert torch.count_nonzero(got[~live]) == 0
+        assert all(torch.count_nonzero(d[~live]) == 0 for d in got_g[6:])
+    assert all(torch.count_nonzero(d) > 0 for d in got_g)
+
+
+@pytest.mark.cuda
+def test_density_sample_kernel_frozen_and_detached():
+    """At the masked shape: frozen factors give the coordinates' gradients
+    of the full backward bit for bit (each slot's sum is the same) and no
+    factor gradient; detached coordinates give the factors' gradients
+    (within the atomics' order) and none for the coordinates; one
+    backward launch each."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import cuda_build, sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    planes, lines, coords, live = _density_case("masked", gen)
+    cot = torch.randn(coords[0].shape, generator=gen, device="cuda")
+    fn = sampling.sample_planeline_prod_sum
+    _, full = _density_grads(fn, planes, lines, coords, live, cot,
+                             (True,) * 9)
+    cuda_build.reset_launches()
+    _, frozen = _density_grads(fn, planes, lines, coords, live, cot,
+                               (False,) * 6 + (True,) * 3)
+    assert cuda_build.LAUNCHES["density_sample_bwd"] == 1
+    for a, b in zip(frozen[6:], full[6:]):
+        assert torch.equal(a, b)
+    cuda_build.reset_launches()
+    _, detached = _density_grads(fn, planes, lines, coords, live, cot,
+                                 (True,) * 6 + (False,) * 3)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["density_sample_bwd"] == 1
+    for a, b in zip(detached[:6], full[:6]):
+        _close(a, b)
+    # the kernel's own entry point: no output asked for, no output made
+    from joint_tensorf_tpu_torch.models import vm
+    from joint_tensorf_tpu_torch.ops import density_sample
+
+    d_p, d_l, d_c = density_sample.density_sample_bwd_cuda(
+        planes, lines, coords, vm.AXES, live, cot,
+        (False,) * 6 + (True, False, True))
+    assert d_p == [None] * 3 and d_l == [None] * 3 and d_c[1] is None
+    assert torch.equal(d_c[0], full[6]) and torch.equal(d_c[2], full[8])
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs():
     _need_card()
@@ -700,6 +830,23 @@ def test_wrappers_reject_bad_inputs():
         C.composite_fwd_cuda(a, torch.zeros((4, 6, 3), device="cuda").
                              transpose(0, 1).contiguous().transpose(0, 1),
                              a, 0.0)
+    from joint_tensorf_tpu_torch.models import vm
+    from joint_tensorf_tpu_torch.ops import density_sample
+
+    planes = [torch.zeros((5, 5, 4), device="cuda")] * 3
+    lines = [torch.zeros((5, 4), device="cuda")] * 3
+    coords = [torch.zeros(7, device="cuda")] * 3
+    with pytest.raises(TypeError):
+        density_sample.density_sample_fwd_cuda(
+            [p.double() for p in planes], lines, coords, vm.AXES)
+    with pytest.raises(ValueError):
+        density_sample.density_sample_fwd_cuda(
+            planes, lines, coords, vm.AXES,
+            torch.ones(7, dtype=torch.uint8, device="cuda"))
+    with pytest.raises(ValueError):
+        density_sample.density_sample_fwd_cuda(
+            planes, [torch.zeros((5, 3), device="cuda")] * 3, coords,
+            vm.AXES)
 
 
 @pytest.mark.cuda
@@ -724,7 +871,20 @@ def test_comp_gloo_ranks_on_the_card_match_one_rank():
         {"comp_forward": 1, "comp_backward": 1, "comp_grads": 1})
 
 
-def _ranks_on_the_card_match_one_rank(mesh_shape, mesh_axes, counts):
+@pytest.mark.cuda
+def test_comp_gloo_ranks_with_the_summed_density_sample():
+    """The comp layout's step with the two-stage appearance: each rank's
+    density is K6 on its block of components (2 of 4 a factor: the
+    scalar route), summed over the comp group; as the test above, with a
+    forward and a backward reduction for each of the density and the
+    appearance."""
+    _ranks_on_the_card_match_one_rank(
+        [1, 2], ["rays", "comp"],
+        {"comp_forward": 2, "comp_backward": 2, "comp_grads": 1}, app_k=16)
+
+
+def _ranks_on_the_card_match_one_rank(mesh_shape, mesh_axes, counts,
+                                      **step_extra):
     _need_card()
     import numpy as np
 
@@ -756,7 +916,7 @@ def _ranks_on_the_card_match_one_rank(mesh_shape, mesh_axes, counts):
              jitter=rng.random((V * R, 1)).astype(np.float32))
     state["pose_base"] = x["pose_base"]
     step_cfg = dict(H=H, W=W, n_views=V, rays_per_view=R, n_samples=64,
-                    blur=BlurSpec("uniform-gaussian", 8))
+                    blur=BlurSpec("uniform-gaussian", 8), **step_extra)
     sc = dict(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3, c2f_density=0.1,
               c2f_color=0.25, l1_weight=8e-5, use_edge=1.0, edge_factor=1.5,
               non_edge_factor=0.5)
@@ -789,3 +949,6 @@ def _ranks_on_the_card_match_one_rank(mesh_shape, mesh_axes, counts):
         launched = r[0]["launches"]
         assert launched["composite_fwd"] == launched["composite_bwd"] == 1
         assert launched["scatter_add_rows"] > 0
+        k6 = int(step_extra.get("app_k") is not None)
+        assert launched["density_sample_fwd"] == k6
+        assert launched["density_sample_bwd"] == k6

@@ -17,8 +17,10 @@ voxels (S 138 -> 221), 64 rays, small ranks:
   off, and the training poses are GT;
 * stop_coord_grad: the coordinates are detached, the factor gradients are
   the same bit for bit, the plane and line gradients are still scattered
-  (a plane and a line row scatter a fused sample: 6 calls fused, 12 with
-  app_k), and the rays get no gradient;
+  (a plane and a line row scatter a fused sample: 6 calls fused; with
+  app_k 6 for the appearance, and the density's summed sample (K6 on the
+  card) its plain version's 6 index_add_ scatters), and the rays get no
+  gradient;
 * validate without alignment equals JAX's PSNR (1e-4);
 * a checkpoint written by either package restores into both (leaves
   bit for bit, mask bits, renders within 5e-5 of max|rgb|);
@@ -192,11 +194,14 @@ def test_stop_coord_grad_still_scatters_factors(monkeypatch, app_k):
             p.mul_(8.0)
     scene = synthetic.make_scene(n_views=1, H=12, W=12, device="cpu")
     jitter = torch.rand((144, 1), generator=torch.Generator().manual_seed(1))
-    calls = []
+    calls, rows = [], []
     for mod in (sampling, densify):
         real = mod.scatter_add_rows
         monkeypatch.setattr(mod, "scatter_add_rows",
                             lambda *a, real=real: calls.append(1) or real(*a))
+    real_rows = sampling._index_add_rows
+    monkeypatch.setattr(sampling, "_index_add_rows",
+                        lambda *a: rows.append(1) or real_rows(*a))
 
     def grads(stop):
         c, d = get_center_and_ray(12, 12, torch.as_tensor(scene.poses),
@@ -214,8 +219,10 @@ def test_stop_coord_grad_still_scatters_factors(monkeypatch, app_k):
 
     g_free, c_free = grads(False)
     n_free, calls[:] = len(calls), []
+    rows_free, rows[:] = len(rows), []
     g_stop, c_stop = grads(True)
-    assert len(calls) == n_free == (6 if app_k is None else 12)
+    assert len(calls) == n_free == 6
+    assert len(rows) == rows_free == (0 if app_k is None else 6)
     assert c_stop is None and torch.count_nonzero(c_free) > 0
     for k in g_free:
         assert torch.equal(g_stop[k], g_free[k]), k

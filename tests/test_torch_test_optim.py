@@ -12,11 +12,13 @@ with a frozen field.
   bit, on the fused dense-appearance path (test-time optimisation's), the
   two-stage appearance and the dense grid, and the row scatter
   (sampling.scatter_add_rows, densify.scatter_add_rows; K3 on CUDA) is
-  called zero times;
+  called zero times, nor the summed density sample's factor scatters
+  (K6's plain version; the two-stage path's 6 unfrozen);
 * the training step still calls the row scatter as often as
   chip_smoke.expected_launches says: 7 with the dense grid (its row
-  gather, and a plane and a line scatter for each appearance axis), 12
-  with the two-stage appearance, 6 on the fused path.
+  gather, and a plane and a line scatter for each appearance axis), 6
+  with the two-stage appearance (the density's factor sample is K6, once
+  forward and once backward), 6 on the fused path.
 """
 import dataclasses
 
@@ -138,8 +140,14 @@ def _small_field():
 
 
 class _Counter:
+    """A CPU step's calls where the card launches a kernel: ``n`` the row
+    scatters (K3), ``k6`` the summed density sample's plain version forward
+    and backward (K6's two entry points), ``rows`` the index_add_ row
+    scatters of the plain samplers (K6's plain factor gradients)."""
+
     def __init__(self, monkeypatch):
-        self.n = 0
+        self.n = self.rows = 0
+        self.k6 = {"density_sample_fwd": 0, "density_sample_bwd": 0}
         for mod in (sampling, densify):
             real = mod.scatter_add_rows
 
@@ -147,6 +155,29 @@ class _Counter:
                 self.n += 1
                 return real(*a)
             monkeypatch.setattr(mod, "scatter_add_rows", counted)
+        real_sum = sampling.sample_planeline_prod_sum_plain
+        real_rows = sampling._index_add_rows
+
+        def bwd(g):
+            self.k6["density_sample_bwd"] += 1
+
+        def summed(*a, **kw):
+            self.k6["density_sample_fwd"] += 1
+            out = real_sum(*a, **kw)
+            if out.requires_grad:
+                out.register_hook(bwd)
+            return out
+
+        def rows(*a):
+            self.rows += 1
+            return real_rows(*a)
+        monkeypatch.setattr(sampling, "sample_planeline_prod_sum_plain",
+                            summed)
+        monkeypatch.setattr(sampling, "_index_add_rows", rows)
+
+    def k6_of(self, launches):
+        """The K6 entries of an expected_launches dict."""
+        return {k: launches[k] for k in self.k6}
 
 
 @pytest.mark.parametrize("path", ["fused", "app_k", "dense_grid"])
@@ -171,12 +202,15 @@ def test_frozen_field_backward_skips_factor_scatter(monkeypatch, path):
 
     count = _Counter(monkeypatch)
     g_full = pose_grad()
-    n_full = count.n
-    count.n = 0
+    n_full, rows_full = count.n, count.rows
+    count.n = count.rows = 0
     with frozen(field):
         g_frozen = pose_grad()
-    assert count.n == 0
+    assert count.n == 0 and count.rows == 0
     assert n_full > 0
+    # the density's own factor sample (K6 on the card) scatters into its
+    # factors only unfrozen
+    assert rows_full == (6 if path == "app_k" else 0)
     assert torch.equal(g_frozen, g_full)
     assert torch.count_nonzero(g_full) > 0
 
@@ -198,5 +232,9 @@ def test_train_step_scatter_calls_unchanged(monkeypatch, densify_density,
         StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3),
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
-    want = chip_smoke.expected_launches(scfg)["scatter_add_rows"]
-    assert count.n == want == (7 if densify_density else 12 if app_k else 6)
+    want = chip_smoke.expected_launches(scfg)
+    assert count.n == want["scatter_add_rows"] == (7 if densify_density
+                                                   else 6)
+    k6 = int(app_k is not None and not densify_density)
+    assert count.k6 == count.k6_of(want) == {"density_sample_fwd": k6,
+                                             "density_sample_bwd": k6}
