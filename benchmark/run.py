@@ -22,6 +22,14 @@ import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
+# JAX and the JAX package, by whole top-level module name (the port's name
+# begins with the JAX package's)
+FORBIDDEN = ("jax", "jaxlib", "flax", "joint_tensorf_tpu")
+
+
+def forbidden_modules() -> list:
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -50,7 +58,7 @@ def main(argv=None) -> int:
     from . import harness
     result = harness.run(root, args.workload, args.seed, args.seconds,
                          bool(args.trace), T_START)
-    bad = harness.forbidden_modules()
+    bad = forbidden_modules()
     if bad:
         print(f"modules loaded in the measured process: {bad}",
               file=sys.stderr)

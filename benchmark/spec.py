@@ -4,9 +4,11 @@ mix or a per-layer metric is added by adding files.
 
 - a configuration ``<c>``: ``configs/<file>`` as BENCHMARK.json names it,
   whose ``options`` are the configuration as run;
+- a model ``<m>``: ``models/<m>.py`` (models/__init__.py), found from the
+  configuration's ``options["model"]``;
 - a traffic mix ``<t>``: ``traffic/<t>.json``, the cell's first
-  iteration (an anchor in the configuration's schedule) and the steps it
-  runs;
+  iteration (an anchor that the model's ``start_iteration`` reads) and
+  the steps it runs;
 - a per-layer metric ``<m>``: ``metrics/<m>.py`` with ``read(ctx)``;
 - a cell's correctness limits: ``limits/<cell>.json``.
 """
@@ -16,6 +18,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -30,6 +33,7 @@ class Cell:
     per_layer: list       # this cell's per-layer metric entries
     limits: dict          # number -> {"limit": ...}
     start_it: int
+    model: object         # models/<options["model"]>.py
 
 
 def root_of(bench_dir: str = HERE) -> str:
@@ -45,12 +49,22 @@ def _for_cell(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def start_iteration(options: dict, anchor: dict) -> int:
-    """The cell's first iteration: one past ``anchor["index"]`` of the
-    schedule list ``train_schedule.<anchor["after"]>``."""
-    ts = options["train_schedule"]
-    start = int(list(ts[anchor["after"]])[int(anchor["index"])]) + 1
-    return start
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def model_module(root: str, model: str):
+    """models/<model>.py of the checkout at ``root``."""
+    bench = load(root)
+    path = os.path.join(root, bench["paths"][0], "models", model + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"the configuration's model {model!r} has "
+                                f"no module: {path} is missing")
+    return _load(path, f"benchmark_model_{model.replace('.', '_')}")
 
 
 def cells(root: str) -> list:
@@ -73,11 +87,10 @@ def cell(root: str, name: str) -> Cell:
     limits_path = os.path.join(bdir, "limits", name + ".json")
     with open(limits_path) as f:
         limits = json.load(f)
-    start = start_iteration(config["options"], traffic["start"])
-    ts = config["options"]["train_schedule"]
-    moves = [t for t in list(ts["upsample_iters"]) + list(
-        ts.get("update_alphamask_iters") or [])
-        if start <= t < start + int(traffic["check_steps"])]
+    model = model_module(root, str(config["options"]["model"]))
+    start = int(model.start_iteration(config["options"], traffic["start"]))
+    moves = model.schedule_moves(config["options"], start,
+                                 int(traffic["check_steps"]))
     if moves:
         raise ValueError(f"{name}: the schedule changes the field after "
                          f"iteration(s) {moves}, inside the compared steps")
@@ -85,15 +98,11 @@ def cell(root: str, name: str) -> Cell:
         name=name, config=config, traffic=traffic, chips=int(w["chips"]),
         end_to_end=[m for m in bench["end_to_end"] if _for_cell(m, name)],
         per_layer=[m for m in bench["per_layer"] if _for_cell(m, name)],
-        limits=limits, start_it=start)
+        limits=limits, start_it=start, model=model)
 
 
 def reader(root: str, metric: str):
     """The ``read(ctx)`` of metrics/<metric>.py."""
     bench = load(root)
     path = os.path.join(root, bench["paths"][0], "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"benchmark_metric_{metric.replace('.', '_')}").read

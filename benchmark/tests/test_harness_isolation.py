@@ -15,6 +15,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "joint_tensorf_tpu"}
 RUN_MODULES = ["benchmark.run", "benchmark.harness", "benchmark.program",
                "benchmark.trace", "benchmark.tools.sweep",
                "benchmark.tools.control"]
+MODELS = sorted(f"benchmark.models.{f[:-3]}" for f in
+                os.listdir(os.path.join(BENCH, "models"))
+                if f.endswith(".py") and f != "__init__.py")
 
 
 def _loaded(modules, extra="") -> set:
@@ -32,7 +35,7 @@ def test_harness_loads_no_jax():
     readers = [f"benchmark.metrics.{f[:-3]}" for f in
                sorted(os.listdir(os.path.join(BENCH, "metrics")))
                if f.endswith(".py")]
-    loaded = _loaded(RUN_MODULES + readers)
+    loaded = _loaded(RUN_MODULES + MODELS + readers)
     assert not loaded & FORBIDDEN, loaded & FORBIDDEN
     assert "joint_tensorf_tpu_torch" in loaded
 

@@ -5,11 +5,13 @@ import json
 import os
 import re
 import shutil
+import time
+import types
 
 import pytest
 
-from benchmark import judge, spec
-from benchmark.tests.tiny import BENCH, ROOT
+from benchmark import harness, judge, spec
+from benchmark.tests.tiny import BENCH, HERE, ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -50,13 +52,15 @@ def test_benchmark_json_keeps_the_contract():
 def test_every_cell_resolves(name):
     cell = spec.cell(ROOT, name)
     assert cell.start_it > 0 and cell.per_layer and cell.end_to_end
-    assert {"loss_gap", "change_gap"} <= set(cell.limits) <= set(
+    assert {"loss_gap", "median_change_gap"} <= set(cell.limits) <= set(
         judge.NUMBERS)
     for m in cell.per_layer:
         assert callable(spec.reader(ROOT, m["name"]))
 
 
-def test_a_cell_is_added_by_files_alone(tmp_path):
+def _checkout(tmp_path) -> tuple:
+    """A copy of BENCHMARK.json and benchmark/, and the bytes of every file
+    under its benchmark/."""
     root = str(tmp_path / "checkout")
     shutil.copytree(BENCH, os.path.join(root, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -66,6 +70,11 @@ def test_a_cell_is_added_by_files_alone(tmp_path):
         for f in files:
             p = os.path.join(dirpath, f)
             before[p] = open(p, "rb").read()
+    return root, before
+
+
+def test_a_cell_is_added_by_files_alone(tmp_path):
+    root, before = _checkout(tmp_path)
     b = os.path.join(root, "benchmark")
     cfg = json.load(open(os.path.join(b, "configs", "bat_blender.json")))
     cfg["options"]["model"] = "bat"
@@ -103,3 +112,79 @@ def test_a_cell_is_added_by_files_alone(tmp_path):
         == 4.0
     for p, data in before.items():
         assert open(p, "rb").read() == data, p
+
+
+def _add_stub(root: str, model: str = "stub"):
+    """A second model added as files: models/stub.py (tests/stub_model.py),
+    its configuration, a traffic mix that starts at an absolute iteration,
+    the cell's limits, and BENCHMARK.json's entries."""
+    b = os.path.join(root, "benchmark")
+    shutil.copy(os.path.join(HERE, "stub_model.py"),
+                os.path.join(b, "models", "stub.py"))
+    json.dump({"source": "a least-squares stub", "warm_radii": 0.0,
+               "options": {"model": model, "freq": {"scalar": 4},
+                           "data": {"seed": 3}, "batches": 4, "rows": 32,
+                           "width": 16, "lr": 0.01}},
+              open(os.path.join(b, "configs", "stub_fit.json"), "w"))
+    json.dump({"why": "from iteration 5, no schedule",
+               "start": {"iteration": 5}, "check_steps": 3,
+               "warmup_steps": 2, "chunk_steps": 2, "trace_steps": 4},
+              open(os.path.join(b, "traffic", "fit.json"), "w"))
+    json.dump({k: {"limit": 1e-6} for k in judge.NUMBERS},
+              open(os.path.join(b, "limits", "stub_fit.fit.json"), "w"))
+    bench = spec.load(root)
+    bench["configs"].append({"name": "stub_fit", "source": "none",
+                             "file": "benchmark/configs/stub_fit.json",
+                             "reduced": [], "why": "a second model"})
+    bench["workloads"].append({"name": "stub_fit.fit", "config": "stub_fit",
+                               "traffic": "fit", "chips": 1,
+                               "why": "added by files"})
+    json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
+
+
+def test_a_model_is_added_by_files_alone(tmp_path, monkeypatch):
+    """A second model, a stub trainer that keeps the trainer contract, is
+    resolved by spec.cell, run through harness.run (window and traced
+    span) with ``correct`` true, and read by the census readers, with no
+    file already under benchmark/ changed."""
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    root, before = _checkout(tmp_path)
+    _add_stub(root)
+    cell = spec.cell(root, "stub_fit.fit")
+    assert cell.start_it == 5 and cell.model.__name__.endswith("stub")
+    for trace in (False, True):
+        r = harness.run(root, "stub_fit.fit", 2 ** 31 + 5, 0.2, trace,
+                        time.perf_counter(), device="cpu")
+        assert r["correct"], r["checks"]
+        assert set(r["checks"]) == set(judge.NUMBERS)
+        assert r["attempted"] > 0 and r["failed"] == 0
+        if not trace:
+            assert {"train_rays_per_s", "setup_s"} <= set(r["metrics"])
+    ctx = types.SimpleNamespace(
+        steps=4, shape=cell.model.step_shape(cell, {"rows": 32}),
+        census=cell.model.census, span=types.SimpleNamespace(window_s=4e-3))
+    assert spec.reader(root, "step_mfu")(ctx) == pytest.approx(
+        100 * 3 * 2 * 32 * 16 / 67e12 / 1e-3)
+    for p, data in before.items():
+        assert open(p, "rb").read() == data, p
+
+
+def test_a_model_without_a_module_is_named(tmp_path):
+    root, _ = _checkout(tmp_path)
+    _add_stub(root, model="nomodel")
+    with pytest.raises(FileNotFoundError, match=r"models.nomodel\.py"):
+        spec.cell(root, "stub_fit.fit")
+
+
+MODEL_WORDS = ("tensorf", "compact_k", "app_k", "train_schedule",
+               "state.field", "reference.step",
+               "joint_tensorf_tpu_torch.train.trainer")
+
+
+@pytest.mark.parametrize("module", ["harness.py", "spec.py", "program.py",
+                                    "inputs.py"])
+def test_the_harness_is_model_blind(module):
+    """The modules every cell runs name nothing of one model: that is
+    models/<model>.py's."""
+    text = open(os.path.join(BENCH, module)).read()
+    assert [w for w in MODEL_WORDS if w in text] == []

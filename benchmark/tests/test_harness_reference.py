@@ -30,7 +30,7 @@ def test_reference_agrees_with_the_port(tiny_root, cell):
     r = _run(tiny_root, cell)
     assert r["correct"], r["checks"]
     assert r["checks"]["loss_gap"]["value"] < 1e-5
-    assert r["checks"]["change_gap"]["value"] < 1e-3
+    assert r["checks"]["median_change_gap"]["value"] < 1e-4
     assert r["attempted"] > 0 and r["failed"] == 0
     assert {"train_rays_per_s", "setup_s"} <= set(r["metrics"])
 

@@ -4,7 +4,8 @@ in the program's place in the nearest precision below the configuration's
 the faults the check must catch planted in the reference ("half_batch":
 the loss over half the rays; "answer": every rendered colour raised by
 1e-3), each compared with the sound reference as a run compares the
-program.  A state left unchanged reads 1 on change_gap by definition.
+program.  A state left unchanged reads 1 on change_gap and
+median_change_gap by definition.
 
     python3 -m benchmark.tools.control OUT.json CELL SEED [SEED ...]
     python3 -m benchmark.tools.control --witness OUT.json CELL SEED ...
@@ -24,9 +25,7 @@ import time
 
 import torch
 
-from .. import inputs as inputs_lib
 from .. import judge, spec
-from ..reference.step import Reference
 
 VARIANTS = (("tf32", {"tf32": True}), ("half_batch", {"fault": "half_batch"}),
             ("answer", {"fault": "answer"}))
@@ -38,16 +37,16 @@ WITNESS = ("nudge", {"nudge": 2.0 ** -22})
 def readings(root: str, cell_name: str, seed: int, device="cuda",
              variants=VARIANTS) -> dict:
     cell = spec.cell(root, cell_name)
-    inputs = inputs_lib.make(cell.config["options"], seed, cell.start_it,
-                             device,
-                             warm_radii=float(cell.config["warm_radii"]))
+    inputs = cell.model.make_inputs(
+        cell.config["options"], seed, cell.start_it, device,
+        warm_radii=float(cell.config.get("warm_radii") or 0.0))
     n = int(cell.traffic["check_steps"])
     t0 = time.perf_counter()
-    ref = Reference(inputs, device).run(n)
+    ref = cell.model.Reference(inputs, device).run(n)
     torch.cuda.synchronize(device)
     out = {"reference_s": time.perf_counter() - t0}
     for name, kw in variants:
-        got = Reference(inputs, device, **kw).run(n)
+        got = cell.model.Reference(inputs, device, **kw).run(n)
         read = judge.readings(got, ref)
         out[name] = {k: read[k] for k in judge.NUMBERS}
         out[name]["step_loss_gaps"] = read["step_loss_gaps"]
