@@ -1,12 +1,16 @@
 """The benchmark is driven by data: BENCHMARK.json keeps the contract's
 shape, and a cell, a configuration, a traffic mix and a per-layer metric
 are added by adding files, with no edit to any file already there."""
+import importlib.util
 import json
 import os
 import re
 import shutil
+import subprocess
+import sys
 import time
 import types
+import xml.etree.ElementTree as ET
 
 import pytest
 
@@ -115,9 +119,11 @@ def test_a_cell_is_added_by_files_alone(tmp_path):
 
 
 def _add_stub(root: str, model: str = "stub"):
-    """A second model added as files: models/stub.py (tests/stub_model.py),
-    its configuration, a traffic mix that starts at an absolute iteration,
-    the cell's limits, and BENCHMARK.json's entries."""
+    """A second model added as files, as a real one is: models/stub.py
+    (tests/stub_model.py), its configuration and its tiny cut for the CPU
+    tests, a traffic mix that starts at an absolute iteration, the cell's
+    limits, a per-layer metric of its own, and BENCHMARK.json's
+    entries."""
     b = os.path.join(root, "benchmark")
     shutil.copy(os.path.join(HERE, "stub_model.py"),
                 os.path.join(b, "models", "stub.py"))
@@ -126,12 +132,17 @@ def _add_stub(root: str, model: str = "stub"):
                            "data": {"seed": 3}, "batches": 4, "rows": 32,
                            "width": 16, "lr": 0.01}},
               open(os.path.join(b, "configs", "stub_fit.json"), "w"))
+    json.dump({"rows": 16},
+              open(os.path.join(b, "tests", "tiny_cuts", "stub_fit.json"),
+                   "w"))
     json.dump({"why": "from iteration 5, no schedule",
                "start": {"iteration": 5}, "check_steps": 3,
                "warmup_steps": 2, "chunk_steps": 2, "trace_steps": 4},
               open(os.path.join(b, "traffic", "fit.json"), "w"))
     json.dump({k: {"limit": 1e-6} for k in judge.NUMBERS},
               open(os.path.join(b, "limits", "stub_fit.fit.json"), "w"))
+    with open(os.path.join(b, "metrics", "stub_steps.py"), "w") as f:
+        f.write("def read(ctx):\n    return float(ctx.steps)\n")
     bench = spec.load(root)
     bench["configs"].append({"name": "stub_fit", "source": "none",
                              "file": "benchmark/configs/stub_fit.json",
@@ -139,6 +150,12 @@ def _add_stub(root: str, model: str = "stub"):
     bench["workloads"].append({"name": "stub_fit.fit", "config": "stub_fit",
                                "traffic": "fit", "chips": 1,
                                "why": "added by files"})
+    bench["per_layer"].append({"name": "stub_steps", "unit": "steps",
+                               "better": "higher",
+                               "source": "program_counter",
+                               "layer": "stub trainer",
+                               "moves": "train_rays_per_s",
+                               "workloads": ["stub_fit.fit"]})
     json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
 
 
@@ -188,3 +205,62 @@ def test_the_harness_is_model_blind(module):
     models/<model>.py's."""
     text = open(os.path.join(BENCH, module)).read()
     assert [w for w in MODEL_WORDS if w in text] == []
+
+
+def test_a_configuration_without_a_tiny_cut_is_named(tmp_path):
+    root, _ = _checkout(tmp_path)
+    _add_stub(root)
+    cut = os.path.join(root, "benchmark", "tests", "tiny_cuts",
+                       "stub_fit.json")
+    os.remove(cut)
+    tiny = importlib.util.spec_from_file_location(
+        "copy_tiny", os.path.join(root, "benchmark", "tests", "tiny.py"))
+    module = importlib.util.module_from_spec(tiny)
+    tiny.loader.exec_module(module)
+    with pytest.raises(FileNotFoundError, match=re.escape(cut)):
+        module.make_tiny_root(str(tmp_path / "tiny"))
+
+
+def _outcomes(report: str) -> dict:
+    """(test module, test id) -> outcome, from a JUnit XML report."""
+    got = {}
+    for case in ET.parse(report).iter("testcase"):
+        tags = {child.tag for child in case}
+        outcome = next((t for t in ("failure", "error", "skipped")
+                        if t in tags), "passed")
+        got[(case.get("classname").rsplit(".", 1)[-1],
+             case.get("name"))] = outcome
+    return got
+
+
+def test_the_benchmark_tests_take_a_new_model_by_files(tmp_path):
+    """The benchmark's own tests, run on a copy to which the stub's cell
+    was added as files alone, take it: it resolves, agrees with its
+    reference on the CPU and is collected for the control on the card
+    (which skips without one), the pin leaves it out, and no file that
+    was already in the copy changes."""
+    root, before = _checkout(tmp_path)
+    _add_stub(root)
+    report = str(tmp_path / "report.xml")
+    # the copy's benchmark first, the port this process finds after it; no
+    # card, so that the control's case skips wherever this runs
+    port = os.path.dirname(os.path.dirname(
+        importlib.util.find_spec("joint_tensorf_tpu_torch").origin))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, port]),
+               PYTHONDONTWRITEBYTECODE="1", CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-k", "stub_fit",
+         "-p", "no:cacheprovider", "--basetemp", str(tmp_path / "inner"),
+         "--junitxml", report, os.path.join(root, "benchmark", "tests")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    got = _outcomes(report)
+    assert got == {
+        ("test_harness_layout", "test_every_cell_resolves[stub_fit.fit]"):
+        "passed",
+        ("test_harness_reference",
+         "test_reference_agrees_with_the_port[stub_fit.fit]"): "passed",
+        ("test_harness_control",
+         "test_control_and_faults_fail[stub_fit.fit]"): "skipped"}, got
+    for p, data in before.items():
+        assert open(p, "rb").read() == data, p

@@ -1,8 +1,9 @@
-"""BAT behind models/bat.py gives what the harness gave before the move,
-on the tiny root at seed 7 and one host thread (as run.py runs): the
-SHA-256 of every input tensor (weights, pose noise, images), the
-program's and the reference's losses over the compared steps, and the
-numbers compared, all recorded before the move."""
+"""BAT's two cells, pinned when BAT moved behind models/bat.py: on the
+tiny root at seed 7 and one host thread (as run.py runs), the SHA-256 of
+every input tensor (weights, pose noise, images), the program's and the
+reference's losses over the compared steps, and the numbers compared, all
+recorded before the move.  The pin covers the cells in ``PINNED`` alone;
+a cell added later is held by the tests every cell joins, not here."""
 import hashlib
 import time
 
@@ -141,7 +142,11 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("name", spec.cells(ROOT))
+def test_every_pinned_name_is_a_cell():
+    assert sorted(set(PINNED) - set(spec.cells(ROOT))) == []
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
 def test_bat_inputs_and_first_steps_are_pinned(tiny_root, one_thread, name):
     cpu = torch.device("cpu")
     cell = spec.cell(tiny_root, name)

@@ -1,7 +1,13 @@
-"""A checkout of the benchmark whose two configurations are cut to a size
-the CPU runs in seconds (16 x 16 images, 4 views, 16^3 -> 32^3 voxels,
-S 64, 64 rays, schedules of 50 and 400 iterations), for the CPU tests:
-the same cells, traffic mixes, readers and limits."""
+"""A checkout of the benchmark with every configuration in BENCHMARK.json
+cut to a size the CPU runs in seconds, for the CPU tests: the same cells,
+traffic mixes, readers and limits.
+
+Each configuration ``<c>`` brings its cut as ``tiny_cuts/<c>.json``
+beside this file: dotted keys of its ``options`` and the values they take
+(BAT's: 16 x 16 images, 4 views, 16^3 -> 32^3 voxels, S 64, 64 rays,
+schedules of 50 and 400 iterations).  Where one is missing,
+``make_tiny_root`` raises and names the file, so no model reaches the CPU
+tests at full size."""
 from __future__ import annotations
 
 import json
@@ -12,30 +18,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 
-COMMON = {"data.image_size": [16, 16], "data.n_views": 4,
-          "train_schedule.n_voxel_init": 4096,
-          "train_schedule.n_voxel_final": 32768, "c2f_kernel_size": 8,
-          "blur_2d_c2f_kernel_size": 15, "freq.scalar": 4,
-          "nerf.sample_intvs": 64, "tpu.densify_min_samples_per_chip": 1000,
-          "tpu.mask_cap_voxels": 8000,
-          "train_schedule.n_rays_init": 64}
-TINY = {
-    "bat_blender": dict(COMMON, **{
-        "max_iter": 50,
-        "train_schedule.upsample_iters": [2, 8],
-        "train_schedule.update_alphamask_iters": [12, 16],
-        "train_schedule.n_rays_rest": 64, "edge_mask_before_iter": 30,
-        "train_schedule.change_AccumPoseGrad_after_n_iters": 10}),
-    "bat_llff": dict(COMMON, **{
-        "max_iter": 400,
-        "train_schedule.upsample_iters": [6, 8],
-        "train_schedule.update_alphamask_iters": [7],
-        "train_schedule.n_rays_rest": 32, "nerf.n_rays": 32,
-        "train_schedule.change_n_rays_after_n_iters": 6,
-        "train_schedule.change_AccumPoseGrad_after_n_iters": 8,
-        "train_schedule.reset_pose_on_iter": 3, "optim.warmup_pose": 2}),
-}
-
 
 def set_dotted(d: dict, dotted: str, value):
     parts = dotted.split(".")
@@ -45,14 +27,23 @@ def set_dotted(d: dict, dotted: str, value):
 
 
 def make_tiny_root(dst: str) -> str:
-    """A copy of BENCHMARK.json and benchmark/ under ``dst`` with the
-    configurations cut to TINY; returns ``dst``."""
+    """A copy of BENCHMARK.json and benchmark/ under ``dst`` with each
+    configuration cut by its ``tiny_cuts/<c>.json``; returns ``dst``."""
     os.makedirs(dst, exist_ok=True)
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
     shutil.copytree(BENCH, os.path.join(dst, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for name, over in TINY.items():
-        path = os.path.join(dst, "benchmark", "configs", name + ".json")
+    with open(os.path.join(dst, "BENCHMARK.json")) as f:
+        configs = json.load(f)["configs"]
+    for c in configs:
+        cut = os.path.join(HERE, "tiny_cuts", c["name"] + ".json")
+        if not os.path.isfile(cut):
+            raise FileNotFoundError(
+                f"the configuration {c['name']!r} has no tiny cut for the "
+                f"CPU tests: {cut} is missing")
+        with open(cut) as f:
+            over = json.load(f)
+        path = os.path.join(dst, c["file"])
         with open(path) as f:
             cfg = json.load(f)
         for k, v in over.items():
