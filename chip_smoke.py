@@ -43,14 +43,15 @@
 7. trains BAT's first phase at full width (configs/bat_blender_VM.yaml on
    the procedural scene: 400x400, 12 views, 2028 rays x 221 samples, VM
    ranks 16/48) for 20 iterations through Trainer.run on the default
-   tpu: path (the dense-grid density, two-stage appearance, the in-bbox
+   tpu: path (the dense grid allowed, two-stage appearance, the in-bbox
    budget), with the launch counters zeroed just before and read just
    after: every step must launch what its configuration calls for
-   (expected_launches: K1 = 1, K2 = 1, K3 = 7 with the dense grid and
-   app_k: the grid's row gather, and a plane and a line scatter for each
-   axis's appearance sample); then
-   K3 at that path's own shapes (the dense grid's rows, the appearance
-   planes and the longest appearance line);
+   (expected_launches: K1 = 1, K2 = 1, K3 = 6 with app_k: a plane and a
+   line scatter for each axis's appearance sample, and K6 once each
+   way, since the allowed grid is built only where K6 does not apply);
+   then K3 at that path's shapes (the appearance planes and the longest
+   appearance line) and at a 3-D grid's rows of that resolution (as CP's
+   or bf16 rows' dense grid gathers them);
 8. trains BAT at full width through every phase, with the schedule cut to
    40 iterations (PHASES_ARGS: upsamples after iterations 2, 4, 6, 8,
    mask updates after 7 and 14): 64^3 -> 101^3 -> 160^3 -> 252^3, the
@@ -67,16 +68,19 @@
    step's launches against its configuration, finite losses, that the
    mask culls samples once the blur is off, and on the default path that
    the masked last phase compacts (compact_k < S) and the blurred phases
-   use the dense grid; prints each transition and one line per phase
+   allow the dense grid; prints each transition and one line per phase
    (budgets, the step's choices, kept and live fractions, launches,
-   median step) and the peak memory; with --profile, two blurred
-   dense-grid steps at the 64M-voxel grid and the last 3 steps of the
-   default path run under torch.profiler;
+   median step) and the peak memory; on the default path K6 against its
+   plain version at each phase's own shape (rays, kept slots,
+   resolution up to 252^3, live share; check_density_at_phases); with
+   --profile, two blurred steps at the 64M-voxel grid and the last 3
+   steps of the default path run under torch.profiler;
 9. holds K1/K2/K3 against their plain versions again at the shapes of
    each path's last phase (the compacted samples, the density and
    appearance planes' scatters; S = 1000 and the fused planes with the
-   alternatives off) and K3 at the blurred phase's dense grid of 64M
-   voxels, and times them there (K3's memset and kernel apart, by
+   alternatives off) and K3 at a 3-D grid's rows of the blurred phase's
+   64M voxels (as a CP or bf16-row field's dense grid has them), and
+   times them there (K3's memset and kernel apart, by
    torch.profiler);
 10. evaluates the default path's trained state at full width
    (run_eval_phase, before the alternatives-off run): a checkpoint
@@ -647,37 +651,36 @@ def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
     forward and once backward for a VM density sampled from its factors
     apart from the appearance (vm.density_sample_skips_dead: not the dense
     grid, the fused sample, the head's density, CP or the split), with no
-    K3 call.  The samples are the rank's (step_samples): all
-    kept samples for the density and the fused sample, app_k of them a
-    ray for the two-stage appearance.  The field decides which paths run,
-    as the renderer does: the dense grid only where vm.can_densify and the
-    fused sample only where vm.can_fuse_features, neither with the head's
-    density (predict_density: the appearance alone, on every sample); a
-    CP field has no planes, its six lines are sample_line's.  The same
-    without pose optimisation (TensoRF): detached coordinates drop the
-    coordinate derivatives, not the factors' scatters; bf16 factors and
-    bf16 dense reads scatter float32 gradients through the same calls."""
+    K3 call.  The samples are the rank's (step_samples): all kept samples
+    for the density and the fused sample, app_k of them a ray for the
+    two-stage appearance.  The density's route is the renderer's
+    (renderer.density_route): the dense grid only where densify_density
+    allows it, vm.can_densify and K6 does not apply (CP) or the rows are
+    read in bfloat16, the fused sample only where no grid is allowed,
+    neither with the head's density (predict_density: the appearance
+    alone, on every sample); a CP field has no planes, its six lines are
+    sample_line's.  The same without pose optimisation (TensoRF):
+    detached coordinates drop the coordinate derivatives, not the
+    factors' scatters; bf16 factors and bf16 dense reads scatter float32
+    gradients through the same calls."""
     from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.render.renderer import density_route
 
     vm_cfg = vm_cfg or vm_lib.VMConfig()
     cp = vm_cfg.decomposition == "CP"
+    route = density_route(cfg, vm_cfg, cfg.blur is not None)
     k6 = render_k6(cfg, vm_cfg, blur=cfg.blur is not None)
     N, N_app = step_samples(cfg, rays)
-    # the renderer's choice (renderer.py:455-459 of the JAX package)
-    predict = cfg.mlp_predict_density
-    grid = cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict
-    fused = (not grid and cfg.app_k is None and not predict
-             and vm_lib.can_fuse_features(vm_cfg))
     split = cfg.blur is not None and vm_cfg.convolve_positive_only
 
     def app(n):
         return 3 if cp else 3 * _fused_k3(n)
 
-    if grid:
+    if route == "grid":
         k3 = 1 + app(N_app)
-    elif predict:
+    elif route == "head":
         k3 = app(N)
-    elif fused:
+    elif route == "fused":
         k3 = 3 * _fused_k3(N)
     else:
         k3 = (3 if cp or split else 0) + app(N_app)
@@ -690,17 +693,35 @@ def render_k6(cfg, vm_cfg, blur: bool = False) -> int:
     """K6's launches in one render_rays call (forward, and as many in
     its backward where one runs) with a StepConfig or RenderConfig ``cfg``
     on a field of VMConfig ``vm_cfg``, blurred or not: 1 where the density
-    takes the summed factor sample (the renderer's choice: not the dense
-    grid, the fused sample or the head's density;
+    takes the summed factor sample (renderer.density_route "factored" and
     vm.density_sample_skips_dead)."""
     from joint_tensorf_tpu_torch.models import vm as vm_lib
+    from joint_tensorf_tpu_torch.render.renderer import density_route
 
-    predict = cfg.mlp_predict_density
-    grid = cfg.densify_density and vm_lib.can_densify(vm_cfg) and not predict
-    fused = (not grid and cfg.app_k is None and not predict
-             and vm_lib.can_fuse_features(vm_cfg))
-    return int(not (grid or predict or fused)
+    return int(density_route(cfg, vm_cfg, blur) == "factored"
                and vm_lib.density_sample_skips_dead(vm_cfg, blur))
+
+
+def blur_mask_k6(vm_cfg, mask_res) -> int:
+    """K6 forwards of one blur-mask build on a field of ``vm_cfg`` at
+    ``mask_res`` (Trainer.blur_mask_built; the build runs inside
+    train_iteration, and alpha_mask.dense_alpha samples the density one
+    chunk of 128K mask voxels at a time); 0 for None."""
+    from joint_tensorf_tpu_torch.models import vm as vm_lib
+
+    if mask_res is None or not vm_lib.density_sample_skips_dead(vm_cfg,
+                                                                 False):
+        return 0
+    return -(-math.prod(mask_res) // (128 * 1024))
+
+
+def step_launches(tr, vm_cfg=None, rays: int = 1) -> dict:
+    """expected_launches of trainer ``tr``'s last step, with the K6
+    forwards of a blur mask built in that iteration."""
+    want = expected_launches(tr.last_step_config, vm_cfg, rays)
+    want["density_sample_fwd"] += blur_mask_k6(tr.vm_cfg,
+                                               tr.blur_mask_built)
+    return want
 
 
 def march_indices_1d(n_rays, S, D, gen):
@@ -791,32 +812,58 @@ def check_scatter(n_rays, S, H, W, C, gen, tol, grid3d=None, line=None,
                                "dense grid" if grid3d else "plane")}}
 
 
-def density_sample_inputs(gen, rays=2500, K=896, res=400, R=16):
-    """K6's inputs at the masked cell's shape: three res^2 x R planes, res
-    x R lines, rays x K slots marching through the box, each ray's live
-    slots a prefix of 0-96 (about 5%, as the cell's kept_slot_use)."""
+def density_sample_inputs(gen, rays=2500, K=896, res=400, R=16, live=None,
+                          ndc=False):
+    """K6's inputs, by default at the masked cell's shape: the three
+    planes and lines of R ranks of a field of ``res`` voxels an axis (an
+    int: a cube) as vm.AXES reads them, rays x K slots marching through
+    the box (``ndc``: x and y within +-0.05 of the ray's start while z
+    sweeps the box, as a forward-facing ray's samples do under NDC), each
+    ray's live slots a prefix: of 0-96 slots (about 5%, as the masked
+    cell's kept_slot_use) where ``live`` is None, else of a share of K
+    drawn about ``live``."""
     import torch
 
     from joint_tensorf_tpu_torch.models import vm as vm_lib
 
-    planes = [torch.randn((res, res, R), generator=gen, device="cuda")
-              for _ in range(3)]
-    lines = [torch.randn((res, R), generator=gen, device="cuda")
-             for _ in range(3)]
-    start = torch.rand((rays, 1, 3), generator=gen, device="cuda") * 2.2 - 1.1
-    step = (torch.rand((rays, 1, 3), generator=gen, device="cuda") - 0.5) \
-        * (4.0 / K)
-    pts = start + torch.arange(K, device="cuda")[None, :, None] * step
+    res = [res] * 3 if isinstance(res, int) else list(res)
+    planes = [torch.randn((res[m1], res[m0], R), generator=gen,
+                          device="cuda") for m0, m1, _ in vm_lib.AXES]
+    lines = [torch.randn((res[w], R), generator=gen, device="cuda")
+             for _, _, w in vm_lib.AXES]
+    if ndc:
+        start = torch.rand((rays, 1, 2), generator=gen,
+                           device="cuda") * 1.8 - 0.9
+        drift = (torch.rand((rays, 1, 2), generator=gen, device="cuda")
+                 - 0.5) * 0.1
+        t = (torch.arange(K, device="cuda")[None, :, None]
+             + torch.rand((rays, K, 1), generator=gen, device="cuda")) / K
+        pts = torch.cat([start + drift * t, t * 2 - 1], -1)
+    else:
+        start = torch.rand((rays, 1, 3), generator=gen,
+                           device="cuda") * 2.2 - 1.1
+        step = (torch.rand((rays, 1, 3), generator=gen, device="cuda")
+                - 0.5) * (4.0 / K)
+        pts = start + torch.arange(K, device="cuda")[None, :, None] * step
     coords = [pts[..., a].reshape(-1).contiguous() for a in range(3)]
-    n_live = torch.randint(0, 97, (rays, 1), generator=gen, device="cuda")
+    lo, hi = ((0, 96) if live is None else
+              (max(0, round((2 * live - 1) * K)), min(K, round(2 * live * K))))
+    n_live = torch.randint(lo, hi + 1, (rays, 1), generator=gen,
+                           device="cuda")
     live = (torch.arange(K, device="cuda")[None] < n_live).reshape(-1)
     return planes, lines, coords, vm_lib.AXES, live
 
 
-def check_density_sample(gen, tol=1e-5, **shape):
-    """K6 (ops/density_sample.py) against its plain version at the masked
-    cell's shape (density_sample_inputs): forward and backward (every
-    gradient), within ``tol`` of each output's largest magnitude; times
+def check_density_sample(gen, tol=1e-5, exact=False, **shape):
+    """K6 (ops/density_sample.py) against its plain version at a shape of
+    density_sample_inputs (``shape``; the masked cell's by default):
+    forward and backward (every gradient), within ``tol`` of each
+    output's largest magnitude.  With ``exact`` both are also held
+    against the plain version in float64 (``f64_rel_err``), and a factor
+    gradient past ``tol`` of the float32 plain passes where K6 lies
+    within max(tol, 2 x the float32 plain's error) of the float64 one:
+    each line or plane row sums thousands of slots' adds in float32, in
+    an order that differs between the two.  Times
     the forward and the backward back to back and by torch.profiler, the
     plain version's forward + backward, and the bound: the bytes of the
     predicates, the live slots' coordinates and factor rows (four plane
@@ -830,13 +877,17 @@ def check_density_sample(gen, tol=1e-5, **shape):
     planes, lines, coords, axes, live = density_sample_inputs(gen, **shape)
     g = torch.randn(coords[0].shape, generator=gen, device="cuda")
 
-    def plain():
-        xs = [t.detach().requires_grad_(True) for t in planes + lines
-              + coords]
+    def plain(dtype=torch.float32):
+        xs = [t.detach().to(dtype).requires_grad_(True)
+              for t in planes + lines + coords]
         out = sampling.sample_planeline_prod_sum_plain(
             xs[0:3], xs[3:6], xs[6:9], axes, live)
-        return [out.detach()] + list(torch.autograd.grad((out * g).sum(),
-                                                         xs))
+        return [out.detach()] + list(torch.autograd.grad(
+            (out * g.to(dtype)).sum(), xs))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
 
     def fwd():
         return K6.density_sample_fwd_cuda(planes, lines, coords, axes, live)
@@ -849,14 +900,23 @@ def check_density_sample(gen, tol=1e-5, **shape):
     got = [fwd()] + d_p + d_l + d_c
     want = plain()
     torch.cuda.synchronize()
-    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            for a, b in zip(got, want)]
+    errs = [rel(a, b) for a, b in zip(got, want)]
+    bad = [i for i, e in enumerate(errs) if e > tol]
+    f64 = None
+    if exact:
+        ref = plain(torch.float64)
+        f64 = {"k6": [rel(a, r) for a, r in zip(got, ref)],
+               "plain": [rel(b, r) for b, r in zip(want, ref)]}
+        del ref
+        # outputs 1-6: the plane and line gradients
+        bad = [i for i in bad if not (1 <= i <= 6 and f64["k6"][i] <= max(
+            tol, 2 * f64["plain"][i]))]
     dead = int(torch.count_nonzero(got[0][~live])) + sum(
         int(torch.count_nonzero(d[~live])) for d in d_c)
-    if max(errs) > tol or dead or not all(torch.isfinite(t).all()
-                                          for t in got):
+    if bad or dead or not all(torch.isfinite(t).all() for t in got):
         fail(f"K6 disagrees with its plain version: relative errors "
-             f"{errs}, {dead} non-zero dead-slot outputs")
+             f"{errs} (against float64: {f64}), {dead} non-zero dead-slot "
+             f"outputs")
     del got, want, d_p, d_l, d_c
     N, n_live = coords[0].shape[0], int(live.sum())
     R = planes[0].shape[-1]
@@ -867,7 +927,7 @@ def check_density_sample(gen, tol=1e-5, **shape):
     b_ms, b_by = bound(bwd_bytes, n_live * 3 * R * 40)
     return {"name": "density_sample", "route": "cuda",
             "source": "joint_tensorf_tpu_torch/csrc/density_sample.cu",
-            "replaces": None, "max_rel_err": errs,
+            "replaces": None, "max_rel_err": errs, "f64_rel_err": f64,
             "tolerance": f"{tol} x max|out|",
             "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd),
             "plain_ms": time_ms(plain, reps=5),
@@ -876,7 +936,54 @@ def check_density_sample(gen, tol=1e-5, **shape):
             "fwd_bound_ms": f_ms, "fwd_bound_by": f_by,
             "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
             "shape": {"N": N, "live": n_live, "R": R,
-                      "plane": list(planes[0].shape)}}
+                      "plane": list(planes[0].shape),
+                      "lines": [ln.shape[0] for ln in lines],
+                      # the backward's line adds: shared memory where the
+                      # three lines fit in csrc/density_sample.cu's
+                      # kMaxLineSmem (96 KB), else global atomics
+                      "line_adds": ("shared" if sum(ln.numel() for ln in
+                                                    lines) * 4 <= 96 * 1024
+                                    else "global")}}
+
+
+def check_density_at_phases(label, rows, rays=None, ndc=False):
+    """check_density_sample at each distinct shape at which a run's
+    phases (``rows``: the phase lines' resolution, n_samples, compact_k
+    where given, valid_frac, launches_per_step and rays, else ``rays``)
+    launched K6: the rays, the slots each kept, the field's resolution
+    and the phase's live share of the kept slots, NDC marches with
+    ``ndc``; the factor gradients also against float64 (``exact``).
+    Emits one kernel_check a shape, its path the label and iterations."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    seen = set()
+    for row in rows:
+        if not row["launches_per_step"].get("density_sample_fwd"):
+            continue
+        S = row["n_samples"]
+        K = min(row.get("compact_k") or S, S)
+        n = row.get("rays", rays)
+        key = (n, K, tuple(row["resolution"]))
+        if key in seen:
+            continue
+        seen.add(key)
+        r = check_density_sample(gen, exact=True, rays=n, K=K,
+                                 res=row["resolution"],
+                                 live=min(1.0, row["valid_frac"] * S / K),
+                                 ndc=ndc)
+        emit({"kernel_check": dict(
+            r, path=f"{label} its {row['iterations']}")})
+        print(f"[k6 {label}] its {row['iterations']} {n} rays x {K} at "
+              f"{row['resolution']}: live {r['shape']['live']}, lines "
+              f"{r['shape']['line_adds']}, max rel err "
+              f"{max(r['max_rel_err']):.3g} (float64: K6 "
+              f"{max(r['f64_rel_err']['k6'][1:7]):.3g}, plain "
+              f"{max(r['f64_rel_err']['plain'][1:7]):.3g} on the factor "
+              f"gradients), fwd {r['fwd_ms']:.4f} / bwd "
+              f"{r['bwd_ms']:.4f} ms, bound {r['fwd_bound_ms']:.4f} / "
+              f"{r['bwd_bound_ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
 
 
 def check_binned(H, W, R, N, gen, tol, samples="uniform"):
@@ -1281,7 +1388,7 @@ def run_main_path(n_steps: int, profile_dir=None):
         if m is None:
             return
         configs.add(step_config_summary(tr.last_step_config))
-        for name, n in expected_launches(tr.last_step_config).items():
+        for name, n in step_launches(tr).items():
             expected[name] += n
 
     def on_log(tr, m):
@@ -1302,7 +1409,7 @@ def run_main_path(n_steps: int, profile_dir=None):
         fail(f"main path: launched {launches} in {n_steps} steps, expected "
              f"{expected}")
     if not all(c["densify_density"] for c in map(dict, configs)):
-        fail(f"main path: the first phase did not use the dense grid: "
+        fail(f"main path: the first phase did not allow the dense grid: "
              f"{configs}")
     result = {
         "main_path": {
@@ -1482,7 +1589,7 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                 "budgets": budgets(tr),
                 "launches": {k: launches[k] - clock["launches"][k]
                              for k in launches},
-                "expected": expected_launches(cfg, tr.vm_cfg)})
+                "expected": step_launches(tr, tr.vm_cfg)})
         elif tr.it in ups or tr.it in masks:
             after = state()
             transitions.append({
@@ -1569,8 +1676,8 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
             faults.append("no step of the masked last phase compacted "
                           "(compact_k < S)")
         if trainer.is_bat and not blurred_last:
-            faults.append("no step under the blur used the dense grid at "
-                          "the last resolution")
+            faults.append("no step under the blur allowed the dense grid "
+                          "at the last resolution")
         if not any(r["config"]["densify_density"] for r in steps):
             faults.append("no step used the dense grid")
     elif any(r["config"]["densify_density"] or r["config"]["app_k"]
@@ -1613,7 +1720,9 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                "launches_per_step": {n: c for n, c in p["launches"].items()
                                      if n in ("composite_fwd",
                                               "composite_bwd",
-                                              "scatter_add_rows")},
+                                              "scatter_add_rows",
+                                              "density_sample_fwd",
+                                              "density_sample_bwd")},
                "step_ms_median": statistics.median(p["ms"]),
                "peak_mem_gb": max(p["peak"]), "step_ms": p["ms"]}
         rows.append(row)
@@ -1646,6 +1755,10 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
     emit(result)
     if faults:
         fail(f"all phases ({label}): " + "; ".join(faults))
+    if default_path:
+        # K6 at each phase's own shape: the first phase's (the main path's),
+        # the blurred phases' up to 252^3, the masked ones'
+        check_density_at_phases(label, rows, trainer.rays_per_step)
     cfg = trainer.last_step_config
     blurred = None
     if blurred_last:
@@ -1710,7 +1823,7 @@ def run_variants():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(opt, data, device="cuda")
-        stamps, losses, configs = [], [], []
+        stamps, losses, configs, wants = [], [], [], []
 
         def on_step(tr, m):
             if m is None:
@@ -1719,15 +1832,16 @@ def run_variants():
             stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
             losses.append(float(m["loss"]))
             configs.append(tr.last_step_config)
+            wants.append(step_launches(tr))
 
         torch.cuda.synchronize()
         stamps.append((time.perf_counter(), dict(cuda_build.LAUNCHES)))
         trainer.run(max_iter=VARIANT_STEPS, log_every=1, on_step=on_step)
-        for (_, a), (_, b), cfg in zip(stamps[:-1], stamps[1:], configs):
+        for (_, a), (_, b), want in zip(stamps[:-1], stamps[1:], wants):
             got = {k: b[k] - a[k] for k in b}
-            if got != expected_launches(cfg):
+            if got != want:
                 faults.append(f"{name}: a step launched {got}, expected "
-                              f"{expected_launches(cfg)}")
+                              f"{want}")
         ms = [(b - a) * 1e3 for (a, _), (b, _) in zip(stamps[:-1],
                                                       stamps[1:])]
         field = trainer.state.field
@@ -1784,7 +1898,7 @@ def run_variants():
         elif m is not None and tr.it == 2:
             seen["step"] = ({k: v - seen["launches"][k] for k, v in
                              cuda_build.LAUNCHES.items()},
-                            expected_launches(tr.last_step_config),
+                            step_launches(tr),
                             float(m["loss"]))
 
     trainer.run(max_iter=3, log_every=1, on_step=on_step)
@@ -1836,13 +1950,14 @@ def _zoo_steps(label, args, data, n_steps):
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(opt, data, device="cuda")
     torch.cuda.synchronize()
-    stamps, losses, faults, configs = [], [], [], set()
+    stamps, losses, faults, configs, wants = [], [], [], set(), []
 
     def on_step(tr, m):
         if m is None:
             cuda_build.reset_launches()
             return
-        want = expected_launches(tr.last_step_config, tr.vm_cfg)
+        want = step_launches(tr, tr.vm_cfg)
+        wants.append(want)
         configs.add(step_config_summary(tr.last_step_config))
         if dict(cuda_build.LAUNCHES) != want:
             faults.append(f"{label} it {tr.it}: launched "
@@ -1864,7 +1979,7 @@ def _zoo_steps(label, args, data, n_steps):
     row = {"args": args, "resolution": trainer.resolution,
            "n_samples": cfg.n_samples, "rays_per_step": trainer.rays_per_step,
            "step_configs": [dict(c) for c in configs],
-           "launches_per_step": expected_launches(cfg, trainer.vm_cfg),
+           "launches_per_step": wants[-1],
            "loss": losses, "step_ms_first": steps[0],
            "step_ms_median": statistics.median(steps[1:]),
            "step_ms_all": steps,
@@ -2670,9 +2785,10 @@ def run_option_steps():
     procedural scene) with VIZ_OPTIONS (soft edge masks, one random scale
     for the 2D and 3D blurs) for VIZ_STEPS steps through Trainer.run, the
     counters zeroed before each step and read after it: every step's
-    launches against expected_launches (K1 = K2 = 1, K3 = 7 with the dense
-    grid and app_k); finite losses; the edge masks soft (values strictly between 0
-    and 1, each view's largest 1).  Returns {"option_steps": ...}."""
+    launches against expected_launches (K1 = K2 = 1, K3 = 6 with app_k and
+    K6 once each way: the dense grid allowed does not pay); finite losses;
+    the edge masks soft (values strictly between 0 and 1, each view's
+    largest 1).  Returns {"option_steps": ...}."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -2692,7 +2808,7 @@ def run_option_steps():
         if m is None:
             cuda_build.reset_launches()
             return
-        want = expected_launches(tr.last_step_config)
+        want = step_launches(tr)
         configs.add(step_config_summary(tr.last_step_config))
         if dict(cuda_build.LAUNCHES) != want:
             faults.append(f"it {tr.it}: launched {dict(cuda_build.LAUNCHES)},"
@@ -3024,7 +3140,7 @@ def run_l2g(profile_dir=None):
         losses.append(float(m["loss"]))
         got = {k: stamps[-1][1][k] - stamps[-2][1][k] for k in
                stamps[-1][1]}
-        if got != expected_launches(tr.last_step_config):
+        if got != step_launches(tr):
             faults.append(f"step {tr.it} launched {got}")
 
     torch.cuda.synchronize()
@@ -3106,7 +3222,7 @@ def run_ndc_route():
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "launches": {k: launches[k] - clock["launches"][k]
                              for k in launches},
-                "expected": expected_launches(cfg)})
+                "expected": step_launches(tr)})
         else:
             torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -3146,7 +3262,9 @@ def run_ndc_route():
                "launches_per_step": {k: v for k, v in rs[0]["launches"].items()
                                      if k in ("composite_fwd",
                                               "composite_bwd",
-                                              "scatter_add_rows")},
+                                              "scatter_add_rows",
+                                              "density_sample_fwd",
+                                              "density_sample_bwd")},
                "valid_frac": statistics.mean(r["valid_frac"] for r in rs),
                "step_ms_median": statistics.median(ms), "step_ms": ms,
                "peak_mem_gb": max(r["peak_gb"] for r in rs),
@@ -3190,9 +3308,11 @@ def run_ndc_route():
                                                       device="cuda"))
         per = [{k: b[1][k] - a[1][k] for k in b[1]}
                for a, b in zip(test_steps[:-1], test_steps[1:])]
+        k6 = render_k6(render_config(trainer), trainer.vm_cfg, blur=True)
         want = {"composite_fwd": 1, "composite_bwd": 1,
                 "scatter_add_rows": 0, "binned_plane_scatter": 0,
-                "scatter_add_rows_tiled": 0}
+                "scatter_add_rows_tiled": 0, "density_sample_fwd": k6,
+                "density_sample_bwd": k6}
         if any(p != want for p in per) or not math.isfinite(loss):
             faults.append(f"test-time view {i}: launches {per[:2]}, loss "
                           f"{loss}")
@@ -3217,6 +3337,9 @@ def run_ndc_route():
         "loss": [r["loss"] for r in steps], "test_time": test_rows}})
     if faults:
         fail("llff route: " + "; ".join(faults))
+    # K6 at each LLFF phase's shape (NDC rays; at 771 x 859 x 771 the line
+    # gradients go to global memory)
+    check_density_at_phases("llff", rows, ndc=True)
     return n_rays, S, res
 
 
@@ -3228,9 +3351,10 @@ def run_llff_final_grid():
     the next is tried): the published first phase's 20480 rays never
     meets this grid (the n_rays switch to 4096 comes with the first
     upsample), so this is the largest step the config could ask of it,
-    19.44M samples, whose fused factor samples' backwards run 19 chunks
-    each (K3 1 + 3 x 2 x 19 a step).  Returns (rays, S, resolution) of the
-    steps that ran."""
+    19.44M samples: K6 once each way for the density, and the appearance's
+    fused factor samples' backwards in 19 chunks each (K3 3 x 2 x 19 a
+    step); then K6 against its plain version at that shape.  Returns
+    (rays, S, resolution) of the steps that ran."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -3293,14 +3417,20 @@ def run_llff_final_grid():
               f"{row['packed_grid_gb']:.1f} GB): steps "
               f"{[round(x, 1) for x in ms]} ms, peak {row['peak_gb']:.2f} "
               f"GB, launches {per[-1]}", flush=True)
-        if any(p != expected_launches(cfg) for p in per) or \
-                not math.isfinite(row["loss"]):
-            fail(f"llff 800^3: launches {per} vs "
-                 f"{expected_launches(cfg)}, loss {row['loss']}")
+        want = expected_launches(cfg)
+        if any(p != want for p in per) or not math.isfinite(row["loss"]):
+            fail(f"llff 800^3: launches {per} vs {want}, loss "
+                 f"{row['loss']}")
         n_rays, S = trainer.rays_per_step, cfg.n_samples
         del trainer
         torch.cuda.empty_cache()
         emit({"llff_final_grid": tried})
+        # K6 at these steps' shape, every slot live (the most it can
+        # sample here), its line gradients in global memory
+        check_density_at_phases("llff_800", [{
+            "iterations": [0, 2], "resolution": res, "n_samples": S,
+            "rays": n_rays, "valid_frac": 1.0,
+            "launches_per_step": per[-1]}], ndc=True)
         return n_rays, S, res
     emit({"llff_final_grid": tried})
     fail("llff 800^3: no ray count fit")
@@ -3773,7 +3903,7 @@ def _par_steps(trainer, n_iter, snap_its, tmp, label, device):
         ms = (time.perf_counter() - t0) * 1e3
         cfg = trainer.last_step_config
         got = {k: v - launches[k] for k, v in cuda_build.LAUNCHES.items()}
-        want = (expected_launches(cfg, trainer.vm_cfg, trainer.mesh.rays)
+        want = (step_launches(trainer, trainer.vm_cfg, trainer.mesh.rays)
                 if cuda
                 else {k: 0 for k in got})
         coll = {k: v - counts.get(k, 0) for k, v in trainer.mesh.counts.items()
@@ -3820,6 +3950,9 @@ def _held_against(per_rank, tag, vm, cuda, faults, comp=None) -> dict:
             rays = comp[0] if comp is not None else len(per_rank)
             want = (expected_launches(cfg, vm, rays) if cuda else
                     {k: 0 for k in row["launches"]})
+            if cuda:
+                want["density_sample_fwd"] += blur_mask_k6(
+                    vm, row["blur_mask_built"])
             if row["launches"] != want:
                 faults.append(f"{tag} rank {rank} it {row['it']}: launched "
                               f"{row['launches']}, expected {want}")
@@ -5272,14 +5405,17 @@ def main(argv):
     emit(result)
     main_cfg = cfg
     # K1/K2 and K3 at the main path's own shapes: the samples each ray
-    # composites; the dense grid's row gather and the appearance planes'
-    # gradient (4 x 48 packed channels) on the app_k samples of each ray
+    # composites; the appearance planes' gradient (4 x 48 packed channels)
+    # on the app_k samples of each ray.  K3 into a 3-D grid's rows at that
+    # resolution is a CP or bf16-row field's dense grid (this field's
+    # density is K6's, checked at each phase's shape in run_all_phases)
     S = min(cfg.compact_k or cfg.n_samples, cfg.n_samples)
     rows = check_composite(n_rays, S, 1e-6, gen, tol=1e-4)
     for r in rows:
         emit({"kernel_check": r})
     dense_rows = check_scatter(n_rays, S, 0, 0, 8, gen, tol=1e-5,
                                grid3d=tuple(res))
+    dense_rows["path"] = "3-D grid rows at the main path's resolution"
     emit({"kernel_check": dense_rows})
     scatter = check_scatter(n_rays, min(cfg.app_k, S), res[1], res[0], 192,
                             gen, tol=1e-5)
@@ -5294,8 +5430,9 @@ def main(argv):
     n_rays, S, res, cfg, (S_blur, res_blur), trained = run_all_phases(
         "tpu_default", (), profile_dir)
     torch.cuda.empty_cache()
-    # K3 on the dense grid of the blurred phase at the last resolution (64M
-    # voxels at this schedule): the samples each ray kept there
+    # K3 into a 3-D grid's rows at the blurred phase's last resolution (64M
+    # voxels at this schedule; a CP or bf16-row field's dense grid): the
+    # samples each ray kept there
     emit({"kernel_check": check_scatter(n_rays, S_blur, 0, 0, 8, gen,
                                         tol=1e-5, grid3d=tuple(res_blur))})
     torch.cuda.empty_cache()
@@ -5405,9 +5542,11 @@ def main(argv):
         n_rays, S, Hp, Wp, 20, gen, tol=1e-5), path="llff")})
     torch.cuda.empty_cache()
     n_rays, S, res = run_llff_final_grid()
+    # K3 into a 3-D grid's rows at that resolution (a CP or bf16-row
+    # field's dense grid; this field's density is K6's)
     emit({"kernel_check": dict(check_scatter(
         n_rays, S, 0, 0, 8, gen, tol=1e-5, grid3d=tuple(res)),
-        path="llff_800")})
+        path="llff_800 3-D grid rows")})
     torch.cuda.empty_cache()
     # BARF, MLP-NeRF with fine sampling and the planar images: none of
     # K1-K6 on their paths; their small steps on the card against the CPU

@@ -37,7 +37,10 @@ phases, measured most important first (phase_setups):
 
 The dense grid is the port's densify_density route (ops/densify.py); the
 root bench's densify_impl="lane" picks one of two TPU layouts of that
-sampler and has no counterpart here (train/step.StepConfig).
+sampler and has no counterpart here (train/step.StepConfig).  The option
+allows the grid; on this VM field in float32 rows the early and dense
+phases sample the density from the factors instead (K6;
+render/renderer.density_route).
 
 Each iteration draws its rays with numpy, as the root bench does; the
 step's stochastic draws come from one torch.Generator on the device.

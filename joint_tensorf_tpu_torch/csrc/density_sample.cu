@@ -401,7 +401,9 @@ template <typename K>
 int resident_blocks(K kernel, int threads, int smem, int* cache_smem,
                     int* cache_n) {
   if (*cache_smem != smem) {
-    if (smem > 48 * 1024)
+    // opt in for every dynamic size: the default 48 KB covers the static
+    // s_lane too, so a dynamic share just under 48 KB needs it as well
+    if (smem > 0)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
     int per_sm = 0;

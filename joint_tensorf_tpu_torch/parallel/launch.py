@@ -23,7 +23,9 @@ each, what the caller compares:
   number of iterations (each from a given converter-form state with
   pre-drawn jitter, if given), or for one step from each snapshot of
   another run, held against that run's loss and gradients of the step ->
-  per iteration the metrics, the step's configuration, the collectives
+  per iteration the metrics, the step's configuration, the resolution
+  of the blur mask the iteration built (``blur_mask_built``, None where
+  it built none), the collectives
   and their bytes, the kernel launches, K3's shapes (``scatter_shapes``:
   [C, n_rows, most rows N] of each, from cuda_build.SCATTER_SHAPES,
   which is cleared before the step) and on a card the peak memory (and
@@ -104,10 +106,10 @@ def spawn(fn, nprocs: int, payload, backend: str = "gloo", device=None,
 _SNAPSHOT_ATTRS = (
     "pose_base", "pose_noise", "alpha_mask", "alpha_mask_blur",
     "compact_k_bbox", "compact_k_blur", "compact_k", "app_k_dyn",
-    "_blur_mask_built_at", "blurred_images", "edge_masks", "_blur_cache_at",
-    "it", "resolution", "n_samples", "n_voxels", "n_voxel_list",
-    "alphamask_resolution", "resolution_scale", "lr_index", "lr_basis",
-    "tv_density_weight", "tv_color_weight")
+    "_blur_mask_built_at", "_blur_mask_res", "blurred_images", "edge_masks",
+    "_blur_cache_at", "it", "resolution", "n_samples", "n_voxels",
+    "n_voxel_list", "alphamask_resolution", "resolution_scale", "lr_index",
+    "lr_basis", "tv_density_weight", "tv_color_weight")
 
 
 def _is_l2g(trainer) -> bool:
@@ -292,6 +294,7 @@ def _trainer_job(job, device):
                    [C, n_rows, N] for (C, n_rows), N in
                    cuda_build.SCATTER_SHAPES.items()),
                "config": dict(vars(tr.last_step_config)),
+               "blur_mask_built": tr.blur_mask_built,
                "counts": _counts(tr.mesh.counts, before),
                "bytes": _counts(tr.mesh.nbytes, before_bytes)}
         if device != "cpu":

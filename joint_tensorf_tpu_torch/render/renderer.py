@@ -23,7 +23,10 @@ RenderConfig fields:
   kept slots' z, dists (detached) and points are gathered;
 * the dense-grid density (``densify_density``, ops/densify.py), its
   corner rows read in bfloat16 with ``densify_dtype`` "bfloat16" (the JAX
-  renderer's lane branch, renderer.py:465-477);
+  renderer's lane branch, renderer.py:465-477).  The option allows the
+  grid; it is built only where the summed factor sample (K6), the same
+  function, does not apply or the rows are read in bfloat16
+  (density_route);
 * ``stop_coord_grad``: the sample coordinates are detached before the
   factor samples and the dense-grid read (TensoRF, whose poses are not
   optimised: the backward then computes no coordinate derivatives);
@@ -43,8 +46,10 @@ The field's own options choose the density path as JAX's renderer does
 sample only where vm.can_fuse_features, neither (nor the two-stage
 appearance) when the head predicts the density (``mlp_predict_density``,
 MLP_Fea_WeakView_Density); a component-wise activated feature gets no
-activation after the sample.  Every head gets the sample points and view
-directions, detached unless ``detach_xyz`` / ``detach_viewdirs`` is off.
+activation after the sample.  The spans ``jt.render.density.grid`` and
+``jt.render.density.factored`` name the route a step took.  Every head
+gets the sample points and view directions, detached unless
+``detach_xyz`` / ``detach_viewdirs`` is off.
 
 ``ndc``: the rays are in NDC (geometry/ndc.py); samples sit at
 linspace(near, far, S) with a stratified offset per sample, distances
@@ -229,6 +234,31 @@ def _first_k(valid, K: int):
     return top, torch.arange(K, device=valid.device)[None, :] < n_valid
 
 
+def density_route(rcfg, cfg: vm_lib.VMConfig, blurred: bool) -> str:
+    """How render_rays computes the density feature on a field of ``cfg``
+    under RenderConfig (or StepConfig) ``rcfg``: "head"
+    (mlp_predict_density: the head gives it), "grid" (the dense grid,
+    ops/densify.py), "fused" (one fused sample with the appearance) or
+    "factored" (compute_density_feature: K6 where
+    vm.density_sample_skips_dead).  ``densify_density`` allows the grid
+    where vm.can_densify; it is built only where the summed factor sample
+    does not apply (CP) or its rows are read in bfloat16, since elsewhere
+    K6 costs less at every shape a shipped configuration reaches (PERF.md
+    §6).  The fused sample runs only where no grid is allowed: under an
+    allowed grid the density goes to the summed factor sample, which keeps
+    the density's gradient out of the fused sample's row scatter."""
+    if rcfg.mlp_predict_density:
+        return "head"
+    if rcfg.densify_density and vm_lib.can_densify(cfg):
+        if (not vm_lib.density_sample_skips_dead(cfg, blurred)
+                or rcfg.densify_dtype == "bfloat16"):
+            return "grid"
+        return "factored"
+    if rcfg.app_k is None and vm_lib.can_fuse_features(cfg):
+        return "fused"
+    return "factored"
+
+
 @tracing.spanned("render")
 def render_rays(
     field: vm_lib.VMField,
@@ -379,32 +409,32 @@ def render_rays(
                     vd.detach() if rcfg.detach_viewdirs else vd)
 
         predict = rcfg.mlp_predict_density
-        use_densify = (rcfg.densify_density and vm_lib.can_densify(cfg)
-                       and not predict)
-        use_fused = (not use_densify and rcfg.app_k is None and not predict
-                     and vm_lib.can_fuse_features(cfg))
+        route = density_route(rcfg, cfg, d_mats is not None)
         app_feat = rgb = None
-        if use_densify:
-            sigma_feature = vm_lib.sample_density_grid(
-                field, cfg, coords, blur_mats=d_mats,
-                row_dtype=rcfg.densify_dtype)
-        elif predict:
+        if route == "grid":
+            with tracing.span("render.density.grid"):
+                sigma_feature = vm_lib.sample_density_grid(
+                    field, cfg, coords, blur_mats=d_mats,
+                    row_dtype=rcfg.densify_dtype)
+        elif route == "head":
             # the head gives the density feature (the reference's
             # batBase.py:106-109)
             rgb, sigma_feature = head(
                 *head_inputs(axes_w, S), vm_lib.compute_app_feature(
                     field, cfg, coords, blur_mats=c_mats),
                 view_pe_progress, fea_pe_progress)
-        elif use_fused:
+        elif route == "fused":
             sigma_feature, app_feat = vm_lib.compute_fused_features(
                 field, cfg, coords, d_mats=d_mats, c_mats=c_mats)
         else:
-            sigma_feature = vm_lib.compute_density_feature(
-                field, cfg, coords, blur_mats=d_mats, live=valid.reshape(-1))
+            with tracing.span("render.density.factored"):
+                sigma_feature = vm_lib.compute_density_feature(
+                    field, cfg, coords, blur_mats=d_mats,
+                    live=valid.reshape(-1))
         if stats is not None:
             # the slots the density sample evaluated: the live ones alone
             # on the summed factor sample, every kept slot elsewhere
-            skips = not (use_densify or predict or use_fused) and \
+            skips = route == "factored" and \
                 vm_lib.density_sample_skips_dead(cfg, d_mats is not None)
             stats["sampled_frac"] = stats["valid_frac" if skips
                                           else "kept_frac"]

@@ -368,6 +368,7 @@ class Trainer:
         self.alpha_mask_blur: Optional[am_lib.AlphaMask] = None
         self.compact_k_blur: Optional[int] = None   # dilated mask, blur on
         self._blur_mask_built_at: Optional[int] = None
+        self._blur_mask_res: Optional[list] = None
         self.last_step_config: Optional[StepConfig] = None
         self.last_eval_config: Optional[RenderConfig] = None
         self._verify_replicas("initialisation")
@@ -751,10 +752,11 @@ class Trainer:
         """The JAX trainer's _ensure_step choice (trainer.py:576-650):
         under the blur, compact on the dilated mask's budget when there is
         one, else on the in-bbox budget; without the blur, on the alpha
-        mask's budget once a mask is built.  The dense grid runs while the
-        blur is on or no mask is built, and only past
-        tpu.densify_min_samples_per_chip samples per rank.  Under a mesh
-        the rays per view must divide by the rays axis
+        mask's budget once a mask is built.  The dense grid is allowed
+        while the blur is on or no mask is built, and only past
+        tpu.densify_min_samples_per_chip samples per rank; the renderer
+        builds it where K6 does not apply (renderer.density_route).  Under
+        a mesh the rays per view must divide by the rays axis
         (trainer.py:660-664)."""
         tpu = self.opt.tpu
         if self.mesh is not None:
@@ -1099,6 +1101,7 @@ class Trainer:
         mask = am_lib.dilate_mask(mask, radius)
         k = self._probe_compact_k(mask=mask)
         self._blur_mask_built_at = self.it
+        self._blur_mask_res = mask_res
         self.alpha_mask_blur = None if k is None else mask
         self.compact_k_blur = k
         self._sync_budgets()
@@ -1106,6 +1109,14 @@ class Trainer:
             print(f"[blur_mask] it {self.it}: dilation r={radius} cells -> "
                   f"compact_k_blur={k} of S={self.n_samples} "
                   f"(bbox budget {self.compact_k_bbox})", flush=True)
+
+    @property
+    def blur_mask_built(self) -> Optional[list]:
+        """The resolution of the blur mask built in this iteration (the
+        field's, capped past tpu.mask_cap_voxels), None where it built
+        none."""
+        return (self._blur_mask_res if self._blur_mask_built_at == self.it
+                else None)
 
     def run(self, max_iter: Optional[int] = None, log_every: int = 100,
             callback=None, on_step=None, stats: bool = False):
@@ -1154,7 +1165,8 @@ class Trainer:
         """Whole views [V, H*W] of ``pose`` [V, 3, 4] in chunks of ``chunk``
         rays (trainer.py:1139-1196) -> (rgb [V, H*W, 3], depth, opacity
         [V, H*W]).  The compaction budget is probed on these poses with
-        pad 1.5; the dense grid runs only when that probe leaves no budget;
+        pad 1.5; the dense grid is allowed only when that probe leaves no
+        budget (and built as renderer.density_route says);
         the appearance is dense unless tpu.eval_app_k sets a cap.  Samples
         are not stratified; the training mask stride and the alpha mask,
         no blur, no background coin.  ``intr`` converts the rays under

@@ -280,9 +280,10 @@ def test_phase_steps_scatter_calls_match_expected_launches(monkeypatch,
                                                           smoke):
     """One CPU step of each phase makes the row-scatter calls that
     chip_smoke.expected_launches asks of K3 on the card for its step
-    config (6 two-stage compacted, 7 with the dense grid), and the summed
-    density samples it asks of K6 (once each way compacted, none with the
-    dense grid)."""
+    config, and the summed density samples it asks of K6: every phase 6
+    (the two-stage appearance's) and K6 once each way, since the dense
+    grid the blurred phases allow is built only where K6 does not apply
+    (renderer.density_route)."""
     import chip_smoke
     from test_torch_test_optim import _Counter
 
@@ -292,12 +293,9 @@ def test_phase_steps_scatter_calls_match_expected_launches(monkeypatch,
         metrics, _ = pbench.run_iter(work, p, copy.deepcopy(p.state))
         assert np.isfinite(float(metrics["loss"]))
         want = chip_smoke.expected_launches(p.cfg)
-        masked = p.mask is not None and not p.cfg.densify_density
-        assert count.n == want["scatter_add_rows"] == (6 if masked else 7), \
-            p.name
+        assert count.n == want["scatter_add_rows"] == 6, p.name
         assert count.k6 == count.k6_of(want) == {
-            "density_sample_fwd": int(masked),
-            "density_sample_bwd": int(masked)}, p.name
+            "density_sample_fwd": 1, "density_sample_bwd": 1}, p.name
 
 
 # --------------------------------------------------------- the command line

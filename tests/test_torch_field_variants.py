@@ -430,15 +430,37 @@ def test_step_scatter_calls_match_expected_launches(monkeypatch, name,
                                                     blur):
     """One CPU step's row-scatter calls equal what chip_smoke's
     expected_launches asks of the card for that field and step."""
+    _check_step_launches(monkeypatch, name, densify_density=densify_density,
+                         app_k=app_k,
+                         blur=BlurSpec("uniform-gaussian", 8) if blur
+                         else None)
+
+
+@pytest.mark.parametrize("name", list(ZOO_FIELDS))
+def test_bf16_grid_step_scatter_calls_match_expected_launches(monkeypatch,
+                                                              name):
+    """With the dense grid allowed and its rows read in bfloat16 the
+    renderer builds the grid (renderer.density_route): one blurred CPU
+    step's row-scatter and K6 calls equal expected_launches for each
+    field, and no field samples its density with K6 there (the grid, the
+    head's density or convolve_positive_only's split)."""
+    want = _check_step_launches(monkeypatch, name, densify_density=True,
+                                densify_dtype="bfloat16", app_k=4,
+                                blur=BlurSpec("uniform-gaussian", 8))
+    assert want["density_sample_fwd"] == 0
+
+
+def _check_step_launches(monkeypatch, name, **step_kw):
+    """One CPU step of the ZOO_FIELDS field ``name`` under StepConfig
+    ``step_kw``: its row-scatter and K6 calls against expected_launches,
+    which it returns."""
     _, pcfg = _cfgs(**ZOO_FIELDS[name])
     predict = pcfg.shading_mode == "MLP_Fea_WeakView_Density"
     field = vm.init_vm(pcfg, (12, 12, 12), [-1.5] * 3 + [1.5] * 3,
                        torch.Generator().manual_seed(0))
     scene = synthetic.make_scene(n_views=2, H=12, W=12, device="cpu")
     scfg = StepConfig(H=12, W=12, n_views=2, rays_per_view=16, n_samples=48,
-                      densify_density=densify_density, app_k=app_k,
-                      mlp_predict_density=predict,
-                      blur=BlurSpec("uniform-gaussian", 8) if blur else None)
+                      mlp_predict_density=predict, **step_kw)
     count = _Counter(monkeypatch)
     images = torch.as_tensor(scene.images).reshape(2, 3, -1).transpose(1, 2)
     metrics, _ = train_step(
@@ -452,25 +474,28 @@ def test_step_scatter_calls_match_expected_launches(monkeypatch, name,
     want = chip_smoke.expected_launches(scfg, pcfg)
     assert count.n == want["scatter_add_rows"]
     assert count.k6 == count.k6_of(want)
+    return want
 
 
 def test_expected_launches_table():
     """K3 a step by field and path in chip_smoke.expected_launches, each
     fused factor sample a plane and a line scatter a chunk: the dense
-    grid + 3 appearance samples (7) wherever the grid may run; without it
-    6 with app_k or with the activation flags (the appearance alone: the
-    density is K6's), 6 fused (convolve_plane_only,
+    grid + 3 appearance samples (7) where the grid is allowed and built
+    (its rows read in bfloat16); where it is allowed in float32 rows or
+    not allowed, 6 with app_k or with the activation flags (the
+    appearance alone: the density is K6's), 6 fused (convolve_plane_only,
     ignore_negative_split); convolve_positive_only under the blur 3
-    density lines + 6 (9); CP the grid + 3 appearance lines (4), 6 lines
-    without the grid; the density head 6.  Past _PROD_BWD_CHUNK samples
-    (2**20) a fused sample scatters per chunk: BAT's 2028 x 1000 fused
-    (2 chunks a sample), app_k 128 on the dense grid (1), LLFF's 4420 x
-    1000 on the dense appearance (5), pod16's 4096 x 512 kept samples on
-    one rank and on each of two (the appearance's app_k 128 in one chunk;
-    the density K6's whatever its samples).  K6 (forward and backward
-    alike) once a step exactly where the VM density is sampled from its
-    factors apart from the appearance: app_k or the activation flags
-    without the grid, not CP, the density head or the split."""
+    density lines + 6 (9); CP the grid + 3 appearance lines (4) wherever
+    the grid is allowed, 6 lines without it; the density head 6.  Past
+    _PROD_BWD_CHUNK samples (2**20) a fused sample scatters per chunk:
+    BAT's 2028 x 1000 fused (2 chunks a sample), app_k 128 (1), LLFF's
+    4420 x 1000 on the dense appearance (5) and 20480 x 1000 (20), pod16's
+    4096 x 512 kept samples on one rank and on each of two (the
+    appearance's app_k 128 in one chunk; the density K6's whatever its
+    samples).  K6 (forward and backward alike) once a step exactly where
+    the VM density is sampled from its factors apart from the appearance:
+    app_k or the activation flags without the grid built, not CP, the
+    density head or the split."""
     blur = BlurSpec("uniform-gaussian", 8)
 
     def launches(field_kw, rays=1, **step_kw):
@@ -488,14 +513,19 @@ def test_expected_launches_table():
     def k6(*a, **kw):
         return launches(*a, **kw)["density_sample_fwd"]
 
+    bf16 = dict(densify_density=True, densify_dtype="bfloat16")
     for name, kw in VARIANTS.items():
         positive = kw.get("convolve_positive_only", False)
         fusable = vm.can_fuse_features(_cfgs(**kw)[1])
+        # the grid allowed: built for bf16 rows, K6 in float32 rows
         assert k3(kw, densify_density=True, app_k=64) == (
-            9 if positive else 7), name
+            9 if positive else 6), name
+        assert k6(kw, densify_density=True, app_k=64) == (
+            0 if positive else 1), name
+        assert k3(kw, app_k=64, **bf16) == (9 if positive else 7), name
+        assert k6(kw, app_k=64, **bf16) == 0, name
         assert k3(kw, app_k=64) == (9 if positive else 6), name
         assert k3(kw) == (9 if positive else 6), name
-        assert k6(kw, densify_density=True, app_k=64) == 0, name
         assert k6(kw, app_k=64) == (0 if positive else 1), name
         assert k6(kw) == (0 if positive or fusable else 1), name
     assert k3(dict(convolve_plane_only=True)) == 6
@@ -503,6 +533,7 @@ def test_expected_launches_table():
     assert k3(dict(decomposition="CP"), densify_density=True, app_k=64) == 4
     assert k3(dict(decomposition="CP"), app_k=64) == 6
     assert k6(dict(decomposition="CP"), app_k=64) == 0
+    assert k6(dict(decomposition="CP"), densify_density=True, app_k=64) == 0
     assert k3(dict(shading_mode="MLP_Fea_WeakView_Density"),
               densify_density=True, app_k=64, mlp_predict_density=True) == 6
     assert k6(dict(shading_mode="MLP_Fea_WeakView_Density"), app_k=64,
@@ -511,14 +542,20 @@ def test_expected_launches_table():
     assert k6(dict(convolve_positive_only=True), app_k=64, blur=None) == 1
     bat = dict(n_views=12, rays_per_view=169, n_samples=1000, blur=None)
     assert k3({}, **bat) == 12
-    assert k3({}, densify_density=True, app_k=128, **bat) == 7
+    assert k3({}, densify_density=True, app_k=128, **bat) == 6
+    assert k3({}, app_k=128, **bf16, **bat) == 7
     assert k3({}, compact_k=512, app_k=128, **bat) == 6
     assert k3({}, compact_k=640, app_k=128, **bat) == 6
     assert k6({}, compact_k=640, app_k=128, **bat) == 1
-    assert k6({}, **bat) == k6({}, densify_density=True, app_k=128,
-                               **bat) == 0
-    assert k3({}, n_views=20, rays_per_view=221, n_samples=1000,
-              densify_density=True) == 31
+    assert k6({}, **bat) == 0
+    assert k6({}, densify_density=True, app_k=128, **bat) == 1
+    # LLFF's last phase and its first: the grid allowed, K6 taken (no K3
+    # into the grid's 510.6M rows); 31 with the grid's rows in bf16
+    llff = dict(n_views=20, n_samples=1000, densify_density=True)
+    assert k3({}, rays_per_view=221, **llff) == 30
+    assert k3({}, rays_per_view=1024, **llff) == 120
+    assert k6({}, rays_per_view=221, **llff) == 1
+    assert k3({}, rays_per_view=221, densify_dtype="bfloat16", **llff) == 31
     pod16 = dict(n_views=16, rays_per_view=256, n_samples=1000,
                  compact_k=512, app_k=128, blur=None)
     assert k3({}, **pod16) == 6
@@ -538,7 +575,8 @@ def test_chunked_step_scatter_calls_match_expected_launches(
     """With _PROD_BWD_CHUNK at 200 samples a CPU step's 2 x 16 x 48 = 1536
     samples run 8 chunks in each fused backward, app_k's 128 one: the
     row-scatter calls still equal expected_launches, which reads the
-    constant."""
+    constant.  The dense grid allowed is not built in float32 rows (the
+    density is K6's: 6 with app_k either way)."""
     monkeypatch.setattr(sampling, "_PROD_BWD_CHUNK", 200)
     _, pcfg = _cfgs()
     field = vm.init_vm(pcfg, (12, 12, 12), [-1.5] * 3 + [1.5] * 3,
@@ -556,8 +594,7 @@ def test_chunked_step_scatter_calls_match_expected_launches(
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
     want = chip_smoke.expected_launches(scfg, pcfg)
-    assert count.n == want["scatter_add_rows"] == (
-        7 if densify_density else 6 if app_k else 6 * 8)
+    assert count.n == want["scatter_add_rows"] == (6 if app_k else 6 * 8)
     assert count.k6 == count.k6_of(want)
 
 

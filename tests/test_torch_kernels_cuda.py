@@ -26,6 +26,10 @@ order), the plane, line and coordinate gradients at rtol 1e-5 and 1e-5
 of each gradient's largest magnitude (each slot's sum in another order,
 and the factor gradients' float32 atomics in an order that varies from
 run to run); the dead slots' feature and coordinate gradients exactly 0.
+At bat_llff.final's shape K6 against the dense grid, the same function,
+at rtol 1e-4 and 1e-4 of each output's largest magnitude (the grid sums
+the ranks before the trilinear weights, and its factor gradients are
+K3's atomics folded back through the packing and the rank expansion).
 """
 import pytest
 import torch
@@ -816,6 +820,157 @@ def test_density_sample_kernel_frozen_and_detached():
         (False,) * 6 + (True, False, True))
     assert d_p == [None] * 3 and d_l == [None] * 3 and d_c[1] is None
     assert torch.equal(d_c[0], full[6]) and torch.equal(d_c[2], full[8])
+
+
+_EDGE_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import test_torch_kernels_cuda as t
+from joint_tensorf_tpu_torch.ops import sampling
+t._need_card()
+gen = torch.Generator(device="cuda").manual_seed(23)
+planes = [torch.randn((252, 252, 16), generator=gen, device="cuda")
+          for _ in range(3)]
+lines = [torch.randn((252, 16), generator=gen, device="cuda")
+         for _ in range(3)]
+coords = [torch.rand((200000,), generator=gen, device="cuda") * 2 - 1
+          for _ in range(3)]
+live = torch.rand((200000,), generator=gen, device="cuda") < 0.5
+cot = torch.randn((200000,), generator=gen, device="cuda")
+got = t._density_grads(sampling.sample_planeline_prod_sum, planes, lines,
+                       coords, live, cot, (True,) * 9)
+want = t._density_grads(sampling.sample_planeline_prod_sum_plain, planes,
+                        lines, coords, live, cot, (True,) * 9)
+for a, b in zip([got[0]] + got[1], [want[0]] + want[1]):
+    t._close(a, b)
+"""
+
+
+@pytest.mark.cuda
+def test_density_sample_backward_at_the_shared_memory_edge():
+    """K6's backward with three 252-row lines of rank 16, as the blurred
+    252^3 phase has them: the lines' shared gradient copy (48,384 bytes)
+    and the block's static lane table (1 KB) pass the default 48 KB only
+    together.  Run in a fresh process, since a larger size launched
+    earlier leaves the opt-in set; against the plain version."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", _EDGE_CHILD, here],
+                       cwd=os.path.dirname(here), capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+
+
+def _llff_final_case(gen):
+    """bat_llff.final's density: a field of 771 x 859 x 771 with ranks 16
+    drawn as init_vm draws it (scale 0.05, bias 0.2), and 4420 NDC rays x
+    1000 samples in normalized coordinates, each ray's x and y within
+    +-0.05 of its start while z sweeps the box, as a forward-facing ray's
+    samples do: consecutive slots share their xy-plane cell and their x-
+    and y-line rows."""
+    from joint_tensorf_tpu_torch.models import vm
+
+    cfg = vm.VMConfig(density_n_comp=(16, 16, 16), app_n_comp=(4, 4, 4),
+                      app_dim=4, hidden=8)
+    field = vm.init_vm(cfg, [771, 859, 771], [[-1.0] * 3, [1.0] * 3], gen,
+                       init_scale=0.05, init_bias=0.2, device="cuda")
+    rays, S = 4420, 1000
+    start = torch.rand((rays, 1, 2), generator=gen, device="cuda") * 1.8 - 0.9
+    drift = (torch.rand((rays, 1, 2), generator=gen, device="cuda") - 0.5) \
+        * 0.1
+    t = (torch.arange(S, device="cuda")[None, :, None]
+         + torch.rand((rays, S, 1), generator=gen, device="cuda")) / S
+    # z stays off the faces, where the routes' coordinate gradients differ
+    # by convention (half the gradient there through the grid's clamp)
+    pts = torch.cat([start + drift * t, -0.3 + t * 1.29], -1)
+    coords = [pts[..., a].reshape(-1).contiguous() for a in range(3)]
+    return cfg, field, coords
+
+
+def _event_ms(fn, reps=5, warmup=2):
+    """Median ms of ``fn`` between CUDA events, after ``warmup`` calls."""
+    import statistics
+
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return statistics.median(ms)
+
+
+@pytest.mark.cuda
+def test_density_sample_kernel_at_the_llff_shape():
+    """K6 at bat_llff.final's shape (_llff_final_case, every slot live)
+    against the plain factored sample as above, and against the dense grid
+    (vm.sample_density_grid: the rank expansion, pack_corners, the row
+    gather and K3), which computes the same function: the feature and the
+    gradients of every density factor and coordinate within 1e-4 of each
+    output's largest magnitude (the grid sums the ranks before the
+    trilinear weights, and its factor gradients are K3's atomics folded
+    back through the packing and the expansion).  Prints each route's ms
+    for one forward + backward (CUDA events, the median of 5)."""
+    _need_card()
+    from joint_tensorf_tpu_torch.models import vm
+    from joint_tensorf_tpu_torch.ops import cuda_build, sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cfg, field, coords = _llff_final_case(gen)
+    cot = torch.randn(coords[0].shape, generator=gen, device="cuda")
+    planes = [p.detach() for p in field.density_planes]
+    lines = [ln.detach() for ln in field.density_lines]
+    need = (True,) * 9
+    k6_fn, plain_fn = (sampling.sample_planeline_prod_sum,
+                       sampling.sample_planeline_prod_sum_plain)
+    cuda_build.reset_launches()
+    got, got_g = _density_grads(k6_fn, planes, lines, coords, None, cot, need)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["density_sample_fwd"] == 1
+    assert cuda_build.LAUNCHES["density_sample_bwd"] == 1
+    assert cuda_build.LAUNCHES["scatter_add_rows"] == 0
+    want, want_g = _density_grads(plain_fn, planes, lines, coords, None, cot,
+                                  need)
+    _close(got, want)
+    for a, b in zip(got_g, want_g):
+        _close(a, b)
+    del want, want_g
+
+    leaves = list(field.density_planes) + list(field.density_lines)
+
+    def grid():
+        xs = [c.detach().requires_grad_(True) for c in coords]
+        val = vm.sample_density_grid(field, cfg, xs)
+        return val.detach(), list(torch.autograd.grad((val * cot).sum(),
+                                                      leaves + xs))
+
+    cuda_build.reset_launches()
+    ref, ref_g = grid()
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["scatter_add_rows"] == 1
+    assert cuda_build.LAUNCHES["density_sample_fwd"] == 0
+    for a, b in zip([got] + got_g, [ref] + ref_g):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+    del ref, ref_g
+    ms = {"k6": _event_ms(lambda: _density_grads(
+        k6_fn, planes, lines, coords, None, cot, need)),
+        "grid": _event_ms(grid)}
+    print(f"[llff final] fwd + bwd ms (events): K6 {ms['k6']:.3f}, dense "
+          f"grid {ms['grid']:.3f}")
+    assert ms["k6"] < ms["grid"]
 
 
 @pytest.mark.cuda

@@ -9,11 +9,16 @@
   planes against the JAX functions (values and gradients);
 * render_rays under NDC on a MLP_Fea_WeakView / relu field with the
   random background coin (both faces), the per-sample jitter [N, S]:
-  dense, with the dense-grid density and the two-stage appearance, and
+  dense, with the dense grid allowed (at these ranks the port samples
+  the factors, JAX the grid) and the two-stage appearance, and
   with an alpha mask, the NDC top-k compaction and the two-stage
   appearance:
   rgb, depth and opacity at atol 1e-5 and the gradients w.r.t. the rays
   and the factors at rtol 1e-3 of their max;
+* with the dense grid allowed, the route the renderer takes by
+  configuration (renderer.density_route): the summed factor sample on a
+  VM field, the grid on a CP one, on NDC rays along z; either against
+  JAX's dense-grid render, with the gradients of every density factor;
 * one NDC training step (relu, WeakView, TV weights, pin_first_pose, the
   coin, the per-sample jitter) from the same state as JAX's
   make_train_step: loss at rtol 1e-4, the Adam moments (the gradients) at
@@ -26,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 from torch_parity import flatten_field, flatten_train_state
 
 from joint_tensorf_tpu.config import set_options as jset_options
@@ -261,6 +267,79 @@ def test_render_rays_ndc_matches_jax(scene, fields, variant):
         int(k.split(".")[1])] for k in names]
     for gp, gj in zip(g, want_g):
         gj = np.asarray(gj)
+        np.testing.assert_allclose(gp.numpy(), gj,
+                                   atol=1e-3 * np.abs(gj).max() + 1e-7)
+
+
+@pytest.mark.parametrize("model,route", [("BAT_VMSplit", "factored"),
+                                         ("BAT_CP", "grid")])
+def test_allowed_dense_grid_takes_the_cheaper_route(model, route):
+    """With densify_density on, the renderer builds the dense grid only
+    where the summed factor sample (K6) does not apply
+    (renderer.density_route): on a 10 x 12 x 9 field of 16 density ranks
+    an axis sampled at 40 NDC rays x 24 slots, a VM field takes the
+    summed factor sample, a CP field keeps the grid.  The rays run along z
+    (x and y within 0.02 of their start), so a ray's slots share their
+    xy-plane cell.  Either route matches the JAX renderer's dense-grid
+    render: rgb, depth and opacity at atol 1e-5, the gradients w.r.t. the
+    rays (the pose path) and every density factor at 1e-3 of their max;
+    the span of the route taken is the one traced."""
+    args = SMALL + ["--arch.tensorf.density_components=[16,16,16]",
+                    f"--arch.tensorf.model={model}"]
+    jcfg = jbuild_vm(jset_options(CFG, args))
+    pcfg = build_vm_config(set_options(CFG, args))
+    aabb = np.array([[-1.5, -1.67, -2.0], [1.5, 1.67, 1.0]], np.float32)
+    st = jvm.init_vm(jax.random.PRNGKey(5), jcfg, RES, aabb,
+                     init_scale=0.3, init_bias=0.2)
+    rng = np.random.default_rng(6)
+    st = dataclasses.replace(st, density_planes=[
+        p - jnp.asarray(rng.uniform(0, 0.5, p.shape), jnp.float32)
+        for p in st.density_planes])
+    field = field_from_numpy(flatten_field(st), pcfg)
+    n = 40
+    c = np.concatenate([rng.uniform(-0.9, 0.9, (n, 2)), -np.ones((n, 1))],
+                       -1).astype(np.float32)
+    d = np.concatenate([rng.uniform(-0.02, 0.02, (n, 2)), 2 * np.ones(
+        (n, 1))], -1).astype(np.float32)
+    jitter = rng.uniform(size=(n, S)).astype(np.float32)
+    assert renderer.density_route(
+        renderer.RenderConfig(n_samples=S, densify_density=True), pcfg,
+        False) == route
+    key = jax.random.PRNGKey(0)
+    rcfg = jrender.RenderConfig(n_samples=S, is_train=True, ndc=True,
+                                densify_density=True)
+
+    def jf(st, c, d):
+        rgb, depth, acc = jrender.render_rays(
+            st, jcfg, rcfg, jcfg.shading_head(), c, d, key,
+            jnp.asarray([0.0, 1.0]), ray_jitter=jitter)
+        return jnp.sum(rgb * jnp.arange(1.0, 4.0)), (rgb, depth, acc)
+
+    (_, want), (jg_st, jg_c, jg_d) = jax.jit(jax.value_and_grad(
+        jf, argnums=(0, 1, 2), has_aux=True))(st, c, d)
+    ct, dt = _t(c).requires_grad_(), _t(d).requires_grad_()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = renderer.render_rays(
+            field, pcfg, renderer.RenderConfig(
+                n_samples=S, is_train=True, ndc=True, densify_density=True),
+            ct, dt, (0.0, 1.0), ray_jitter=_t(jitter))
+    spans = {e.name for e in prof.events()
+             if e.name.startswith("jt.render.density.")}
+    assert spans == {f"jt.render.density.{route}"}
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   atol=1e-5)
+    params = dict(field.named_parameters())
+    names = [k for k in params if k.split(".")[0] in (
+        "density_planes", "density_lines")]
+    g = torch.autograd.grad(torch.sum(got[0] * torch.arange(1.0, 4.0)),
+                            [ct, dt] + [params[k] for k in names])
+    want_g = [jg_c, jg_d] + [getattr(jg_st, k.split(".")[0])[
+        int(k.split(".")[1])] for k in names]
+    assert len(names) == (3 if model == "BAT_CP" else 6)
+    for gp, gj in zip(g, want_g):
+        gj = np.asarray(gj)
+        assert np.abs(gj).max() > 0
         np.testing.assert_allclose(gp.numpy(), gj,
                                    atol=1e-3 * np.abs(gj).max() + 1e-7)
 

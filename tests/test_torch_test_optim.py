@@ -15,10 +15,12 @@ with a frozen field.
   called zero times, nor the summed density sample's factor scatters
   (K6's plain version; the two-stage path's 6 unfrozen);
 * the training step still calls the row scatter as often as
-  chip_smoke.expected_launches says: 7 with the dense grid (its row
-  gather, and a plane and a line scatter for each appearance axis), 6
-  with the two-stage appearance (the density's factor sample is K6, once
-  forward and once backward), 6 on the fused path.
+  chip_smoke.expected_launches says: 6 with the two-stage appearance (a
+  plane and a line scatter for each appearance axis; the density's factor
+  sample is K6, once forward and once backward), also where the dense
+  grid is allowed in float32 rows (renderer.density_route builds it only
+  where K6 does not apply or its rows are bfloat16), 6 on the fused
+  path.
 """
 import dataclasses
 
@@ -45,7 +47,9 @@ from joint_tensorf_tpu_torch.ops import densify, sampling
 from joint_tensorf_tpu_torch.pose.test_optim import (frozen,
                                                      make_test_time_optimizer,
                                                      render_config)
-from joint_tensorf_tpu_torch.render.renderer import RenderConfig, render_rays
+from joint_tensorf_tpu_torch.render.renderer import (RenderConfig,
+                                                     density_route,
+                                                     render_rays)
 from joint_tensorf_tpu_torch.train.step import StepConfig, StepScalars, \
     init_train_state, train_step
 from joint_tensorf_tpu_torch.train.trainer import Trainer
@@ -182,10 +186,16 @@ class _Counter:
 
 @pytest.mark.parametrize("path", ["fused", "app_k", "dense_grid"])
 def test_frozen_field_backward_skips_factor_scatter(monkeypatch, path):
+    # the renderer builds the VM field's dense grid for bf16 rows alone
+    # (renderer.density_route)
     cfg, field = _small_field()
     rcfg = RenderConfig(n_samples=48, is_train=True,
                         densify_density=path == "dense_grid",
+                        densify_dtype=("bfloat16" if path == "dense_grid"
+                                       else "float32"),
                         app_k=None if path == "fused" else 16)
+    assert (density_route(rcfg, cfg, False) == "grid") == (
+        path == "dense_grid")
     scene = synthetic.make_scene(n_views=1, H=12, W=12, device="cpu")
     pose = torch.as_tensor(scene.poses)
     intr_inv = torch.as_tensor(scene.intr_inv)
@@ -232,9 +242,8 @@ def test_train_step_scatter_calls_unchanged(monkeypatch, densify_density,
         StepScalars(lr_index=0.02, lr_basis=1e-3, lr_pose=1e-3),
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
-    want = chip_smoke.expected_launches(scfg)
-    assert count.n == want["scatter_add_rows"] == (7 if densify_density
-                                                   else 6)
-    k6 = int(app_k is not None and not densify_density)
+    want = chip_smoke.expected_launches(scfg, cfg)
+    assert count.n == want["scatter_add_rows"] == 6
+    k6 = int(app_k is not None)
     assert count.k6 == count.k6_of(want) == {"density_sample_fwd": k6,
                                              "density_sample_bwd": k6}

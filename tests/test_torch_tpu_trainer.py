@@ -10,7 +10,9 @@
   probes (and the bbox shrink) after iteration 8.  After every step and
   schedule update: compact_k_bbox, compact_k_blur, compact_k and app_k_dyn,
   the step's compaction budget, dense-grid and app_k choices and the mask
-  that gates it, and the state of the training generator agree; every step's loss agrees at
+  that gates it, and the state of the training generator agree, and the
+  port reports the blur mask's resolution in the iteration that built it
+  (Trainer.blur_mask_built); every step's loss agrees at
   rtol 1e-4 (tests/test_torch_train.py's tolerance), the port fed the
   JAX step's stratified jitter.
 * check_ported: each unported tpu: value raises NotImplementedError naming
@@ -117,7 +119,7 @@ def test_tpu_path_trainer_matches_jax(small_scene):
     pt._refresh_bbox_k()                   # the JAX pose noise's geometry
     assert pt.compact_k_bbox == jt.compact_k_bbox
 
-    seen = set()
+    seen, built = set(), 0
     for it in range(11):
         # each step from the JAX state: Adam turns near-zero gradients into
         # +-lr updates whose sign depends on summation order
@@ -130,6 +132,13 @@ def test_tpu_path_trainer_matches_jax(small_scene):
         jm = jt.train_iteration()
         pm = pt.train_iteration(jitter=torch.as_tensor(jitter))
         assert _port_step_choice(pt) == _jax_step_choice(jt), it
+        # the iteration that built the blur mask reports its resolution
+        # (the field's, below the cap), every other one None
+        mask_res = pt.blur_mask_built
+        assert (mask_res is not None) == (pt._blur_mask_built_at == pt.it)
+        if mask_res is not None:
+            assert mask_res == list(pt.resolution), it
+            built += 1
         seen.add(_port_step_choice(pt) + (pt.n_samples,))
         np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
                                    rtol=1e-4, err_msg=f"it {it}")
@@ -152,6 +161,7 @@ def test_tpu_path_trainer_matches_jax(small_scene):
     assert any(not s[1] and s[3] == "sharp" and s[0] is not None
                and s[0] < s[4] for s in seen), seen
     assert pt.alpha_mask is not None
+    assert built >= 1
 
 
 @pytest.mark.parametrize("override", [

@@ -49,6 +49,9 @@ SPANS = {
     "jt.render": "jt.step",
     "jt.render.sample": "jt.render",
     "jt.render.density": "jt.render",
+    # the density's route: the grid allowed, the factored sample taken
+    # on a VM field in float32 rows (renderer.density_route)
+    "jt.render.density.factored": "jt.render.density",
     "jt.render.appearance": "jt.render",
     "jt.step.loss": "jt.step",
     "jt.step.backward": "jt.step",
