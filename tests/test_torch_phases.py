@@ -18,15 +18,25 @@
   factors (atol 1e-6), fresh field moments with the pose optimiser kept,
   the mask grid, and the ray indices and blur scales drawn after the mask
   update;
-* a CPU run of the port trainer through every transition.
+* a CPU run of the port trainer through every transition;
+* tiny Trainers (and an L2GTrainer) of the shipped configurations and of
+  BAT's density routes, warm-started as chip_smoke.run_all_phases starts
+  them on the card, through an upsample, a blur-mask build (where the
+  configuration has one: BAT off NDC, with tpu.blur_mask_compact) and an
+  alpha-mask update:
+  each step's row-scatter (K3) and summed-density (K6) calls, counted
+  between Trainer.run's callbacks with the schedule updates left out,
+  equal chip_smoke.step_launches.
 """
 import dataclasses
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_test_optim import _Counter
 from torch_parity import field_leaves, flatten_field, flatten_train_state
 
 from joint_tensorf_tpu.config import set_options as jset_options
@@ -40,11 +50,14 @@ from joint_tensorf_tpu.train.trainer import Trainer as JTrainer
 from joint_tensorf_tpu_torch.config import set_options
 from joint_tensorf_tpu_torch.convert import (field_from_numpy, to_numpy,
                                              train_state_from_numpy)
-from joint_tensorf_tpu_torch.data import synthetic
+from joint_tensorf_tpu_torch.data import load_dataset, synthetic
 from joint_tensorf_tpu_torch.models import alpha_mask as am
 from joint_tensorf_tpu_torch.models import vm
 from joint_tensorf_tpu_torch.ops import cuda_build, resample
-from joint_tensorf_tpu_torch.render.renderer import RenderConfig, render_rays
+from joint_tensorf_tpu_torch.render.renderer import (RenderConfig,
+                                                    density_route,
+                                                    render_rays)
+from joint_tensorf_tpu_torch.train.l2g_trainer import L2GTrainer
 from joint_tensorf_tpu_torch.train.step import init_train_state
 from joint_tensorf_tpu_torch.train.trainer import Trainer
 from joint_tensorf_tpu_torch.utils import setup_torch
@@ -336,3 +349,100 @@ def test_cpu_run_crosses_every_phase(small_scene):
     # the blur is off from progress 0.3 on: the mask gates those steps
     assert all(h["valid_frac"] <= h["inbbox_frac"] for h in hist)
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())  # plain path
+
+
+# ------------------------------------------ a step's launches, phase by phase
+# 16^3 -> 48^3 (S 55 -> 166) over upsamples after 2 and 4, mask updates
+# after 6 (uncapped: the box shrinks, and the blobs' sparse field compacts
+# at K 128) and 10; the blur (BAT) is on until it 4, where the resolution
+# is final and the blur mask is built.  warm_start_density raises one
+# density component a blob (five of six); the dense grid is allowed past
+# 1000 samples a step.
+LAUNCH_TINY = ["--data.dataset=synthetic", "--data.image_size=[16,16]",
+               "--data.n_views=4", "--train_schedule.n_voxel_init=4096",
+               "--train_schedule.n_voxel_final=110592", "--max_iter=14",
+               "--train_schedule.upsample_iters=[2,4]",
+               "--train_schedule.update_alphamask_iters=[6,10]",
+               "--arch.tensorf.density_components=[6,6,6]",
+               "--arch.tensorf.color_components=[8,8,8]",
+               "--arch.shading.app_dim=6", "--arch.shading.mlp_hidden_dim=16",
+               "--tpu.densify_min_samples_per_chip=1000"]
+LAUNCH_BAT = ["--train_schedule.n_rays_init=64",
+              "--train_schedule.n_rays_rest=64", "--c2f_kernel_size=8",
+              "--blur_2d_c2f_kernel_size=15"]
+LAUNCH_LLFF = ["--data.scene=facing"]
+# case -> (configs/<yaml>.yaml, its arguments, the density route it is for)
+LAUNCH_CASES = {
+    "bat_blender_VM": ("bat_blender_VM", LAUNCH_BAT, "factored"),
+    "bat_blender_VM_MLP": ("bat_blender_VM_MLP", LAUNCH_BAT, "factored"),
+    "bat_llff_VM_MLP": ("bat_llff_VM_MLP", LAUNCH_BAT + LAUNCH_LLFF,
+                        "factored"),
+    "l2g_bat_blender_VM": ("l2g_bat_blender_VM",
+                           LAUNCH_BAT + ["--error_map_size=4"], "factored"),
+    "tensorf_blender_VM": ("tensorf_blender_VM", ["--nerf.n_rays=64"],
+                           "factored"),
+    "tensorf_llff_VM": ("tensorf_llff_VM", ["--nerf.n_rays=64"] + LAUNCH_LLFF,
+                        "factored"),
+    "tensorf_llff_VM_MLP": ("tensorf_llff_VM_MLP",
+                            ["--nerf.n_rays=64"] + LAUNCH_LLFF, "factored"),
+    "bat_synthetic_small": ("bat_synthetic_small", LAUNCH_BAT, "factored"),
+    "bat_cp": ("bat_blender_VM", LAUNCH_BAT + [
+        "--arch.tensorf.model=BAT_CP"], "grid"),
+    # bf16 rows are read under the lane layout alone (packed8 ignores
+    # densify_dtype, as in JAX)
+    "bat_bf16_rows": ("bat_blender_VM", LAUNCH_BAT + [
+        "--tpu.densify_impl=lane", "--tpu.densify_dtype=bfloat16"], "grid"),
+    "bat_density_head": ("bat_blender_VM", LAUNCH_BAT + [
+        "--arch.shading.model=MLP_Fea_WeakView_Density",
+        "--+arch.shading.predict_density=true"], "head"),
+    "bat_app_k_null": ("bat_blender_VM", LAUNCH_BAT + ["--tpu.app_k=null"],
+                       "fused"),
+    # under packed8 the rows stay float32: K6, not the grid
+    "bat_packed8_bf16": ("bat_blender_VM", LAUNCH_BAT + [
+        "--tpu.densify_impl=packed8", "--tpu.densify_dtype=bfloat16"],
+        "factored"),
+    # the blurred split: its density lines through K3, no K6
+    "bat_convolve_positive_only": ("bat_blender_VM", LAUNCH_BAT + [
+        "--arch.convolve_positive_only=true"], "factored"),
+    # chip_smoke.ALTERNATIVES_OFF: no in-bbox or blur-mask budget, no grid,
+    # the dense appearance
+    "bat_alternatives_off": ("bat_blender_VM", LAUNCH_BAT
+                             + chip_smoke.ALTERNATIVES_OFF, "fused"),
+    # bat_llff.final's configuration: the dense appearance beside K6
+    "bat_llff_app_k_null": ("bat_llff_VM_MLP", LAUNCH_BAT + LAUNCH_LLFF
+                            + ["--tpu.app_k=null"], "factored"),
+}
+
+
+@pytest.mark.parametrize("case", list(LAUNCH_CASES))
+def test_trainer_iterations_launch_what_step_launches_says(monkeypatch,
+                                                           case):
+    yaml, args, route = LAUNCH_CASES[case]
+    opt = set_options(f"configs/{yaml}.yaml", LAUNCH_TINY + args)
+    tr = (L2GTrainer if opt.model == "l2g_bat" else Trainer)(
+        opt, load_dataset(opt, "train", device="cpu"), device="cpu")
+    chip_smoke.warm_start_density(tr, int(opt.data.get("seed", 0)))
+    count = _Counter(monkeypatch)
+    steps = []
+
+    def on_step(t, m):
+        got = {"scatter_add_rows": count.n, **count.k6}
+        if m is not None:
+            cfg = t.last_step_config
+            want = chip_smoke.step_launches(t, t.vm_cfg)
+            steps.append({
+                "it": t.it, "got": got, "want": {k: want[k] for k in got},
+                "route": density_route(cfg, t.vm_cfg, cfg.blur is not None),
+                "resolution": tuple(t.resolution),
+                "blur_mask": t.blur_mask_built is not None})
+        count.n = 0
+        count.k6 = dict.fromkeys(count.k6, 0)
+
+    tr.run(log_every=100, on_step=on_step)
+    assert len(steps) == 14
+    assert [s["got"] for s in steps] == [s["want"] for s in steps], steps
+    assert len({s["resolution"] for s in steps}) >= 3      # upsampled
+    assert tr.alpha_mask is not None
+    assert any(s["blur_mask"] for s in steps) == (
+        tr.is_bat and not tr.ndc and bool(opt.tpu.blur_mask_compact))
+    assert route in {s["route"] for s in steps}
