@@ -14,8 +14,9 @@
    device time from torch.profiler), the plain version and, where one
    exists, the one PyTorch call that computes the same function (K3:
    index_add_);
-4. holds K6 (the summed density sample, forward and backward) against
-   its plain version at the masked cell's shape and times both; holds
+4. holds K6 (the summed density sample, forward and backward) and K7
+   (the concatenated appearance sample) against their plain versions at
+   the masked cell's shape and times them; holds
    K4 (the tile-binned plane-gradient scatter) and K5 (the
    block-local row scatter) against their plain versions at the JAX
    bench scripts' shapes (K4 also at a 400x400 plane with 2.03M samples in
@@ -46,9 +47,9 @@
    tpu: path (the dense grid allowed, two-stage appearance, the in-bbox
    budget), with the launch counters zeroed just before and read just
    after: every step must launch what its configuration calls for
-   (expected_launches: K1 = 1, K2 = 1, K3 = 6 with app_k: a plane and a
-   line scatter for each axis's appearance sample, and K6 once each
-   way, since the allowed grid is built only where K6 does not apply);
+   (expected_launches: K1 = 1, K2 = 1, K3 = 0, K6 once each way for the
+   density, since the allowed grid is built only where K6 does not apply,
+   and K7 once each way for the appearance);
    then K3 at that path's shapes (the appearance planes and the longest
    appearance line) and at a 3-D grid's rows of that resolution (as CP's
    or bf16 rows' dense grid gathers them);
@@ -70,9 +71,10 @@
    the masked last phase compacts (compact_k < S) and the blurred phases
    allow the dense grid; prints each transition and one line per phase
    (budgets, the step's choices, kept and live fractions, launches,
-   median step) and the peak memory; on the default path K6 against its
-   plain version at each phase's own shape (rays, kept slots,
-   resolution up to 252^3, live share; check_density_at_phases); with
+   median step) and the peak memory; on the default path K6 and K7
+   against their plain versions at each phase's own shape (rays, kept
+   slots, app_k, resolution up to 252^3, live share;
+   check_density_at_phases, check_app_at_phases); with
    --profile, two blurred steps at the 64M-voxel grid and the last 3
    steps of the default path run under torch.profiler;
 9. holds K1/K2/K3 against their plain versions again at the shapes of
@@ -158,13 +160,12 @@
    upsample to 771x859x771, one capped mask update), every step's
    launches held against its configuration (the dense grid in every
    phase: no budget under NDC); 10 test-time steps on 2 views with the
-   test-kernel blur rising (K1 = K2 = 1, K3 = 0 each); K1/K2 and K3 at its
-   last phase's shapes; then 3 steps at the 800^3 grid from the start at
-   the largest ray count of LLFF_FINAL_RAYS that fits (the published first
-   phase's 20480 rays, 19440 a step over 20 views, x 1000 samples: the
-   fused sample's backward in chunks, its line gradients through K3, keeps
-   the step's memory bounded; the smaller counts stay as fallbacks) and K3
-   into the grid's 510M rows;
+   test-kernel blur rising (K1 = K2 = 1, K3 = 0 each); K6 and K7 at each
+   phase's shape; K1/K2 and K3 at its last phase's shapes; then 3 steps at
+   the 800^3 grid from the start at the largest ray count of
+   LLFF_FINAL_RAYS that fits (the published first phase's 20480 rays,
+   19440 a step over 20 views, x 1000 samples; the smaller counts stay as
+   fallbacks), K6 and K7 at that shape, and K3 into the grid's 510M rows;
 16. compares one small step of BARF (fine sampling, density noise, NDC
    rays; at progress 0) and of each planar image on the card with the CPU
    from the same parameters and draws (check_small_mlp_planar: loss rel
@@ -183,7 +184,7 @@
    as they stand (planar_bat, planar_fft, planar_barf) for PLANAR_STEPS
    steps each (step ms, peak memory, host syncs, warp_error) and checks
    whether torch.linalg.matrix_exp synchronises the host; the counters
-   zeroed before and read after each piece: K1-K6 launch 0 times there
+   zeroed before and read after each piece: K1-K7 launch 0 times there
    (none lies on these paths, as no Pallas kernel does in JAX);
 17. the [parallel] phase (run_parallel; parallel/, the rays layout of
    configs/bat_blender_VM_pod16.yaml on 16 views, whose 4096 rays make a
@@ -415,11 +416,12 @@ MLP_TEST_ITER = 20
 # start (kernel_t sigma 128 -> 127.6 for the SVD and FFT images)
 PLANAR_CFGS = ("planar_bat.yaml", "planar_fft.yaml", "planar_barf.yaml")
 PLANAR_STEPS = 50
-# K1-K6: none lies on the MLP or planar paths (JAX computes them in plain
+# K1-K7: none lies on the MLP or planar paths (JAX computes them in plain
 # XLA, no Pallas kernel)
 NO_LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "scatter_add_rows": 0,
                "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0,
-               "density_sample_fwd": 0, "density_sample_bwd": 0}
+               "density_sample_fwd": 0, "density_sample_bwd": 0,
+               "app_sample_fwd": 0, "app_sample_bwd": 0}
 
 
 def emit(obj):
@@ -640,9 +642,11 @@ def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
     forward and once backward for a VM density sampled from its factors
     apart from the appearance (vm.density_sample_skips_dead: not the dense
     grid, the fused sample, the head's density, CP or the split), with no
-    K3 call.  The samples are the rank's (step_samples): all kept samples
-    for the density and the fused sample, app_k of them a ray for the
-    two-stage appearance.  The density's route is the renderer's
+    K3 call; K7 (sampling.sample_planeline_prod_cat) once forward and once
+    backward for a VM appearance sampled apart from the density (every
+    route but the fused sample), with no K3 call, whatever its samples.
+    The samples are the rank's (step_samples): all kept samples for the
+    fused sample's K3 chunks.  The density's route is the renderer's
     (renderer.density_route): the dense grid only where densify_density
     allows it, vm.can_densify and K6 does not apply (CP) or the rows are
     read in bfloat16, the fused sample only where no grid is allowed,
@@ -659,23 +663,22 @@ def expected_launches(cfg, vm_cfg=None, rays: int = 1) -> dict:
     cp = vm_cfg.decomposition == "CP"
     route = density_route(cfg, vm_cfg, cfg.blur is not None)
     k6 = render_k6(cfg, vm_cfg, blur=cfg.blur is not None)
-    N, N_app = step_samples(cfg, rays)
+    k7 = render_k7(cfg, vm_cfg, blur=cfg.blur is not None)
+    N, _ = step_samples(cfg, rays)
     split = cfg.blur is not None and vm_cfg.convolve_positive_only
-
-    def app(n):
-        return 3 if cp else 3 * _fused_k3(n)
-
+    app = 3 if cp else 0            # CP's appearance lines (sample_line)
     if route == "grid":
-        k3 = 1 + app(N_app)
+        k3 = 1 + app
     elif route == "head":
-        k3 = app(N)
+        k3 = app
     elif route == "fused":
         k3 = 3 * _fused_k3(N)
     else:
-        k3 = (3 if cp or split else 0) + app(N_app)
+        k3 = (3 if cp or split else 0) + app
     return {"composite_fwd": 1, "composite_bwd": 1, "scatter_add_rows": k3,
             "binned_plane_scatter": 0, "scatter_add_rows_tiled": 0,
-            "density_sample_fwd": k6, "density_sample_bwd": k6}
+            "density_sample_fwd": k6, "density_sample_bwd": k6,
+            "app_sample_fwd": k7, "app_sample_bwd": k7}
 
 
 def render_k6(cfg, vm_cfg, blur: bool = False) -> int:
@@ -689,6 +692,18 @@ def render_k6(cfg, vm_cfg, blur: bool = False) -> int:
 
     return int(density_route(cfg, vm_cfg, blur) == "factored"
                and vm_lib.density_sample_skips_dead(vm_cfg, blur))
+
+
+def render_k7(cfg, vm_cfg, blur: bool = False) -> int:
+    """K7's launches in one render_rays call (forward, and as many in its
+    backward where one runs) with a StepConfig or RenderConfig ``cfg`` on
+    a field of VMConfig ``vm_cfg``, blurred or not: 1 where the appearance
+    is vm.compute_app_feature's on a VM field, which is every density
+    route but the fused sample (renderer.density_route)."""
+    from joint_tensorf_tpu_torch.render.renderer import density_route
+
+    return int(vm_cfg.decomposition == "VM"
+               and density_route(cfg, vm_cfg, blur) != "fused")
 
 
 def blur_mask_k6(vm_cfg, mask_res) -> int:
@@ -838,17 +853,44 @@ def density_sample_inputs(gen, rays=2500, K=896, res=400, R=16, live=None,
     return planes, lines, coords, vm_lib.AXES, live
 
 
+def held_to_plain(got, plain, tol, exact, key):
+    """A factor-sample kernel's outputs ``got`` (the feature, then the
+    three plane, three line and three coordinate gradients) against
+    ``plain(dtype)``, its plain version's: (each output's largest error
+    over its largest magnitude, the same against float64 with ``exact`` as
+    {key: the kernel's, "plain": the float32 plain's}, the outputs past
+    ``tol``).  With ``exact`` a factor gradient past ``tol`` of the float32
+    plain passes where the kernel lies within max(tol, 2 x the float32
+    plain's error) of the float64 one: each line or plane row sums
+    thousands of slots' adds in float32, in an order that differs between
+    the two."""
+    import torch
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    want = plain(torch.float32)
+    torch.cuda.synchronize()
+    errs = [rel(a, b) for a, b in zip(got, want)]
+    bad = [i for i, e in enumerate(errs) if e > tol]
+    f64 = None
+    if exact:
+        ref = plain(torch.float64)
+        f64 = {key: [rel(a, r) for a, r in zip(got, ref)],
+               "plain": [rel(b, r) for b, r in zip(want, ref)]}
+        # outputs 1-6: the plane and line gradients
+        bad = [i for i in bad if not (1 <= i <= 6 and f64[key][i] <= max(
+            tol, 2 * f64["plain"][i]))]
+    return errs, f64, bad
+
+
 def check_density_sample(gen, tol=1e-5, exact=False, **shape):
     """K6 (ops/density_sample.py) against its plain version at a shape of
     density_sample_inputs (``shape``; the masked cell's by default):
     forward and backward (every gradient), within ``tol`` of each
-    output's largest magnitude.  With ``exact`` both are also held
-    against the plain version in float64 (``f64_rel_err``), and a factor
-    gradient past ``tol`` of the float32 plain passes where K6 lies
-    within max(tol, 2 x the float32 plain's error) of the float64 one:
-    each line or plane row sums thousands of slots' adds in float32, in
-    an order that differs between the two.  Times
-    the forward and the backward back to back and by torch.profiler, the
+    output's largest magnitude, and with ``exact`` against float64 too
+    (held_to_plain, ``f64_rel_err``).  Times the forward and the backward back to back and by torch.profiler, the
     plain version's forward + backward, and the bound: the bytes of the
     predicates, the live slots' coordinates and factor rows (four plane
     and two line rows of R floats an axis) read and, backward, as many
@@ -869,10 +911,6 @@ def check_density_sample(gen, tol=1e-5, exact=False, **shape):
         return [out.detach()] + list(torch.autograd.grad(
             (out * g.to(dtype)).sum(), xs))
 
-    def rel(a, b):
-        return float((a.double() - b.double()).abs().max()) / max(
-            float(b.abs().max()), 1e-30)
-
     def fwd():
         return K6.density_sample_fwd_cuda(planes, lines, coords, axes, live)
 
@@ -882,26 +920,14 @@ def check_density_sample(gen, tol=1e-5, exact=False, **shape):
 
     d_p, d_l, d_c = bwd()
     got = [fwd()] + d_p + d_l + d_c
-    want = plain()
-    torch.cuda.synchronize()
-    errs = [rel(a, b) for a, b in zip(got, want)]
-    bad = [i for i, e in enumerate(errs) if e > tol]
-    f64 = None
-    if exact:
-        ref = plain(torch.float64)
-        f64 = {"k6": [rel(a, r) for a, r in zip(got, ref)],
-               "plain": [rel(b, r) for b, r in zip(want, ref)]}
-        del ref
-        # outputs 1-6: the plane and line gradients
-        bad = [i for i in bad if not (1 <= i <= 6 and f64["k6"][i] <= max(
-            tol, 2 * f64["plain"][i]))]
+    errs, f64, bad = held_to_plain(got, plain, tol, exact, "k6")
     dead = int(torch.count_nonzero(got[0][~live])) + sum(
         int(torch.count_nonzero(d[~live])) for d in d_c)
     if bad or dead or not all(torch.isfinite(t).all() for t in got):
         fail(f"K6 disagrees with its plain version: relative errors "
              f"{errs} (against float64: {f64}), {dead} non-zero dead-slot "
              f"outputs")
-    del got, want, d_p, d_l, d_c
+    del got, d_p, d_l, d_c
     N, n_live = coords[0].shape[0], int(live.sum())
     R = planes[0].shape[-1]
     rows = n_live * 3 * 6 * R * 4
@@ -963,6 +989,110 @@ def check_density_at_phases(label, rows, rays=None, ndc=False):
               f"{r['shape']['line_adds']}, max rel err "
               f"{max(r['max_rel_err']):.3g} (float64: K6 "
               f"{max(r['f64_rel_err']['k6'][1:7]):.3g}, plain "
+              f"{max(r['f64_rel_err']['plain'][1:7]):.3g} on the factor "
+              f"gradients), fwd {r['fwd_ms']:.4f} / bwd "
+              f"{r['bwd_ms']:.4f} ms, bound {r['fwd_bound_ms']:.4f} / "
+              f"{r['bwd_bound_ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+
+
+def check_app_sample(gen, tol=1e-5, exact=False, **shape):
+    """K7 (ops/app_sample.py) against its plain version at a shape of
+    density_sample_inputs (``shape``, R the appearance's rank an axis; the
+    masked cell's app_k slots by default: 2500 rays x 128 at 400^3, R 48),
+    every slot sampled: forward and backward (every gradient), within
+    ``tol`` of each output's largest magnitude, and with ``exact`` against
+    float64 too (held_to_plain, ``f64_rel_err``).  Times the forward and
+    the backward
+    back to back and by torch.profiler, the plain version's forward +
+    backward, and the bound: the coordinates read and the feature rows
+    written (forward), the cotangent rows and coordinates read and the
+    coordinate gradients written (backward); the factors read once and,
+    backward, their gradients written once (the kernel's zeroing of them
+    is its own choice, not the function's traffic)."""
+    import torch
+
+    from joint_tensorf_tpu_torch.ops import app_sample as K7
+    from joint_tensorf_tpu_torch.ops import sampling
+
+    shape = {"K": 128, "R": 48, **shape}
+    planes, lines, coords, axes, _ = density_sample_inputs(gen, **shape)
+    N, C = coords[0].shape[0], sum(p.shape[-1] for p in planes)
+    g = torch.randn((N, C), generator=gen, device="cuda")
+
+    def plain(dtype=torch.float32):
+        xs = [t.detach().to(dtype).requires_grad_(True)
+              for t in planes + lines + coords]
+        out = sampling.sample_planeline_prod_cat_plain(
+            xs[0:3], xs[3:6], xs[6:9], axes)
+        return [out.detach()] + list(torch.autograd.grad(
+            (out * g.to(dtype)).sum(), xs))
+
+    def fwd():
+        return K7.app_sample_fwd_cuda(planes, lines, coords, axes)
+
+    def bwd():
+        return K7.app_sample_bwd_cuda(planes, lines, coords, axes, g)
+
+    d_p, d_l, d_c = bwd()
+    got = [fwd()] + d_p + d_l + d_c
+    errs, f64, bad = held_to_plain(got, plain, tol, exact, "k7")
+    if bad or not all(torch.isfinite(t).all() for t in got):
+        fail(f"K7 disagrees with its plain version: relative errors "
+             f"{errs} (against float64: {f64})")
+    del got, d_p, d_l, d_c
+    factors = sum(t.numel() for t in planes + lines) * 4
+    fwd_bytes = N * 12 + N * C * 4 + factors
+    bwd_bytes = N * 24 + N * C * 4 + 2 * factors
+    f_ms, f_by = bound(fwd_bytes, N * C * 14)
+    b_ms, b_by = bound(bwd_bytes, N * C * 40)
+    return {"name": "app_sample", "route": "cuda",
+            "source": "joint_tensorf_tpu_torch/csrc/app_sample.cu",
+            "replaces": None, "max_rel_err": errs, "f64_rel_err": f64,
+            "tolerance": f"{tol} x max|out|",
+            "fwd_ms": time_ms(fwd), "bwd_ms": time_ms(bwd),
+            "plain_ms": time_ms(plain, reps=3, warmup=1),
+            "fwd_device_ms": device_times(fwd),
+            "bwd_device_ms": device_times(bwd),
+            "fwd_bound_ms": f_ms, "fwd_bound_by": f_by,
+            "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
+            "shape": {"N": N, "R": [p.shape[-1] for p in planes],
+                      "plane": list(planes[0].shape),
+                      "lines": [ln.shape[0] for ln in lines]}}
+
+
+def check_app_at_phases(label, rows, R, rays=None, ndc=False):
+    """check_app_sample at each distinct shape at which a run's phases
+    (``rows``, as check_density_at_phases reads them, with app_k where
+    given) launched K7: the rays, the slots each sampled (app_k of the
+    kept ones, else all kept), the field's resolution, the appearance's
+    rank R an axis, NDC marches with ``ndc``; the factor gradients also
+    against float64 (``exact``).  Emits one kernel_check a shape, its
+    path the label and iterations."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    seen = set()
+    for row in rows:
+        if not row["launches_per_step"].get("app_sample_fwd"):
+            continue
+        S = row["n_samples"]
+        K = min(row.get("compact_k") or S, S)
+        if row.get("app_k") is not None:
+            K = min(row["app_k"], K)
+        n = row.get("rays", rays)
+        key = (n, K, tuple(row["resolution"]))
+        if key in seen:
+            continue
+        seen.add(key)
+        r = check_app_sample(gen, exact=True, rays=n, K=K,
+                             res=row["resolution"], R=R, ndc=ndc)
+        emit({"kernel_check": dict(
+            r, path=f"{label} its {row['iterations']}")})
+        print(f"[k7 {label}] its {row['iterations']} {n} rays x {K} at "
+              f"{row['resolution']} R {R}: max rel err "
+              f"{max(r['max_rel_err']):.3g} (float64: K7 "
+              f"{max(r['f64_rel_err']['k7'][1:7]):.3g}, plain "
               f"{max(r['f64_rel_err']['plain'][1:7]):.3g} on the factor "
               f"gradients), fwd {r['fwd_ms']:.4f} / bwd "
               f"{r['bwd_ms']:.4f} ms, bound {r['fwd_bound_ms']:.4f} / "
@@ -1706,7 +1836,9 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
                                               "composite_bwd",
                                               "scatter_add_rows",
                                               "density_sample_fwd",
-                                              "density_sample_bwd")},
+                                              "density_sample_bwd",
+                                              "app_sample_fwd",
+                                              "app_sample_bwd")},
                "step_ms_median": statistics.median(p["ms"]),
                "peak_mem_gb": max(p["peak"]), "step_ms": p["ms"]}
         rows.append(row)
@@ -1743,6 +1875,9 @@ def run_all_phases(label: str, extra_args=(), profile_dir=None,
         # K6 at each phase's own shape: the first phase's (the main path's),
         # the blurred phases' up to 252^3, the masked ones'
         check_density_at_phases(label, rows, trainer.rays_per_step)
+        # K7 at each phase's shape: app_k of the kept slots, or all
+        check_app_at_phases(label, rows, trainer.vm_cfg.app_n_comp[0],
+                            trainer.rays_per_step)
     cfg = trainer.last_step_config
     blurred = None
     if blurred_last:
@@ -2260,6 +2395,7 @@ def run_eval_phase(trainer, data):
         val_s = time.perf_counter() - t0
         rcfg = trainer.last_eval_config
         expect_chunk["density_sample_fwd"] = render_k6(rcfg, trainer.vm_cfg)
+        expect_chunk["app_sample_fwd"] = render_k7(rcfg, trainer.vm_cfg)
         bad = [c for c in chunks if c != expect_chunk]
         if bad or not chunks:
             faults.append(f"validate: {len(bad)} of {len(chunks)} chunks "
@@ -2298,8 +2434,10 @@ def run_eval_phase(trainer, data):
 
         # ---------------- 4. test-time optimisation, counters per step
         k6 = render_k6(render_config(trainer), trainer.vm_cfg)
+        k7 = render_k7(render_config(trainer), trainer.vm_cfg)
         expect_step = dict(expect_chunk, composite_bwd=1,
-                           density_sample_fwd=k6, density_sample_bwd=k6)
+                           density_sample_fwd=k6, density_sample_bwd=k6,
+                           app_sample_fwd=k7, app_sample_bwd=k7)
         steps = []
         clock = [0.0]
 
@@ -2620,7 +2758,8 @@ def run_viz_phase(trainer, data):
                           "s": time.perf_counter() - t0, "chunks": chunks,
                           "eval_compact_k": rcfg.compact_k,
                           "dense_grid": rcfg.densify_density,
-                          "k6": render_k6(rcfg, self.vm_cfg)})
+                          "k6": render_k6(rcfg, self.vm_cfg),
+                          "k7": render_k7(rcfg, self.vm_cfg)})
             return r
 
         buf = io.StringIO()
@@ -2643,7 +2782,8 @@ def run_viz_phase(trainer, data):
         with open(os.path.join(run_dir, "quant.txt")) as f:
             n_test = sum(1 for _ in f)
         bad = [c for call in calls for c in call["chunks"]
-               if c != dict(expect_chunk, density_sample_fwd=call["k6"])]
+               if c != dict(expect_chunk, density_sample_fwd=call["k6"],
+                            app_sample_fwd=call["k7"])]
         if [c["views"] for c in calls] != [n_test, VIZ_FRAMES] or bad:
             faults.append(f"evaluate: render_views calls "
                           f"{[(c['views'], len(c['chunks'])) for c in calls]}"
@@ -2769,8 +2909,8 @@ def run_option_steps():
     procedural scene) with VIZ_OPTIONS (soft edge masks, one random scale
     for the 2D and 3D blurs) for VIZ_STEPS steps through Trainer.run, the
     counters zeroed before each step and read after it: every step's
-    launches against expected_launches (K1 = K2 = 1, K3 = 6 with app_k and
-    K6 once each way: the dense grid allowed does not pay); finite losses;
+    launches against expected_launches (K1 = K2 = 1, K3 = 0, K6 and K7
+    once each way: the dense grid allowed does not pay); finite losses;
     the edge masks soft (values strictly between 0 and 1, each view's
     largest 1).  Returns {"option_steps": ...}."""
     import torch
@@ -3248,7 +3388,9 @@ def run_ndc_route():
                                               "composite_bwd",
                                               "scatter_add_rows",
                                               "density_sample_fwd",
-                                              "density_sample_bwd")},
+                                              "density_sample_bwd",
+                                              "app_sample_fwd",
+                                              "app_sample_bwd")},
                "valid_frac": statistics.mean(r["valid_frac"] for r in rs),
                "step_ms_median": statistics.median(ms), "step_ms": ms,
                "peak_mem_gb": max(r["peak_gb"] for r in rs),
@@ -3293,10 +3435,12 @@ def run_ndc_route():
         per = [{k: b[1][k] - a[1][k] for k in b[1]}
                for a, b in zip(test_steps[:-1], test_steps[1:])]
         k6 = render_k6(render_config(trainer), trainer.vm_cfg, blur=True)
+        k7 = render_k7(render_config(trainer), trainer.vm_cfg, blur=True)
         want = {"composite_fwd": 1, "composite_bwd": 1,
                 "scatter_add_rows": 0, "binned_plane_scatter": 0,
                 "scatter_add_rows_tiled": 0, "density_sample_fwd": k6,
-                "density_sample_bwd": k6}
+                "density_sample_bwd": k6, "app_sample_fwd": k7,
+                "app_sample_bwd": k7}
         if any(p != want for p in per) or not math.isfinite(loss):
             faults.append(f"test-time view {i}: launches {per[:2]}, loss "
                           f"{loss}")
@@ -3311,6 +3455,7 @@ def run_ndc_route():
           f"launches {test_rows[0]['launches_per_step']}", flush=True)
     n_rays, S, res = trainer.rays_per_step, trainer.n_samples, \
         list(trainer.resolution)
+    app_rank = trainer.vm_cfg.app_n_comp[0]
     del trainer
     torch.cuda.empty_cache()
     emit({"llff_route": {
@@ -3321,9 +3466,10 @@ def run_ndc_route():
         "loss": [r["loss"] for r in steps], "test_time": test_rows}})
     if faults:
         fail("llff route: " + "; ".join(faults))
-    # K6 at each LLFF phase's shape (NDC rays; at 771 x 859 x 771 the line
-    # gradients go to global memory)
+    # K6 and K7 at each LLFF phase's shape (NDC rays; at 771 x 859 x 771
+    # K6's line gradients go to global memory)
     check_density_at_phases("llff", rows, ndc=True)
+    check_app_at_phases("llff", rows, app_rank, ndc=True)
     return n_rays, S, res
 
 
@@ -3335,10 +3481,10 @@ def run_llff_final_grid():
     the next is tried): the published first phase's 20480 rays never
     meets this grid (the n_rays switch to 4096 comes with the first
     upsample), so this is the largest step the config could ask of it,
-    19.44M samples: K6 once each way for the density, and the appearance's
-    fused factor samples' backwards in 19 chunks each (K3 3 x 2 x 19 a
-    step); then K6 against its plain version at that shape.  Returns
-    (rays, S, resolution) of the steps that ran."""
+    19.44M samples: K6 once each way for the density and K7 once each
+    way for the appearance, no K3; then K6 and K7 against their plain
+    versions at that shape.  Returns (rays, S, resolution) of the steps
+    that ran."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -3406,15 +3552,17 @@ def run_llff_final_grid():
             fail(f"llff 800^3: launches {per} vs {want}, loss "
                  f"{row['loss']}")
         n_rays, S = trainer.rays_per_step, cfg.n_samples
+        app_rank = trainer.vm_cfg.app_n_comp[0]
         del trainer
         torch.cuda.empty_cache()
         emit({"llff_final_grid": tried})
         # K6 at these steps' shape, every slot live (the most it can
         # sample here), its line gradients in global memory
-        check_density_at_phases("llff_800", [{
-            "iterations": [0, 2], "resolution": res, "n_samples": S,
-            "rays": n_rays, "valid_frac": 1.0,
-            "launches_per_step": per[-1]}], ndc=True)
+        llff_800 = [{"iterations": [0, 2], "resolution": res,
+                     "n_samples": S, "rays": n_rays, "valid_frac": 1.0,
+                     "launches_per_step": per[-1]}]
+        check_density_at_phases("llff_800", llff_800, ndc=True)
+        check_app_at_phases("llff_800", llff_800, app_rank, ndc=True)
         return n_rays, S, res
     emit({"llff_final_grid": tried})
     fail("llff 800^3: no ray count fit")
@@ -3440,7 +3588,7 @@ def mlp_step_flops(cfg, n_points: int) -> float:
 def _no_launches(label, launches, faults):
     if launches != NO_LAUNCHES:
         faults.append(f"{label}: launched {launches}, expected none of "
-                      f"K1-K6")
+                      f"K1-K7")
 
 
 def run_mlp_nerf(yaml: str, extra=()):
@@ -3449,7 +3597,7 @@ def run_mlp_nerf(yaml: str, extra=()):
     the bound of the coarse MLP's operations, peak memory), the host syncs
     of 3 more steps, validate on 2 views (ms a view), with BARF
     MLP_TEST_ITER test-time steps on each of 2 views; the counters zeroed
-    before and read after each piece: K1-K6 launch 0 times."""
+    before and read after each piece: K1-K7 launch 0 times."""
     import torch
 
     from joint_tensorf_tpu_torch.config import set_options
@@ -3571,7 +3719,7 @@ def run_mlp_nerf(yaml: str, extra=()):
 def run_planar():
     """The three planar configs at their widths through PlanarTrainer.run:
     PLANAR_STEPS steps each (step ms, peak memory, host syncs of 3 more
-    steps, warp_error, the counters zeroed before and read after: K1-K6
+    steps, warp_error, the counters zeroed before and read after: K1-K7
     launch 0 times), and whether torch.linalg.matrix_exp of the 5
     homographies synchronises the host (sync debug "error")."""
     import torch
@@ -5147,6 +5295,7 @@ def main(argv):
     for r in tiled:
         emit({"kernel_check": r})
     emit({"kernel_check": check_density_sample(gen)})
+    emit({"kernel_check": check_app_sample(gen)})
     torch.cuda.empty_cache()
     emit(check_small_step())
     emit(check_small_l2g_ndc())
@@ -5303,7 +5452,7 @@ def main(argv):
         path="llff_800 3-D grid rows")})
     torch.cuda.empty_cache()
     # BARF, MLP-NeRF with fine sampling and the planar images: none of
-    # K1-K6 on their paths; their small steps on the card against the CPU
+    # K1-K7 on their paths; their small steps on the card against the CPU
     emit(check_small_mlp_planar())
     run_mlp_nerf("barf_blender.yaml")
     run_mlp_nerf("nerf_blender_repr.yaml", ["--nerf.density_noise_reg=1"])

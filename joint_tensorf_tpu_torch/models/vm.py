@@ -65,6 +65,7 @@ from ..ops import blur as blur_ops
 from ..ops import densify, lane_grid, resample
 from ..ops.kernels import average_kernel, gaussian_kernel
 from ..ops.sampling import (sample_line, sample_plane, sample_planeline_prod,
+                             sample_planeline_prod_cat,
                              sample_planeline_prod_sum)
 from ..parallel import sharding
 from .shading import make_head
@@ -437,21 +438,19 @@ def compute_app_feature(field: VMField, cfg: VMConfig, coords,
                         blur_mats=None):
     """Appearance features [N, app_dim] at normalized coords (cx, cy, cz)
     from the appearance factors alone (blurred by ``blur_mats`` when given,
-    planes and lines alike): one sample_planeline_prod (K3 in its
-    backward) per axis, or CP's line product."""
+    planes and lines alike): the three axes' plane x line products from
+    one sample_planeline_prod_cat (K7 forward and backward on the card),
+    or CP's line product; then the basis."""
     coords = _comp_coords(field, coords)
     if cfg.decomposition == "CP":
         return _comp_sum(field, _cp_feature(
             field.app_lines, cfg, coords, blur_mats, density=False)
             @ basis_rows(field, cfg))
-    feats = []
-    for i in range(3):
-        m0, m1 = MAT_MODE[i]
-        plane, line = _blurred(field.app_planes[i], field.app_lines[i],
-                               blur_mats)
-        feats.append(sample_planeline_prod(plane, line, coords[m0],
-                                           coords[m1], coords[VEC_MODE[i]]))
-    return _comp_sum(field, torch.cat(feats, dim=-1) @ basis_rows(field, cfg))
+    factors = [_blurred(p, ln, blur_mats)
+               for p, ln in zip(field.app_planes, field.app_lines)]
+    feats = sample_planeline_prod_cat([f[0] for f in factors],
+                                      [f[1] for f in factors], coords, AXES)
+    return _comp_sum(field, feats @ basis_rows(field, cfg))
 
 
 def compute_density_grid(field: VMField, cfg: VMConfig, blur_mats=None):

@@ -20,71 +20,11 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .cuda_build import DIMS, check_factor_args, ptrs
 
-# three device pointers and the 21 dims go as host arrays
-_PTRS = ctypes.c_void_p * 3
-_DIMS = ctypes.c_int * 21
-_P = ctypes.c_void_p
-_A = ctypes.POINTER(ctypes.c_void_p)
-_I = ctypes.POINTER(ctypes.c_int)
+_P, _A, _I = cuda_build.VOIDP, cuda_build.PTR_ARRAY, cuda_build.INT_ARRAY
 _FWD_ARGTYPES = [_A, _A, _I, _A, _P, _P, ctypes.c_longlong, _P]
 _BWD_ARGTYPES = [_A, _A, _I, _A, _P, _P, _A, _A, _A, ctypes.c_longlong, _P]
-
-
-def _check(name, planes, lines, coords, axes, live, g=None):
-    """The 21 dims (H, W, D, R and the three coordinates' indices an
-    axis) and N, after the checks."""
-    dev = coords[0].device
-    tensors = list(planes) + list(lines) + list(coords) + (
-        [] if g is None else [g])
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: all tensors must be on one CUDA "
-                             f"device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: want float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-    N = coords[0].shape[0]
-    if len(planes) != 3 or len(lines) != 3 or len(coords) != 3 or any(
-            c.shape != (N,) for c in coords) or (
-            g is not None and g.shape != (N,)):
-        raise ValueError(f"{name}: want three planes, lines and [N] "
-                         f"coordinates")
-    if live is not None and (live.dtype != torch.bool or live.shape != (N,)
-                             or live.device != dev
-                             or not live.is_contiguous()):
-        raise ValueError(f"{name}: live must be a contiguous [N] bool "
-                         f"tensor on the coordinates' device")
-    dims = []
-    for plane, line, ax in zip(planes, lines, axes):
-        if plane.dim() != 3 or line.dim() != 2 or \
-                line.shape[1] != plane.shape[2]:
-            raise ValueError(f"{name}: bad factor shapes "
-                             f"{tuple(plane.shape)} / {tuple(line.shape)}")
-        if sorted(ax) != [0, 1, 2]:
-            raise ValueError(f"{name}: bad axes {axes}")
-        H, W, R = plane.shape
-        dims += [H, W, line.shape[0], R, *ax]
-    return dims, N
-
-
-def _ptrs(ts):
-    return _PTRS(*(0 if t is None else t.data_ptr() for t in ts))
-
-
-def _launch(symbol, *args, dev):
-    fn = cuda_build.kernel(
-        "density_sample", symbol,
-        _FWD_ARGTYPES if symbol == "density_sample_fwd" else _BWD_ARGTYPES)
-    index = dev.index
-    if index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    cuda_build.LAUNCHES[symbol] += 1
-    cuda_build.check(err, symbol)
 
 
 def density_sample_fwd_cuda(planes, lines, coords, axes, live=None):
@@ -92,12 +32,13 @@ def density_sample_fwd_cuda(planes, lines, coords, axes, live=None):
     coords (x, y, z) [N] float32 contiguous on one CUDA device; axes[a] =
     (u, v, w), the coordinates plane a reads along W and H and line a
     along D; live [N] bool or None -> feature [N] float32."""
-    dims, N = _check("density_sample_fwd_cuda", planes, lines, coords,
-                     axes, live)
+    dims, N = check_factor_args(
+        "density_sample_fwd_cuda", planes, lines, coords, axes, live)
     out = torch.empty((N,), dtype=torch.float32, device=coords[0].device)
-    _launch("density_sample_fwd", _ptrs(planes), _ptrs(lines), _DIMS(*dims),
-            _ptrs(coords), None if live is None else live.data_ptr(),
-            out.data_ptr(), N, dev=out.device)
+    cuda_build.launch("density_sample", "density_sample_fwd", _FWD_ARGTYPES,
+                      ptrs(planes), ptrs(lines), DIMS(*dims), ptrs(coords),
+                      None if live is None else live.data_ptr(),
+                      out.data_ptr(), N, dev=out.device)
     return out
 
 
@@ -109,8 +50,8 @@ def density_sample_bwd_cuda(planes, lines, coords, axes, live, g,
     factor gradients are the planes' and lines' shapes, zeroed and added
     into by the kernel; the coordinates' are written at every slot (0 at
     the dead ones)."""
-    dims, N = _check("density_sample_bwd_cuda", planes, lines, coords, axes,
-                     live, g)
+    dims, N = check_factor_args(
+        "density_sample_bwd_cuda", planes, lines, coords, axes, live, g)
     dev = coords[0].device
 
     def new(t, want):
@@ -119,8 +60,9 @@ def density_sample_bwd_cuda(planes, lines, coords, axes, live, g,
     d_planes = [new(p, w) for p, w in zip(planes, need[0:3])]
     d_lines = [new(ln, w) for ln, w in zip(lines, need[3:6])]
     d_coords = [new(c, w) for c, w in zip(coords, need[6:9])]
-    _launch("density_sample_bwd", _ptrs(planes), _ptrs(lines), _DIMS(*dims),
-            _ptrs(coords), None if live is None else live.data_ptr(),
-            g.data_ptr(), _ptrs(d_planes), _ptrs(d_lines), _ptrs(d_coords),
-            N, dev=dev)
+    cuda_build.launch("density_sample", "density_sample_bwd", _BWD_ARGTYPES,
+                      ptrs(planes), ptrs(lines), DIMS(*dims), ptrs(coords),
+                      None if live is None else live.data_ptr(),
+                      g.data_ptr(), ptrs(d_planes), ptrs(d_lines),
+                      ptrs(d_coords), N, dev=dev)
     return d_planes, d_lines, d_coords

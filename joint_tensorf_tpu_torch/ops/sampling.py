@@ -22,6 +22,11 @@ with its hand-written backward (:219-426).
         the three axes, 0 where ``live`` is False; kernel K6 forward and
         backward on a CUDA tensor (ops/density_sample.py), which works on
         the live slots alone; the plain version on a CPU tensor
+    sample_planeline_prod_cat(planes, lines, coords, axes) -> [N, R_0+R_1+R_2]
+        the VM appearance feature before its basis: sample_planeline_prod
+        of each axis, concatenated; kernel K7 forward and backward on a
+        CUDA tensor (ops/app_sample.py), no K3; the plain version on a
+        CPU tensor
 
 Bilinear plane / linear line sampling with align_corners semantics,
 channels-last, clamped to the border as jnp.clip clamps (_pix), so a
@@ -36,9 +41,9 @@ as JAX's jax.vjp of the plain gather gives them.
 
 Forward and backward are plain PyTorch, except the row scatters that go
 through ops/segment_scatter.scatter_add_rows: kernel K3 on a CUDA tensor,
-``index_add_`` on a CPU tensor; and the summed density sample, which is
-K6 on a CUDA tensor (its plain version's row scatters are ``index_add_``,
-never K3).
+``index_add_`` on a CPU tensor; and the summed density sample and the
+concatenated appearance sample, which are K6 and K7 on a CUDA tensor
+(their plain versions' row scatters are ``index_add_``, never K3).
 
 The planar pipeline's image sample (:428-463) is here too:
 
@@ -51,7 +56,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import density_sample
+from . import app_sample, density_sample
 from .segment_scatter import scatter_add_rows
 
 
@@ -467,6 +472,57 @@ def sample_planeline_prod_sum(planes, lines, coords, axes, live=None):
         raise ValueError(f"sample_planeline_prod_sum: no kernel for "
                          f"{coords[0].device}")
     return sample_planeline_prod_sum_plain(planes, lines, coords, axes, live)
+
+
+class SamplePlaneLineProdCat(torch.autograd.Function):
+    """sample_planeline_prod_cat on the card: K7's forward, and its
+    backward for the gradients autograd asks for (frozen factors: none
+    into the factors; detached coordinates: none for them)."""
+
+    @staticmethod
+    def forward(ctx, axes, p0, p1, p2, l0, l1, l2, x, y, z):
+        planes = tuple(t.contiguous() for t in (p0, p1, p2))
+        lines = tuple(t.contiguous() for t in (l0, l1, l2))
+        coords = tuple(t.contiguous() for t in (x, y, z))
+        ctx.axes = axes
+        ctx.save_for_backward(*planes, *lines, *coords)
+        return app_sample.app_sample_fwd_cuda(planes, lines, coords, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        factors = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        if not any(need):
+            return (None,) * 10
+        d_planes, d_lines, d_coords = app_sample.app_sample_bwd_cuda(
+            factors[0:3], factors[3:6], factors[6:9], ctx.axes,
+            g.contiguous(), need)
+        return (None, *d_planes, *d_lines, *d_coords)
+
+
+def sample_planeline_prod_cat_plain(planes, lines, coords, axes):
+    """K7's plain version (any device): sample_planeline_prod(planes[a],
+    lines[a], *coords[axes[a]]) for each axis, concatenated.  Its row
+    scatters are ``index_add_`` (_index_add_rows): this is the plain
+    version of K7, not a K3 call."""
+    return torch.cat([
+        SamplePlaneLineProd.apply(plane, line, coords[a], coords[b],
+                                  coords[c], _index_add_rows)
+        for plane, line, (a, b, c) in zip(planes, lines, axes)], dim=-1)
+
+
+def sample_planeline_prod_cat(planes, lines, coords, axes):
+    """[planes[a](u, v) * lines[a](w) for each axis a], concatenated ->
+    [N, R_0 + R_1 + R_2], with (u, v, w) = coords[axes[a]] (u -> W, v -> H,
+    w -> D of the factors): the VM appearance feature before its basis.
+    Three float32 planes [H,W,R_a], lines [D,R_a] and coordinates [N].  K7
+    on a CUDA tensor; the plain version on a CPU tensor."""
+    if coords[0].is_cuda:
+        return SamplePlaneLineProdCat.apply(axes, *planes, *lines, *coords)
+    if coords[0].device.type != "cpu":
+        raise ValueError(f"sample_planeline_prod_cat: no kernel for "
+                         f"{coords[0].device}")
+    return sample_planeline_prod_cat_plain(planes, lines, coords, axes)
 
 
 def sample_image(img, coords, mode: str = "bilinear"):

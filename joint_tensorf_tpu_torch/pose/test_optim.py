@@ -9,7 +9,9 @@ photometric MSE of ``n_rays`` pixels of a fresh permutation per step, at
 lr = lr_init * gamma^it with gamma = (lr_end / lr_init)^(1 / test_iter).
 The field is frozen while it runs (its parameters need no gradient), so
 the backward pass computes the pose's cotangent alone: the compositor's
-backward (K2 on CUDA) runs, the factor scatters (K3) do not.
+backward (K2 on CUDA) runs, and the factor samples' backwards (K6, K7)
+form the coordinates' gradients alone; the factor scatters (K3) and the
+factor adds do not run.
 
 The ray indices, the stratified jitter and (without a white background)
 the background coin come from a torch.Generator, or from a ``draws(it)``

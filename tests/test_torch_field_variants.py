@@ -20,8 +20,9 @@ their tolerances).
 * optim.sched_pose.lr_pose_schedule (with the LambdaLR type, with no
   type, with ExponentialLR at lr_pose 0) and warmup: the pose lr of each
   iteration equal to the JAX trainer's;
-* one CPU step's row-scatter calls (K3 on the card) and summed density
-  samples forward and backward (K6 on the card) for each variant, the
+* one CPU step's row-scatter calls (K3 on the card), summed density
+  samples and concatenated appearance samples forward and backward (K6
+  and K7 on the card) for each variant, the
   density head, CP (plain and component-wise) and SH, with and without
   the dense grid, app_k and the blur, equal chip_smoke.expected_launches,
   and so do a step's whose fused samples run in chunks (_PROD_BWD_CHUNK
@@ -150,22 +151,25 @@ def test_ignore_negative_split_alone_changes_nothing():
 def test_positive_only_falls_back_to_the_factored_density(monkeypatch):
     """convolve_positive_only under the blur: no dense grid, no fused
     sample; the density's plane and line samples are plain gathers (no
-    sample_planeline_prod for the density)."""
+    sample_planeline_prod for the density); the appearance is one
+    concatenated sample (K7 on the card)."""
     _, pcfg = _cfgs(convolve_positive_only=True)
     assert not vm.can_densify(pcfg) and not vm.can_fuse_features(pcfg)
-    calls = {"grid": 0, "prod": 0}
-    grid, prod = vm.compute_density_grid, vm.sample_planeline_prod
+    calls = {"grid": 0, "prod": 0, "cat": 0}
 
-    def count(key, fn):
+    def count(key, name):
+        fn = getattr(vm, name)
+
         def wrapped(*a, **k):
             calls[key] += 1
             return fn(*a, **k)
-        return wrapped
+        monkeypatch.setattr(vm, name, wrapped)
 
-    monkeypatch.setattr(vm, "compute_density_grid", count("grid", grid))
-    monkeypatch.setattr(vm, "sample_planeline_prod", count("prod", prod))
+    count("grid", "compute_density_grid")
+    count("prod", "sample_planeline_prod")
+    count("cat", "sample_planeline_prod_cat")
     _port_render(pcfg, dict(densify_density=True))
-    assert calls == {"grid": 0, "prod": 3}        # the appearance planes
+    assert calls == {"grid": 0, "prod": 0, "cat": 1}
 
 
 def test_predict_density_render_and_step_match_jax(monkeypatch):
@@ -452,7 +456,7 @@ def test_bf16_grid_step_scatter_calls_match_expected_launches(monkeypatch,
 
 def _check_step_launches(monkeypatch, name, **step_kw):
     """One CPU step of the ZOO_FIELDS field ``name`` under StepConfig
-    ``step_kw``: its row-scatter and K6 calls against expected_launches,
+    ``step_kw``: its row-scatter, K6 and K7 calls against expected_launches,
     which it returns."""
     _, pcfg = _cfgs(**ZOO_FIELDS[name])
     predict = pcfg.shading_mode == "MLP_Fea_WeakView_Density"
@@ -478,24 +482,24 @@ def _check_step_launches(monkeypatch, name, **step_kw):
 
 
 def test_expected_launches_table():
-    """K3 a step by field and path in chip_smoke.expected_launches, each
-    fused factor sample a plane and a line scatter a chunk: the dense
-    grid + 3 appearance samples (7) where the grid is allowed and built
-    (its rows read in bfloat16); where it is allowed in float32 rows or
-    not allowed, 6 with app_k or with the activation flags (the
-    appearance alone: the density is K6's), 6 fused (convolve_plane_only,
-    ignore_negative_split); convolve_positive_only under the blur 3
-    density lines + 6 (9); CP the grid + 3 appearance lines (4) wherever
-    the grid is allowed, 6 lines without it; the density head 6.  Past
+    """K3, K6 and K7 a step by field and path in
+    chip_smoke.expected_launches.  K3: the dense grid's row gather (1)
+    where the grid is allowed and built (its rows read in bfloat16), each
+    fused factor sample a plane and a line scatter a chunk (6 fused:
+    convolve_plane_only, ignore_negative_split, the default field without
+    app_k), convolve_positive_only's 3 density lines under the blur, CP's
+    lines (3 appearance, 3 more without the grid); nothing else, since
+    the VM appearance apart from the density is K7's.  Past
     _PROD_BWD_CHUNK samples (2**20) a fused sample scatters per chunk:
-    BAT's 2028 x 1000 fused (2 chunks a sample), app_k 128 (1), LLFF's
-    4420 x 1000 on the dense appearance (5) and 20480 x 1000 (20), pod16's
-    4096 x 512 kept samples on one rank and on each of two (the
-    appearance's app_k 128 in one chunk; the density K6's whatever its
-    samples).  K6 (forward and backward alike) once a step exactly where
-    the VM density is sampled from its factors apart from the appearance:
-    app_k or the activation flags without the grid built, not CP, the
-    density head or the split."""
+    BAT's 2028 x 1000 fused (2 chunks a sample, 12).  K6 (forward and
+    backward alike) once a step exactly where the VM density is sampled
+    from its factors apart from the appearance: app_k or the activation
+    flags without the grid built, not CP, the density head or the split.
+    K7 (forward and backward alike) once a step exactly where the VM
+    appearance is sampled apart from the density: every route but the
+    fused sample, the density head's included, never on CP; whatever its
+    samples (LLFF's 4420 x 1000 and 20480 x 1000 on the dense appearance,
+    pod16's app_k 128 on one rank and on each of two)."""
     blur = BlurSpec("uniform-gaussian", 8)
 
     def launches(field_kw, rays=1, **step_kw):
@@ -505,6 +509,7 @@ def test_expected_launches_table():
         scfg = StepConfig(H=8, W=8, **step_kw)
         got = chip_smoke.expected_launches(scfg, pcfg, rays)
         assert got["density_sample_fwd"] == got["density_sample_bwd"]
+        assert got["app_sample_fwd"] == got["app_sample_bwd"]
         return got
 
     def k3(*a, **kw):
@@ -513,59 +518,73 @@ def test_expected_launches_table():
     def k6(*a, **kw):
         return launches(*a, **kw)["density_sample_fwd"]
 
+    def k7(*a, **kw):
+        return launches(*a, **kw)["app_sample_fwd"]
+
     bf16 = dict(densify_density=True, densify_dtype="bfloat16")
     for name, kw in VARIANTS.items():
         positive = kw.get("convolve_positive_only", False)
         fusable = vm.can_fuse_features(_cfgs(**kw)[1])
         # the grid allowed: built for bf16 rows, K6 in float32 rows
         assert k3(kw, densify_density=True, app_k=64) == (
-            9 if positive else 6), name
+            3 if positive else 0), name
         assert k6(kw, densify_density=True, app_k=64) == (
             0 if positive else 1), name
-        assert k3(kw, app_k=64, **bf16) == (9 if positive else 7), name
+        assert k3(kw, app_k=64, **bf16) == (3 if positive else 1), name
         assert k6(kw, app_k=64, **bf16) == 0, name
-        assert k3(kw, app_k=64) == (9 if positive else 6), name
-        assert k3(kw) == (9 if positive else 6), name
+        assert k3(kw, app_k=64) == (3 if positive else 0), name
+        assert k3(kw) == (3 if positive else 6 if fusable else 0), name
         assert k6(kw, app_k=64) == (0 if positive else 1), name
         assert k6(kw) == (0 if positive or fusable else 1), name
+        for step_kw in (dict(densify_density=True, app_k=64),
+                        dict(app_k=64, **bf16), dict(app_k=64)):
+            assert k7(kw, **step_kw) == 1, name
+        assert k7(kw) == (0 if fusable else 1), name
     assert k3(dict(convolve_plane_only=True)) == 6
     assert k3(dict(ignore_negative_split=True)) == 6
+    assert k7(dict(ignore_negative_split=True)) == 0
     assert k3(dict(decomposition="CP"), densify_density=True, app_k=64) == 4
     assert k3(dict(decomposition="CP"), app_k=64) == 6
     assert k6(dict(decomposition="CP"), app_k=64) == 0
     assert k6(dict(decomposition="CP"), densify_density=True, app_k=64) == 0
-    assert k3(dict(shading_mode="MLP_Fea_WeakView_Density"),
-              densify_density=True, app_k=64, mlp_predict_density=True) == 6
-    assert k6(dict(shading_mode="MLP_Fea_WeakView_Density"), app_k=64,
+    assert k7(dict(decomposition="CP"), app_k=64) == 0
+    assert k7(dict(decomposition="CP")) == 0
+    head = dict(shading_mode="MLP_Fea_WeakView_Density")
+    assert k3(head, densify_density=True, app_k=64,
               mlp_predict_density=True) == 0
+    assert k6(head, app_k=64, mlp_predict_density=True) == 0
+    assert k7(head, mlp_predict_density=True) == 1
     # convolve_positive_only splits only under the blur
     assert k6(dict(convolve_positive_only=True), app_k=64, blur=None) == 1
     bat = dict(n_views=12, rays_per_view=169, n_samples=1000, blur=None)
-    assert k3({}, **bat) == 12
-    assert k3({}, densify_density=True, app_k=128, **bat) == 6
-    assert k3({}, app_k=128, **bf16, **bat) == 7
-    assert k3({}, compact_k=512, app_k=128, **bat) == 6
-    assert k3({}, compact_k=640, app_k=128, **bat) == 6
+    assert (k3({}, **bat), k6({}, **bat), k7({}, **bat)) == (12, 0, 0)
+    assert k3({}, densify_density=True, app_k=128, **bat) == 0
+    assert k3({}, app_k=128, **bf16, **bat) == 1
+    assert k3({}, compact_k=512, app_k=128, **bat) == 0
+    assert k3({}, compact_k=640, app_k=128, **bat) == 0
     assert k6({}, compact_k=640, app_k=128, **bat) == 1
-    assert k6({}, **bat) == 0
+    assert k7({}, compact_k=640, app_k=128, **bat) == 1
     assert k6({}, densify_density=True, app_k=128, **bat) == 1
     # LLFF's last phase and its first: the grid allowed, K6 taken (no K3
-    # into the grid's 510.6M rows); 31 with the grid's rows in bf16
+    # into the grid's 510.6M rows) and K7 for the dense appearance; 1 K3
+    # with the grid's rows in bf16
     llff = dict(n_views=20, n_samples=1000, densify_density=True)
-    assert k3({}, rays_per_view=221, **llff) == 30
-    assert k3({}, rays_per_view=1024, **llff) == 120
-    assert k6({}, rays_per_view=221, **llff) == 1
-    assert k3({}, rays_per_view=221, densify_dtype="bfloat16", **llff) == 31
+    for rays_per_view in (221, 1024):
+        assert (k3({}, rays_per_view=rays_per_view, **llff),
+                k6({}, rays_per_view=rays_per_view, **llff),
+                k7({}, rays_per_view=rays_per_view, **llff)) == (0, 1, 1)
+    assert k3({}, rays_per_view=221, densify_dtype="bfloat16", **llff) == 1
     pod16 = dict(n_views=16, rays_per_view=256, n_samples=1000,
                  compact_k=512, app_k=128, blur=None)
-    assert k3({}, **pod16) == 6
-    assert k3({}, rays=2, **pod16) == 6
+    assert k3({}, **pod16) == k3({}, rays=2, **pod16) == 0
     assert k6({}, **pod16) == k6({}, rays=2, **pod16) == 1
+    assert k7({}, **pod16) == k7({}, rays=2, **pod16) == 1
     assert k3(dict(decomposition="CP"), **bat) == 6
     # the masked cell's step: 2500 rays x K 896, app_k 128
     masked = dict(n_views=100, rays_per_view=25, n_samples=1000,
                   compact_k=896, app_k=128, blur=None)
-    assert (k3({}, **masked), k6({}, **masked)) == (6, 1)
+    assert (k3({}, **masked), k6({}, **masked), k7({}, **masked)) == (0, 1,
+                                                                       1)
 
 
 @pytest.mark.parametrize("densify_density,app_k", [(True, 4), (False, 4),
@@ -573,10 +592,10 @@ def test_expected_launches_table():
 def test_chunked_step_scatter_calls_match_expected_launches(
         monkeypatch, densify_density, app_k):
     """With _PROD_BWD_CHUNK at 200 samples a CPU step's 2 x 16 x 48 = 1536
-    samples run 8 chunks in each fused backward, app_k's 128 one: the
-    row-scatter calls still equal expected_launches, which reads the
-    constant.  The dense grid allowed is not built in float32 rows (the
-    density is K6's: 6 with app_k either way)."""
+    samples run 8 chunks in each fused backward: the row-scatter calls
+    still equal expected_launches, which reads the constant.  With app_k
+    no fused sample runs (the density is K6's, the appearance K7's, the
+    dense grid allowed is not built in float32 rows): no row scatter."""
     monkeypatch.setattr(sampling, "_PROD_BWD_CHUNK", 200)
     _, pcfg = _cfgs()
     field = vm.init_vm(pcfg, (12, 12, 12), [-1.5] * 3 + [1.5] * 3,
@@ -594,7 +613,7 @@ def test_chunked_step_scatter_calls_match_expected_launches(
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
     want = chip_smoke.expected_launches(scfg, pcfg)
-    assert count.n == want["scatter_add_rows"] == (6 if app_k else 6 * 8)
+    assert count.n == want["scatter_add_rows"] == (0 if app_k else 6 * 8)
     assert count.k6 == count.k6_of(want)
 
 

@@ -30,6 +30,13 @@ At bat_llff.final's shape K6 against the dense grid, the same function,
 at rtol 1e-4 and 1e-4 of each output's largest magnitude (the grid sums
 the ranks before the trilinear weights, and its factor gradients are
 K3's atomics folded back through the packing and the rank expansion).
+The concatenated appearance sample K7 against its plain version at
+bat_llff.final's, the masked cell's and Blender's first shapes, a comp
+block's unequal ranks and ranks that are no multiple of 4: the feature
+and every gradient within 1e-5 of each output's largest magnitude, a
+factor gradient past it passing where K7 lies within max(1e-5, 2 x the
+float32 plain's error) of the plain version in float64 (millions of
+float32 adds a row, in another order on each side).
 """
 import pytest
 import torch
@@ -973,6 +980,177 @@ def test_density_sample_kernel_at_the_llff_shape():
     assert ms["k6"] < ms["grid"]
 
 
+_APP_SHAPES = {
+    # resolution (x, y, z), ranks an axis, rays, slots a ray, NDC
+    "llff_final": ((771, 859, 771), (20, 20, 20), 4420, 1000, True),
+    "masked": ((400, 400, 400), (48, 48, 48), 2500, 128, False),
+    "blender64": ((64, 64, 64), (48, 48, 48), 2028, 221, False),
+    "comp": ((37, 29, 41), (8, 24, 12), 300, 64, False),
+    "scalar": ((37, 29, 41), (5, 3, 7), 300, 64, False)}
+
+
+def _app_case(kind, gen):
+    """K7's inputs: three planes and lines of _APP_SHAPES[kind]'s ranks
+    (as vm.AXES reads them) and the coordinates of rays x slots.
+    "llff_final" is bat_llff.final's dense appearance (4.42M slots at
+    771 x 859 x 771, R 20; NDC rays: x and y within +-0.05 of the ray's
+    start while z sweeps the box); "masked" the masked cell's app_k slots
+    (320k at 400^3, R 48); "blender64" Blender's first phase (2028 x 221
+    at 64^3, R 48); "comp" a comp block's unequal ranks 8 / 24 / 12;
+    "scalar" ranks 5 / 3 / 7 (scalar loads, stores and atomics).  Euclidean
+    rays march through the box and past its faces."""
+    from joint_tensorf_tpu_torch.models import vm
+
+    res, ranks, rays, K, ndc = _APP_SHAPES[kind]
+    planes, lines = [], []
+    for (m0, m1, vec), r in zip(vm.AXES, ranks):
+        planes.append(torch.randn((res[m1], res[m0], r), generator=gen,
+                                  device="cuda"))
+        lines.append(torch.randn((res[vec], r), generator=gen,
+                                 device="cuda"))
+    if ndc:
+        start = torch.rand((rays, 1, 2), generator=gen,
+                           device="cuda") * 1.8 - 0.9
+        drift = (torch.rand((rays, 1, 2), generator=gen, device="cuda")
+                 - 0.5) * 0.1
+        t = (torch.arange(K, device="cuda")[None, :, None]
+             + torch.rand((rays, K, 1), generator=gen, device="cuda")) / K
+        pts = torch.cat([start + drift * t, t * 2 - 1], -1)
+    else:
+        start = torch.rand((rays, 1, 3), generator=gen,
+                           device="cuda") * 2.2 - 1.1
+        step = (torch.rand((rays, 1, 3), generator=gen, device="cuda")
+                - 0.5) * (4.0 / K)
+        pts = start + torch.arange(K, device="cuda")[None, :, None] * step
+    coords = [pts[..., a].reshape(-1).contiguous() for a in range(3)]
+    return planes, lines, coords
+
+
+def _app_grads(fn, planes, lines, coords, cot, need, dtype=torch.float32):
+    """fn's value and the gradients ``need`` (nine flags) asks for, the
+    inputs as ``dtype``."""
+    from joint_tensorf_tpu_torch.models import vm
+
+    xs = [t.detach().to(dtype).requires_grad_(w)
+          for t, w in zip(planes + lines + coords, need)]
+    val = fn(xs[0:3], xs[3:6], xs[6:9], vm.AXES)
+    asked = [x for x in xs if x.requires_grad]
+    grads = torch.autograd.grad((val * cot.to(dtype)).sum(), asked)
+    it = iter(grads)
+    return val.detach(), [next(it) if x.requires_grad else None for x in xs]
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()) / max(
+        float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_APP_SHAPES))
+def test_app_sample_kernel_matches_plain(kind):
+    """K7 through sample_planeline_prod_cat against its plain version on
+    the card: the feature and the nine gradients within 1e-5 of each
+    output's largest magnitude; a factor gradient past that (each line or
+    plane row sums up to millions of slots' adds in float32, in another
+    order on each side) passes where K7 lies within max(1e-5, 2 x the
+    float32 plain's error) of the plain version in float64.  One launch
+    each way and no K3."""
+    _need_card()
+    from joint_tensorf_tpu_torch.ops import cuda_build, sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    planes, lines, coords = _app_case(kind, gen)
+    C = sum(p.shape[-1] for p in planes)
+    cot = torch.randn((coords[0].shape[0], C), generator=gen, device="cuda")
+    need = (True,) * 9
+    cuda_build.reset_launches()
+    got, got_g = _app_grads(sampling.sample_planeline_prod_cat, planes,
+                            lines, coords, cot, need)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["app_sample_fwd"] == 1
+    assert cuda_build.LAUNCHES["app_sample_bwd"] == 1
+    assert cuda_build.LAUNCHES["scatter_add_rows"] == 0
+    assert got.shape == (coords[0].shape[0], C)
+    want, want_g = _app_grads(sampling.sample_planeline_prod_cat_plain,
+                              planes, lines, coords, cot, need)
+    errs = [_rel(a, b) for a, b in zip([got] + got_g, [want] + want_g)]
+    bad = [i for i, e in enumerate(errs) if e > 1e-5]
+    if any(1 <= i <= 6 for i in bad):     # the plane and line gradients
+        _, ref_g = _app_grads(sampling.sample_planeline_prod_cat_plain,
+                              planes, lines, coords, cot, need,
+                              torch.float64)
+        bad = [i for i in bad if not (1 <= i <= 6 and _rel(
+            got_g[i - 1], ref_g[i - 1]) <= max(
+                1e-5, 2 * _rel(want_g[i - 1], ref_g[i - 1])))]
+    assert not bad, (errs, bad)
+    for a in [got] + got_g:
+        assert torch.isfinite(a).all()
+    assert all(torch.count_nonzero(d) > 0 for d in got_g)
+
+
+@pytest.mark.cuda
+def test_app_sample_kernel_frozen_and_detached():
+    """At the masked shape: frozen factors (test-time pose optimisation)
+    give the coordinates' gradients of the full backward bit for bit (each
+    slot's sum is the same) and no factor gradient; detached coordinates
+    (stop_coord_grad) give the factors' gradients (within the atomics'
+    order) and none for the coordinates; one backward launch each."""
+    _need_card()
+    from joint_tensorf_tpu_torch.models import vm
+    from joint_tensorf_tpu_torch.ops import app_sample, cuda_build, sampling
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    planes, lines, coords = _app_case("masked", gen)
+    cot = torch.randn((coords[0].shape[0], 144), generator=gen,
+                      device="cuda")
+    fn = sampling.sample_planeline_prod_cat
+    _, full = _app_grads(fn, planes, lines, coords, cot, (True,) * 9)
+    cuda_build.reset_launches()
+    _, frozen = _app_grads(fn, planes, lines, coords, cot,
+                           (False,) * 6 + (True,) * 3)
+    assert cuda_build.LAUNCHES["app_sample_bwd"] == 1
+    for a, b in zip(frozen[6:], full[6:]):
+        assert torch.equal(a, b)
+    cuda_build.reset_launches()
+    _, detached = _app_grads(fn, planes, lines, coords, cot,
+                             (True,) * 6 + (False,) * 3)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["app_sample_bwd"] == 1
+    for a, b in zip(detached[:6], full[:6]):
+        _close(a, b)
+    # the kernel's own entry point: no output asked for, no output made
+    d_p, d_l, d_c = app_sample.app_sample_bwd_cuda(
+        planes, lines, coords, vm.AXES, cot,
+        (False,) * 6 + (True, False, True))
+    assert d_p == [None] * 3 and d_l == [None] * 3 and d_c[1] is None
+    assert torch.equal(d_c[0], full[6]) and torch.equal(d_c[2], full[8])
+
+
+@pytest.mark.cuda
+def test_app_sample_wrappers_reject_bad_inputs():
+    _need_card()
+    from joint_tensorf_tpu_torch.models import vm
+    from joint_tensorf_tpu_torch.ops import app_sample
+
+    planes = [torch.zeros((5, 5, 4), device="cuda")] * 3
+    lines = [torch.zeros((5, 4), device="cuda")] * 3
+    coords = [torch.zeros(7, device="cuda")] * 3
+    with pytest.raises(TypeError):
+        app_sample.app_sample_fwd_cuda([p.double() for p in planes], lines,
+                                       coords, vm.AXES)
+    with pytest.raises(ValueError):
+        app_sample.app_sample_fwd_cuda(
+            planes, [torch.zeros((5, 3), device="cuda")] * 3, coords,
+            vm.AXES)
+    with pytest.raises(ValueError):
+        app_sample.app_sample_fwd_cuda([p.cpu() for p in planes], lines,
+                                       coords, vm.AXES)
+    with pytest.raises(ValueError):         # the cotangent's width
+        app_sample.app_sample_bwd_cuda(
+            planes, lines, coords, vm.AXES,
+            torch.zeros((7, 11), device="cuda"))
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs():
     _need_card()
@@ -1103,7 +1281,11 @@ def _ranks_on_the_card_match_one_rank(mesh_shape, mesh_axes, counts,
         assert r[0]["counts"] == counts
         launched = r[0]["launches"]
         assert launched["composite_fwd"] == launched["composite_bwd"] == 1
-        assert launched["scatter_add_rows"] > 0
+        # with app_k the density is K6's and the appearance K7's, each on
+        # the rank's block of components; without it the fused sample's K3
         k6 = int(step_extra.get("app_k") is not None)
+        assert (launched["scatter_add_rows"] > 0) == (not k6)
         assert launched["density_sample_fwd"] == k6
         assert launched["density_sample_bwd"] == k6
+        assert launched["app_sample_fwd"] == k6
+        assert launched["app_sample_bwd"] == k6

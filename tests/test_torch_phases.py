@@ -24,9 +24,9 @@
   them on the card, through an upsample, a blur-mask build (where the
   configuration has one: BAT off NDC, with tpu.blur_mask_compact) and an
   alpha-mask update:
-  each step's row-scatter (K3) and summed-density (K6) calls, counted
-  between Trainer.run's callbacks with the schedule updates left out,
-  equal chip_smoke.step_launches.
+  each step's row-scatter (K3), summed-density (K6) and appearance (K7)
+  calls, counted between Trainer.run's callbacks with the schedule
+  updates left out, equal chip_smoke.step_launches.
 """
 import dataclasses
 

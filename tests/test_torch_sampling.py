@@ -16,6 +16,10 @@ of sample_planeline_prod bit for bit at the live slots and is 0 at the
 dead ones; its factor and coordinate gradients equal the masked sum's bit
 for bit, and a cotangent on the dead slots alone gives gradients that are
 exactly 0.
+The concatenated appearance sample's plain version (K7's,
+sample_planeline_prod_cat on a CPU tensor) on the same three fields: the
+three fused samples and their cat, bit for bit in value and every
+gradient; its scatters index_add_, none with frozen factors.
 """
 import jax
 import jax.numpy as jnp
@@ -225,6 +229,68 @@ def test_density_sum_plain_asks_only_for_what_is_needed(monkeypatch):
     assert all(torch.count_nonzero(a) > 0 for a in g)
     out = sampling.sample_planeline_prod_sum(
         *factors(leaves), [c.detach() for c in coords], vm.AXES, live)
+    g = torch.autograd.grad(out.sum(), leaves)
+    assert calls == {"k3": 0, "rows": 6}
+    assert all(torch.count_nonzero(a) > 0 for a in g)
+
+
+def _three_samples(planes, lines, coords):
+    """Today's appearance arithmetic, spelt out: sample_planeline_prod of
+    each axis, concatenated."""
+    return torch.cat([sample_planeline_prod(plane, line, coords[a],
+                                            coords[b], coords[c])
+                      for plane, line, (a, b, c) in zip(planes, lines,
+                                                        vm.AXES)], dim=-1)
+
+
+@pytest.mark.parametrize("kind", ["plain", "blurred", "comp"])
+def test_app_cat_plain_is_the_three_samples(kind):
+    """The concatenated appearance sample's plain version (K7's,
+    sample_planeline_prod_cat on a CPU tensor) equals the three fused
+    samples and their cat bit for bit, in value and in every factor and
+    coordinate gradient (the comp block's unequal widths 8 / 3 / 5
+    included)."""
+    leaves, factors, coords, _ = _density_case(kind)
+    inputs = leaves + coords
+    got = sampling.sample_planeline_prod_cat(*factors(leaves), coords,
+                                             vm.AXES)
+    want = _three_samples(*factors(leaves), coords)
+    assert got.shape == (1200, sum(p.shape[-1] for p in leaves[0::2]))
+    assert torch.equal(got, want)
+    cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(13))
+    got_g = torch.autograd.grad((got * cot).sum(), inputs)
+    want_g = torch.autograd.grad((want * cot).sum(), inputs)
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a, b)
+    assert all(torch.count_nonzero(a) > 0 for a in got_g)
+
+
+def test_app_cat_plain_asks_only_for_what_is_needed(monkeypatch):
+    """Frozen factors: no row scatter; detached coordinates: no coordinate
+    gradients; the plain version's scatters are index_add_ (K7's plain
+    version), never scatter_add_rows (K3's)."""
+    leaves, factors, coords, _ = _density_case("plain")
+    calls = {"k3": 0, "rows": 0}
+    real_rows = sampling._index_add_rows
+
+    def k3(*a):
+        calls["k3"] += 1
+        return segment_scatter.scatter_add_rows(*a)
+
+    def rows(*a):
+        calls["rows"] += 1
+        return real_rows(*a)
+
+    monkeypatch.setattr(sampling, "scatter_add_rows", k3)
+    monkeypatch.setattr(sampling, "_index_add_rows", rows)
+    frozen = [t.detach() for t in leaves]
+    out = sampling.sample_planeline_prod_cat(*factors(frozen), coords,
+                                             vm.AXES)
+    g = torch.autograd.grad(out.sum(), coords)
+    assert calls == {"k3": 0, "rows": 0}
+    assert all(torch.count_nonzero(a) > 0 for a in g)
+    out = sampling.sample_planeline_prod_cat(
+        *factors(leaves), [c.detach() for c in coords], vm.AXES)
     g = torch.autograd.grad(out.sum(), leaves)
     assert calls == {"k3": 0, "rows": 6}
     assert all(torch.count_nonzero(a) > 0 for a in g)

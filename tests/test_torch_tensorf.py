@@ -18,9 +18,9 @@ voxels (S 138 -> 221), 64 rays, small ranks:
 * stop_coord_grad: the coordinates are detached, the factor gradients are
   the same bit for bit, the plane and line gradients are still scattered
   (a plane and a line row scatter a fused sample: 6 calls fused; with
-  app_k 6 for the appearance, and the density's summed sample (K6 on the
-  card) its plain version's 6 index_add_ scatters), and the rays get no
-  gradient;
+  app_k none, and the density's summed sample and the appearance's
+  concatenated sample (K6 and K7 on the card) their plain versions' 6
+  index_add_ scatters each), and the rays get no gradient;
 * validate without alignment equals JAX's PSNR (1e-4);
 * a checkpoint written by either package restores into both (leaves
   bit for bit, mask bits, renders within 5e-5 of max|rgb|);
@@ -221,8 +221,10 @@ def test_stop_coord_grad_still_scatters_factors(monkeypatch, app_k):
     n_free, calls[:] = len(calls), []
     rows_free, rows[:] = len(rows), []
     g_stop, c_stop = grads(True)
-    assert len(calls) == n_free == 6
-    assert len(rows) == rows_free == (0 if app_k is None else 6)
+    # fused: K3's plane and line scatters; with app_k the plain versions of
+    # K6 (density) and K7 (appearance), 6 index_add_ scatters each, no K3
+    assert len(calls) == n_free == (6 if app_k is None else 0)
+    assert len(rows) == rows_free == (0 if app_k is None else 12)
     assert c_stop is None and torch.count_nonzero(c_free) > 0
     for k in g_free:
         assert torch.equal(g_stop[k], g_free[k]), k

@@ -12,15 +12,16 @@ with a frozen field.
   bit, on the fused dense-appearance path (test-time optimisation's), the
   two-stage appearance and the dense grid, and the row scatter
   (sampling.scatter_add_rows, densify.scatter_add_rows; K3 on CUDA) is
-  called zero times, nor the summed density sample's factor scatters
-  (K6's plain version; the two-stage path's 6 unfrozen);
+  called zero times, nor the factor scatters of the summed density
+  sample and the concatenated appearance sample (K6's and K7's plain
+  versions; unfrozen 12 on the two-stage path, 6 beside the dense grid);
 * the training step still calls the row scatter as often as
-  chip_smoke.expected_launches says: 6 with the two-stage appearance (a
-  plane and a line scatter for each appearance axis; the density's factor
-  sample is K6, once forward and once backward), also where the dense
-  grid is allowed in float32 rows (renderer.density_route builds it only
-  where K6 does not apply or its rows are bfloat16), 6 on the fused
-  path.
+  chip_smoke.expected_launches says: none with the two-stage appearance
+  (the density's factor sample is K6 and the appearance's K7, each once
+  forward and once backward), also where the dense grid is allowed in
+  float32 rows (renderer.density_route builds it only where K6 does not
+  apply or its rows are bfloat16), 6 on the fused path (a plane and a
+  line scatter for each axis).
 """
 import dataclasses
 
@@ -145,13 +146,19 @@ def _small_field():
 
 class _Counter:
     """A CPU step's calls where the card launches a kernel: ``n`` the row
-    scatters (K3), ``k6`` the summed density sample's plain version forward
-    and backward (K6's two entry points), ``rows`` the index_add_ row
-    scatters of the plain samplers (K6's plain factor gradients)."""
+    scatters (K3), ``k6`` the summed density sample's and the concatenated
+    appearance sample's plain versions forward and backward (K6's and K7's
+    two entry points each), ``rows`` the index_add_ row scatters of the
+    plain samplers (K6's and K7's plain factor gradients)."""
+
+    # each plain version by the entry points of its kernel
+    PLAIN = {"sample_planeline_prod_sum_plain": "density_sample",
+             "sample_planeline_prod_cat_plain": "app_sample"}
 
     def __init__(self, monkeypatch):
         self.n = self.rows = 0
-        self.k6 = {"density_sample_fwd": 0, "density_sample_bwd": 0}
+        self.k6 = {f"{k}_{d}": 0 for k in self.PLAIN.values()
+                   for d in ("fwd", "bwd")}
         for mod in (sampling, densify):
             real = mod.scatter_add_rows
 
@@ -159,28 +166,32 @@ class _Counter:
                 self.n += 1
                 return real(*a)
             monkeypatch.setattr(mod, "scatter_add_rows", counted)
-        real_sum = sampling.sample_planeline_prod_sum_plain
+        for name, kernel in self.PLAIN.items():
+            monkeypatch.setattr(sampling, name,
+                                self._counted(getattr(sampling, name), kernel))
         real_rows = sampling._index_add_rows
-
-        def bwd(g):
-            self.k6["density_sample_bwd"] += 1
-
-        def summed(*a, **kw):
-            self.k6["density_sample_fwd"] += 1
-            out = real_sum(*a, **kw)
-            if out.requires_grad:
-                out.register_hook(bwd)
-            return out
 
         def rows(*a):
             self.rows += 1
             return real_rows(*a)
-        monkeypatch.setattr(sampling, "sample_planeline_prod_sum_plain",
-                            summed)
         monkeypatch.setattr(sampling, "_index_add_rows", rows)
 
+    def _counted(self, real, kernel):
+        """``real``, counting its calls as ``kernel``'s forward and the
+        backwards through its output as ``kernel``'s backward."""
+        def bwd(g):
+            self.k6[f"{kernel}_bwd"] += 1
+
+        def plain(*a, **kw):
+            self.k6[f"{kernel}_fwd"] += 1
+            out = real(*a, **kw)
+            if out.requires_grad:
+                out.register_hook(bwd)
+            return out
+        return plain
+
     def k6_of(self, launches):
-        """The K6 entries of an expected_launches dict."""
+        """The K6 and K7 entries of an expected_launches dict."""
         return {k: launches[k] for k in self.k6}
 
 
@@ -217,10 +228,11 @@ def test_frozen_field_backward_skips_factor_scatter(monkeypatch, path):
     with frozen(field):
         g_frozen = pose_grad()
     assert count.n == 0 and count.rows == 0
-    assert n_full > 0
-    # the density's own factor sample (K6 on the card) scatters into its
-    # factors only unfrozen
-    assert rows_full == (6 if path == "app_k" else 0)
+    # unfrozen: the fused sample's K3 scatters (6), or the appearance's
+    # sample (K7 on the card, 6 plain row scatters) beside the dense grid,
+    # or the density's factor sample (K6) and K7 (6 each); frozen, none
+    assert (n_full, rows_full) == {"fused": (6, 0), "app_k": (0, 12),
+                                   "dense_grid": (0, 6)}[path]
     assert torch.equal(g_frozen, g_full)
     assert torch.count_nonzero(g_full) > 0
 
@@ -243,7 +255,8 @@ def test_train_step_scatter_calls_unchanged(monkeypatch, densify_density,
         generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(metrics["loss"]))
     want = chip_smoke.expected_launches(scfg, cfg)
-    assert count.n == want["scatter_add_rows"] == 6
     k6 = int(app_k is not None)
-    assert count.k6 == count.k6_of(want) == {"density_sample_fwd": k6,
-                                             "density_sample_bwd": k6}
+    assert count.n == want["scatter_add_rows"] == 6 * (1 - k6)
+    assert count.k6 == count.k6_of(want) == {
+        "density_sample_fwd": k6, "density_sample_bwd": k6,
+        "app_sample_fwd": k6, "app_sample_bwd": k6}
