@@ -22,6 +22,21 @@ JAX's NaN guard checks the loss.  Evaluation (render_views, validate)
 draws nothing: unstratified depths need no draw.  (JAX's render_views
 splits the training key once per chunk all the same, so there a
 mid-run validation shifts every later stratified draw.)
+
+An iteration is the host's draw (the rays' pixels from the numpy
+generator, uploaded through pinned memory, and the device draws) and then
+``_step(view_sel, ray_idx, draws)``: the loss, ``torch.autograd.grad``
+and Adam, the hook a subclass may wrap.  ``run`` keeps the VM Trainer's
+contract (``on_step(trainer, metrics)`` after each step, then
+``on_step(trainer, None)``; ``rays_per_step``; ``device``).  Spans
+(utils/tracing.py): ``jt.trainer.rays`` around the draw and upload,
+``jt.step`` around ``_step``, ``jt.step.rays`` around the pose
+composition and the rays (one CUDA graph each way on a card, ``_rays``),
+``jt.render`` around ``render_mlp_rays`` with
+``jt.render.mlp`` around each MLP call and ``jt.render.composite``
+around each quadrature, ``jt.step.backward`` around the gradient and
+``jt.step.adam`` around the update (optim.adam_update_: Adam's
+operations each once over every leaf, the same bits as adam_update).
 """
 from __future__ import annotations
 
@@ -39,10 +54,10 @@ from ..geometry import lie, poses as pose_ops
 from ..geometry.ndc import convert_ndc
 from ..geometry.rays import get_center_and_ray
 from ..models import nerf_mlp
-from ..utils import tree
+from ..utils import tracing, tree
 from ..utils.torch_setup import resolve_device, setup_torch
 from . import losses
-from .optim import adam_init, adam_update
+from .optim import adam_init, adam_update_
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -70,6 +85,7 @@ def build_mlp_config(opt: Options) -> nerf_mlp.NerfMLPConfig:
         barf_c2f=tuple(opt.barf_c2f) if opt.get("barf_c2f") else None)
 
 
+@tracing.spanned("render")
 def render_mlp_rays(coarse, fine, cfg: nerf_mlp.NerfMLPConfig, c, d,
                     near_far, n_samples: int, depth_param: str, n_fine: int,
                     setbg: bool, bgcolor: float, progress=1.0, uniforms=None,
@@ -86,10 +102,12 @@ def render_mlp_rays(coarse, fine, cfg: nerf_mlp.NerfMLPConfig, c, d,
 
     def shade(params, z, eps):
         pts = c[:, None, :] + d[:, None, :] * z[..., None]
-        rgb_s, dens_s = nerf_mlp.apply_nerf_mlp(
-            params, cfg, pts, ray_unit[:, None, :].expand(pts.shape),
-            progress=progress, noise=eps)
-        return nerf_mlp.composite(d, rgb_s, dens_s, z, setbg, bgcolor)
+        with tracing.span("render.mlp"):
+            rgb_s, dens_s = nerf_mlp.apply_nerf_mlp(
+                params, cfg, pts, ray_unit[:, None, :].expand(pts.shape),
+                progress=progress, noise=eps)
+        with tracing.span("render.composite"):
+            return nerf_mlp.composite(d, rgb_s, dens_s, z, setbg, bgcolor)
 
     rgb, depth_map, opacity, prob = shade(coarse, depth, noise)
     if fine is None:
@@ -175,6 +193,8 @@ class BarfTrainer:
                            if o.get("lr_pose_end") and self.lr_pose0 else 1.0)
         self.warmup_pose = o.get("warmup_pose")
         self.metrics_history: list[dict] = []
+        self.rays_per_step = 0
+        self._graphed_rays: dict = {}
 
     # ------------------------------------------------------------ params
     def mlp(self, which: str = "mlp") -> Optional[dict]:
@@ -213,17 +233,8 @@ class BarfTrainer:
     def loss(self, view_sel, ray_idx, progress, draws: dict):
         """(loss, metrics) of the rays ``ray_idx`` [R] of views
         ``view_sel`` [B] (nerf.py:150-278, barf.py:24-161)."""
-        base = self.pose_base[view_sel]
-        if self.is_barf:
-            refine = lie.se3_to_SE3(self.params["se3_refine"][view_sel])
-            pose = pose_ops.compose([refine, base])
-        else:
-            pose = base
-        centers, dirs = get_center_and_ray(self.H, self.W, pose,
-                                           self.intr_inv[view_sel],
-                                           ray_idx=ray_idx)
-        if self.ndc:
-            centers, dirs = convert_ndc(centers, dirs, self.intr[view_sel])
+        with tracing.span("step.rays"):
+            centers, dirs = self._rays(view_sel, ray_idx)
         rgb, rgb_f, _, _ = self._render(centers.reshape(-1, 3),
                                         dirs.reshape(-1, 3), progress, draws)
         target = self.images[view_sel][:, ray_idx].reshape(-1, 3)
@@ -237,6 +248,46 @@ class BarfTrainer:
             metrics = {"mse": m_f, "psnr": losses.psnr_from_mse(m_f),
                        "psnr_coarse": losses.psnr_from_mse(m)}
         return loss, metrics
+
+    def _pose_rays(self, se3_refine, pose_base, intr_inv, intr, view_sel,
+                   ray_idx):
+        """Centres and directions [B, R, 3] of the rays ``ray_idx`` of the
+        views ``view_sel``, each view's pose refined under BARF."""
+        base = pose_base[view_sel]
+        if self.is_barf:
+            refine = lie.se3_to_SE3(se3_refine[view_sel])
+            pose = pose_ops.compose([refine, base])
+        else:
+            pose = base
+        centers, dirs = get_center_and_ray(self.H, self.W, pose,
+                                           intr_inv[view_sel],
+                                           ray_idx=ray_idx)
+        if self.ndc:
+            centers, dirs = convert_ndc(centers, dirs, intr[view_sel])
+        return centers, dirs
+
+    def _rays(self, view_sel, ray_idx):
+        """_pose_rays of this step.  On a card under BARF, as one CUDA graph
+        forward and one backward, captured at the first step of each shape
+        (torch.cuda.make_graphed_callables): the same kernels, but the
+        exponential map's Taylor series alone is some 370 small launches a
+        step forward and backward, a third of the step's, which left the
+        card waiting on the host's issue."""
+        args = (self.params["se3_refine"], self.pose_base, self.intr_inv,
+                self.intr, view_sel, ray_idx)
+        if (self.device.type != "cuda" or not self.is_barf
+                or not torch.is_grad_enabled()):
+            return self._pose_rays(*args)
+        key = (tuple(view_sel.shape), tuple(ray_idx.shape))
+        if key not in self._graphed_rays:
+            # captured on copies, which each call refills: the pose table's
+            # own autograd node is then made on the step's stream (PyTorch
+            # still warns once, at the capture, of the copies' nodes)
+            sample = tuple(a.detach().clone().requires_grad_(a.requires_grad)
+                           for a in args)
+            self._graphed_rays[key] = torch.cuda.make_graphed_callables(
+                self._pose_rays, sample)
+        return self._graphed_rays[key](*args)
 
     def lrs(self) -> dict:
         """This iteration's per-leaf learning rates (host floats)."""
@@ -261,35 +312,56 @@ class BarfTrainer:
             1, n_rays // V)]
 
     def train_iteration(self, draws: Optional[dict] = None) -> dict:
-        """One step; ``draws``: pre-drawn uniforms / noise (see draw),
-        else drawn from the generator.  -> metrics as 0-d device
-        tensors."""
-        view_sel, ray_idx = (to_device(a, self.device)
-                             for a in self._sample_rays())
-        if draws is None:
-            draws = self.draw(len(view_sel) * len(ray_idx))
+        """One step: the host's draw (the rays' pixels, uploaded without
+        blocking, and ``draws``: pre-drawn uniforms / noise, see draw, else
+        drawn from the generator), then ``_step``.  -> metrics as 0-d
+        device tensors."""
+        with tracing.span("trainer.rays"):
+            view_sel, ray_idx = (to_device(a, self.device)
+                                 for a in self._sample_rays())
+            self.rays_per_step = len(view_sel) * len(ray_idx)
+            if draws is None:
+                draws = self.draw(self.rays_per_step)
+        return self._step(view_sel, ray_idx, draws)
+
+    @tracing.spanned("step")
+    def _step(self, view_sel, ray_idx, draws: dict) -> dict:
+        """The device step on drawn rays: the loss, its gradient and Adam
+        on every leaf, in place (the hook a subclass may wrap).  -> metrics
+        as 0-d device tensors."""
         names = list(self.params)
         loss, metrics = self.loss(view_sel, ray_idx, self.progress, draws)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names],
-                                    allow_unused=True)
+        with tracing.span("step.backward"):
+            grads = torch.autograd.grad(loss,
+                                        [self.params[k] for k in names],
+                                        allow_unused=True)
         grads = {k: (torch.zeros_like(self.params[k]) if g is None else g)
                  for k, g in zip(names, grads)}
-        with torch.no_grad():
-            new, self.opt_state = adam_update(grads, self.opt_state,
-                                              self.params, self.lrs(),
-                                              b2=0.999)
-            for k in names:
-                self.params[k].copy_(new[k])
+        with torch.no_grad(), tracing.span("step.adam"):
+            self.opt_state = adam_update_(grads, self.opt_state, self.params,
+                                          self.lrs(), b2=0.999)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return metrics
 
     def run(self, max_iter: Optional[int] = None, log_every: int = 100,
-            callback=None):
+            callback=None, on_step=None, stats: bool = False):
+        """Train up to max_iter (Trainer.run's contract).  Metrics stay on
+        the device between log points; at a log point the step's metrics
+        are read, the loss checked for finiteness and ``callback(trainer,
+        metrics)`` called with them as floats.  ``on_step`` runs twice per
+        iteration: ``on_step(trainer, metrics)`` after the step, with its
+        metrics as 0-d device tensors, and ``on_step(trainer, None)`` after
+        it (BARF has no schedule update between them).  ``stats`` adds
+        nothing: every sample is shaded, so there are no sample
+        fractions."""
         end = self.max_iter if max_iter is None else max_iter
         t0 = time.time()
         while self.it < end:
             m = self.train_iteration()
+            if on_step:
+                on_step(self, m)
+                on_step(self, None)
             if self.it % log_every == 0:
                 mm = {k: float(v) for k, v in m.items()}
                 # NaN/Inf guard (reference base.py:183-184), at log points
