@@ -131,6 +131,17 @@ class VMField(nn.Module):
                 self.density_lines[1].shape[0],
                 self.density_lines[0].shape[0]]
 
+    def resolution_tensor(self) -> torch.Tensor:
+        """resolution() as a tensor of the box's dtype on its device, made
+        at the first call for each resolution and kept: a copy from the
+        host at every step would synchronise the host with the device."""
+        key = (tuple(self.resolution()), self.aabb.dtype, self.aabb.device)
+        kept = getattr(self, "_resolution_t", None)
+        if kept is None or kept[0] != key:
+            kept = self._resolution_t = (key, torch.as_tensor(
+                key[0], dtype=key[1], device=key[2]))
+        return kept[1]
+
     def is_factor(self, name: str) -> bool:
         """Factor grids train at lr_index, basis and shading at lr_basis."""
         return name.split(".")[0] in ("density_planes", "density_lines",

@@ -126,8 +126,12 @@ def _mean3(x):
 
 
 def step_size(aabb, resolution, step_ratio: float):
-    """Ray-march step: the mean grid cell edge times step_ratio."""
-    res_t = torch.as_tensor(resolution, dtype=aabb.dtype, device=aabb.device)
+    """Ray-march step: the mean grid cell edge times step_ratio.
+    ``resolution``: a list, or a tensor on the box's device
+    (VMField.resolution_tensor, which a step reads without a host copy)."""
+    res_t = (resolution if isinstance(resolution, torch.Tensor) else
+             torch.as_tensor(resolution, dtype=aabb.dtype,
+                             device=aabb.device))
     return _mean3((aabb[1] - aabb[0]) / (res_t - 1)) * step_ratio
 
 
@@ -177,11 +181,11 @@ def sample_ray_axes(aabb, step_size, n_samples: int, centers, dirs,
 
 def _linspace(start, stop, num: int, device):
     """jnp.linspace in float32 as JAX computes it: start * (1 - i / (num -
-    1)) + stop * (i / (num - 1)), then ``stop`` itself.  The ends are
+    1)) + stop * (i / (num - 1)), then ``stop`` itself.  Host ends are
     filled on the device (torch.full), not copied from the host, which
-    would synchronise it."""
-    start = torch.full((), start, dtype=torch.float32, device=device)
-    stop = torch.full((), stop, dtype=torch.float32, device=device)
+    would synchronise it; 0-d float32 tensors are read as they are."""
+    start, stop = (v if isinstance(v, torch.Tensor) else torch.full(
+        (), v, dtype=torch.float32, device=device) for v in (start, stop))
     t = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
     return torch.cat([start * (1 - t) + stop * t, stop[None]]), start, stop
 
@@ -266,7 +270,7 @@ def render_rays(
     rcfg: RenderConfig,
     centers,                      # [N,3]
     dirs,                         # [N,3]
-    near_far,                     # (near, far)
+    near_far,                     # (near, far): floats or 0-d tensors
     blur: Optional[BlurSpec] = None,
     c2f_density: Any = None,      # world-space sigma of the density blur
     c2f_color: Any = None,
@@ -285,16 +289,19 @@ def render_rays(
     the compaction ("kept_frac", K / S), live but dropped by it
     ("dropped_frac": a ray with more live slots than K) and evaluated by
     the density sample ("sampled_frac": valid_frac on the summed factor
-    sample, which skips the dead slots, else kept_frac)."""
+    sample, which skips the dead slots, else kept_frac).  ``near_far`` may
+    hold 0-d float32 tensors on the rays' device (a step captured in a
+    CUDA graph, whose near plane moves with a schedule): they enter the
+    same operations as the floats they hold, with the same bits."""
     n = centers.shape[0]
     S = rcfg.n_samples
     resolution = field.resolution()
     aabb = field.aabb.detach()
     aabb_size = aabb[1] - aabb[0]
     with tracing.span("render.sample"):
-        res_t = torch.as_tensor(resolution, dtype=aabb.dtype,
-                                device=aabb.device)
-        near, far = float(near_far[0]), float(near_far[1])
+        res_t = field.resolution_tensor()
+        near, far = (v if isinstance(v, torch.Tensor) else float(v)
+                     for v in near_far)
         stratified = rcfg.is_train and rcfg.stratified
 
         viewdirs = dirs
@@ -310,7 +317,7 @@ def render_rays(
                               -1) * rays_norm
             viewdirs = dirs / rays_norm
         else:
-            step = step_size(aabb, resolution, cfg.step_ratio)
+            step = step_size(aabb, res_t, cfg.step_ratio)
             axes_w, z_vals, in_bbox, (t_min, jitter) = sample_ray_axes(
                 aabb, step, S, centers, dirs, near, far, stratified,
                 jitter=ray_jitter, generator=generator)
@@ -373,14 +380,15 @@ def render_rays(
                     live_before = torch.repeat_interleave(
                         live_before, stride, dim=1) & in_bbox
                 stats["valid_frac"] = valid.float().sum() / (n * S)
-                stats["kept_frac"] = torch.tensor(K / S)
+                stats["kept_frac"] = torch.full((), K / S,
+                                                device=centers.device)
                 stats["dropped_frac"] = (live_before.float().sum()
                                          - valid.float().sum()) / (n * S)
             S = K
         elif stats is not None:
             stats["valid_frac"] = valid.float().mean()
-            stats["kept_frac"] = torch.tensor(1.0)
-            stats["dropped_frac"] = torch.tensor(0.0)
+            stats["kept_frac"] = torch.full((), 1.0, device=centers.device)
+            stats["dropped_frac"] = torch.zeros((), device=centers.device)
 
     with tracing.span("render.density"):
         d_mats = c_mats = None

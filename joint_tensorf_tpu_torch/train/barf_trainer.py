@@ -55,18 +55,9 @@ from ..geometry.ndc import convert_ndc
 from ..geometry.rays import get_center_and_ray
 from ..models import nerf_mlp
 from ..utils import tracing, tree
-from ..utils.torch_setup import resolve_device, setup_torch
+from ..utils.torch_setup import resolve_device, setup_torch, to_device
 from . import losses
 from .optim import adam_init, adam_update_
-
-
-def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """A host array on ``device``; to a card through pinned memory without
-    blocking, so the step's index uploads do not synchronise the host."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def build_mlp_config(opt: Options) -> nerf_mlp.NerfMLPConfig:

@@ -62,12 +62,15 @@ from ..parallel import sharding
 from ..render.renderer import BlurSpec, RenderConfig, render_rays
 from ..utils import tracing
 from . import losses
-from .optim import AdamState, adam_init, adam_update, field_lr_tree, masked_update
+from .optim import (AdamState, adam_init, adam_scales, adam_update,
+                    adam_update_, field_lr_tree, frozen, masked_adam_update_)
 
 
 @dataclasses.dataclass
 class StepScalars:
-    """Per-iteration host scalars."""
+    """Per-iteration host scalars (a step captured in a CUDA graph,
+    train/graph_step.py, reads the ones that move within a step shape as
+    0-d device tensors)."""
     lr_index: float = 0.0
     lr_basis: float = 0.0
     lr_pose: float = 0.0
@@ -204,15 +207,21 @@ def render_loss_share(mesh, rgb, target, mask, s: StepScalars):
     return share, sums[2], counts
 
 
+def _on(weight) -> bool:
+    """A term's weight is on: a nonzero host float, or a device value (a
+    captured step passes a weight that is 0 as the host 0.0)."""
+    return isinstance(weight, torch.Tensor) or bool(weight)
+
+
 def add_regularizers(loss, field, s: StepScalars):
     """``loss`` plus density L1 and the factors' TV with their weights,
     float32 like JAX's product with a traced weight (bf16 factors make
     density_L1 bf16)."""
     loss = loss + s.l1_weight * vm_lib.density_L1(field).float()
-    if s.tv_density_weight:
+    if _on(s.tv_density_weight):
         loss = loss + s.tv_density_weight * vm_lib.tv_loss_density(
             field).float()
-    if s.tv_color_weight:
+    if _on(s.tv_color_weight):
         loss = loss + s.tv_color_weight * vm_lib.tv_loss_app(field).float()
     return loss
 
@@ -277,8 +286,9 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
                s: StepScalars, generator: Optional[torch.Generator] = None,
                jitter=None, alpha_mask=None, stats: bool = False, intr=None,
                bg_coin=None, mesh=None):
-    """One step, updating ``state`` in place (parameters are overwritten
-    with their Adam update; the parity tests read them back).
+    """One step, updating ``state`` in place (parameters, both Adams'
+    moments and the pose-gradient accumulator are overwritten; the parity
+    tests read them back).
 
     images [V, H*W, 3], edge_masks [V, H*W], view_sel [Vs], ray_idx [R];
     ``jitter`` [Vs*R, 1] (Euclidean) or [Vs*R, S] (NDC) pre-drawn
@@ -292,112 +302,231 @@ def train_step(state: TrainState, cfg: StepConfig, vm_cfg: vm_lib.VMConfig,
     compaction ("inbbox_frac", "valid_frac", "kept_frac"; render_rays) and
     whether the factors were blurred ("blur", 0 or 1).
 
-    ``mesh`` (parallel/mesh.Mesh): render this rank's block of each view's
-    rays and return the reduced metrics and gradients (module docstring);
-    ``jitter`` and ``bg_coin`` are then the whole step's.
+    Without a mesh the step is unsharded_step, the function a CUDA graph
+    captures (train/graph_step.py), with host scalars.  ``mesh``
+    (parallel/mesh.Mesh): render this rank's block of each view's rays and
+    return the reduced metrics and gradients (module docstring); ``jitter``
+    and ``bg_coin`` are then the whole step's.
     """
+    if mesh is None:
+        metrics, grads = unsharded_step(
+            state, cfg, vm_cfg, pose_base, intr_inv, images, edge_masks,
+            view_sel, ray_idx, s, jitter=jitter, alpha_mask=alpha_mask,
+            intr=intr, bg_coin=bg_coin, generator=generator, stats=stats)
+    else:
+        metrics, grads = _sharded_step(
+            state, cfg, vm_cfg, pose_base, intr_inv, images, edge_masks,
+            view_sel, ray_idx, s, generator, jitter, alpha_mask, stats,
+            intr, bg_coin, mesh)
+    advance_counts(state, cfg, s)
+    if not cfg.pose_opt:
+        grads["se3_refine"] = torch.zeros_like(state.se3_refine)
+    if stats:
+        metrics["blur"] = float(cfg.blur is not None)
+    return metrics, grads
+
+
+def _sharded_step(state: TrainState, cfg: StepConfig, vm_cfg, pose_base,
+                  intr_inv, images, edge_masks, view_sel, ray_idx,
+                  s: StepScalars, generator, jitter, alpha_mask, stats,
+                  intr, bg_coin, mesh):
+    """train_step under a mesh, its counts left to advance -> (metrics,
+    grads)."""
     field = state.field
-    rcfg = cfg.render_config()
     render_stats = {} if stats else None
     with tracing.span("step.rays"):
-        if mesh is not None:
-            n_views, n_rays = view_sel.shape[0], ray_idx.shape[-1]
-            jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
-                                      images.device, jitter, bg_coin)
-            if jitter is not None:
-                jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
-            ray_idx = ray_idx[sharding.ray_block(mesh, n_rays)]
-        pose = compose_train_pose(state.se3_refine, pose_base, view_sel,
-                                  cfg.pose_opt)
-        centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose,
-                                           intr_inv[view_sel],
-                                           ray_idx=ray_idx)
-        if cfg.ndc:
-            centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
-                                        near=cfg.ndc_near_plane)
+        n_views, n_rays = view_sel.shape[0], ray_idx.shape[-1]
+        jitter, bg_coin = predraw(cfg, n_views * n_rays, generator,
+                                  images.device, jitter, bg_coin)
+        if jitter is not None:
+            jitter = sharding.shard_rays(mesh, jitter, n_views, n_rays)
+        ray_idx = ray_idx[sharding.ray_block(mesh, n_rays)]
+        centers, dirs = _rays(state, cfg, pose_base, intr_inv, intr,
+                              view_sel, ray_idx)
+    rgb, depth = _render(field, cfg, vm_cfg, centers, dirs, s, jitter,
+                         generator, alpha_mask, render_stats, bg_coin)
+    with tracing.span("step.loss"):
+        target, mask = _targets(images, edge_masks, view_sel, ray_idx)
+        B, R = rgb.shape[0], rgb.shape[1]
+        loss, sq_sum, counts = render_loss_share(mesh, rgb, target, mask, s)
+        loss, report, partial = rank_terms(mesh, field, s, loss)
+        # the term enters every rank's loss (its gather's backward takes
+        # this rank's block) and the reported loss once a rays group;
+        # without weight no gather is made
+        if cfg.grid_hw is not None and s.tv_depth_weight:
+            gh, gw = cfg.grid_hw
+            tv = s.tv_depth_weight * losses.depth_tv_loss(
+                sharding.gather_rays(mesh, depth.reshape(B, R)), gh, gw)
+            loss = loss + tv
+            report = report + tv if mesh.rays_index == 0 else report
+    params = dict(field.named_parameters())
+    grads = _grads(loss, state, cfg, params)
+    with tracing.span("step.reduce"):
+        grads, metrics = reduce_step(mesh, grads, report, sq_sum, counts[2],
+                                     render_stats, partial)
+    _update(state, cfg, s, grads, params)
+    return metrics, grads
+
+
+def _rays(state: TrainState, cfg: StepConfig, pose_base, intr_inv, intr,
+          view_sel, ray_idx):
+    """The step's ray centres and directions [B, R, 3]: the selected
+    views' poses (refined under pose optimisation), their rays
+    ``ray_idx``, in NDC under ``cfg.ndc``."""
+    pose = compose_train_pose(state.se3_refine, pose_base, view_sel,
+                              cfg.pose_opt)
+    centers, dirs = get_center_and_ray(cfg.H, cfg.W, pose,
+                                       intr_inv[view_sel], ray_idx=ray_idx)
+    if cfg.ndc:
+        centers, dirs = convert_ndc(centers, dirs, intr[view_sel],
+                                    near=cfg.ndc_near_plane)
+    return centers, dirs
+
+
+def _render(field, cfg: StepConfig, vm_cfg, centers, dirs, s: StepScalars,
+            jitter, generator, alpha_mask, render_stats, bg_coin):
+    """render_rays on the step's rays -> (rgb [B, R, 3], depth [B*R])."""
     B, R = centers.shape[0], centers.shape[1]
     rgb, depth, _ = render_rays(
-        field, vm_cfg, rcfg, centers.reshape(-1, 3), dirs.reshape(-1, 3),
-        s.near_far, blur=cfg.blur, c2f_density=s.c2f_density,
-        c2f_color=s.c2f_color, view_pe_progress=s.view_pe_progress,
+        field, vm_cfg, cfg.render_config(), centers.reshape(-1, 3),
+        dirs.reshape(-1, 3), s.near_far, blur=cfg.blur,
+        c2f_density=s.c2f_density, c2f_color=s.c2f_color,
+        view_pe_progress=s.view_pe_progress,
         fea_pe_progress=s.fea_pe_progress, ray_jitter=jitter,
         generator=generator, alpha_mask=alpha_mask, stats=render_stats,
         bg_coin=bg_coin)
-    with tracing.span("step.loss"):
-        rgb = rgb.reshape(B, R, 3)
-        # the small ray subset first, then the views
-        target = images[:, ray_idx][view_sel]                    # [B,R,3]
-        mask = edge_masks[:, ray_idx][view_sel]                  # [B,R]
+    return rgb.reshape(B, R, 3), depth
 
-        if mesh is None:
-            loss = losses.edge_weighted_render_loss(
-                rgb, target, mask, s.edge_factor, s.non_edge_factor,
-                s.use_edge)
-            plain_mse = losses.mse(rgb, target)
-            loss = add_regularizers(loss, field, s)
-            if cfg.grid_hw is not None:
-                gh, gw = cfg.grid_hw
-                loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
-                    depth.reshape(B, R), gh, gw)
-        else:
-            loss, sq_sum, counts = render_loss_share(mesh, rgb, target,
-                                                     mask, s)
-            loss, report, partial = rank_terms(mesh, field, s, loss)
-            # the term enters every rank's loss (its gather's backward
-            # takes this rank's block) and the reported loss once a rays
-            # group; without weight no gather is made
-            if cfg.grid_hw is not None and s.tv_depth_weight:
-                gh, gw = cfg.grid_hw
-                tv = s.tv_depth_weight * losses.depth_tv_loss(
-                    sharding.gather_rays(mesh, depth.reshape(B, R)), gh, gw)
-                loss = loss + tv
-                report = report + tv if mesh.rays_index == 0 else report
 
-    params = dict(field.named_parameters())
+def _targets(images, edge_masks, view_sel, ray_idx):
+    """The step's target colours [B, R, 3] and edge mask [B, R]: the small
+    ray subset first, then the views."""
+    return images[:, ray_idx][view_sel], edge_masks[:, ray_idx][view_sel]
+
+
+def _loss(field, cfg: StepConfig, s: StepScalars, rgb, depth, target, mask):
+    """The unsharded step's loss (the edge-weighted render loss, the
+    regularisers, the depth TV on the grid strategy) and plain MSE."""
+    loss = losses.edge_weighted_render_loss(
+        rgb, target, mask, s.edge_factor, s.non_edge_factor, s.use_edge)
+    plain_mse = losses.mse(rgb, target)
+    loss = add_regularizers(loss, field, s)
+    if cfg.grid_hw is not None:
+        gh, gw = cfg.grid_hw
+        loss = loss + s.tv_depth_weight * losses.depth_tv_loss(
+            depth.reshape(rgb.shape[0], rgb.shape[1]), gh, gw)
+    return loss, plain_mse
+
+
+def _grads(loss, state: TrainState, cfg: StepConfig, params: dict) -> dict:
+    """{name: gradient} of the field's parameters ``params`` and, under
+    pose optimisation, of "se3_refine"."""
     names = list(params)
     wrt = [params[k] for k in names]
     if cfg.pose_opt:
         wrt.append(state.se3_refine)
     with tracing.span("step.backward"):
-        grads = dict(zip(names + ["se3_refine"],
-                         torch.autograd.grad(loss, wrt)))
-    if mesh is not None:
-        with tracing.span("step.reduce"):
-            grads, metrics = reduce_step(mesh, grads, report, sq_sum,
-                                         counts[2], render_stats, partial)
-    if not cfg.pose_opt:
-        grads["se3_refine"] = torch.zeros_like(state.se3_refine)
+        return dict(zip(names + ["se3_refine"],
+                        torch.autograd.grad(loss, wrt)))
 
+
+def _pose_grad(grads: dict, cfg: StepConfig):
+    """The pose table's gradient as it is accumulated: view 0's zeroed
+    under pin_first_pose."""
+    g_se3 = grads["se3_refine"]
+    if cfg.pin_first_pose:
+        g_se3 = g_se3.clone()
+        g_se3[0] = 0.0
+    return g_se3
+
+
+def float32_leaves(field) -> bool:
+    """Every parameter of ``field`` real float32: the leaves
+    optim.adam_update_ updates (bf16 factors take adam_update)."""
+    return all(p.dtype == torch.float32 for p in field.parameters())
+
+
+def _update(state: TrainState, cfg: StepConfig, s: StepScalars, grads: dict,
+            params: dict, scales: Optional[dict] = None):
+    """Both Adams, in place: the field's by optim.adam_update_ (adam_update
+    on bf16 leaves), the pose table's on the accumulation cadence
+    (pose_do_step) by optim.masked_adam_update_ from the pose-gradient
+    accumulator, which is added to and, on a pose step, zeroed in place.
+    ``scales``: {"scene": pair, "pose": pair} of optim.adam_scales for the
+    Adams' next counts as 0-d tensors (a captured step), else None (host
+    floats from the counts).  The counts are the caller's to advance
+    (advance_counts)."""
+    field = state.field
     with torch.no_grad(), tracing.span("step.adam"):
         lrs = field_lr_tree(field, s.lr_index, s.lr_basis)
-        new_params, state.scene_opt = adam_update(
-            grads, state.scene_opt, params, lrs, b2=cfg.scene_b2)
-        for k in names:
-            params[k].copy_(new_params[k])
-
-        # pose update on the accumulation cadence (pose_do_step)
+        if float32_leaves(field):
+            adam_update_(grads, state.scene_opt, params, lrs, b2=cfg.scene_b2,
+                         scales=None if scales is None else scales["scene"])
+        else:
+            new_params, new = adam_update(grads, state.scene_opt, params,
+                                          lrs, b2=cfg.scene_b2)
+            for k in params:
+                params[k].copy_(new_params[k])
+            state.scene_opt.mu, state.scene_opt.nu = new.mu, new.nu
         if cfg.pose_opt:
-            g_se3 = grads["se3_refine"]
-            if cfg.pin_first_pose:
-                g_se3 = g_se3.clone()
-                g_se3[0] = 0.0
-            accum = state.pose_grad_accum + g_se3
+            accum = state.pose_grad_accum
+            accum.add_(_pose_grad(grads, cfg))
             do_step = s.pose_do_step > 0
-            old = {"se3_refine": state.se3_refine}
-            new_se3, new_opt = adam_update(
-                {"se3_refine": accum}, state.pose_opt, old, s.lr_pose,
-                b2=cfg.pose_b2)
-            new_se3, state.pose_opt = masked_update(
-                do_step, new_se3, new_opt, old, state.pose_opt)
-            state.se3_refine.copy_(new_se3["se3_refine"])
-            state.pose_grad_accum = (torch.zeros_like(accum) if do_step
-                                     else accum)
+            if not frozen(s.lr_pose):
+                masked_adam_update_(
+                    {"se3_refine": accum}, state.pose_opt,
+                    {"se3_refine": state.se3_refine}, s.lr_pose, do_step,
+                    adam_scales(state.pose_opt.count + 1, 0.9, cfg.pose_b2,
+                                accum.device)
+                    if scales is None else scales["pose"], b2=cfg.pose_b2)
+            if isinstance(do_step, torch.Tensor):
+                accum.masked_fill_(do_step, 0.0)
+            elif do_step:
+                accum.zero_()
 
-    if mesh is None:
-        metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
-                   "psnr": losses.psnr_from_mse(plain_mse.detach())}
-        if stats:
-            metrics.update(render_stats)
+
+def advance_counts(state: TrainState, cfg: StepConfig, s: StepScalars):
+    """Both Adams' counts after a step: the field's each step, the pose
+    table's on its cadence (host scalars)."""
+    state.scene_opt.count += 1
+    if cfg.pose_opt and s.pose_do_step > 0:
+        state.pose_opt.count += 1
+
+
+def unsharded_step(state: TrainState, cfg: StepConfig,
+                   vm_cfg: vm_lib.VMConfig, pose_base, intr_inv, images,
+                   edge_masks, view_sel, ray_idx, s: StepScalars,
+                   scales: Optional[dict] = None, jitter=None,
+                   alpha_mask=None, intr=None, bg_coin=None, generator=None,
+                   stats: bool = True):
+    """train_step without a mesh, its counts left to advance, and the
+    function a CUDA graph captures (train/graph_step.py): no host sync and
+    no rebound tensor.  There ``s`` holds the values that move within a
+    step shape as 0-d float32 tensors on the device (a TV weight of 0 as
+    the host 0.0 that leaves its term out, a learning rate that float32
+    rounds to 0 as the host 0.0 that freezes its leaves), ``scales``
+    {"scene": pair, "pose": pair} each Adam's bias corrections at its next
+    count as optim.adam_scales gives them, 0-d tensors, and ``jitter`` and
+    ``bg_coin`` the step's predraw (no generator: nothing is drawn); a
+    float32 product with a 0-d tensor gives the bits of one with the host
+    float it holds.  -> (metrics, grads): loss, mse, psnr as 0-d tensors
+    and, with ``stats``, the render fractions; the gradients, se3_refine's
+    under pose optimisation."""
+    field = state.field
+    render_stats = {} if stats else None
+    with tracing.span("step.rays"):
+        centers, dirs = _rays(state, cfg, pose_base, intr_inv, intr,
+                              view_sel, ray_idx)
+    rgb, depth = _render(field, cfg, vm_cfg, centers, dirs, s, jitter,
+                         generator, alpha_mask, render_stats, bg_coin)
+    with tracing.span("step.loss"):
+        target, mask = _targets(images, edge_masks, view_sel, ray_idx)
+        loss, plain_mse = _loss(field, cfg, s, rgb, depth, target, mask)
+    params = dict(field.named_parameters())
+    grads = _grads(loss, state, cfg, params)
+    _update(state, cfg, s, grads, params, scales)
+    metrics = {"loss": loss.detach(), "mse": plain_mse.detach(),
+               "psnr": losses.psnr_from_mse(plain_mse.detach())}
     if stats:
-        metrics["blur"] = float(cfg.blur is not None)
+        metrics.update(render_stats)
     return metrics, grads

@@ -86,7 +86,8 @@ from ..render.renderer import (BlurSpec, RenderConfig, render_rays,
                                sample_ray_axes, step_size)
 from ..sched import schedules
 from ..utils import tracing
-from ..utils.torch_setup import resolve_device, setup_torch
+from ..utils.torch_setup import resolve_device, setup_torch, to_device
+from . import graph_step
 from .step import (StepConfig, StepScalars, compose_train_pose,
                    init_train_state, rebuild_opt_state, train_step)
 
@@ -371,6 +372,9 @@ class Trainer:
         self._blur_mask_res: Optional[list] = None
         self.last_step_config: Optional[StepConfig] = None
         self.last_eval_config: Optional[RenderConfig] = None
+        # the steps of _step by how they ran (train/graph_step.py)
+        self.graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+        self._graphs = graph_step.StepGraphs(self.graph_counts)
         self._verify_replicas("initialisation")
         self._refresh_bbox_k()
 
@@ -578,14 +582,26 @@ class Trainer:
     def _refresh_blur_cache(self):
         """Blur the GT images and build the edge masks (soft with
         soft_edge_mask, else hard) for every scale in the pool (runs every
-        500 iterations)."""
+        500 iterations).  A scale's new images and mask are written into
+        its old ones where those are the cache's own tensors of the same
+        shape, so that a captured step (train/graph_step.py) reads the
+        refreshed cache where it was captured and is not captured anew."""
         opt = self.opt
         V, H, W = self.n_views, self.H, self.W
         sched_val = schedules.interp_schedule(self.progress,
                                               opt.blur_2d_c2f_schedule)
         ksize = int(opt.blur_2d_c2f_kernel_size)
         thresh = float(opt.get("hard_edge_mask_mean_thresh", 1.25))
+        old_images, old_masks = self.blurred_images, self.edge_masks
         self.blurred_images, self.edge_masks = {}, {}
+
+        def refill(old, new):
+            if old is None or old is self.images_sharp or \
+                    new is self.images_sharp or old.shape != new.shape or \
+                    old.dtype != new.dtype:
+                return new
+            return old.copy_(new)
+
         for sc in self.scale_pool_2d:
             width = sched_val * sc * (W + H) / 2
             if width < 0.01:
@@ -604,11 +620,12 @@ class Trainer:
                     blur_ops.blur_matrix(k, W))
                 imgs_flat = imgs_chw.reshape(V, 3, H * W).transpose(
                     1, 2).contiguous()
-            self.blurred_images[sc] = imgs_flat
+            self.blurred_images[sc] = refill(old_images.get(sc), imgs_flat)
             mask = (sobel.soft_edge_mask(imgs_chw)
                     if opt.get("soft_edge_mask")
                     else sobel.hard_edge_mask(imgs_chw, thresh))
-            self.edge_masks[sc] = mask.to(torch.float32)
+            self.edge_masks[sc] = refill(old_masks.get(sc),
+                                         mask.to(torch.float32))
 
     # -------------------------------------------------------- ray sampling
     def _sample_rays(self, strategy: str, n_rays: int):
@@ -715,8 +732,8 @@ class Trainer:
             self.last_step_config = cfg
             alpha_mask = self._step_mask(blur_spec is not None)
         with tracing.span("trainer.upload"):
-            view_sel = torch.as_tensor(view_sel, device=self.device)
-            ray_idx = torch.as_tensor(ray_idx, device=self.device)
+            view_sel = to_device(view_sel, self.device)
+            ray_idx = to_device(ray_idx, self.device)
         metrics, _ = self._step(
             cfg, view_sel, ray_idx, scalars, generator=self.generator,
             jitter=jitter, bg_coin=bg_coin, alpha_mask=alpha_mask,
@@ -725,7 +742,17 @@ class Trainer:
 
     def _step(self, cfg: StepConfig, view_sel, ray_idx, scalars, **kw):
         """The training step on this trainer's state and data (the hook
-        L2GTrainer replaces, as the JAX trainer's _make_raw_step)."""
+        L2GTrainer replaces, as the JAX trainer's _make_raw_step): one
+        CUDA graph a step shape where graph_step.engages holds (on a card,
+        no mesh, no factor blur; the grads are then not returned) and the
+        step's key has settled, else train_step.  graph_counts counts the
+        steps by how they ran."""
+        if graph_step.engages(self, cfg):
+            metrics = self._graphs.step(self, cfg, view_sel, ray_idx,
+                                        scalars, **kw)
+            if metrics is not None:
+                return metrics, None
+        self.graph_counts["eager"] += 1
         return train_step(self.state, cfg, self.vm_cfg, self.pose_base,
                           self.intr_inv, self.current_images,
                           self.current_edges, view_sel, ray_idx, scalars,
@@ -812,7 +839,9 @@ class Trainer:
     def _replace_field(self, make_field):
         """Swap in ``make_field(old field)`` with fresh Adam moments; the
         old moments are freed before the new field is built, the old field
-        before the new moments."""
+        before the new moments (and the captured step, which holds them,
+        before both)."""
+        self._graphs.drop()
         self.state.scene_opt = None
         self.state.field = make_field(self.state.field)
         self.state = rebuild_opt_state(self.state)

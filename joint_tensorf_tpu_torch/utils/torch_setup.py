@@ -9,6 +9,7 @@ and everything in the port stays float32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,14 @@ def resolve_device(device=None) -> torch.device:
             f"card (torch.cuda.is_available() is False); pass device='cpu' "
             f"to run the plain PyTorch path on the host")
     return dev
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array on ``device``; to a card through pinned memory from
+    PyTorch's caching host allocator, without blocking, so that a step's
+    uploads do not synchronise the host (the allocator holds the pinned
+    block until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
